@@ -15,18 +15,28 @@ from this checkout with nvcc, then:
 2. the main path: ``ffa_search`` of a 2^23-sample / 64 us series with an
    injected pulsar, P 0.5-3.0 s, bins 240-260 (222,955 trials), on the
    default uint6 wire. The launch counts are set to 0 just before this
-   search and read just after: one K1 and one K2 launch per cascade
-   stage. The search is recorded (``engine.recording``): its time split
-   into host wire preparation, copies and the stage loop, and every
-   stage's K1 output held against ``fused_stage_plain`` on the wire the
-   search shipped;
+   search and read just after: one K1 (and its K2 half) per queued lane
+   bucket (``engine.queued_launches``). The search is recorded
+   (``engine.recording``): its time split into host wire preparation,
+   copies and the stage loop, and every K1 launch's output held against
+   ``fused_stage_plain`` on the same operands;
 3. K1 ``fused_stage`` and K2 ``cascade_stage`` at the main path's own
-   shapes, all stages of that wire (D = 1): K2 against its plain version
-   on the containers K1's front half builds, and the time of one pass of
-   each kernel and of each plain version over all stages;
+   shapes, every launch of that search (D = 1): K2 against its plain
+   version on the containers K1's front half builds, and the time of one
+   pass of each kernel and of each plain version over all launches;
 4. ``run_periodogram_batch`` at the headline configuration with D = 32:
-   DM-trials/s, peak device memory, one K1 launch per stage, the time
-   split, and every stage's K1 output against its plain version.
+   DM-trials/s, peak device memory, the launch counts, the time split,
+   and every K1 launch's output against its plain version;
+5. the survey batch: ``run_search_batch`` at the headline configuration
+   with D = 32 (a pulsar in series 0) from one ``prepare_stage_data``,
+   under (a) the default container flags, (b) ``RIPTIDE_KERNEL_BASE3=0``,
+   where the pairing map holds 10 pairs and K3 ``paired_stage`` runs, and
+   (c) ``RIPTIDE_KERNEL_BASE3=0 RIPTIDE_KERNEL_ROW_PACK=0``. Each run is
+   second of two, its launch counts set to 0 just before it and read
+   just after; the three S/N cubes must be the same bits, the three peak
+   lists identical, and series 0 must give the pulsar. Every K3 launch of
+   run (b) is held against ``paired_stage_plain``, and K3 is timed over
+   all of them.
 
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
@@ -38,6 +48,7 @@ line is ``{"ok": true, "device": {...}}``. Without a CUDA card the script
 exits non-zero before printing any result. Imports nothing of jax and
 nothing of the JAX package.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -52,6 +63,14 @@ HEADLINE = dict(nsamp=2 ** 23, tsamp=64e-6, period_min=0.5, period_max=3.0,
                 bins_min=240, bins_max=260)
 HEADLINE_WIDTHS = (1, 2, 3, 4, 6, 9, 13, 19, 28, 42)
 HEADLINE_TRIALS = 222955
+PULSAR = dict(period=1.2345, amplitude=40.0)
+# Phase 5's three layouts: environment flags set for each run.
+LAYOUTS = (("a", {}),
+           ("b", {"RIPTIDE_KERNEL_BASE3": "0"}),
+           ("c", {"RIPTIDE_KERNEL_BASE3": "0", "RIPTIDE_KERNEL_ROW_PACK": "0"}))
+LAYOUT_FLAGS = ("RIPTIDE_KERNEL_BASE3", "RIPTIDE_KERNEL_ROW_PACK",
+                "RIPTIDE_KERNEL_LANE_SPLIT")
+HEADLINE_PAIRS = 10
 # Kernel vs plain S/N: the decode, pack and FFA sums are the same float
 # operations in the same order, so the containers agree bit for bit; the
 # S/N differs only by the summation order of the per-row prefix sum
@@ -112,17 +131,37 @@ def headline_plan(cfg=HEADLINE, widths=HEADLINE_WIDTHS):
                             cfg["bins_min"], cfg["bins_max"])
 
 
-def _stage_work(st, D, nw, with_decode):
-    """Operations the stage's work needs, counted from each trial's own
-    (m, p), not from the padded container: decode (sub + mul per packed
-    sample), one add per sample in each of the ceil(log2 m) FFA levels,
-    and per evaluated row the prefix sum plus three operations per phase
-    and width and five per width."""
+def _trials(plan, r):
+    """(m, p, evaluated rows) of every trial a recorded launch computes:
+    its lane bucket's (or whole stage's) trials and, for K3, the guest
+    trials it carries. Read under the flags the launch ran with."""
+    st = plan.stages[r["stage"]]
+    idx = (range(len(st.ms_padded)) if r["bucket"] is None
+           else st.lane_buckets[r["bucket"]])
+
+    def one(s, g):
+        return (s.ms_padded[g], s.ps_padded[g],
+                s.rows_eval[g] if g < len(s.rows_eval) else 0)
+
+    out = [one(st, g) for g in idx]
+    if r.get("guest") is not None:
+        st2 = plan.stages[r["guest"]]
+        gbase = r["args"][-2].gbase.tolist()
+        out += [one(st2, g) for g, gb in zip(idx, gbase) if gb >= 0]
+    return out
+
+
+def trials_work(trials, D, nw, with_decode=True):
+    """Operations a launch's work needs, counted from each of its
+    trials' own (m, p, evaluated rows) (:func:`_trials`), not from the
+    padded container: decode (sub + mul per packed sample), one add per
+    sample in each of the ceil(log2 m) FFA levels, and per evaluated row
+    the prefix sum plus three operations per phase and width and five
+    per width."""
     from riptide_tpu_torch.ops.plan import num_levels
 
-    rows_eval = st.rows_eval + [0] * (len(st.ms_padded) - len(st.rows_eval))
     ops = 0
-    for m, p, re in zip(st.ms_padded, st.ps_padded, rows_eval):
+    for m, p, re in trials:
         if with_decode:
             ops += 2 * m * p
         ops += num_levels(m) * m * p
@@ -130,9 +169,31 @@ def _stage_work(st, D, nw, with_decode):
     return D * ops
 
 
-def _table_bytes(st, nw):
-    b = st.batch
-    return 3 * b.h.size * 4 + 2 * b.B * 4 + nw * 4 + 2 * b.B * nw * 4 + b.B * 4
+def _table_bytes(tables, coefs):
+    return sum(x.numel() * x.element_size()
+               for x in (*tables[:5], *coefs[:4], tables.gm, tables.gbase,
+                         *coefs[5:]) if x is not None)
+
+
+def launch_bytes(launches, view):
+    """Bytes a set of recorded K1/K3 launches must move: each stage's
+    wire rows and scales that any launch reads (read once, however many
+    lane buckets read them), every launch's tables and coefficients, and
+    its output."""
+    spans = {}
+    nb = 0
+    for r in launches:
+        geoms = [g for g in r["args"] if hasattr(g, "roff")]
+        tables, coefs = r["args"][-2:]
+        for g, span in zip(geoms, (tables.span, tables.gspan)):
+            spans[g.roff] = max(spans.get(g.roff, 0), span)
+        nb += _table_bytes(tables, coefs) + r["out"].numel() * 4
+    D = launches[0]["out"].shape[0]
+    PW, group, planes = view["PW"], view["group"], view["planes"]
+    for span in spans.values():
+        rows = -(-span // PW)
+        nb += D * (planes * -(-rows // group) * PW + rows * 4)
+    return nb
 
 
 def bound_ms(nbytes, ops):
@@ -142,40 +203,46 @@ def bound_ms(nbytes, ops):
 
 
 def compare_stages(name, got, want):
-    """Each stage's kernel output against its plain version on the same
+    """Each launch's kernel output against its plain version on the same
     inputs: shape, finite values and the tolerance. Prints one line and
     returns the largest absolute difference."""
     check(len(got) == len(want), f"{name}: {len(got)} outputs, want "
           f"{len(want)}")
     mx = rel = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
-        check(g.shape == w.shape, f"{name}: stage {i} shape "
+        check(g.shape == w.shape, f"{name}: launch {i} shape "
               f"{tuple(g.shape)} != {tuple(w.shape)}")
-        check(bool(torch.isfinite(g).all()), f"{name}: stage {i} non-finite")
+        check(bool(torch.isfinite(g).all()), f"{name}: launch {i} non-finite")
         err = (g - w).abs()
         smx = float(err.max())
         check(bool((err <= ATOL + RTOL * w.abs()).all()),
-              f"{name}: stage {i} disagrees with its plain version "
+              f"{name}: launch {i} disagrees with its plain version "
               f"(max |err| {smx:.3e})")
         mx = max(mx, smx)
         rel = max(rel, float((err / w.abs().clamp_min(1e-30)).max()))
-    print(f"  {name}: {len(got)} stages, max |kernel - plain| = {mx:.3e}, "
+    print(f"  {name}: {len(got)} launches, max |kernel - plain| = {mx:.3e}, "
           f"max rel = {rel:.3e} (tolerance atol {ATOL} + rtol {RTOL} * "
           f"|plain|)", flush=True)
     return mx
 
 
-def plain_stages(plan, rec):
-    """:func:`fused_stage_plain` of every stage of a recorded search
-    (``engine.recording``), on the wire that search shipped."""
+def plain_launches(rec, kind):
+    """The plain version of every recorded launch of ``kind``, on the
+    operands that launch had."""
     from riptide_tpu_torch.ops import ffa_kernel as fk
-    from riptide_tpu_torch.search import engine
 
-    wire, meta = rec["wire"], rec["meta"]
-    return [fk.fused_stage_plain(wire, meta["scales_dev"],
-                                 engine.stage_geom(meta, i, st.n),
-                                 *engine._stage_operands(st, plan, wire.device))
-            for i, st in enumerate(plan.stages)]
+    plain = getattr(fk, f"{kind}_plain")
+    return [plain(*r["args"]) for r in rec["launches"] if r["kind"] == kind]
+
+
+def kernel_outs(rec, kind):
+    return [r["out"] for r in rec["launches"] if r["kind"] == kind]
+
+
+def check_launches(name, launches, want):
+    check(launches == want, f"{name}: launches {launches}, want {want} "
+          "(one K1 and its K2 half per queued lane bucket, one K3 per "
+          "hosting bucket)")
 
 
 def print_split(rec, D):
@@ -262,39 +329,33 @@ def phase_headline(dev, plan, cfg=HEADLINE, period=1.2345, amplitude=40.0):
     check(np.isfinite(pgram.snrs).all(), "non-finite S/N")
     check(dfreq < 1.0 / length, "injected period not recovered")
     check(snr > 10.0, f"injected pulsar recovered at S/N {snr} only")
-    check(launches["fused_stage"] == len(plan.stages),
-          f"K1 launched {launches['fused_stage']} times, want one per stage "
-          f"({len(plan.stages)})")
-    check(launches["cascade_stage"] == len(plan.stages),
-          "K2 (K1's cascade half) not launched once per stage")
+    check_launches("headline", launches, engine.queued_launches(plan))
     total = print_split(rec, 1)
     print(f"  rest of the warm search (DQ scan, de-reddening, normalisation):"
           f" {warm - total:.4f} s", flush=True)
-    err = compare_stages("K1 fused_stage in the search", rec["outs"],
-                         plain_stages(plan, rec))
+    err = compare_stages("K1 fused_stage in the search",
+                         kernel_outs(rec, "fused_stage"),
+                         plain_launches(rec, "fused_stage"))
     return launches, rec, err, tsn.data
 
 
 def phase_kernels(dev, plan, rec):
-    """Phase 3: K1 and K2 on every stage of the headline search's own
-    wire. Returns K2's largest difference from plain and, per kernel,
-    (ms, plain ms, bound ms, bound by) of one pass over all stages."""
+    """Phase 3: K1 and K2 on every launch of the headline search, on the
+    operands each launch had. Returns K2's largest difference from plain
+    and, per kernel, (ms, plain ms, bound ms, bound by) of one pass over
+    all launches."""
     from riptide_tpu_torch.ops import ffa_kernel as fk
-    from riptide_tpu_torch.search import engine
 
-    wire, meta = rec["wire"], rec["meta"]
-    scales = meta["scales_dev"]
-    D = wire.shape[0]
+    k1 = [r for r in rec["launches"] if r["kind"] == "fused_stage"]
+    D = rec["wire"].shape[0]
     nw = len(plan.widths)
-    vl = meta["view"]
-    ops = [engine._stage_operands(st, plan, dev) for st in plan.stages]
-    geoms = [engine.stage_geom(meta, i, st.n)
-             for i, st in enumerate(plan.stages)]
-    conts = [fk.decode_pack_plain(wire, scales, g, t, t.h.shape[2])
-             for g, (t, _) in zip(geoms, ops)]
+    args = [r["args"] for r in k1]
+    conts = [fk.decode_pack_plain(w, s, g, t, t.h.shape[2])
+             for w, s, g, t, _ in args]
+    tc = [a[-2:] for a in args]
 
     def k2_plain():
-        return [fk.cascade_stage_plain(x, t, c) for x, (t, c) in zip(conts, ops)]
+        return [fk.cascade_stage_plain(x, t, c) for x, (t, c) in zip(conts, tc)]
 
     # cascade_stage uses its input as level scratch: every call gets its
     # own copy, made before any timing starts.
@@ -302,26 +363,26 @@ def phase_kernels(dev, plan, rec):
 
     def k2():
         return [fk.cascade_stage(x, t, c)
-                for x, (t, c) in zip(next(copies), ops)]
+                for x, (t, c) in zip(next(copies), tc)]
 
     err2 = compare_stages("K2 cascade_stage", k2(), k2_plain())
-    ms1 = median_ms(lambda: [fk.fused_stage(wire, scales, g, t, c)
-                             for g, (t, c) in zip(geoms, ops)], dev)
-    pms1 = median_ms(lambda: [fk.fused_stage_plain(wire, scales, g, t, c)
-                              for g, (t, c) in zip(geoms, ops)], dev, reps=5)
+    ms1 = median_ms(lambda: [fk.fused_stage(*a) for a in args], dev)
+    pms1 = median_ms(lambda: [fk.fused_stage_plain(*a) for a in args], dev,
+                     reps=5)
     ms2 = median_ms(k2, dev)
     pms2 = median_ms(k2_plain, dev, reps=5)
 
-    nb1 = nb2 = ops1 = ops2 = design = 0
-    for i, (st, out, x) in enumerate(zip(plan.stages, rec["outs"], conts)):
-        tb = _table_bytes(st, nw) + out.numel() * 4
-        nb1 += D * vl["wrows"][i] * vl["PW"] + D * vl["r0s"][i] * 4 + tb
-        nb2 += x.numel() * 4 + tb
-        ops1 += _stage_work(st, D, nw, True)
-        ops2 += _stage_work(st, D, nw, False)
-        design += (3 * st.batch.L + 1) * x.numel() * 4
-    b1, b2 = bound_ms(nb1, ops1), bound_ms(nb2, ops2)
-    print(f"  {len(plan.stages)} stages, D = {D}: K1 {ms1:.4f} ms (plain "
+    nb2 = ops1 = ops2 = design = 0
+    for r, x in zip(k1, conts):
+        tables, coefs = r["args"][-2:]
+        nb2 += x.numel() * 4 + _table_bytes(tables, coefs) + r["out"].numel() * 4
+        trials = _trials(plan, r)
+        ops1 += trials_work(trials, D, nw, True)
+        ops2 += trials_work(trials, D, nw, False)
+        design += (3 * tables.h.shape[0] + 1) * x.numel() * 4
+    b1 = bound_ms(launch_bytes(k1, rec["meta"]["view"]), ops1)
+    b2 = bound_ms(nb2, ops2)
+    print(f"  {len(k1)} launches, D = {D}: K1 {ms1:.4f} ms (plain "
           f"{pms1:.4f} ms, bound {b1[0]:.4f} ms by {b1[1]}); K2 {ms2:.4f} ms "
           f"(plain {pms2:.4f} ms, bound {b2[0]:.4f} ms by {b2[1]}); the "
           f"level ping-pong's own traffic {design / 1e9:.4f} GB, "
@@ -387,14 +448,150 @@ def phase_batch(dev, plan, D=32, seed=2):
     check(snrs.shape == (D, plan.length, len(plan.widths)),
           f"batch S/N shape {snrs.shape}")
     check(np.isfinite(snrs).all(), "non-finite batch S/N")
-    check(launches["fused_stage"] == len(plan.stages),
-          f"D = {D}: K1 launched {launches['fused_stage']} times")
+    check_launches(f"D = {D}", launches, engine.queued_launches(plan))
     print(f"  D = {D}: {warm:.3f} s warm wall (first {first:.3f} s), "
           f"{D / warm:.3f} DM-trials/s, peak device memory "
           f"{peak / 2 ** 30:.3f} GiB; launches {launches}", flush=True)
     print_split(rec, D)
-    compare_stages(f"K1 fused_stage at D = {D}", rec["outs"],
-                   plain_stages(plan, rec))
+    compare_stages(f"K1 fused_stage at D = {D}",
+                   kernel_outs(rec, "fused_stage"),
+                   plain_launches(rec, "fused_stage"))
+
+
+@contextlib.contextmanager
+def layout_flags(flags):
+    """Set the container flags of one phase 5 run (the others unset)."""
+    saved = {k: os.environ.get(k) for k in LAYOUT_FLAGS}
+    for k in LAYOUT_FLAGS:
+        os.environ.pop(k, None)
+    os.environ.update(flags)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def survey_batch(plan, D, seed=3, cfg=HEADLINE):
+    """D normalised noise series with the phase 2 pulsar in series 0."""
+    from riptide_tpu_torch.libffa import generate_signal
+
+    rng = np.random.default_rng(seed)
+    batch = rng.standard_normal((D, plan.size), dtype=np.float32)
+    np.random.seed(seed)
+    x = generate_signal(plan.size, PULSAR["period"] / cfg["tsamp"],
+                        amplitude=PULSAR["amplitude"], ducy=0.05)
+    batch[0] = (x - x.mean()) / x.std()
+    return batch
+
+
+def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
+    """Phase 5: run_search_batch from one prepared wire under the three
+    layouts (``want_pairs`` pairs in run (b)). Returns run (b)'s K3
+    launch count, largest difference from plain and (ms, plain ms, bound
+    ms, bound by) over its launches."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.search import engine
+
+    tobs = cfg["nsamp"] * cfg["tsamp"]
+    nw = len(plan.widths)
+    batch = survey_batch(plan, D, cfg=cfg)
+    t0 = time.perf_counter()
+    prepared = engine.prepare_stage_data(plan, batch)
+    prep = time.perf_counter() - t0
+    view = prepared[1]["view"]
+    print(f"  D = {D}: one host wire prep {prep:.3f} s", flush=True)
+    runs = {}
+    for name, flags in LAYOUTS:
+        with layout_flags(flags):
+            saved = plan.__dict__.pop("_view_layouts")
+            fresh = engine._view_layout(plan, "uint6")
+            plan._view_layouts = saved
+            check(_same_layout(fresh, view),
+                  f"run ({name}): the wire layout depends on the flags")
+            rpm = engine._row_pack_map(plan, "uint6")
+            pairs = sum(v[0] == "host" for v in rpm.values())
+            absorbed = sum(v[0] == "guest" for v in rpm.values())
+            dms = np.zeros(D)
+            engine.run_search_batch(plan, None, tobs, dms=dms,
+                                    prepared=prepared, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            fk.reset_launches()
+            with engine.recording() as rec:
+                t0 = time.perf_counter()
+                handle = engine.queue_search_batch(plan, None, tobs,
+                                                   prepared=prepared,
+                                                   device=dev)
+                snr = engine.search_snr_dev(handle)
+                peaks, _ = engine.collect_search_batch(handle, dms)
+                wall = time.perf_counter() - t0
+            launches = dict(fk.LAUNCHES)
+            want = engine.queued_launches(plan)
+            k3 = [r for r in rec["launches"] if r["kind"] == "paired_stage"]
+            k3_trials = [_trials(plan, r) for r in k3]
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+        sms = rec["stage_ms"]
+        print(f"  run ({name}) {flags or 'defaults'}: {pairs} pairs, "
+              f"{absorbed} absorbed buckets; launches {launches}; "
+              f"{wall:.3f} s wall without the host prep, "
+              f"{D / wall:.3f} DM-trials/s ({D / (wall + prep):.3f} with "
+              f"it), peak device memory {peak / 2 ** 30:.3f} GiB", flush=True)
+        print(f"    split: copy to card {rec['ship_s']:.4f} s, stage loop "
+              f"{rec['stages_s']:.4f} s wall ({sum(sms) / 1e3:.4f} s between "
+              f"CUDA events), assembly {rec['assemble_s']:.4f} s, peak program "
+              f"{rec['peaks_s']:.4f} s, pull + host tail "
+              f"{rec['collect_s']:.4f} s", flush=True)
+        check_launches(f"run ({name})", launches, want)
+        check(np.isfinite(snr.cpu().numpy()).all() and snr.shape == (
+            D, plan.length, nw), f"run ({name}): S/N cube {tuple(snr.shape)}")
+        runs[name] = dict(pairs=pairs, absorbed=absorbed, launches=launches,
+                          snr=snr, peaks=peaks, rec=rec, k3=k3,
+                          k3_trials=k3_trials)
+    a, b, c = runs["a"], runs["b"], runs["c"]
+    check(a["pairs"] == c["pairs"] == 0 and b["pairs"] == want_pairs,
+          f"pairs {a['pairs']}, {b['pairs']}, {c['pairs']}: want 0, "
+          f"{want_pairs}, 0")
+    check(a["launches"]["paired_stage"] == c["launches"]["paired_stage"] == 0
+          and b["launches"]["paired_stage"] == want_pairs,
+          "K3 must launch once per pair in run (b) and never in (a), (c)")
+    check(b["launches"]["fused_stage"] + b["launches"]["paired_stage"]
+          == c["launches"]["fused_stage"] - b["absorbed"],
+          "run (b) must launch one bucket fewer than (c) per absorbed bucket")
+    check(torch.equal(a["snr"], b["snr"]) and torch.equal(a["snr"], c["snr"]),
+          "the three layouts' S/N cubes differ")
+    check(a["peaks"] == b["peaks"] == c["peaks"],
+          "the three layouts' peak lists differ")
+    best = b["peaks"][0][0] if b["peaks"][0] else None
+    check(best is not None, "no peak in series 0")
+    dfreq = abs(best.freq - 1.0 / PULSAR["period"])
+    print(f"  S/N cubes bitwise equal, peak lists identical "
+          f"({sum(map(len, b['peaks']))} peaks); series 0: best S/N "
+          f"{best.snr:.3f} at P = {best.period:.6f} s, width {best.width} "
+          f"(|df| = {dfreq:.3e} Hz, 1/T = {1.0 / tobs:.3e} Hz)", flush=True)
+    check(dfreq < 1.0 / tobs, "series 0: injected pulsar not recovered")
+
+    k3, args = b["k3"], [r["args"] for r in b["k3"]]
+    err = compare_stages("K3 paired_stage in run (b)", [r["out"] for r in k3],
+                         plain_launches(b["rec"], "paired_stage"))
+    ms = median_ms(lambda: [fk.paired_stage(*x) for x in args], dev)
+    pms = median_ms(lambda: [fk.paired_stage_plain(*x) for x in args], dev,
+                    reps=5)
+    ops = sum(trials_work(t, D, nw) for t in b["k3_trials"])
+    bnd = bound_ms(launch_bytes(k3, view), ops)
+    print(f"  K3 over run (b)'s {len(k3)} hosted buckets, D = {D}: "
+          f"{ms:.4f} ms (plain {pms:.4f} ms, bound {bnd[0]:.4f} ms by "
+          f"{bnd[1]})", flush=True)
+    return b["launches"]["paired_stage"], err, (ms, pms, *bnd)
+
+
+def _same_layout(x, y):
+    return x.keys() == y.keys() and all(
+        np.array_equal(np.asarray(x[k]), np.asarray(y[k])) for k in x)
 
 
 def main(argv=None):
@@ -436,14 +633,19 @@ def main(argv=None):
     del rec
     print("phase 4: run_periodogram_batch, D = 32", flush=True)
     phase_batch(dev, plan)
+    print("phase 5: run_search_batch, D = 32, three container layouts",
+          flush=True)
+    n3, err3, times["K3"] = phase_survey(dev, plan)
     if args.profile:
         print("profile: headline run_periodogram", flush=True)
         profile_search(plan, data, dev, args.profile)
 
     entries = []
+    launches["paired_stage"] = n3
     for key, name, fn, line, err in (
             ("K1", "K1 fused_stage", "fused_stage", 473, err1),
-            ("K2", "K2 cascade_stage", "cascade_stage", 266, err2)):
+            ("K2", "K2 cascade_stage", "cascade_stage", 266, err2),
+            ("K3", "K3 paired_stage", "paired_stage", 568, err3)):
         ms, pms, bms, by = times[key]
         entries.append({
             "name": name, "route": "cuda",

@@ -3,7 +3,8 @@ riptide_tpu_torch: the FFA pulsar search of ``riptide_tpu`` ported to
 PyTorch and CUDA for an NVIDIA H100.
 
 The periodogram search (:func:`ffa_search`, :func:`run_periodogram`,
-:func:`run_periodogram_batch`) runs on the card by default: each cascade
+:func:`run_periodogram_batch`) and the survey batch with device peaks
+(:func:`run_search_batch`) run on the card by default: each cascade
 stage goes through hand-written CUDA kernels
 (``riptide_tpu_torch/csrc/ffa_stage.cu``, built with nvcc at first use).
 Pass ``device="cpu"`` to run the plain PyTorch versions instead. The
@@ -13,8 +14,10 @@ from .ffautils import generate_width_trials
 from .libffa import boxcar_snr, ffa1, ffa2, ffafreq, ffaprd, generate_signal
 from .metadata import Metadata
 from .periodogram import Periodogram
+from .peak_detection import Peak
 from .search import (ffa_search, periodogram_plan, plan_arrays,
-                     plan_from_arrays, run_periodogram, run_periodogram_batch)
+                     plan_from_arrays, run_periodogram, run_periodogram_batch,
+                     run_search_batch)
 from .time_series import TimeSeries
 
 __all__ = [
@@ -27,6 +30,8 @@ __all__ = [
     "plan_from_arrays",
     "run_periodogram",
     "run_periodogram_batch",
+    "run_search_batch",
+    "Peak",
     "generate_width_trials",
     "generate_signal",
     "ffa1",

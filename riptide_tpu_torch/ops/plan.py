@@ -20,6 +20,13 @@ all-zero row: every plan assumes the working buffer has ``R >= m + 1``
 rows with row ``R - 1`` ("Z") held at zero. Padding rows in [m, R-1) also
 map to Z so they stay zero, which is what lets many differently-sized
 problems share one container (see FFABatchPlan).
+
+Row packing: a container may also hold a second, "guest" trial of the
+same p from a later cascade stage in rows the host trial leaves dead,
+from the guest's base row up (:func:`pair_bucket_bases`). The guest's
+own tables are shifted up by its base, and its zero row is the
+container's Z, so the two trials share every level launch and neither
+reads the other's rows.
 """
 from functools import lru_cache
 
@@ -27,7 +34,8 @@ import numpy as np
 
 from .reference import _merge_mapping
 
-__all__ = ["ffa_plan", "FFAPlan", "FFABatchPlan", "num_levels"]
+__all__ = ["ffa_plan", "FFAPlan", "FFABatchPlan", "num_levels",
+           "pair_bucket_bases"]
 
 
 def num_levels(m):
@@ -35,6 +43,29 @@ def num_levels(m):
     if m <= 1:
         return 0
     return int(np.ceil(np.log2(m)))
+
+
+def pair_bucket_bases(ms_host, ms_guest, L, rows, skip=()):
+    """Per-trial guest base rows for embedding guest trial j
+    (``ms_guest[j]`` rows) into host trial j's ``rows``-row container at
+    depth ``L`` (:func:`~.slottables.guest_base`), or None if any needed
+    trial has no feasible base or no trial needs one. Positions in
+    ``skip`` (padding trials, trials with no evaluated rows) get None.
+    The JAX package's ``ops/plan.py::pair_bucket_bases``."""
+    from .slottables import guest_base
+
+    bases = []
+    for j, (mh, mg) in enumerate(zip(ms_host, ms_guest)):
+        if j in skip:
+            bases.append(None)
+            continue
+        gb = guest_base(mh, mg, L, rows)
+        if gb is None:
+            return None
+        bases.append(gb)
+    if not any(b is not None for b in bases):
+        return None
+    return tuple(bases)
 
 
 @lru_cache(maxsize=4096)
@@ -110,12 +141,19 @@ class FFABatchPlan:
     ``R >= max(m) + 1`` rows (last row zero) and ``P >= max(p)`` columns.
     Shallower plans are padded with identity levels at the end.
 
+    ``guests`` (optional, one entry per problem): ``(m_guest, base)`` to
+    fold a second ``m_guest``-row problem of the same p in rows
+    ``[base, base + m_guest)`` of problem b's plane, or None. Needs
+    ``base >= m[b]`` and ``base + m_guest <= R - 1``.
+
     Attributes (all numpy, ready to ship to the device):
     h, t, shift : (L, B, R) int32 level tables
     m, p : (B,) int32 problem dimensions
+    gm, gbase : (B,) int32 guest rows and base row (0 and -1 for no
+        guest); None without ``guests``
     """
 
-    def __init__(self, ms, ps, R=None, P=None, L=None):
+    def __init__(self, ms, ps, R=None, P=None, L=None, guests=None):
         ms = [int(m) for m in ms]
         ps = [int(p) for p in ps]
         if len(ms) != len(ps):
@@ -129,6 +167,10 @@ class FFABatchPlan:
         if P < max(ps):
             raise ValueError("P must be >= max(p)")
         Lmin = max(num_levels(m) for m in ms)
+        if guests is not None:
+            if len(guests) != B:
+                raise ValueError("guests must have one entry per problem")
+            Lmin = max([Lmin] + [num_levels(g[0]) for g in guests if g])
         # Extra levels beyond a problem's own depth are identity carries.
         L = Lmin if L is None else int(L)
         if L < Lmin:
@@ -154,6 +196,30 @@ class FFABatchPlan:
                 )
             # Padding rows [m, R) map to the zero row so they stay zero.
             h[:, b, m:] = Z
+        gm = gbase = None
+        if guests is not None:
+            gm = np.zeros(B, np.int32)
+            gbase = np.full(B, -1, np.int32)
+            for b, g in enumerate(guests):
+                if g is None:
+                    continue
+                mg, base = int(g[0]), int(g[1])
+                if not (ms[b] <= base and base + mg <= Z):
+                    raise ValueError(
+                        f"guest of {mg} rows at base {base} does not fit "
+                        f"between host rows {ms[b]} and the zero row {Z}")
+                gm[b], gbase[b] = mg, base
+                rows = slice(base, base + mg)
+                # Identity carry for the guest's rows, then its own levels
+                # shifted up by `base`; its zero row (index mg) is Z.
+                h[:, b, rows] = np.arange(base, base + mg, dtype=np.int32)
+                plan = ffa_plan(mg)
+                lg = plan.levels
+                if lg:
+                    for tab, src in ((h, plan.h), (t, plan.t)):
+                        src = src[:, :mg]
+                        tab[:lg, b, rows] = np.where(src == mg, Z, src + base)
+                    shift[:lg, b, rows] = plan.shift[:, :mg]
 
         self.B = B
         self.R = R
@@ -164,3 +230,5 @@ class FFABatchPlan:
         self.shift = shift
         self.m = np.asarray(ms, dtype=np.int32)
         self.p = np.asarray(ps, dtype=np.int32)
+        self.gm = gm
+        self.gbase = gbase

@@ -1,12 +1,16 @@
 """
-FFA search entry point: plan on the host, execute on the device.
+FFA search entry points: plan on the host, execute on the device.
+:func:`ffa_search` searches one series; :func:`run_search_batch` a DM
+batch, with peak detection on the device.
 """
 from ..ffautils import generate_width_trials
 from ..periodogram import Periodogram
 from ..timing import timing
-from .engine import run_periodogram, run_periodogram_batch
+from .engine import (collect_search_batch, queue_search_batch,
+                     run_periodogram, run_periodogram_batch, run_search_batch,
+                     search_snr_dev)
 from .plan import (PeriodogramPlan, periodogram_plan, plan_arrays,
-                   plan_from_arrays)
+                   plan_from_arrays, plan_occupancy)
 
 __all__ = [
     "ffa_search",
@@ -14,8 +18,13 @@ __all__ = [
     "PeriodogramPlan",
     "plan_arrays",
     "plan_from_arrays",
+    "plan_occupancy",
     "run_periodogram",
     "run_periodogram_batch",
+    "run_search_batch",
+    "queue_search_batch",
+    "collect_search_batch",
+    "search_snr_dev",
 ]
 
 

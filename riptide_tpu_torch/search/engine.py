@@ -11,38 +11,50 @@ four samples to three byte planes (:func:`_view_layout`,
 ``uint12`` or ``float32`` instead. Every byte of the wire, and every
 scale, is identical to the JAX package's.
 
-Device half (torch): the wire ships as one tensor; each stage then runs
-as one kernel stage (:func:`_run_stage`):
+Device half (torch): the wire ships as one tensor; the stages then queue
+(:func:`_queue_stages`), with the JAX package's layout decisions:
 
-* quantised wires -> :func:`~riptide_tpu_torch.ops.ffa_kernel.fused_stage`
-  (K1: decode + pack + FFA levels + boxcar S/N);
+* quantised wires, stages with at least three FFA levels -> one
+  :func:`~riptide_tpu_torch.ops.ffa_kernel.fused_stage` (K1: decode +
+  pack + FFA levels + boxcar S/N) per lane bucket
+  (``CycleStage.lane_buckets``), each in its own container; a bucket
+  that hosts a later stage's same-p bucket in its dead rows
+  (:func:`_row_pack_map`) runs
+  :func:`~riptide_tpu_torch.ops.ffa_kernel.paired_stage` (K3) instead,
+  and the absorbed bucket launches nothing;
+* other quantised stages -> one K1 over the whole stage;
 * the float32 wire -> the plain :func:`_pack` on the device, then
   :func:`~riptide_tpu_torch.ops.ffa_kernel.cascade_stage` (K2).
 
 On a CUDA device those wrappers launch the hand-written kernels; on the
-CPU they run their plain PyTorch versions. Each stage yields its
-(D, B, RE, NW) S/N container, and :func:`_assemble` concatenates the
-evaluated rows in the reference's (cycle, bins, shift) order before one
-device->host copy. Inside :func:`recording`, each search also keeps the
-time of each of those parts and its operands, for checks and
+CPU they run their plain PyTorch versions. Each launch yields a
+(D, B, RE, NW) S/N container, and :func:`_assemble_device` gathers the
+evaluated rows in the reference's (cycle, bins, shift) order, on the
+device. A trial's S/N is the same bits in every layout. The periodogram
+entry points copy the cube to the host once; the survey batch
+(:func:`run_search_batch`) runs peak detection on it on the device
+(:mod:`.peaks_device`). Inside :func:`recording`, each search also keeps
+the time of each of those parts and its operands, for checks and
 measurements.
 
 Replaces the reference's single-threaded C++ search loop
 (riptide/cpp/periodogram.hpp:117-201).
 """
 import contextlib
-import os
 import time
 
 import numpy as np
 import torch
 
-from ..ops.ffa_kernel import (WIRE_MODES, Coefs, StageGeom, Tables,
-                              cascade_stage, fused_stage)
+from ..ops.ffa_kernel import (MAX_DYNAMIC_SMEM, SNR_WARPS, WIRE_MODES, Coefs,
+                              StageGeom, Tables, cascade_stage, fused_stage,
+                              paired_stage)
+from ..utils import envflags
 from ..utils.device import resolve_device
 
-__all__ = ["run_periodogram", "run_periodogram_batch", "prepare_stage_data",
-           "ship_stage_data", "recording"]
+__all__ = ["run_periodogram", "run_periodogram_batch", "run_search_batch",
+           "queue_search_batch", "collect_search_batch", "search_snr_dev",
+           "prepare_stage_data", "ship_stage_data", "recording"]
 
 # Tail slack of the wire layout, as in the JAX package's byte-plane view
 # (its fused TPU kernel streamed planes in DMA_CHUNK-row chunks and could
@@ -74,11 +86,7 @@ def _wire_mode():
     """The wire transport: ``RIPTIDE_WIRE_DTYPE`` (one of :data:`WIRES`),
     default ``uint6``. Read at each search, so a changed environment
     takes effect at once."""
-    mode = os.environ.get("RIPTIDE_WIRE_DTYPE") or "uint6"
-    if mode not in WIRES:
-        raise ValueError(f"RIPTIDE_WIRE_DTYPE={mode!r}: expected one of "
-                         f"{WIRES}")
-    return mode
+    return envflags.get("RIPTIDE_WIRE_DTYPE") or "uint6"
 
 
 # ---------------------------------------------------------------------------
@@ -333,54 +341,118 @@ def _decode_stage_rows(mode, wire, scales, roff, nrows, soff, r0, n):
     return xv.reshape(xv.shape[:-2] + (r0 * xv.shape[-1],))[..., :n]
 
 
-def _pack(xd, p, m, R, P):
+def _pack(xd, p, m, R, P, row0=None):
     """
     Pack downsampled series (..., n) into the (..., B, R, P) FFA container:
-    container[..., b, i, j] = xd[..., i * p[b] + j] for i < m[b], j < p[b],
-    else 0.
+    container[..., b, i, j] = xd[..., (i - row0[b]) * p[b] + j] for
+    row0[b] <= i < row0[b] + m[b], j < p[b], else 0 (``row0`` (B,)
+    defaults to 0).
     """
     dev = xd.device
     rows = torch.arange(R, dtype=torch.int64, device=dev)[None, :, None]
+    if row0 is not None:
+        rows = rows - row0.to(torch.int64)[:, None, None]
     cols = torch.arange(P, dtype=torch.int64, device=dev)[None, None, :]
     pb = p.to(torch.int64)[:, None, None]
     mb = m.to(torch.int64)[:, None, None]
     idx = rows * pb + cols
-    valid = (rows < mb) & (cols < pb)
+    valid = (rows >= 0) & (rows < mb) & (cols < pb)
     n = xd.shape[-1]
     flat = xd[..., idx.clamp(0, n - 1)]
     return torch.where(valid, flat, torch.zeros((), dtype=flat.dtype,
                                                 device=dev))
 
 
-def _stage_operands(st, plan, device):
-    """(Tables, Coefs) of a stage on ``device``: the gather plan's level
-    tables and the S/N coefficients, cached on the stage per device so
-    repeated searches with a cached plan ship only the data."""
+
+
+def _dev_tensor(a, dtype, device):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+
+def _operands(b, widths, hcoef, bcoef, stdnoise, rows, device, guest=None):
+    """(Tables, Coefs) on ``device`` of one container: the
+    :class:`~riptide_tpu_torch.ops.plan.FFABatchPlan` ``b``, the S/N
+    inputs of its trials and, for a row-packed container, ``guest`` =
+    (hcoef, bcoef, stdnoise) of the guest trials."""
+    def dev(a, dtype):
+        return _dev_tensor(a, dtype, device)
+
+    tables = Tables(
+        h=dev(b.h, np.int32), t=dev(b.t, np.int32),
+        shift=dev(b.shift, np.int32), p=dev(b.p, np.int32),
+        m=dev(b.m, np.int32), P=int(b.P),
+        span=int(max(int(m) * int(p) for m, p in zip(b.m, b.p))),
+    )
+    coefs = Coefs(
+        widths=dev(widths, np.int32), hcoef=dev(hcoef, np.float32),
+        bcoef=dev(bcoef, np.float32), stdnoise=dev(stdnoise, np.float32),
+        rows=max(int(rows), 1),
+    )
+    if guest is not None:
+        ghcoef, gbcoef, gstd = guest
+        tables = tables._replace(
+            gm=dev(b.gm, np.int32), gbase=dev(b.gbase, np.int32),
+            gspan=int(max(int(m) * int(p) for m, p, g in
+                          zip(b.gm, b.p, b.gbase) if g >= 0)))
+        coefs = coefs._replace(ghcoef=dev(ghcoef, np.float32),
+                               gbcoef=dev(gbcoef, np.float32),
+                               gstdnoise=dev(gstd, np.float32))
+    return tables, coefs
+
+
+def _cached(st, key, build):
     cache = getattr(st, "_device_operands", None)
     if cache is None:
         cache = st._device_operands = {}
-    key = str(device)
     ops = cache.get(key)
     if ops is None:
-        b = st.batch
-
-        def dev(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
-
-        tables = Tables(
-            h=dev(b.h, np.int32), t=dev(b.t, np.int32),
-            shift=dev(b.shift, np.int32), p=dev(b.p, np.int32),
-            m=dev(b.m, np.int32), P=int(b.P),
-            span=int(max(int(m) * int(p) for m, p in zip(b.m, b.p))),
-        )
-        coefs = Coefs(
-            widths=dev(plan.widths, np.int32),
-            hcoef=dev(st.hcoef, np.float32), bcoef=dev(st.bcoef, np.float32),
-            stdnoise=dev(st.stdnoise, np.float32),
-            rows=max(st.rows_eval_max, 1),
-        )
-        ops = cache[key] = (tables, coefs)
+        ops = cache[key] = build()
     return ops
+
+
+def _stage_operands(st, plan, device):
+    """(Tables, Coefs) of a whole stage in one container (the gather
+    plan ``st.batch``), cached on the stage per device so repeated
+    searches with a cached plan ship only the data."""
+    return _cached(st, (str(device), "stage"), lambda: _operands(
+        st.batch, plan.widths, st.hcoef, st.bcoef, st.stdnoise,
+        st.rows_eval_max, device))
+
+
+def _bucket_rows_eval(st, idx):
+    nre = len(st.rows_eval)
+    return max([st.rows_eval[g] for g in idx if g < nre] or [0])
+
+
+def _bucket_operands(st, plan, k, device):
+    """(Tables, Coefs) of lane bucket ``k`` in its own container
+    (:meth:`~riptide_tpu_torch.search.plan.CycleStage.bucket_batch`):
+    RE = the bucket's largest evaluated row count."""
+    b = st.bucket_batch(k)
+    ix = list(st.lane_buckets[k])
+    return _cached(st, (str(device), "bucket", tuple(ix), b.R),
+                   lambda: _operands(b, plan.widths, st.hcoef[ix],
+                                     st.bcoef[ix], st.stdnoise[ix],
+                                     _bucket_rows_eval(st, ix), device))
+
+
+def _paired_operands(st, plan, k, st2, bases, device):
+    """(Tables, Coefs) of lane bucket ``k`` hosting ``st2``'s
+    same-position trials at ``bases``
+    (:meth:`~riptide_tpu_torch.search.plan.CycleStage.paired_batch`): RE
+    also covers every guest's evaluated rows above its base."""
+    b = st.paired_batch(k, st2, bases)
+    ix = list(st.lane_buckets[k])
+    n2 = len(st2.rows_eval)
+    remax = max([_bucket_rows_eval(st, ix)] + [
+        bb + st2.rows_eval[g] for bb, g in zip(bases, ix)
+        if bb is not None and g < n2])
+    return _cached(
+        st, (str(device), "paired", tuple(ix), b.R, st2.f, tuple(bases)),
+        lambda: _operands(b, plan.widths, st.hcoef[ix], st.bcoef[ix],
+                          st.stdnoise[ix], remax, device,
+                          guest=(st2.hcoef[ix], st2.bcoef[ix],
+                                 st2.stdnoise[ix])))
 
 
 def stage_geom(meta, i, n):
@@ -391,50 +463,308 @@ def stage_geom(meta, i, n):
                      int(vl["soffs"][i]), int(vl["r0s"][i]), int(n))
 
 
-def _run_stage(st, plan, i, wire, meta):
-    """Queue one cascade stage; returns its (D, B, RE, NW) S/N container
-    (unsynced on a CUDA device). Quantised wires run K1
-    (:func:`fused_stage`) straight from the shipped view; the float32
-    wire slices the stage, packs it with :func:`_pack` and runs K2
-    (:func:`cascade_stage`)."""
-    tables, coefs = _stage_operands(st, plan, wire.device)
-    if meta["mode"] in _WIRE_Q:
-        return fused_stage(wire, meta["scales_dev"], stage_geom(meta, i, st.n),
-                           tables, coefs)
-    off = int(meta["offs"][i])
-    container = _pack(wire[:, off : off + st.n], tables.p, tables.m,
-                      st.batch.R, tables.P)
-    return cascade_stage(container, tables, coefs)
+# ---------------------------------------------------------------------------
+# Lane buckets and row packing: the JAX package's layout decisions
+# ---------------------------------------------------------------------------
+
+def _bucket_shape(st, idx):
+    """(L, rows, P) of one lane bucket in the TPU layout: L from its
+    largest m, rows = ``bucket_rows`` under the container flags, P = its
+    largest p rounded up to 128 lanes. The
+    pairing map and ``plan_occupancy`` reason in this layout, as the JAX
+    package's do; the port's own container is ``rows + 1`` by the
+    bucket's largest p (``CycleStage.bucket_batch``)."""
+    from ..ops.ffa_kernel import bucket_rows
+    from ..ops.plan import num_levels
+
+    ms = [st.ms_padded[i] for i in idx]
+    ps = [st.ps_padded[i] for i in idx]
+    L = max(num_levels(m) for m in ms)
+    return L, bucket_rows(ms, L), -(-max(ps) // 128) * 128
 
 
-def _assemble(plan, outs):
-    """Slice every stage's evaluated rows and concatenate in plan trial
-    order (cycle, bins, shift), on the device: (D, n_trials, NW)."""
-    chunks = []
-    for st, raw in zip(plan.stages, outs):
-        for i, re in enumerate(st.rows_eval):
-            if re:
-                chunks.append(raw[:, i, :re, :])
-    if not chunks:
-        D = outs[0].shape[0] if outs else 0
-        return torch.empty((D, 0, len(plan.widths)), dtype=torch.float32)
-    return torch.cat(chunks, dim=1)
+def _smem_fits(P):
+    """The S/N kernel's one shape limit: SNR_WARPS rows of P floats in
+    shared memory per block."""
+    return SNR_WARPS * P * 4 <= MAX_DYNAMIC_SMEM
 
+
+def _kernel_eligible(st, plan):
+    """Whether the stage takes the lane-bucketed kernel layout: at least
+    three FFA levels (the JAX package's ``kernel_depth >= 3``; smaller
+    stages keep one container) and every trial's width inside the S/N
+    kernel's shared memory. Hopper's limits replace the TPU's VMEM
+    budget and packed-word fields."""
+    return st.kernel_depth >= 3 and _smem_fits(max(st.ps_padded))
+
+
+def _fused_eligible(st, plan, mode):
+    """Whether the stage runs one K1 (or K3) launch per lane bucket:
+    a quantised wire and :func:`_kernel_eligible`. Other stages run
+    whole, as one K1 (quantised wire) or K2 (float32) launch."""
+    return mode in WIRE_MODES and _kernel_eligible(st, plan)
+
+
+def _row_pack_map(plan, mode):
+    """Which later stage's lane buckets ride which earlier stage's dead
+    container rows: the JAX package's greedy pairing
+    (``engine._row_pack_map``) over (stage, lane bucket) pairs at the
+    same bucket position and p list, earliest guest first. A bucket is
+    absorbed when every trial it needs read back has a guest base
+    (``ops.plan.pair_bucket_bases``). The TPU's VMEM gate has no
+    counterpart: a base lies between the host's rows and the TPU height,
+    below the port's zero row (``FFABatchPlan`` checks it), and the one
+    Hopper limit, the S/N kernel's shared memory, is the host bucket's
+    own (:func:`_kernel_eligible`). Returns {} when
+    ``RIPTIDE_KERNEL_ROW_PACK`` is off or the wire is not quantised, else
+    {(stage, bucket): ("host", guest_stage, bases) | ("guest",
+    host_stage)}, cached on the plan per flag state."""
+    from ..ops.plan import pair_bucket_bases
+
+    if not envflags.get("RIPTIDE_KERNEL_ROW_PACK") or mode not in WIRE_MODES:
+        return {}
+    fp = (mode, bool(envflags.get("RIPTIDE_KERNEL_BASE3")),
+          bool(envflags.get("RIPTIDE_KERNEL_LANE_SPLIT")))
+    cache = getattr(plan, "_row_pack_maps", None)
+    if cache is None:
+        cache = plan._row_pack_maps = {}
+    rpm = cache.get(fp)
+    if rpm is not None:
+        return rpm
+    stages = plan.stages
+    elig = [_fused_eligible(st, plan, mode) for st in stages]
+    entries = {}
+    for s, st in enumerate(stages):
+        if not elig[s]:
+            continue
+        for k, idx in enumerate(st.lane_buckets):
+            if (s, k) in entries:
+                continue
+            L, rows, _ = _bucket_shape(st, idx)
+            ms = [st.ms_padded[i] for i in idx]
+            ps = [st.ps_padded[i] for i in idx]
+            for s2 in range(s + 1, len(stages)):
+                st2 = stages[s2]
+                if ((s2, k) in entries or not elig[s2]
+                        or st2.lane_buckets != st.lane_buckets
+                        or [st2.ps_padded[i] for i in idx] != ps):
+                    continue
+                nb2 = len(st2.bins)
+                skip = tuple(j for j, g in enumerate(idx)
+                             if g >= nb2 or st2.rows_eval[g] == 0)
+                bases = pair_bucket_bases(
+                    ms, [st2.ms_padded[i] for i in idx], L, rows, skip)
+                if bases is None:
+                    continue
+                entries[(s, k)] = ("host", s2, bases)
+                entries[(s2, k)] = ("guest", s)
+                break
+    cache[fp] = entries
+    return entries
+
+
+def _stage_pairing(plan, rpm, i, st):
+    """Stage ``i``'s part of the pairing map: the lane buckets absorbed
+    by an earlier host, and per hosting bucket (guest stage index,
+    bases). None when the stage is untouched."""
+    absorbed = set()
+    hosted = {}
+    for k in range(len(st.lane_buckets)):
+        e = rpm.get((i, k))
+        if e is None:
+            continue
+        if e[0] == "guest":
+            absorbed.add(k)
+        else:
+            hosted[k] = (e[1], e[2])
+    if absorbed or hosted:
+        return {"absorbed": absorbed, "hosted": hosted}
+    return None
+
+
+def queued_launches(plan, mode=None):
+    """The kernel launches one search of ``plan`` queues under the live
+    flags: {"fused_stage": K1, "paired_stage": K3, "cascade_stage": K2}
+    (K2 also counts K1's cascade half)."""
+    mode = mode or _wire_mode()
+    if mode not in WIRE_MODES:
+        n = len(plan.stages)
+        return {"fused_stage": 0, "cascade_stage": n, "paired_stage": 0}
+    rpm = _row_pack_map(plan, mode)
+    k1 = k3 = 0
+    for i, st in enumerate(plan.stages):
+        if not _fused_eligible(st, plan, mode):
+            k1 += 1
+            continue
+        for k in range(len(st.lane_buckets)):
+            role = rpm.get((i, k), ("",))[0]
+            k1 += role == ""
+            k3 += role == "host"
+    return {"fused_stage": k1, "cascade_stage": k1, "paired_stage": k3}
+
+
+# ---------------------------------------------------------------------------
+# Device half: the stage loop
+# ---------------------------------------------------------------------------
 
 # The dict that searches fill while a :func:`recording` block is open.
 _RECORD = None
 
 
+def _launch(kind, fn, args, **where):
+    """Call one stage wrapper on ``args``; inside :func:`recording`, keep
+    its kind, operands, output and ``where`` (stage, lane bucket, guest
+    stage). A float32 container is kept as a copy made before the call,
+    since the kernel uses it as scratch."""
+    rec = _RECORD
+    kept = args
+    if rec is not None and kind == "cascade_stage":
+        kept = (args[0].clone(),) + args[1:]
+    out = fn(*args)
+    if rec is not None:
+        rec.setdefault("launches", []).append(
+            dict(where, kind=kind, args=kept, out=out))
+    return out
+
+
+def _run_stage(st, plan, i, wire, meta):
+    """Queue one whole cascade stage in one container; returns its
+    (D, B, RE, NW) S/N (unsynced on a CUDA device). Quantised wires run
+    K1 (:func:`fused_stage`) straight from the shipped view; the float32
+    wire slices the stage, packs it with :func:`_pack` and runs K2
+    (:func:`cascade_stage`)."""
+    tables, coefs = _stage_operands(st, plan, wire.device)
+    if meta["mode"] in _WIRE_Q:
+        return _launch("fused_stage", fused_stage,
+                       (wire, meta["scales_dev"], stage_geom(meta, i, st.n),
+                        tables, coefs), stage=i, bucket=None)
+    off = int(meta["offs"][i])
+    container = _pack(wire[:, off : off + st.n], tables.p, tables.m,
+                      st.batch.R, tables.P)
+    return _launch("cascade_stage", cascade_stage, (container, tables, coefs),
+                   stage=i, bucket=None)
+
+
+def _run_stage_fused(st, plan, i, wire, meta, pairing=None):
+    """Queue one lane-bucketed stage: per lane bucket one K1 launch, or
+    one K3 launch where the bucket hosts a later stage's guests
+    (``pairing``, :func:`_stage_pairing`); absorbed buckets launch
+    nothing. Returns (outs, kept): each queued bucket's (D, B_k, RE_k,
+    NW) S/N, and the queued bucket positions."""
+    dev = wire.device
+    scales = meta["scales_dev"]
+    geom = stage_geom(meta, i, st.n)
+    outs, kept = [], []
+    for k in range(len(st.lane_buckets)):
+        if pairing is not None and k in pairing["absorbed"]:
+            continue
+        host = pairing["hosted"].get(k) if pairing is not None else None
+        if host is None:
+            tables, coefs = _bucket_operands(st, plan, k, dev)
+            out = _launch("fused_stage", fused_stage,
+                          (wire, scales, geom, tables, coefs), stage=i,
+                          bucket=k)
+        else:
+            s2, bases = host
+            st2 = plan.stages[s2]
+            tables, coefs = _paired_operands(st, plan, k, st2, bases, dev)
+            out = _launch("paired_stage", paired_stage,
+                          (wire, scales, geom, stage_geom(meta, s2, st2.n),
+                           tables, coefs), stage=i, bucket=k, guest=s2)
+        outs.append(out)
+        kept.append(k)
+    return tuple(outs), tuple(kept)
+
+
+def _queue_stages(plan, wire, meta, events=None):
+    """Queue every cascade stage on the shipped wire. Returns (outs,
+    layout) for :func:`_assemble_device`: ``outs[s]`` the stage's tuple
+    of queued containers, ``layout[s]`` None for one whole-stage
+    container, else per lane bucket ``("own", pos, idx)`` or, for a
+    bucket absorbed by an earlier host, ``("guest", host_stage,
+    host_pos, idx, bases)``. ``events`` (CUDA events, one per stage
+    plus one) are recorded around the stages."""
+    mode = meta["mode"]
+    rpm = _row_pack_map(plan, mode)
+    outs, layout = [], []
+    bucketpos = {}  # (stage, bucket) -> position in that stage's outs
+    if events:
+        events[0].record()
+    for i, st in enumerate(plan.stages):
+        if not _fused_eligible(st, plan, mode):
+            outs.append((_run_stage(st, plan, i, wire, meta),))
+            layout.append(None)
+        else:
+            buckets = st.lane_buckets
+            pairing = _stage_pairing(plan, rpm, i, st)
+            absorbed = pairing["absorbed"] if pairing else set()
+            souts, kept = _run_stage_fused(st, plan, i, wire, meta, pairing)
+            outs.append(souts)
+            for pos, k in enumerate(kept):
+                bucketpos[(i, k)] = pos
+            if len(buckets) == 1 and not absorbed:
+                layout.append(None)
+            else:
+                entries = []
+                for k, idx in enumerate(buckets):
+                    if k in absorbed:
+                        hs = rpm[(i, k)][1]
+                        entries.append(("guest", hs, bucketpos[(hs, k)], idx,
+                                        rpm[(hs, k)][2]))
+                    else:
+                        entries.append(("own", bucketpos[(i, k)], idx))
+                layout.append(tuple(entries))
+        if events:
+            events[i + 1].record()
+    return outs, tuple(layout)
+
+
+def _assemble_device(plan, layout, outs):
+    """Slice every stage's evaluated rows and concatenate them in plan
+    trial order (cycle, bins, shift), on the device: (D, n_trials, NW).
+    A row-packed guest's trials are read from its host's container at
+    each trial's base row."""
+    chunks = []
+    for st, raws, lay in zip(plan.stages, outs, layout):
+        if lay is None:
+            pos = {i: (raws[0], i, 0) for i in range(len(st.rows_eval))}
+        else:
+            pos = {}
+            for e in lay:
+                if e[0] == "own":
+                    _, p_, idx = e
+                    for j, g in enumerate(idx):
+                        pos[g] = (raws[p_], j, 0)
+                else:
+                    _, hs, hp, idx, bases = e
+                    for j, g in enumerate(idx):
+                        if bases[j] is not None:
+                            pos[g] = (outs[hs][hp], j, bases[j])
+        for i, re in enumerate(st.rows_eval):
+            if re:
+                raw, j, off = pos[i]
+                chunks.append(raw[:, j, off : off + re, :])
+    if not chunks:
+        D = outs[0][0].shape[0] if outs else 0
+        return torch.empty((D, 0, len(plan.widths)), dtype=torch.float32)
+    return torch.cat(chunks, dim=1)
+
+
 @contextlib.contextmanager
 def recording():
     """Record the searches run inside the block. Yields a dict that each
-    search fills anew: the seconds of its parts on the host clock
-    (``prep_s`` wire preparation, ``ship_s`` copy to the device,
-    ``stages_s`` the stage loop, ``out_s`` assembly and copy back), each
-    stage's milliseconds between CUDA events (``stage_ms``, empty off the
-    card), and its operands: the shipped ``wire`` and ``meta`` and each
-    stage's S/N container ``outs``. The device is synchronised between
-    the parts, and the tensors stay alive with the dict."""
+    search fills anew: the seconds of its parts on the host clock, the
+    device synchronised between them (``prep_s`` wire preparation,
+    ``ship_s`` copy to the device, ``stages_s`` the stage loop,
+    ``out_s`` assembly and copy back; a survey batch has ``assemble_s``,
+    ``peaks_s`` the device peak program and ``collect_s`` its pull and
+    host tail instead of ``out_s``), each stage's milliseconds between
+    CUDA events (``stage_ms``, empty off the card), and its operands: the
+    shipped ``wire`` and ``meta``, each stage's queued containers
+    ``outs`` and their ``layout``, and every kernel call in
+    ``launches`` (kind, arguments, output, stage, lane bucket (None for a
+    whole stage) and, for K3, the guest stage). The tensors stay alive with
+    the dict."""
     global _RECORD
     prev, _RECORD = _RECORD, {}
     try:
@@ -443,38 +773,55 @@ def recording():
         _RECORD = prev
 
 
-def _search(plan, batch, device):
-    rec = _RECORD
-    clock = [time.perf_counter()]
-    prepared = prepare_stage_data(plan, batch)
-    clock.append(time.perf_counter())
-    wire, meta = ship_stage_data(prepared, device)
+class _Split:
+    """Marks the parts of a recorded search (no-op when not recording)."""
+
+    def __init__(self, dev):
+        self.rec = _RECORD
+        self.dev = dev
+        self.t = time.perf_counter()
+
+    def mark(self, name):
+        if self.rec is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        self.rec[name] = now - self.t
+        self.t = now
+
+
+def _queue_batch(plan, batch, dev, prepared=None, shipped=None):
+    """Prepare (unless given), ship (unless given) and queue every stage;
+    returns the device S/N cube (D, n_trials, NW), unsynced."""
+    split = _Split(dev)
+    if split.rec is not None:
+        split.rec.clear()
+    if shipped is None:
+        if prepared is None:
+            prepared = prepare_stage_data(plan, batch)
+        split.mark("prep_s")
+        shipped = ship_stage_data(prepared, dev)
+    split.mark("ship_s")
+    wire, meta = shipped
     events = []
-    if rec is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
+    if split.rec is not None and dev.type == "cuda":
         events = [torch.cuda.Event(enable_timing=True)
                   for _ in range(len(plan.stages) + 1)]
-        events[0].record()
-    clock.append(time.perf_counter())
-    outs = []
-    for i, st in enumerate(plan.stages):
-        outs.append(_run_stage(st, plan, i, wire, meta))
-        if events:
-            events[i + 1].record()
-    if events:
-        events[-1].synchronize()
-    clock.append(time.perf_counter())
+    outs, layout = _queue_stages(plan, wire, meta, events)
+    split.mark("stages_s")
+    if split.rec is not None:
+        split.rec.update(stage_ms=[a.elapsed_time(b)
+                                   for a, b in zip(events, events[1:])],
+                         wire=wire, meta=meta, outs=outs, layout=layout)
+    return _assemble_device(plan, layout, outs), split
+
+
+def _search(plan, batch, device):
+    snr_dev, split = _queue_batch(plan, batch, device)
     # One device->host copy for the whole cube.
-    snrs = np.ascontiguousarray(_assemble(plan, outs).cpu().numpy(),
-                                dtype=np.float32)
-    clock.append(time.perf_counter())
-    if rec is not None:
-        rec.clear()
-        rec.update(zip(("prep_s", "ship_s", "stages_s", "out_s"),
-                       np.diff(clock).tolist()))
-        rec.update(stage_ms=[a.elapsed_time(b)
-                             for a, b in zip(events, events[1:])],
-                   wire=wire, meta=meta, outs=outs)
+    snrs = np.ascontiguousarray(snr_dev.cpu().numpy(), dtype=np.float32)
+    split.mark("out_s")
     return snrs
 
 
@@ -507,3 +854,83 @@ def run_periodogram_batch(plan, batch, device=None):
     dev = resolve_device(device)
     snrs = _search(plan, batch, dev)
     return plan.all_periods.copy(), plan.all_foldbins.copy(), snrs
+
+
+# ---------------------------------------------------------------------------
+# The survey batch: periodogram and peaks on the device
+# ---------------------------------------------------------------------------
+
+def _peak_plan(plan, tobs, **peak_kwargs):
+    """The plan's cached :class:`~.peaks_device.PeakPlan` for ``tobs``
+    and the peak arguments; the live ``RIPTIDE_DEVICE_CLUSTER`` value is
+    part of the key."""
+    from .peaks_device import PeakPlan, device_cluster_enabled
+
+    dc = device_cluster_enabled()
+    key = (float(tobs), dc, tuple(sorted(peak_kwargs.items())))
+    cache = getattr(plan, "_peak_plans", None)
+    if cache is None:
+        cache = plan._peak_plans = {}
+    pp = cache.get(key)
+    if pp is None:
+        pp = cache[key] = PeakPlan(plan, tobs, device_cluster=dc,
+                                   **peak_kwargs)
+    return pp
+
+
+def queue_search_batch(plan, batch, tobs, prepared=None, shipped=None,
+                       device=None, **peak_kwargs):
+    """Queue one batch's whole device side without syncing: the stage
+    launches, the device assembly of the S/N cube and the peak program.
+    ``prepared`` (from :func:`prepare_stage_data`) skips the host prep,
+    ``shipped`` (from :func:`ship_stage_data`) the copy as well, and then
+    the wire's device is used. Returns a handle for
+    :func:`collect_search_batch`."""
+    from .peaks_device import queue_find_peaks
+
+    dev = shipped[0].device if shipped is not None else resolve_device(device)
+    pp = _peak_plan(plan, tobs, **peak_kwargs)
+    snr_dev, split = _queue_batch(plan, batch, dev, prepared, shipped)
+    split.mark("assemble_s")
+    handle = queue_find_peaks(pp, snr_dev)
+    split.mark("peaks_s")
+    return pp, handle
+
+
+def collect_search_batch(handle, dms):
+    """Sync one queued batch: one device->host pull and the host tail.
+    Returns (peaks_per_trial, polycos_per_trial)."""
+    from .peaks_device import collect_peaks
+
+    pp, peaks_handle = handle
+    t0 = time.perf_counter()
+    out = collect_peaks(pp, peaks_handle, dms)
+    if _RECORD is not None:
+        _RECORD["collect_s"] = time.perf_counter() - t0
+    return out
+
+
+def search_snr_dev(handle):
+    """The queued batch's (D, trials, NW) S/N cube on the device, until
+    :func:`collect_search_batch` releases it."""
+    return handle[1][1]
+
+
+def run_search_batch(plan, batch, tobs, dms=None, prepared=None,
+                     shipped=None, device=None, **peak_kwargs):
+    """
+    Batched search with peak detection on the device: the periodogram
+    stages, device assembly, the peak program, then the host's exact
+    check and clustering (reference semantics:
+    riptide/peak_detection.py:146-222). Only the peak buffers cross to
+    the host. Runs on ``device`` (the card when None), or where
+    ``shipped`` lies; ``dms`` (D,) defaults to zeros.
+
+    Returns (peaks_per_trial, polycos_per_trial).
+    """
+    handle = queue_search_batch(plan, batch, tobs, prepared=prepared,
+                                shipped=shipped, device=device,
+                                **peak_kwargs)
+    if dms is None:
+        dms = np.zeros(search_snr_dev(handle).shape[0], np.float64)
+    return collect_search_batch(handle, dms)

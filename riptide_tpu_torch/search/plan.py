@@ -16,7 +16,12 @@ bins range): it is unrolled once on the host, in float64, into a list of
 
 The device then runs each cycle as one stage of kernel launches with no
 data-dependent shapes; everything data-dependent (trial periods, output
-sizing) lives in this plan. The plan is the search's only state:
+sizing) lives in this plan. On the quantised wires a stage runs one
+launch per lane bucket (:attr:`CycleStage.lane_buckets`), each in its own
+container (:meth:`CycleStage.bucket_batch`), and a later stage's bucket
+may ride an earlier stage's dead container rows
+(:meth:`CycleStage.paired_batch`, the engine's ``_row_pack_map``);
+:func:`plan_occupancy` accounts for that layout. The plan is the search's only state:
 :func:`plan_arrays` exports it as numpy arrays and :func:`plan_from_arrays`
 rebuilds a plan from them.
 """
@@ -31,7 +36,68 @@ from ..ops.reference import downsampled_size, downsampled_variance
 from ..ops.snr import boxcar_coeffs
 
 __all__ = ["PeriodogramPlan", "CycleStage", "periodogram_plan",
-           "check_arguments", "ceilshift", "plan_arrays", "plan_from_arrays"]
+           "check_arguments", "ceilshift", "plan_arrays", "plan_from_arrays",
+           "plan_occupancy"]
+
+
+def plan_occupancy(plan, mode=None):
+    """Container-occupancy accounting of a plan's lane-bucket layout
+    under the live flags, as the JAX package's ``plan_occupancy``
+    counts it (TPU container heights and 128-lane widths, from
+    ``engine._bucket_shape``), so the two layouts' decisions can be
+    compared number for number: per bucket and in total, the evaluated
+    (live) row*lane work against the computed containers (absorbed guest
+    buckets count zero), next to the pre-row-pack (legacy) layout."""
+    from ..utils import envflags
+    from ..ops.slottables import container_rows
+    from . import engine
+
+    mode = mode or engine._wire_mode()
+    rpm = engine._row_pack_map(plan, mode)
+    base3 = bool(envflags.get("RIPTIDE_KERNEL_BASE3"))
+    buckets = []
+    live_t = comp_t = legacy_t = 0
+    for s, st in enumerate(plan.stages):
+        nb = len(st.bins)
+        for k, idx in enumerate(st.lane_buckets):
+            ms = [st.ms_padded[i] for i in idx]
+            L, rows, P = engine._bucket_shape(st, idx)
+            legacy_rows = (container_rows(max(ms), L) if base3
+                           else 1 << L)
+            live = sum(st.rows_eval[i] * st.ps_padded[i]
+                       for i in idx if i < nb)
+            entry = rpm.get((s, k))
+            role = entry[0] if entry else None
+            comp = 0 if role == "guest" else len(idx) * rows * P
+            legacy = len(idx) * legacy_rows * P
+            buckets.append({
+                "stage": s, "bucket": k, "B": len(idx), "rows": rows,
+                "P": P, "legacy_rows": legacy_rows,
+                "live_rowlane": int(live), "computed_rowlane": int(comp),
+                "role": role,
+                "pair_stage": entry[1] if entry else None,
+            })
+            live_t += live
+            comp_t += comp
+            legacy_t += legacy
+    pad = comp_t - live_t
+    legacy_pad = legacy_t - live_t
+    return {
+        "mode": mode,
+        "row_pack": bool(envflags.get("RIPTIDE_KERNEL_ROW_PACK")),
+        "pairs": sum(1 for v in rpm.values() if v[0] == "host"),
+        "buckets": buckets,
+        "totals": {
+            "live_rowlane": int(live_t),
+            "computed_rowlane": int(comp_t),
+            "padded_rowlane": int(pad),
+            "legacy_computed_rowlane": int(legacy_t),
+            "legacy_padded_rowlane": int(legacy_pad),
+            "occupancy": live_t / comp_t if comp_t else 1.0,
+            "padded_reduction_vs_legacy": (
+                (legacy_pad - pad) / legacy_pad if legacy_pad else 0.0),
+        },
+    }
 
 
 def check_arguments(size, tsamp, period_min, period_max, bins_min, bins_max):
@@ -144,6 +210,63 @@ class CycleStage:
         """ceil(log2(max m)) over the stage (sizes the wire's scale
         slack, as in the JAX package's view layout)."""
         return max(num_levels(m) for m in self.ms_padded)
+
+    @property
+    def lane_buckets(self):
+        """The stage's padded trial indices grouped by ceil(p / 128), as
+        the JAX package groups them into lane-occupancy buckets, in
+        ascending order; one bucket of every trial when
+        ``RIPTIDE_KERNEL_LANE_SPLIT=0``. Every stage of a plan has the
+        same bins list, so the same buckets."""
+        from ..utils import envflags
+
+        split = bool(envflags.get("RIPTIDE_KERNEL_LANE_SPLIT"))
+        cached = getattr(self, "_lane_buckets", None)
+        if cached is not None and cached[0] == split:
+            return cached[1]
+        if split:
+            tiles = {}
+            for i, p in enumerate(self.ps_padded):
+                tiles.setdefault(-(-p // 128), []).append(i)
+            buckets = tuple(tuple(ix) for _, ix in sorted(tiles.items()))
+        else:
+            buckets = (tuple(range(len(self.ps_padded))),)
+        self._lane_buckets = (split, buckets)
+        return buckets
+
+    def _bucket_plan(self, k, guests=None, key=None):
+        from ..ops.ffa_kernel import bucket_rows
+
+        idx = self.lane_buckets[k]
+        ms = [self.ms_padded[i] for i in idx]
+        ps = [self.ps_padded[i] for i in idx]
+        L = max(num_levels(m) for m in ms)
+        R = bucket_rows(ms, L) + 1
+        cache = getattr(self, "_bucket_plans", None)
+        if cache is None:
+            cache = self._bucket_plans = {}
+        full = (idx, R, key)
+        b = cache.get(full)
+        if b is None:
+            b = cache[full] = FFABatchPlan(ms, ps, R=R, P=max(ps), L=L,
+                                           guests=guests)
+        return b
+
+    def bucket_batch(self, k):
+        """:class:`FFABatchPlan` of lane bucket ``k``: L from its largest
+        m, R = ``bucket_rows`` + 1 (the TPU layout's height under the
+        container flags, plus the zero row), P = its largest p."""
+        return self._bucket_plan(k)
+
+    def paired_batch(self, k, guest_st, bases):
+        """:class:`FFABatchPlan` of lane bucket ``k`` with ``guest_st``'s
+        same-position trials at the per-trial ``bases`` (None: no guest
+        on that trial): the host bucket's L, R and P."""
+        idx = self.lane_buckets[k]
+        guests = [None if bb is None else (guest_st.ms_padded[g], bb)
+                  for g, bb in zip(idx, bases)]
+        return self._bucket_plan(k, guests,
+                                 key=(guest_st.f, tuple(bases)))
 
 
 class PeriodogramPlan:

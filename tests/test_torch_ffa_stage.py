@@ -185,4 +185,5 @@ def test_cpu_wrappers_launch_nothing(stage_case):
     _, plan, batch, _, _, _, _ = stage_case
     fk.reset_launches()
     engine.run_periodogram_batch(plan, batch, device="cpu")
-    assert fk.LAUNCHES == {"fused_stage": 0, "cascade_stage": 0}
+    assert fk.LAUNCHES == {"fused_stage": 0, "cascade_stage": 0,
+                           "paired_stage": 0}

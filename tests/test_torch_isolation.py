@@ -64,6 +64,14 @@ def test_sources_import_no_jax_or_reference():
     assert offenders == []
 
 
+def test_survey_modules_are_covered():
+    """The survey path's modules are among those imported above."""
+    mods = _modules()
+    for name in ("search.peaks_device", "peak_detection", "clustering",
+                 "utils.envflags", "ops.slottables"):
+        assert f"riptide_tpu_torch.{name}" in mods
+
+
 def test_kernel_source_ships_with_the_package():
     from riptide_tpu_torch.ops import ffa_kernel
 
@@ -75,8 +83,10 @@ def test_entry_points_default_to_the_card():
     """``device=None`` means CUDA. Without a usable card every entry point
     raises instead of carrying on quietly on the CPU."""
     from riptide_tpu_torch import TimeSeries, ffa_search
-    from riptide_tpu_torch.search import (periodogram_plan, run_periodogram,
-                                          run_periodogram_batch)
+    from riptide_tpu_torch.search import (periodogram_plan, queue_search_batch,
+                                          run_periodogram,
+                                          run_periodogram_batch,
+                                          run_search_batch)
 
     assert resolve_device("cpu").type == "cpu"
     if torch.cuda.is_available():
@@ -90,6 +100,8 @@ def test_entry_points_default_to_the_card():
         lambda: resolve_device("cuda"),
         lambda: run_periodogram(plan, data),
         lambda: run_periodogram_batch(plan, data[None]),
+        lambda: run_search_batch(plan, data[None], 2.5),
+        lambda: queue_search_batch(plan, data[None], 2.5),
         lambda: ffa_search(ts, period_min=64e-3, period_max=0.072,
                            bins_min=64, bins_max=67),
     ]

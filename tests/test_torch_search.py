@@ -112,15 +112,15 @@ def test_recording_keeps_split_and_operands(monkeypatch):
     for key in ("prep_s", "ship_s", "stages_s", "out_s"):
         assert rec[key] >= 0.0
     assert rec["stage_ms"] == []  # CUDA events only on a card
-    assert len(rec["outs"]) == len(plan.stages)
-    for i, st in enumerate(plan.stages):
-        tables, coefs = engine._stage_operands(st, plan, rec["wire"].device)
-        want = fused_stage_plain(rec["wire"], rec["meta"]["scales_dev"],
-                                 engine.stage_geom(rec["meta"], i, st.n),
-                                 tables, coefs)
-        np.testing.assert_array_equal(rec["outs"][i].numpy(), want.numpy())
+    assert len(rec["outs"]) == len(rec["layout"]) == len(plan.stages)
+    outs = [o for souts in rec["outs"] for o in souts]
+    assert [r["out"] for r in rec["launches"]] == outs
+    for r in rec["launches"]:
+        assert r["kind"] == "fused_stage"
+        np.testing.assert_array_equal(r["out"].numpy(),
+                                      fused_stage_plain(*r["args"]).numpy())
     np.testing.assert_array_equal(
-        engine._assemble(plan, rec["outs"]).numpy(), S)
+        engine._assemble_device(plan, rec["layout"], rec["outs"]).numpy(), S)
 
 
 def test_periods_monotonic_and_identity_contract():
