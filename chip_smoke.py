@@ -5,7 +5,8 @@ Smoke run of the PyTorch port (``riptide_tpu_torch``) on one CUDA card.
     python3 chip_smoke.py
 
 Builds the cascade-stage kernels (``riptide_tpu_torch/csrc/ffa_stage.cu``)
-from this checkout with nvcc, then:
+and the chip probes' kernels (``riptide_tpu_torch/csrc/probes.cu``) from
+this checkout with nvcc, one process each, started together, then:
 
 0. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions and the kernel build time;
@@ -36,7 +37,20 @@ from this checkout with nvcc, then:
    just after; the three S/N cubes must be the same bits, the three peak
    lists identical, and series 0 must give the pulsar. Every K3 launch of
    run (b) is held against ``paired_stage_plain``, and K3 is timed over
-   all of them.
+   all of them;
+6. the chip probes P1-P3 (``riptide_tpu_torch.probes``) through their
+   entry points at the JAX tools' shapes: ``ptime.main(["all"])``,
+   ``ptime2.main`` with all six bodies at NITER 20000 and
+   ``probe1536.main([])``, their launch counts set to 0 just before and
+   read just after (every probe kernel must have launched; a count holds
+   the wrappers' eager launches, not the calls captured into a CUDA
+   graph for timing nor the graph's replays). Each
+   pattern's output is held against its plain version on the same
+   inputs (the same bits; the matmul within rtol/atol
+   ``PROBE_MM_RTOL``/``PROBE_MM_ATOL`` of ``torch.matmul`` in full
+   float32), every P3 level against the tool's numpy sequence bit for
+   bit, and each probe's kernel time printed beside its plain version's
+   (P2's plain versions run once, at the full NITER) and its bound.
 
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
@@ -51,13 +65,15 @@ nothing of the JAX package.
 import contextlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from riptide_tpu_torch.utils.measure import (PEAK_BYTES_PER_S, bound_ms,
+                                             median_ms, timed)
 
 HEADLINE = dict(nsamp=2 ** 23, tsamp=64e-6, period_min=0.5, period_max=3.0,
                 bins_min=240, bins_max=260)
@@ -77,42 +93,16 @@ HEADLINE_PAIRS = 10
 # (a chunked warp scan against torch.cumsum), a few float32 ulps of
 # values ~1e3, i.e. ~1e-5 in S/N.
 RTOL, ATOL = 1e-5, 1e-4
-# Published H100 SXM peaks: device memory rate, and float32 outside the
-# tensor cores. The data sheet's 67 TFLOP/s counts an FMA as two
-# operations; the stage kernels issue adds, subtracts, maxes and
-# multiplies, one operation per instruction, so their ceiling is half.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12 / 2
+# Timed calls of a kernel over the main path's launches (median).
 REPS = 20
+# Phase 6: the hand-written float32 GEMM against torch.matmul in full
+# float32 (sums of 2048 products in another order, outputs ~1-4).
+PROBE_MM_RTOL, PROBE_MM_ATOL = 1e-5, 1e-5
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
-
-
-def median_ms(fn, dev, reps=REPS):
-    """Median milliseconds of ``fn()`` over ``reps`` runs after one
-    warm-up: CUDA events around each run on a card, the host clock on
-    the CPU."""
-    fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    times = []
-    for _ in range(reps):
-        if dev.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def gpu_line():
@@ -194,12 +184,6 @@ def launch_bytes(launches, view):
         rows = -(-span // PW)
         nb += D * (planes * -(-rows // group) * PW + rows * 4)
     return nb
-
-
-def bound_ms(nbytes, ops):
-    tb = nbytes / PEAK_BYTES_PER_S
-    to = ops / PEAK_OPS_PER_S
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def compare_stages(name, got, want):
@@ -358,7 +342,8 @@ def phase_kernels(dev, plan, rec):
         return [fk.cascade_stage_plain(x, t, c) for x, (t, c) in zip(conts, tc)]
 
     # cascade_stage uses its input as level scratch: every call gets its
-    # own copy, made before any timing starts.
+    # own copy (median_ms's warm-up and REPS calls, and the check),
+    # made before any timing starts.
     copies = iter([[x.clone() for x in conts] for _ in range(REPS + 2)])
 
     def k2():
@@ -366,10 +351,10 @@ def phase_kernels(dev, plan, rec):
                 for x, (t, c) in zip(next(copies), tc)]
 
     err2 = compare_stages("K2 cascade_stage", k2(), k2_plain())
-    ms1 = median_ms(lambda: [fk.fused_stage(*a) for a in args], dev)
+    ms1 = median_ms(lambda: [fk.fused_stage(*a) for a in args], dev, REPS)
     pms1 = median_ms(lambda: [fk.fused_stage_plain(*a) for a in args], dev,
                      reps=5)
-    ms2 = median_ms(k2, dev)
+    ms2 = median_ms(k2, dev, REPS)
     pms2 = median_ms(k2_plain, dev, reps=5)
 
     nb2 = ops1 = ops2 = design = 0
@@ -578,7 +563,7 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
     k3, args = b["k3"], [r["args"] for r in b["k3"]]
     err = compare_stages("K3 paired_stage in run (b)", [r["out"] for r in k3],
                          plain_launches(b["rec"], "paired_stage"))
-    ms = median_ms(lambda: [fk.paired_stage(*x) for x in args], dev)
+    ms = median_ms(lambda: [fk.paired_stage(*x) for x in args], dev, REPS)
     pms = median_ms(lambda: [fk.paired_stage_plain(*x) for x in args], dev,
                     reps=5)
     ops = sum(trials_work(t, D, nw) for t in b["k3_trials"])
@@ -587,6 +572,80 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
           f"{ms:.4f} ms (plain {pms:.4f} ms, bound {bnd[0]:.4f} ms by "
           f"{bnd[1]})", flush=True)
     return b["launches"]["paired_stage"], err, (ms, pms, *bnd)
+
+
+def phase_probes(dev):
+    """Phase 6: the chip probes through their entry points. Returns one
+    ``kernels`` entry per probe: its launches in the run, the largest
+    difference from plain, and the sums over its patterns of kernel ms
+    (the entry point's device time per call, from CUDA graph replays),
+    plain ms and bound ms."""
+    from riptide_tpu_torch.probes import probe1536, ptime, ptime2
+
+    probes = (("P1", "P1 ptime", ptime, ["all"], "tools/ptime.py:86"),
+              ("P2", "P2 ptime2", ptime2, list(ptime2.BODIES),
+               "tools/ptime2.py:28"),
+              ("P3", "P3 probe1536", probe1536, [], "tools/probe1536.py:84"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for _, _, mod, _, _ in probes:
+        mod.reset_launches()
+    results = {key: mod.main(argv) for key, _, mod, argv, _ in probes}
+    launches = {key: dict(mod.LAUNCHES) for key, _, mod, _, _ in probes}
+    print(f"  launches {launches}", flush=True)
+    for key, counts in launches.items():
+        idle = sorted(k for k, n in counts.items() if n == 0)
+        check(not idle, f"{key}: kernels {idle} never launched in the run")
+    entries = []
+    for key, name, mod, _, replaces in probes:
+        err = ms = pms = 0.0
+        bounds = {"bytes": 0.0, "operations": 0.0}
+        lib_ms = None
+        for r in results[key]:
+            plain = getattr(mod, f"{r.wrapper}_plain")
+            if key == "P2":
+                want, p_ms = timed(lambda: plain(*r.args), dev)
+            else:
+                want = plain(*r.args)
+                p_ms = median_ms(lambda: plain(*r.args), dev, reps=5)
+            check(r.out.shape == want.shape
+                  and bool(torch.isfinite(r.out).all()),
+                  f"{key} {r.name}: output {tuple(r.out.shape)} not finite "
+                  f"or not {tuple(want.shape)}")
+            e = float((r.out - want).abs().max())
+            if r.wrapper == "matmul":
+                check(torch.allclose(r.out, want, rtol=PROBE_MM_RTOL,
+                                     atol=PROBE_MM_ATOL),
+                      f"{key} {r.name}: max |kernel - plain| {e:.3e}")
+                a, x, reps = r.args
+                lib_ms = median_ms(
+                    lambda: [torch.matmul(a, x) for _ in range(r.passes)],
+                    dev, REPS)
+            else:
+                check(torch.equal(r.out, want), f"{key} {r.name}: not the "
+                      f"plain version's bits (max |err| {e:.3e})")
+            check(r.ok is not False, f"{key} {r.name}: differs from the "
+                  "tool's numpy sequence")
+            bms, by = r.bound()
+            bounds[by] += bms
+            err, ms, pms = max(err, e), ms + r.ms, pms + p_ms
+            print(f"  {key} {r.name}: max |kernel - plain| {e:.3e}; kernel "
+                  f"{r.ms:.4f} ms, plain {p_ms:.4f} ms, bound {bms:.6f} ms by "
+                  f"{by}", flush=True)
+        bms = sum(bounds.values())
+        by = max(bounds, key=bounds.get)
+        print(f"  {key}: {len(results[key])} patterns, kernels {ms:.4f} ms "
+              f"(plain {pms:.4f} ms, bound {bms:.4f} ms, mostly by {by}"
+              + (f"; {r.passes} x torch.matmul {lib_ms:.4f} ms"
+                 if lib_ms is not None else "") + ")", flush=True)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "riptide_tpu_torch/csrc/probes.cu",
+            "replaces": replaces,
+            "launches": sum(launches[key].values()), "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms,
+        })
+    return entries
 
 
 def _same_layout(x, y):
@@ -606,21 +665,32 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script needs one card",
               file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
+
     from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.probes import common as probes
 
     dev = torch.device("cuda")
     card = gpu_line()
     print(f"phase 0: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
     t0 = time.perf_counter()
-    fk._library()
-    print(f"  kernel build + load {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{fk.BUILD_INFO['seconds']:.2f} s) -> {fk.BUILD_INFO['path']}",
-          flush=True)
-    for line in fk.BUILD_INFO["log"].splitlines():
-        if "ptxas info" in line and ("registers" in line or "Compiling" in line
-                                     or "spill" in line):
-            print("  " + line.strip(), flush=True)
+    libs = (fk._LIB, probes.LIB)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for done in [pool.submit(lib.build) for lib in libs]:
+            done.result()
+    for lib in libs:
+        lib.load()
+    print(f"  kernel builds + loads {time.perf_counter() - t0:.2f} s, "
+          "together", flush=True)
+    for lib in libs:
+        print(f"  {lib.source.name}: nvcc {lib.info['seconds']:.2f} s -> "
+              f"{lib.info['path']}", flush=True)
+        for line in lib.info["log"].splitlines():
+            if "ptxas info" in line and ("registers" in line
+                                         or "Compiling" in line
+                                         or "spill" in line):
+                print("  " + line.strip(), flush=True)
 
     plan = headline_plan()
     check(plan.length == HEADLINE_TRIALS, f"plan has {plan.length} trials")
@@ -636,6 +706,11 @@ def main(argv=None):
     print("phase 5: run_search_batch, D = 32, three container layouts",
           flush=True)
     n3, err3, times["K3"] = phase_survey(dev, plan)
+    print("phase 6: chip probes P1-P3 through their entry points",
+          flush=True)
+    t6 = time.perf_counter()
+    probe_entries = phase_probes(dev)
+    print(f"  phase 6: {time.perf_counter() - t6:.1f} s wall", flush=True)
     if args.profile:
         print("profile: headline run_periodogram", flush=True)
         profile_search(plan, data, dev, args.profile)
@@ -655,6 +730,7 @@ def main(argv=None):
             "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
         })
+    entries += probe_entries
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

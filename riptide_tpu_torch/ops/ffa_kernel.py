@@ -19,9 +19,9 @@ wrapper                replaces (riptide_tpu/ops/ffa_kernel.py)
 
 The kernels live in ``riptide_tpu_torch/csrc/ffa_stage.cu`` (its header
 says how each part maps to the Pallas code and what bounds it). They are
-built with ``nvcc`` for ``sm_90a`` at first use, into
+built with ``nvcc`` for ``sm_90a`` (``NVCC_FLAGS``) at first use, into
 ``riptide_tpu_torch/_build/`` keyed by a hash of the source and flags,
-and loaded with ctypes.
+and loaded with ctypes, by ``utils/cuda_build.py``.
 
 A wrapper given CUDA tensors launches its kernels on the current stream
 or raises (failed build, refused shape, launch error); it never falls
@@ -46,16 +46,15 @@ have; the port's one limit is the S/N kernel's shared memory,
 ``SNR_WARPS * P * 4`` bytes per block (at most ``MAX_DYNAMIC_SMEM``).
 """
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from ..utils import cuda_build
+from ..utils.cuda_build import MAX_DYNAMIC_SMEM, NVCC_FLAGS
+from ..utils.cuda_build import check as _check
+from ..utils.cuda_build import require as _require
+from ..utils.cuda_build import stream as _stream
 from .ffa import ffa_levels
 from .snr import snr_batched
 
@@ -64,29 +63,17 @@ __all__ = ["fused_stage", "cascade_stage", "paired_stage",
            "StageGeom", "Tables", "Coefs", "LAUNCHES", "reset_launches",
            "build", "bucket_rows", "WIRE_MODES"]
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ffa_stage.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+SOURCE = cuda_build.CSRC / "ffa_stage.cu"
 
 # Quantised wire modes: mode -> (group, planes). ``group`` consecutive
 # view rows share one byte-plane row; ``planes`` byte planes per stage.
 WIRE_MODES = {"uint8": (1, 1), "uint12": (2, 3), "uint6": (4, 3)}
 _MODE_CODE = {"uint6": 6, "uint8": 8, "uint12": 12}
 
-# Rows (one warp each) per boxcar_snr block, as in ffa_stage.cu, and the
-# largest dynamic shared memory an H100 block may opt into.
+# Rows (one warp each) per boxcar_snr block, as in ffa_stage.cu.
 SNR_WARPS = 4
-MAX_DYNAMIC_SMEM = 232448
 
 LAUNCHES = {"fused_stage": 0, "cascade_stage": 0, "paired_stage": 0}
-
-# nvcc's output (with -Xptxas -v: registers, shared memory, spills) of
-# the build this process loaded, and the seconds it took (0 when the
-# library was already built).
-BUILD_INFO = {"log": "", "seconds": 0.0, "path": None}
 
 
 def reset_launches():
@@ -163,95 +150,42 @@ def bucket_rows(ms, L):
 # Build and load
 # ---------------------------------------------------------------------------
 
-_LOCK = threading.Lock()
-_LIB = None
+def _bind(lib):
+    vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.rt_decode_pack.argtypes = [vp, vp, vp, vp, vp, ll, i32, i32, i32, ll,
+                                   i32, ll, ll, ll, ll, i32, vp]
+    lib.rt_ffa_levels.argtypes = [vp, vp, vp, vp, vp, vp, i32, ll, i32, i32,
+                                  i32, vp]
+    lib.rt_decode_pack_paired.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, ll, i32, i32, i32, ll, i32, ll, ll, ll,
+        ll, ll, ll, ll, i32, vp]
+    lib.rt_boxcar_snr.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                  ll, i32, i32, i32, i32, i32, vp]
+    for fn in (lib.rt_decode_pack, lib.rt_decode_pack_paired,
+               lib.rt_ffa_levels, lib.rt_boxcar_snr, lib.rt_snr_warps):
+        fn.restype = i32
+    if lib.rt_snr_warps() != SNR_WARPS:
+        raise RuntimeError("ffa_stage.cu and ffa_kernel.py disagree on "
+                           "SNR_WARPS")
 
 
-def _nvcc():
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): cannot build "
-                       f"{SOURCE.name}")
+_LIB = cuda_build.Library(SOURCE, _bind)
+# nvcc's output (with -Xptxas -v: registers, shared memory, spills) of
+# the build this process loaded, and the seconds it took (0 when the
+# library was already built).
+BUILD_INFO = _LIB.info
 
 
 def build():
     """Path of the built kernel library, compiling it with nvcc first if
     this source and flag set have not been built yet. Raises
     RuntimeError when nvcc is missing or fails."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libffa_stage_{key}.so"
-    BUILD_INFO["path"] = str(out)
-    if out.exists():
-        return out
-    import time
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
-                           f"(exit {proc.returncode}):\n{BUILD_INFO['log']}")
-    os.replace(tmp, out)
-    return out
+    return _LIB.build()
 
 
 def _library():
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.rt_decode_pack.argtypes = [vp, vp, vp, vp, vp, ll, i32, i32,
-                                           i32, ll, i32, ll, ll, ll, ll, i32,
-                                           vp]
-            lib.rt_ffa_levels.argtypes = [vp, vp, vp, vp, vp, vp, i32, ll,
-                                          i32, i32, i32, vp]
-            lib.rt_decode_pack_paired.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp, ll, i32, i32, i32, ll, i32, ll,
-                ll, ll, ll, ll, ll, ll, i32, vp]
-            lib.rt_boxcar_snr.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                          vp, vp, vp, ll, i32, i32, i32, i32,
-                                          i32, vp]
-            for fn in (lib.rt_decode_pack, lib.rt_decode_pack_paired,
-                       lib.rt_ffa_levels, lib.rt_boxcar_snr,
-                       lib.rt_snr_warps):
-                fn.restype = i32
-            lib.rt_error_string.argtypes = [i32]
-            lib.rt_error_string.restype = ctypes.c_char_p
-            if lib.rt_snr_warps() != SNR_WARPS:
-                raise RuntimeError("ffa_stage.cu and ffa_kernel.py disagree "
-                                   "on SNR_WARPS")
-            _LIB = lib
-    return _LIB
+    return _LIB.load()
 
-
-def _check(lib, name, code):
-    if code != 0:
-        raise RuntimeError(f"{name}: CUDA error {code} "
-                           f"({lib.rt_error_string(code).decode()})")
-
-
-def _stream(dev):
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _require(x, name, dtype, dev, shape=None):
-    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
-                         f"{dev}, got {x.dtype} on {x.device} "
-                         f"(contiguous={x.is_contiguous()})")
-    if shape is not None and tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: want shape {tuple(shape)}, "
-                         f"got {tuple(x.shape)}")
 
 
 def _check_stage(tables, coefs, D, B, R, P, dev):

@@ -31,6 +31,7 @@ from riptide_tpu_torch.ops.plan import FFABatchPlan
 from riptide_tpu_torch.ops.snr import boxcar_coeffs, snr_batched
 from riptide_tpu_torch.search import engine
 from riptide_tpu_torch.search.plan import periodogram_plan
+from riptide_tpu_torch.utils import cuda_build
 
 RTOL, ATOL = 1e-5, 1e-4
 CFG = (2500, 1e-3, (1, 2, 3), 64e-3, 0.072, 64, 67)
@@ -172,8 +173,8 @@ def test_stage_checks_refuse_bad_operands(stage_case):
 
 def test_failed_build_raises(monkeypatch, tmp_path):
     """A kernel build that fails raises; nothing falls back."""
-    monkeypatch.setattr(fk, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(fk, "_nvcc", lambda: "false")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fk.build()
     assert not list(tmp_path.glob("*.so"))

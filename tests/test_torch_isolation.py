@@ -18,10 +18,11 @@ from riptide_tpu_torch.utils.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "riptide_tpu_torch")
-# `import jax...`, `from jax...`, `import riptide_tpu...` or
-# `from riptide_tpu...` — but not the port's own `riptide_tpu_torch`.
+# `import jax...`, `from jax...`, `import riptide_tpu...`,
+# `from riptide_tpu...` or the JAX package's `tools` — but not the
+# port's own `riptide_tpu_torch`.
 _FORBIDDEN = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|jaxlib|riptide_tpu)(?![\w])", re.M)
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|riptide_tpu|tools)(?![\w])", re.M)
 
 
 def _modules():
@@ -68,21 +69,35 @@ def test_survey_modules_are_covered():
     """The survey path's modules are among those imported above."""
     mods = _modules()
     for name in ("search.peaks_device", "peak_detection", "clustering",
-                 "utils.envflags", "ops.slottables"):
+                 "utils.envflags", "ops.slottables", "utils.cuda_build",
+                 "utils.measure", "probes.common", "probes.ptime", "probes.ptime2",
+                 "probes.probe1536"):
         assert f"riptide_tpu_torch.{name}" in mods
 
 
 def test_kernel_source_ships_with_the_package():
+    """Both CUDA sources sit in the package's csrc/, build for sm_90a, and
+    the packaging lists the probes and ships csrc/*.cu."""
+    import tomllib
+
     from riptide_tpu_torch.ops import ffa_kernel
+    from riptide_tpu_torch.probes import common
 
     assert ffa_kernel.SOURCE.is_file()
     assert "sm_90a" in " ".join(ffa_kernel.NVCC_FLAGS)
+    assert common.SOURCE.is_file() and common.SOURCE.parent == ffa_kernel.SOURCE.parent
+    assert "sm_90a" in " ".join(common.LIB.flags)
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as fobj:
+        tool = tomllib.load(fobj)["tool"]["setuptools"]
+    assert "riptide_tpu_torch.probes" in tool["packages"]
+    assert "csrc/*.cu" in tool["package-data"]["riptide_tpu_torch"]
 
 
 def test_entry_points_default_to_the_card():
     """``device=None`` means CUDA. Without a usable card every entry point
     raises instead of carrying on quietly on the CPU."""
     from riptide_tpu_torch import TimeSeries, ffa_search
+    from riptide_tpu_torch.probes import probe1536, ptime, ptime2
     from riptide_tpu_torch.search import (periodogram_plan, queue_search_batch,
                                           run_periodogram,
                                           run_periodogram_batch,
@@ -104,6 +119,9 @@ def test_entry_points_default_to_the_card():
         lambda: queue_search_batch(plan, data[None], 2.5),
         lambda: ffa_search(ts, period_min=64e-3, period_max=0.072,
                            bins_min=64, bins_max=67),
+        lambda: ptime.main([]),
+        lambda: ptime2.main([]),
+        lambda: probe1536.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,0 +1,118 @@
+"""
+The chip probes' CUDA kernels against their plain PyTorch versions, on a
+card.
+
+Marked ``cuda``: skipped on a host without one (the default CPU suite);
+run on a card with ``python -m pytest --noconftest
+tests/test_torch_probes_cuda.py``. Every kernel but the matmul is the
+same float32 operations in the same order as its plain version
+(``--fmad=false``), so the outputs are the same bits; the matmul's sums
+of K products run in another order than cuBLAS's (rtol 1e-5, atol
+1e-5 on outputs of magnitude ~1-4).
+"""
+import numpy as np
+import pytest
+import torch
+
+from riptide_tpu_torch.probes import common, probe1536, ptime, ptime2
+
+pytestmark = pytest.mark.cuda
+
+MM_RTOL, MM_ATOL = 1e-5, 1e-5
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev)
+
+
+P1_NAMES = ("add", "roll_lanes", "roll_rows", "select", "barrel",
+            "interleave", "repeat_tpu", "repeat_flat", "dynroll",
+            "stride_roll", "matmul")
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (2048, 384)])
+@pytest.mark.parametrize("name", P1_NAMES)
+def test_p1_kernel_matches_plain(dev, name, shape):
+    rng = np.random.default_rng(0)
+    x = _randn(rng, shape, dev)
+    if name == "dynroll":
+        args = (torch.from_numpy(np.arange(8, dtype=np.int32) * 37 + 5).to(
+            dev), x)
+    elif name == "matmul":
+        args = (_randn(rng, (shape[0], shape[0]), dev), x)
+    else:
+        args = (x,)
+    before = ptime.LAUNCHES[name]
+    got = getattr(ptime, name)(*args, 32)
+    # One launch a call; the matmul launches its GEMM once a product.
+    assert ptime.LAUNCHES[name] == before + (4 if name == "matmul" else 1)
+    want = getattr(ptime, f"{name}_plain")(*args, 32)
+    if name == "matmul":
+        torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(16, 32), (15, 32), (2048, 384),
+                                   (256, 384)])
+@pytest.mark.parametrize("name", list(ptime2.BODIES))
+def test_p2_kernel_matches_plain(dev, name, shape):
+    x = _randn(np.random.default_rng(0), shape, dev) * 1e-3
+    before = ptime2.LAUNCHES[name]
+    got = ptime2.BODIES[name](x, 300)
+    assert ptime2.LAUNCHES[name] == before + 1
+    assert torch.equal(got, getattr(ptime2, f"{name}_plain")(x, 300))
+
+
+@pytest.mark.parametrize("rows,cols,depth", [(96, 128, 7), (1536, 384, 11)])
+def test_p3_kernel_matches_plain_and_numpy(dev, rows, cols, depth):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((rows, cols)).astype(np.float32)
+    w = rng.integers(0, 4, (rows, cols), dtype=np.int32) << 22
+    xd, wd = torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+    for _, S_d in probe1536.levels(rows, depth):
+        got = probe1536.slot_level(xd, wd, S_d, 8)
+        assert torch.equal(got, probe1536.slot_level_plain(xd, wd, S_d, 8))
+        want = x
+        for _ in range(8):
+            want = probe1536.numpy_ref(want, w, S_d)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_time_call_counts_eager_launches_only(dev):
+    """A timed pattern counts its eager launches (two warm-ups and the
+    CALLS calls between CUDA events), not the calls captured into its
+    CUDA graph nor the graph's replays."""
+    x = _randn(np.random.default_rng(0), (64, 128), dev)
+    before = ptime.LAUNCHES["add"]
+    out, ms, call_ms = common.time_call(lambda: ptime.add(x, 32), dev)
+    assert ptime.LAUNCHES["add"] == before + 2 + common.CALLS
+    assert torch.equal(out, ptime.add_plain(x, 32))
+    assert ms > 0 and call_ms > 0
+
+
+def test_wrappers_refuse_bad_input(dev):
+    """A wrong dtype, or a shape whose tile exceeds shared memory, raises
+    ValueError before any launch."""
+    x64 = torch.zeros((64, 128), dtype=torch.float64, device=dev)
+    wide = torch.zeros((2, 40000), device=dev)
+    tall = torch.zeros((40000, 2), device=dev)
+    for call in (lambda: ptime.add(x64), lambda: ptime2.roll1(x64),
+                 lambda: ptime2.roll1(wide), lambda: ptime.barrel(wide),
+                 lambda: ptime2.rollrow(tall),
+                 lambda: ptime.interleave(torch.zeros((24, 8), device=dev)),
+                 lambda: probe1536.slot_level(
+                     torch.zeros((40000, 2), device=dev),
+                     torch.zeros((40000, 2), dtype=torch.int32, device=dev),
+                     40000)):
+        with pytest.raises(ValueError):
+            call()
