@@ -12,19 +12,34 @@ this checkout with nvcc, one process each, started together, then:
    CUDA versions and the kernel build time;
 1. the S/N parity oracle: ``ffa_search`` of the seeded 128 s / 256 us
    pulsar must give S/N 18.5 +/- 0.15 at width 13, on the uint6 wire
-   (K1) and on the float32 wire (device pack, then K2);
+   (K1) and on the float32 wire (device pack, then K2: K2's own path).
+   The launch counts are set to 0 just before each search and read just
+   after; the float32 search's 17 K2 launches (one per stage, each a
+   segment launch from the container) are the ``kernels`` line's K2
+   launches, and are recorded for phase 3;
 2. the main path: ``ffa_search`` of a 2^23-sample / 64 us series with an
    injected pulsar, P 0.5-3.0 s, bins 240-260 (222,955 trials), on the
    default uint6 wire. The launch counts are set to 0 just before this
-   search and read just after: one K1 (and its K2 half) per queued lane
-   bucket (``engine.queued_launches``). The search is recorded
-   (``engine.recording``): its time split into host wire preparation,
-   copies and the stage loop, and every K1 launch's output held against
-   ``fused_stage_plain`` on the same operands;
-3. K1 ``fused_stage`` and K2 ``cascade_stage`` at the main path's own
-   shapes, every launch of that search (D = 1): K2 against its plain
-   version on the containers K1's front half builds, and the time of one
-   pass of each kernel and of each plain version over all launches;
+   search and read just after: one K1 per queued lane bucket
+   (``engine.queued_launches``) and no K2, and by CUDA kernel one
+   segment launch from the wire and one S/N launch per K1, one level
+   launch per FFA level past the segment kernel's
+   (``ffa_kernel.KERNEL_LAUNCHES``). The cold segment-table build
+   (``ops.plan.segment_plan`` of all 43 containers) is timed. The search
+   is recorded (``engine.recording``): its time split into host wire
+   preparation, copies and the stage loop, and every K1 launch's output
+   held against ``fused_stage_plain`` on the same operands;
+3. K1 ``fused_stage`` on every launch of that search (D = 1) and K2
+   ``cascade_stage`` on the oracle's 17 float32 launches and on the
+   containers K1's front half builds: the container after the segment
+   kernel and after every global level (``segment_levels``) against the
+   plain levels (``ffa_levels`` over the same leading levels), bit for
+   bit, from the wire (K1) and from the packed container (K2); K2's
+   outputs against its plain version; and the time of one pass of each
+   kernel over those launches (device time from CUDA graph replays, and
+   through the wrappers between CUDA events) and of each plain version.
+   The ``kernels`` line takes K1 over the headline's launches and K2
+   over the oracle's;
 4. ``run_periodogram_batch`` at the headline configuration with D = 32:
    DM-trials/s, peak device memory, the launch counts, the time split,
    and every K1 launch's output against its plain version;
@@ -36,8 +51,9 @@ this checkout with nvcc, one process each, started together, then:
    second of two, its launch counts set to 0 just before it and read
    just after; the three S/N cubes must be the same bits, the three peak
    lists identical, and series 0 must give the pulsar. Every K3 launch of
-   run (b) is held against ``paired_stage_plain``, and K3 is timed over
-   all of them;
+   run (b) is held against ``paired_stage_plain``, its containers after
+   the segment kernel and every global level against the plain levels
+   bit for bit, and K3 is timed over all of them;
 6. the chip probes P1-P3 (``riptide_tpu_torch.probes``) through their
    entry points at the JAX tools' shapes: ``ptime.main(["all"])``,
    ``ptime2.main`` with all six bodies at NITER 20000 and
@@ -72,8 +88,7 @@ import time
 import numpy as np
 import torch
 
-from riptide_tpu_torch.utils.measure import (PEAK_BYTES_PER_S, bound_ms,
-                                             median_ms, timed)
+from riptide_tpu_torch.utils import measure
 
 HEADLINE = dict(nsamp=2 ** 23, tsamp=64e-6, period_min=0.5, period_max=3.0,
                 bins_min=240, bins_max=260)
@@ -100,6 +115,13 @@ REPS = 20
 PROBE_MM_RTOL, PROBE_MM_ATOL = 1e-5, 1e-5
 
 
+# Phase 1's parity oracle: the seeded series and its search.
+ORACLE_SERIES = dict(length=128.0, tsamp=256e-6, period=1.0, amplitude=20.0,
+                     ducy=0.02)
+ORACLE_SEARCH = dict(period_min=0.5, period_max=2.0, bins_min=480,
+                     bins_max=520, ducy_max=0.3)
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
@@ -119,6 +141,41 @@ def headline_plan(cfg=HEADLINE, widths=HEADLINE_WIDTHS):
     return periodogram_plan(cfg["nsamp"], cfg["tsamp"], tuple(widths),
                             cfg["period_min"], cfg["period_max"],
                             cfg["bins_min"], cfg["bins_max"])
+
+
+def oracle_series():
+    """Phase 1's seeded 128 s / 256 us series with a 1 s pulsar."""
+    from riptide_tpu_torch import TimeSeries
+
+    np.random.seed(0)
+    return TimeSeries.generate(**ORACLE_SERIES)
+
+
+def headline_series(cfg=HEADLINE, period=PULSAR["period"],
+                    amplitude=PULSAR["amplitude"]):
+    """Phase 2's seeded headline series with an injected pulsar."""
+    from riptide_tpu_torch import TimeSeries
+
+    np.random.seed(1)
+    ts = TimeSeries.generate(length=cfg["nsamp"] * cfg["tsamp"],
+                             tsamp=cfg["tsamp"], period=period,
+                             amplitude=amplitude, ducy=0.05)
+    check(ts.nsamp == cfg["nsamp"], f"generated {ts.nsamp} samples")
+    return ts
+
+
+@contextlib.contextmanager
+def wire_dtype(mode):
+    """Run the block on wire ``mode`` (``RIPTIDE_WIRE_DTYPE``)."""
+    saved = os.environ.get("RIPTIDE_WIRE_DTYPE")
+    os.environ["RIPTIDE_WIRE_DTYPE"] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("RIPTIDE_WIRE_DTYPE", None)
+        else:
+            os.environ["RIPTIDE_WIRE_DTYPE"] = saved
 
 
 def _trials(plan, r):
@@ -225,8 +282,8 @@ def kernel_outs(rec, kind):
 
 def check_launches(name, launches, want):
     check(launches == want, f"{name}: launches {launches}, want {want} "
-          "(one K1 and its K2 half per queued lane bucket, one K3 per "
-          "hosting bucket)")
+          "(quantised wire: one K1 per queued lane bucket or whole stage, "
+          "one K3 per hosting bucket; float32 wire: one K2 per stage)")
 
 
 def print_split(rec, D):
@@ -244,49 +301,72 @@ def print_split(rec, D):
 
 def phase_oracle(dev):
     """Phase 1: the 18.5 +/- 0.15 parity oracle, on the default uint6 wire
-    (K1) and on the float32 wire (device pack, then K2)."""
-    from riptide_tpu_torch import TimeSeries, ffa_search
+    (K1) and on the float32 wire (device pack, then K2), the launch
+    counts set to 0 just before each search and read just after. Returns
+    the float32 search's recorded K2 launches, its plan and its launch
+    counts (wrapper calls and CUDA launches)."""
+    from riptide_tpu_torch import ffa_search, periodogram_plan
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.search import engine
 
-    saved = os.environ.get("RIPTIDE_WIRE_DTYPE")
-    try:
-        for wire in ("uint6", "float32"):
-            os.environ["RIPTIDE_WIRE_DTYPE"] = wire
-            np.random.seed(0)
-            ts = TimeSeries.generate(length=128.0, tsamp=256e-6, period=1.0,
-                                     amplitude=20.0, ducy=0.02)
-            _, pgram = ffa_search(ts, period_min=0.5, period_max=2.0,
-                                  bins_min=480, bins_max=520, ducy_max=0.3,
-                                  device=dev)
-            ip, iw = np.unravel_index(np.argmax(pgram.snrs), pgram.snrs.shape)
-            snr = float(pgram.snrs[ip, iw])
-            freq = 1.0 / pgram.periods[ip]
-            print(f"  {wire} wire: best S/N {snr:.4f} at width "
-                  f"{int(pgram.widths[iw])}, f = {freq:.6f} Hz", flush=True)
-            check(abs(freq - 1.0) < 0.1 / 128.0, "oracle: wrong frequency")
-            check(int(pgram.widths[iw]) == 13, "oracle: wrong width")
-            check(abs(snr - 18.5) < 0.15,
-                  f"oracle: S/N {snr} outside 18.5 +/- 0.15")
-    finally:
-        if saved is None:
-            os.environ.pop("RIPTIDE_WIRE_DTYPE", None)
-        else:
-            os.environ["RIPTIDE_WIRE_DTYPE"] = saved
+    for mode in ("uint6", "float32"):
+        ts = oracle_series()
+        with wire_dtype(mode):
+            fk.reset_launches()
+            with engine.recording() as rec:
+                _, pgram = ffa_search(ts, **ORACLE_SEARCH, device=dev)
+            launches = dict(fk.LAUNCHES)
+            cuda = dict(fk.KERNEL_LAUNCHES)
+        ip, iw = np.unravel_index(np.argmax(pgram.snrs), pgram.snrs.shape)
+        snr = float(pgram.snrs[ip, iw])
+        freq = 1.0 / pgram.periods[ip]
+        print(f"  {mode} wire: best S/N {snr:.4f} at width "
+              f"{int(pgram.widths[iw])}, f = {freq:.6f} Hz; launches "
+              f"{launches}, CUDA launches {cuda}", flush=True)
+        check(abs(freq - 1.0) < 0.1 / ORACLE_SERIES["length"],
+              "oracle: wrong frequency")
+        check(int(pgram.widths[iw]) == 13, "oracle: wrong width")
+        check(abs(snr - 18.5) < 0.15,
+              f"oracle: S/N {snr} outside 18.5 +/- 0.15")
+        oplan = periodogram_plan(
+            ts.nsamp, ts.tsamp, tuple(int(w) for w in pgram.widths),
+            ORACLE_SEARCH["period_min"], ORACLE_SEARCH["period_max"],
+            ORACLE_SEARCH["bins_min"], ORACLE_SEARCH["bins_max"])
+        check_launches(f"oracle, {mode} wire", launches,
+                       engine.queued_launches(oplan, mode))
+        check(cuda["segment_container" if mode == "float32"
+                   else "segment_wire"] == sum(launches.values()),
+              f"oracle, {mode} wire: CUDA launches {cuda}, want one "
+              "segment launch per wrapper call")
+    k2 = [r for r in rec["launches"] if r["kind"] == "cascade_stage"]
+    check(len(k2) == launches["cascade_stage"] > 0,
+          "oracle: K2 did not launch on the float32 wire")
+    return k2, oplan, launches
 
 
-def phase_headline(dev, plan, cfg=HEADLINE, period=1.2345, amplitude=40.0):
+def phase_headline(dev, plan, cfg=HEADLINE, period=PULSAR["period"],
+                   amplitude=PULSAR["amplitude"]):
     """Phase 2, the main path: ffa_search at the headline configuration.
     Returns the launch counts of the recorded (second) search, its
     record, the K1 output's largest difference from plain, and the
     searched series."""
-    from riptide_tpu_torch import TimeSeries, ffa_search
+    from riptide_tpu_torch import ffa_search
     from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.ops.plan import segment_plan
     from riptide_tpu_torch.search import engine
 
-    np.random.seed(1)
+    buckets = [st.bucket_batch(k) for st in plan.stages
+               for k in range(len(st.lane_buckets))]
+    t0 = time.perf_counter()
+    segs = [segment_plan(b) for b in buckets]
+    seg_s = time.perf_counter() - t0
+    print(f"  cold segment tables (host, numpy): {seg_s:.4f} s for "
+          f"{len(segs)} containers, built with their operands at a plan's "
+          f"first search; {sum(b.L - g.levels for b, g in zip(buckets, segs))}"
+          f" of {sum(b.L for b in buckets)} FFA levels left to the level "
+          "kernel", flush=True)
     length = cfg["nsamp"] * cfg["tsamp"]
-    ts = TimeSeries.generate(length=length, tsamp=cfg["tsamp"], period=period,
-                             amplitude=amplitude, ducy=0.05)
-    check(ts.nsamp == cfg["nsamp"], f"generated {ts.nsamp} samples")
+    ts = headline_series(cfg, period, amplitude)
     kw = dict(period_min=cfg["period_min"], period_max=cfg["period_max"],
               bins_min=cfg["bins_min"], bins_max=cfg["bins_max"], device=dev)
     t0 = time.perf_counter()
@@ -298,6 +378,7 @@ def phase_headline(dev, plan, cfg=HEADLINE, period=1.2345, amplitude=40.0):
         tsn, pgram = ffa_search(ts, **kw)
         warm = time.perf_counter() - t0
     launches = dict(fk.LAUNCHES)
+    cuda = dict(fk.KERNEL_LAUNCHES)
     ntrials = pgram.periods.size
     ip, iw = np.unravel_index(np.argmax(pgram.snrs), pgram.snrs.shape)
     snr = float(pgram.snrs[ip, iw])
@@ -314,20 +395,74 @@ def phase_headline(dev, plan, cfg=HEADLINE, period=1.2345, amplitude=40.0):
     check(dfreq < 1.0 / length, "injected period not recovered")
     check(snr > 10.0, f"injected pulsar recovered at S/N {snr} only")
     check_launches("headline", launches, engine.queued_launches(plan))
+    calls = [r["args"][-2] for r in rec["launches"]]
+    old = sum(t.h.shape[0] for t in calls) + 2 * len(calls)
+    print(f"  CUDA launches per headline search: {sum(cuda.values())} "
+          f"{cuda} for {launches['fused_stage']} K1 wrapper calls (one "
+          f"launch per FFA level took {old})", flush=True)
+    check(cuda == {"segment_wire": len(calls), "segment_container": 0,
+                   "ffa_level": sum(t.h.shape[0] - t.local for t in calls),
+                   "boxcar_snr": len(calls)},
+          f"CUDA launches {cuda}: want one segment launch from the wire and "
+          "one S/N launch per K1 call, one level launch per FFA level past "
+          "the tiles")
     total = print_split(rec, 1)
     print(f"  rest of the warm search (DQ scan, de-reddening, normalisation):"
           f" {warm - total:.4f} s", flush=True)
     err = compare_stages("K1 fused_stage in the search",
                          kernel_outs(rec, "fused_stage"),
                          plain_launches(rec, "fused_stage"))
-    return launches, rec, err, tsn.data
+    return launches, rec, err, tsn.data, seg_s
 
 
-def phase_kernels(dev, plan, rec):
+def check_levels(name, sources):
+    """Each (source, tables) pair: the container after the segment kernel
+    and after every global level (``segment_levels``) against the plain
+    levels (``ffa_levels`` over the same leading levels of the plain
+    fill), bit for bit, signs of zeros included. Prints one line."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.ops.ffa import ffa_levels
+
+    n = 0
+    for src, tables in sources:
+        L, loc = tables.h.shape[0], tables.local
+        want = fk.fill_plain(src, tables)
+        for g in range(L - loc + 1):
+            a, z = (0, loc) if g == 0 else (loc + g - 1, loc + g)
+            want = ffa_levels(want, tables.h[a:z], tables.t[a:z],
+                              tables.shift[a:z], tables.p)
+            got = fk.segment_levels(src, tables, g)
+            check(torch.equal(got, want)
+                  and torch.equal(torch.signbit(got), torch.signbit(want)),
+                  f"{name}: the container after the segment kernel and "
+                  f"{g} global levels is not the plain levels' bits")
+            n += 1
+    print(f"  {name}: the containers after the segment kernel and every "
+          f"global level, {n} in {len(sources)} launches, are the plain "
+          "levels' bits", flush=True)
+
+
+def k2_work(launches, plan, conts):
+    """(bytes, operations) of K2 over recorded launches on their packed
+    containers: each container read once, its tables and coefficients,
+    its output written; the levels and the S/N of its trials."""
+    nb = ops = 0
+    nw = len(plan.widths)
+    for r, x in zip(launches, conts):
+        tables, coefs = r["args"][-2:]
+        nb += x.numel() * 4 + _table_bytes(tables, coefs) + r["out"].numel() * 4
+        ops += trials_work(_trials(plan, r), x.shape[0], nw, False)
+    return nb, ops
+
+
+def phase_kernels(dev, plan, rec, oracle):
     """Phase 3: K1 and K2 on every launch of the headline search, on the
-    operands each launch had. Returns K2's largest difference from plain
-    and, per kernel, (ms, plain ms, bound ms, bound by) of one pass over
-    all launches."""
+    operands each launch had, and K2 on the float32 oracle's launches
+    (``oracle``: the recorded launches and their plan), K2's own path.
+    Returns K2's largest difference from plain there and, per kernel,
+    (device ms, plain ms, bound ms, bound by) of one pass over its
+    path's launches: K1 over the headline search's, K2 over the
+    oracle's."""
     from riptide_tpu_torch.ops import ffa_kernel as fk
 
     k1 = [r for r in rec["launches"] if r["kind"] == "fused_stage"]
@@ -337,43 +472,79 @@ def phase_kernels(dev, plan, rec):
     conts = [fk.decode_pack_plain(w, s, g, t, t.h.shape[2])
              for w, s, g, t, _ in args]
     tc = [a[-2:] for a in args]
+    check_levels("K1 levels", [(fk.WireSource(*a[:3]), a[3]) for a in args])
+    check_levels("K2 levels", [(x, t) for x, (t, _) in zip(conts, tc)])
 
-    def k2_plain():
-        return [fk.cascade_stage_plain(x, t, c) for x, (t, c) in zip(conts, tc)]
+    def k2_plain(xs=conts, tcs=tc):
+        return [fk.cascade_stage_plain(x, t, c) for x, (t, c) in zip(xs, tcs)]
 
-    # cascade_stage uses its input as level scratch: every call gets its
-    # own copy (median_ms's warm-up and REPS calls, and the check),
-    # made before any timing starts.
-    copies = iter([[x.clone() for x in conts] for _ in range(REPS + 2)])
+    # cascade_stage uses its input as level scratch: the check gets
+    # fresh copies; the timed calls reuse one set (the work does not
+    # depend on the values).
+    compare_stages("K2 cascade_stage on K1's containers",
+                   [fk.cascade_stage(x.clone(), t, c)
+                    for x, (t, c) in zip(conts, tc)], k2_plain())
+    scratch = [x.clone() for x in conts]
 
-    def k2():
-        return [fk.cascade_stage(x, t, c)
-                for x, (t, c) in zip(next(copies), tc)]
+    def k2(xs=scratch, tcs=tc):
+        return [fk.cascade_stage(x, t, c) for x, (t, c) in zip(xs, tcs)]
 
-    err2 = compare_stages("K2 cascade_stage", k2(), k2_plain())
-    ms1 = median_ms(lambda: [fk.fused_stage(*a) for a in args], dev, REPS)
-    pms1 = median_ms(lambda: [fk.fused_stage_plain(*a) for a in args], dev,
-                     reps=5)
-    ms2 = median_ms(k2, dev, REPS)
-    pms2 = median_ms(k2_plain, dev, reps=5)
+    def k1_calls():
+        return [fk.fused_stage(*a) for a in args]
 
-    nb2 = ops1 = ops2 = design = 0
+    ms1 = measure.graph_ms(k1_calls, dev, REPS)
+    wms1 = measure.median_ms(k1_calls, dev, REPS)
+    pms1 = measure.median_ms(
+        lambda: [fk.fused_stage_plain(*a) for a in args], dev, reps=5)
+    ms2 = measure.graph_ms(k2, dev, REPS)
+    wms2 = measure.median_ms(k2, dev, REPS)
+    pms2 = measure.median_ms(k2_plain, dev, reps=5)
+
+    ops1 = design = 0
     for r, x in zip(k1, conts):
-        tables, coefs = r["args"][-2:]
-        nb2 += x.numel() * 4 + _table_bytes(tables, coefs) + r["out"].numel() * 4
-        trials = _trials(plan, r)
-        ops1 += trials_work(trials, D, nw, True)
-        ops2 += trials_work(trials, D, nw, False)
-        design += (3 * tables.h.shape[0] + 1) * x.numel() * 4
-    b1 = bound_ms(launch_bytes(k1, rec["meta"]["view"]), ops1)
-    b2 = bound_ms(nb2, ops2)
-    print(f"  {len(k1)} launches, D = {D}: K1 {ms1:.4f} ms (plain "
-          f"{pms1:.4f} ms, bound {b1[0]:.4f} ms by {b1[1]}); K2 {ms2:.4f} ms "
-          f"(plain {pms2:.4f} ms, bound {b2[0]:.4f} ms by {b2[1]}); the "
-          f"level ping-pong's own traffic {design / 1e9:.4f} GB, "
-          f"{design / PEAK_BYTES_PER_S * 1e3:.4f} ms at the memory rate",
-          flush=True)
-    return err2, {"K1": (ms1, pms1, *b1), "K2": (ms2, pms2, *b2)}
+        tables = r["args"][-2]
+        ops1 += trials_work(_trials(plan, r), D, nw, True)
+        # The cascade's own traffic: the segment kernel's write, each
+        # global level's read and write, the S/N's read.
+        design += (2 * (tables.h.shape[0] - tables.local) + 2) * \
+            x.numel() * 4
+    b1 = measure.bound_ms(launch_bytes(k1, rec["meta"]["view"]), ops1)
+    b2 = measure.bound_ms(*k2_work(k1, plan, conts))
+    print(f"  K1 over the headline search's {len(k1)} launches, D = {D}: "
+          f"{ms1:.4f} ms device, from CUDA graph replays ({wms1:.4f} ms "
+          f"through the wrappers; plain {pms1:.4f} ms, bound {b1[0]:.4f} ms "
+          f"by {b1[1]})", flush=True)
+    print(f"  K2 on K1's {len(k1)} containers: {ms2:.4f} ms device "
+          f"({wms2:.4f} ms through the wrappers; plain {pms2:.4f} ms, bound "
+          f"{b2[0]:.4f} ms by {b2[1]})", flush=True)
+    print(f"  K1's own device-memory traffic in the cascade (the segment "
+          f"kernel's write, each global level's read and write, the S/N's "
+          f"read; the wire aside): {design / 1e9:.4f} GB, "
+          f"{design / measure.PEAK_BYTES_PER_S * 1e3:.4f} ms at the memory "
+          "rate", flush=True)
+
+    okern, oplan = oracle
+    oargs = [r["args"] for r in okern]
+    err2 = compare_stages("K2 cascade_stage in the float32 oracle",
+                          kernel_outs({"launches": okern}, "cascade_stage"),
+                          [fk.cascade_stage_plain(*a) for a in oargs])
+    scratch = [a[0].clone() for a in oargs]
+    ok2 = [(x,) + tuple(a[1:]) for x, a in zip(scratch, oargs)]
+    check_levels("K2 levels (float32 oracle)",
+                 [(a[0], a[1]) for a in oargs])
+
+    def ok2_calls():
+        return [fk.cascade_stage(*a) for a in ok2]
+
+    oms = measure.graph_ms(ok2_calls, dev, REPS)
+    owms = measure.median_ms(ok2_calls, dev, REPS)
+    opms = measure.median_ms(
+        lambda: [fk.cascade_stage_plain(*a) for a in oargs], dev, reps=5)
+    ob = measure.bound_ms(*k2_work(okern, oplan, [a[0] for a in oargs]))
+    print(f"  K2 over the oracle's {len(oargs)} float32 launches: "
+          f"{oms:.4f} ms device ({owms:.4f} ms through the wrappers; plain "
+          f"{opms:.4f} ms, bound {ob[0]:.4f} ms by {ob[1]})", flush=True)
+    return err2, {"K1": (ms1, pms1, *b1), "K2": (oms, opms, *ob)}
 
 
 def profile_search(plan, data, dev, trace_dir):
@@ -416,8 +587,7 @@ def phase_batch(dev, plan, D=32, seed=2):
     from riptide_tpu_torch.ops import ffa_kernel as fk
     from riptide_tpu_torch.search import engine, run_periodogram_batch
 
-    rng = np.random.default_rng(seed)
-    batch = rng.standard_normal((D, plan.size), dtype=np.float32)
+    batch = noise_batch(plan, D, seed)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -460,12 +630,17 @@ def layout_flags(flags):
                 os.environ[k] = v
 
 
+def noise_batch(plan, D, seed):
+    """D series of seeded float32 white noise, ``plan.size`` samples."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((D, plan.size), dtype=np.float32)
+
+
 def survey_batch(plan, D, seed=3, cfg=HEADLINE):
     """D normalised noise series with the phase 2 pulsar in series 0."""
     from riptide_tpu_torch.libffa import generate_signal
 
-    rng = np.random.default_rng(seed)
-    batch = rng.standard_normal((D, plan.size), dtype=np.float32)
+    batch = noise_batch(plan, D, seed)
     np.random.seed(seed)
     x = generate_signal(plan.size, PULSAR["period"] / cfg["tsamp"],
                         amplitude=PULSAR["amplitude"], ducy=0.05)
@@ -561,16 +736,23 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
     check(dfreq < 1.0 / tobs, "series 0: injected pulsar not recovered")
 
     k3, args = b["k3"], [r["args"] for r in b["k3"]]
+    check_levels("K3 levels", [(fk.WireSource(*x[:4]), x[4]) for x in args])
     err = compare_stages("K3 paired_stage in run (b)", [r["out"] for r in k3],
                          plain_launches(b["rec"], "paired_stage"))
-    ms = median_ms(lambda: [fk.paired_stage(*x) for x in args], dev, REPS)
-    pms = median_ms(lambda: [fk.paired_stage_plain(*x) for x in args], dev,
-                    reps=5)
+
+    def k3_calls():
+        return [fk.paired_stage(*x) for x in args]
+
+    ms = measure.graph_ms(k3_calls, dev, REPS)
+    wms = measure.median_ms(k3_calls, dev, REPS)
+    pms = measure.median_ms(
+        lambda: [fk.paired_stage_plain(*x) for x in args], dev, reps=5)
     ops = sum(trials_work(t, D, nw) for t in b["k3_trials"])
-    bnd = bound_ms(launch_bytes(k3, view), ops)
+    bnd = measure.bound_ms(launch_bytes(k3, view), ops)
     print(f"  K3 over run (b)'s {len(k3)} hosted buckets, D = {D}: "
-          f"{ms:.4f} ms (plain {pms:.4f} ms, bound {bnd[0]:.4f} ms by "
-          f"{bnd[1]})", flush=True)
+          f"{ms:.4f} ms device, from CUDA graph replays ({wms:.4f} ms "
+          f"through the wrappers; plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
+          f"by {bnd[1]})", flush=True)
     return b["launches"]["paired_stage"], err, (ms, pms, *bnd)
 
 
@@ -603,10 +785,10 @@ def phase_probes(dev):
         for r in results[key]:
             plain = getattr(mod, f"{r.wrapper}_plain")
             if key == "P2":
-                want, p_ms = timed(lambda: plain(*r.args), dev)
+                want, p_ms = measure.timed(lambda: plain(*r.args), dev)
             else:
                 want = plain(*r.args)
-                p_ms = median_ms(lambda: plain(*r.args), dev, reps=5)
+                p_ms = measure.median_ms(lambda: plain(*r.args), dev, reps=5)
             check(r.out.shape == want.shape
                   and bool(torch.isfinite(r.out).all()),
                   f"{key} {r.name}: output {tuple(r.out.shape)} not finite "
@@ -617,7 +799,7 @@ def phase_probes(dev):
                                      atol=PROBE_MM_ATOL),
                       f"{key} {r.name}: max |kernel - plain| {e:.3e}")
                 a, x, reps = r.args
-                lib_ms = median_ms(
+                lib_ms = measure.median_ms(
                     lambda: [torch.matmul(a, x) for _ in range(r.passes)],
                     dev, REPS)
             else:
@@ -695,12 +877,12 @@ def main(argv=None):
     plan = headline_plan()
     check(plan.length == HEADLINE_TRIALS, f"plan has {plan.length} trials")
     print("phase 1: parity oracle", flush=True)
-    phase_oracle(dev)
+    *oracle, k2_launches = phase_oracle(dev)
     print("phase 2: headline ffa_search (main path)", flush=True)
-    launches, rec, err1, data = phase_headline(dev, plan)
-    print("phase 3: K1 and K2 at the main path's shapes", flush=True)
-    err2, times = phase_kernels(dev, plan, rec)
-    del rec
+    launches, rec, err1, data, _ = phase_headline(dev, plan)
+    print("phase 3: K1 and K2 on their paths' launches", flush=True)
+    err2, times = phase_kernels(dev, plan, rec, oracle)
+    del rec, oracle
     print("phase 4: run_periodogram_batch, D = 32", flush=True)
     phase_batch(dev, plan)
     print("phase 5: run_search_batch, D = 32, three container layouts",
@@ -715,7 +897,11 @@ def main(argv=None):
         print("profile: headline run_periodogram", flush=True)
         profile_search(plan, data, dev, args.profile)
 
+    # Each kernel's launches on its own path, counted from 0 just before
+    # that path's run: K1 the headline search (phase 2), K2 the float32
+    # oracle search (phase 1), K3 the survey run (b) (phase 5).
     entries = []
+    launches["cascade_stage"] = k2_launches["cascade_stage"]
     launches["paired_stage"] = n3
     for key, name, fn, line, err in (
             ("K1", "K1 fused_stage", "fused_stage", 473, err1),

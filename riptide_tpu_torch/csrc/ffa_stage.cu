@@ -9,62 +9,88 @@
 //   K3  riptide_tpu/ops/ffa_kernel.py:_fused_kernel_paired (K1 for a
 //       host trial plus a same-p guest trial of a later stage riding
 //       the host container's dead rows from its base row up),
-// all ending in _cascade_body. Here the same work is four kernels:
-//   decode_pack_kernel         the front half of K1 (_decode_planes +
-//                              _pack_and_cascade's pack barrels);
-//   decode_pack_paired_kernel  the front half of K3: the host rows from
-//                              the host stage's wire slice, the guest
-//                              rows [base, base + m_g) from the guest
-//                              stage's slice of the same wire;
-//   ffa_level_kernel           one FFA level, launched L times (the
-//                              merge tree of K1, K2 and K3: a paired
-//                              container's tables carry both trials);
-//   boxcar_snr_kernel          the S/N epilogue of all three; rows at
-//                              or above a trial's guest base take the
-//                              guest's coefficients.
+// all ending in _cascade_body, which keeps the whole (rows, P) container
+// in VMEM for every level. Here the same work is three kernels:
+//   segment_cascade_kernel  one block per (DM trial, row tile): fills a
+//                           shared-memory tile straight from the stage's
+//                           wire slice (K1; K3 takes the guest rows from
+//                           the guest stage's slice) or from the packed
+//                           float container (K2), runs the leading Lloc
+//                           FFA levels in shared memory and writes the
+//                           tile to the container once;
+//   ffa_level_kernel        one FFA level over the whole container,
+//                           launched once for each of the levels
+//                           Lloc+1..L;
+//   boxcar_snr_kernel       the S/N epilogue of all three; rows at or
+//                           above a trial's guest base take the guest's
+//                           coefficients.
 //
-// Design. The Pallas kernels keep a (rows, P) container in VMEM and
-// express every gather as dense rolls and selects (ops/slottables.py),
-// because Mosaic cannot gather. A GPU reads by index natively, so the
-// level kernel executes the (h, t, shift) tables of ops/plan.py directly,
-// as the plain PyTorch _level_step does:
+// Design. A GPU reads by index, so both level kernels execute the
+// (h, t, shift) tables of ops/plan.py directly, as the plain PyTorch
+// _level_step does:
 //   out[d,b,r,c] = c < p_b ? in[d,b,h[r],c] + in[d,b,t[r],(c+shift[r]) % p_b] : 0
-// One float add per element, in the same tree, so the container is bit
-// identical to the plain version's. K3 needs no level kernel of its own:
-// the guest's tables are its own tree shifted up by its base row, with
-// its zero row mapped to the container's zero row (ops/plan.py).
+// One float add per element, in the same tree, with the zero row Z read
+// as a literal +0.0f, so every container is bit identical to the plain
+// levels'. K3 needs no level code of its own: the guest's tables are its
+// own tree shifted up by its base row (ops/plan.py).
 //
-// Bound. Each level reads two containers' worth of rows and writes one,
-// at one add per element, so the merge tree is bound by device-memory
-// bytes, not by operations. This first version ping-pongs two (D, B, R, P)
-// float32 buffers in global memory and relies on the 50 MB L2 for the
-// re-read rows; tiling the low levels in shared memory
-// (parallel/seqffa.py's row tiles), TMA and fusing levels are later work.
-// decode_pack writes the container once from 3/4 byte per sample of wire;
-// boxcar_snr reads it once and writes NW floats per evaluated row.
+// A node merges at its own level from rows inside the node
+// (FFAPlan.fill; the JAX package cuts the row axis across chips the same
+// way, parallel/seqffa.py). ops/plan.py::segment_plan finds Lloc, the
+// number of leading levels whose nodes all fit a tile of two float32
+// buffers of rows x p in a block's 227 KB of opt-in shared memory, and
+// cuts each plane's live rows into tiles of whole nodes (dead rows go to
+// zero tiles). A tile's levels then never read outside it: the segment
+// kernel ping-pongs its two shared buffers, one __syncthreads a level,
+// and the unmerged container is never written to device memory. A
+// tile's rows sit at stride p (its samples are one contiguous run of the
+// stage), the wire is decoded a view row per warp (no division per
+// sample), and each warp walks a row with its lanes on consecutive
+// phases, so shared accesses are conflict free without padding.
+//
+// Bound. Each kernel is bound by device-memory bytes, not operations
+// (one add per element a level). Before this design every level read
+// two containers' worth of rows and wrote one; now the segment kernel
+// reads the wire (3/4 byte a sample for uint6) and writes the container
+// once, each of the L - Lloc global levels reads the rows its tables
+// name (the second read of a row mostly from the 50 MB L2, since blocks
+// walk each plane's rows in order) and writes the container, and
+// boxcar_snr reads the evaluated rows once. At the headline plan Lloc is
+// 6-7 of 8-11 levels. What bounds them in practice: a segment block
+// needs up to 227 KB, so one block runs per SM and its fill, levels and
+// write follow each other rather than overlap (at one DM trial, a
+// launch of a later stage also fills only a third of the SMs); the
+// global levels' traffic; and the S/N kernel, unchanged, whose read of
+// the last level's output a later design fuses away.
 //
 // Numerics. Built with --fmad=false, and the decode/S/N arithmetic is
 // spelled with __fsub_rn/__fmul_rn/__fadd_rn/__fdiv_rn, so no product is
-// contracted into an FMA: the decoded container is bit identical to the
-// plain _udecode_view + _pack, and the S/N differs from the plain
-// snr_batched only through the summation order of the prefix sum. That
+// contracted into an FMA: the decoded tile is bit identical to the
+// plain _udecode_view + _pack, every container to the plain levels',
+// and the S/N differs from the plain snr_batched only through the
+// summation order of the prefix sum. That
 // order depends on the trial's p alone (chunks of ceil(p / 32) phases per
 // lane), never on the container's P or R, so a trial's S/N is the same
 // bits in any lane bucket, container height or pairing.
 //
 // Interface. Plain extern "C" launchers (loaded with ctypes), each
-// launching on the caller's stream and returning cudaGetLastError().
-// Nothing here allocates or synchronises; the Python wrapper allocates
-// every output with torch.empty.
+// launching on the caller's stream and returning cudaGetLastError();
+// rt_init sets the kernels' shared-memory limit once, when the library
+// loads. Nothing here allocates or synchronises; the Python wrapper
+// allocates every output with torch.empty.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;   // threads per block of the elementwise kernels
-constexpr int kSnrWarps = 4;    // rows (one warp each) per boxcar_snr block
+constexpr int kSegThreads = 1024;  // threads per segment_cascade block
+constexpr int kSegWarps = kSegThreads / 32;
+constexpr int kLevelWarps = 8;    // rows (one warp each) per ffa_level block
+constexpr int kSnrWarps = 4;      // rows (one warp each) per boxcar_snr block
 constexpr unsigned kFull = 0xffffffffu;
+// The largest dynamic shared memory an H100 block may opt into.
+constexpr int kMaxDynamicSmem = 232448;
 
 // Wire modes: the value is the mode's name suffix (uint6/uint8; any other
 // value is uint12).
@@ -75,129 +101,189 @@ __host__ __device__ inline int64_t ceil_div(int64_t a, int64_t b) {
   return (a + b - 1) / b;
 }
 
-// Sample k of a stage whose byte planes start at wire row roff (pr rows
-// per plane) and whose per-row scales start at sd: view row r, lane c.
-__device__ __forceinline__ float decode_sample(
-    const uint8_t* __restrict__ wd, const float* __restrict__ sd, int64_t k,
-    int32_t PW, int64_t roff, int64_t pr, int32_t mode) {
-  const int64_t r = k / PW;
-  const int64_t c = k - r * PW;
-  float xq;
-  if (mode == kModeU8) {
-    xq = __fsub_rn((float)wd[(roff + r) * PW + c], 128.0f);
-  } else {
-    // `group` consecutive view rows share one byte-plane row; the three
-    // planes of the stage sit pr rows apart.
-    const int64_t group = mode == kModeU6 ? 4 : 2;
-    const int64_t row = r / group;
-    const int32_t sub = (int32_t)(r - row * group);
-    const int32_t b0 = wd[(roff + row) * PW + c];
-    const int32_t b1 = wd[(roff + pr + row) * PW + c];
-    const int32_t b2 = wd[(roff + 2 * pr + row) * PW + c];
-    if (mode == kModeU6) {
-      const int32_t word = b0 | (b1 << 8) | (b2 << 16);
-      xq = __fsub_rn((float)((word >> (6 * sub)) & 63), 32.0f);
-    } else {
-      const int32_t q = sub == 0 ? (b0 | ((b1 & 15) << 8))
-                                 : ((b1 >> 4) | (b2 << 4));
-      xq = __fsub_rn((float)q, 2048.0f);
+// Where one stage's samples sit in the wire: byte-plane row offset, rows
+// per plane, scale row offset.
+struct StageSlice {
+  int64_t roff, pr, soff;
+};
+
+// Decode a stage's samples [k_lo, k_hi) into buf[e0 + k - k_lo]. The
+// stage's byte planes start at wire row `at.roff` (`at.pr` rows a plane)
+// and its per-view-row scales at sd. Warps walk the stage's (r0, PW)
+// view rows, lanes their phases: no division per sample, each scale read
+// once a row, each byte-plane row read coalesced.
+__device__ __forceinline__ void fill_from_wire(
+    float* __restrict__ buf, int32_t e0, int64_t k_lo, int64_t k_hi,
+    const uint8_t* __restrict__ wd, const float* __restrict__ sd,
+    int32_t PW, StageSlice at, int32_t mode, int warp, int lane) {
+  if (k_hi <= k_lo) return;
+  const bool u6 = mode == kModeU6;
+  for (int64_t r = k_lo / PW + warp; r * PW < k_hi; r += kSegWarps) {
+    const float scale = sd[r];
+    const int64_t base = r * PW;
+    const int32_t c_lo = (int32_t)(k_lo > base ? k_lo - base : 0);
+    const int32_t c_hi = (int32_t)(k_hi - base < PW ? k_hi - base : PW);
+    const int32_t off = e0 + (int32_t)(base - k_lo);  // buf index of c = 0
+    if (mode == kModeU8) {
+      const uint8_t* q0 = wd + (at.roff + r) * PW;
+      for (int32_t c = c_lo + lane; c < c_hi; c += 32)
+        buf[off + c] = __fmul_rn(__fsub_rn((float)q0[c], 128.0f), scale);
+      continue;
+    }
+    // `group` (4 for uint6, 2 for uint12) consecutive view rows share one
+    // byte-plane row; the three planes of the stage sit pr rows apart.
+    const int64_t row = u6 ? r >> 2 : r >> 1;
+    const int32_t sub = (int32_t)(u6 ? r & 3 : r & 1);
+    const uint8_t* q0 = wd + (at.roff + row) * PW;
+    const uint8_t* q1 = q0 + at.pr * PW;
+    const uint8_t* q2 = q1 + at.pr * PW;
+#pragma unroll 4
+    for (int32_t c = c_lo + lane; c < c_hi; c += 32) {
+      const int32_t b0 = q0[c], b1 = q1[c], b2 = q2[c];
+      float xq;
+      if (u6) {
+        const int32_t word = b0 | (b1 << 8) | (b2 << 16);
+        xq = __fsub_rn((float)((word >> (6 * sub)) & 63), 32.0f);
+      } else {
+        const int32_t q = sub == 0 ? (b0 | ((b1 & 15) << 8))
+                                   : ((b1 >> 4) | (b2 << 4));
+        xq = __fsub_rn((float)q, 2048.0f);
+      }
+      buf[off + c] = __fmul_rn(xq, scale);
     }
   }
-  return __fmul_rn(xq, sd[r]);
 }
 
-// One (d, b) plane per blockIdx.x; blockIdx.y and the loop stride cover
-// the plane's R * P elements. container[i, j] = view_flat[i * p + j].
-__global__ void decode_pack_kernel(
-    const uint8_t* __restrict__ wire, const float* __restrict__ scales,
-    const int32_t* __restrict__ ms, const int32_t* __restrict__ ps,
-    float* __restrict__ out, int32_t B, int32_t R, int32_t P, int64_t wrows,
-    int32_t PW, int64_t stot, int64_t roff, int64_t pr, int64_t soff,
-    int32_t mode) {
-  const int64_t plane = blockIdx.x;
-  const int64_t d = plane / B;
-  const int32_t b = (int32_t)(plane - d * B);
-  const int32_t m = ms[b];
-  const int32_t p = ps[b];
-  const int64_t RP = (int64_t)R * P;
-  const uint8_t* wd = wire + d * wrows * PW;
-  const float* sd = scales + d * stot + soff;
-  float* od = out + plane * RP;
-  for (int64_t e = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; e < RP;
-       e += (int64_t)gridDim.y * blockDim.x) {
-    const int32_t i = (int32_t)(e / P);
-    const int32_t j = (int32_t)(e - (int64_t)i * P);
-    float v = 0.0f;
-    if (i < m && j < p)
-      v = decode_sample(wd, sd, (int64_t)i * p + j, PW, roff, pr, mode);
-    od[e] = v;
+// out[c] = in_h[c] + in_t[(c + s) % p] for c < p over one row, a warp's
+// lanes on consecutive phases; a null row is the zero row (+0.0f).
+__device__ __forceinline__ void merge_row(
+    const float* __restrict__ hp, const float* __restrict__ tp, int32_t s,
+    int32_t p, float* __restrict__ o, int lane) {
+  if (tp == nullptr) {
+    for (int32_t c = lane; c < p; c += 32)
+      o[c] = hp == nullptr ? 0.0f : __fadd_rn(hp[c], 0.0f);
+    return;
+  }
+  int32_t c2 = lane + s;
+  if (c2 >= p) c2 -= p;
+#pragma unroll 4
+  for (int32_t c = lane; c < p; c += 32) {
+    o[c] = __fadd_rn(hp == nullptr ? 0.0f : hp[c], tp[c2]);
+    c2 += 32;
+    if (c2 >= p) c2 -= p;
   }
 }
 
-// decode_pack_kernel for a row-packed container: rows [0, m_b) from the
-// host stage (roff, pr, soff), rows [gbase_b, gbase_b + gm_b) from the
-// guest stage (groff, gpr, gsoff) of the same wire, zero elsewhere
-// (gbase_b < 0: no guest on trial b).
-__global__ void decode_pack_paired_kernel(
-    const uint8_t* __restrict__ wire, const float* __restrict__ scales,
+// One block per (d, tile); blockIdx.x = d * ntiles + tile. A tile is
+// (plane b, first row r0, rows n, live). A dead tile (live = 0) writes
+// its n rows zero. A live tile fills shared buffer A with its n rows at
+// stride p: from the packed container `src` (K2), or decoded from the
+// wire (K1: host rows [0, m_b) from the host slice; K3 also guest rows
+// [gbase_b, gbase_b + gm_b) from the guest slice), then runs levels
+// 0..Lloc-1 ping-ponging A and B with the level tables rebased to the
+// tile (Z -> literal zero), then writes its rows, zero from p to P.
+template <bool kFromWire>
+__global__ void __launch_bounds__(kSegThreads) segment_cascade_kernel(
+    const float* __restrict__ src, const uint8_t* __restrict__ wire,
+    const float* __restrict__ scales, const int32_t* __restrict__ tiles,
+    int32_t ntiles, const int32_t* __restrict__ h,
+    const int32_t* __restrict__ t, const int32_t* __restrict__ shift,
     const int32_t* __restrict__ ms, const int32_t* __restrict__ ps,
     const int32_t* __restrict__ gms, const int32_t* __restrict__ gbase,
-    float* __restrict__ out, int32_t B, int32_t R, int32_t P, int64_t wrows,
-    int32_t PW, int64_t stot, int64_t roff, int64_t pr, int64_t soff,
-    int64_t groff, int64_t gpr, int64_t gsoff, int32_t mode) {
-  const int64_t plane = blockIdx.x;
-  const int64_t d = plane / B;
-  const int32_t b = (int32_t)(plane - d * B);
-  const int32_t m = ms[b];
+    float* __restrict__ out, int32_t B, int32_t R, int32_t P, int32_t Lloc,
+    int64_t wrows, int32_t PW, int64_t stot, StageSlice host,
+    StageSlice guest, int32_t mode) {
+  extern __shared__ float smem[];
+  const int64_t d = blockIdx.x / ntiles;
+  const int32_t* tile = tiles + 4 * (blockIdx.x - d * ntiles);
+  const int32_t b = tile[0], r0 = tile[1], n = tile[2];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t plane = d * B + b;
+  float* dst = out + (plane * R + r0) * (int64_t)P;
+  if (tile[3] == 0) {
+    const int64_t cnt = (int64_t)n * P;
+    for (int64_t e = threadIdx.x; e < cnt; e += blockDim.x) dst[e] = 0.0f;
+    return;
+  }
   const int32_t p = ps[b];
-  const int32_t gb = gbase[b];
-  const int32_t gm = gb < 0 ? 0 : gms[b];
-  const int64_t RP = (int64_t)R * P;
-  const uint8_t* wd = wire + d * wrows * PW;
-  const float* sd = scales + d * stot + soff;
-  const float* gsd = scales + d * stot + gsoff;
-  float* od = out + plane * RP;
-  for (int64_t e = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; e < RP;
-       e += (int64_t)gridDim.y * blockDim.x) {
-    const int32_t i = (int32_t)(e / P);
-    const int32_t j = (int32_t)(e - (int64_t)i * P);
-    float v = 0.0f;
-    if (j < p) {
-      if (i < m)
-        v = decode_sample(wd, sd, (int64_t)i * p + j, PW, roff, pr, mode);
-      else if (i >= gb && i - gb < gm)
-        v = decode_sample(wd, gsd, (int64_t)(i - gb) * p + j, PW, groff, gpr,
-                          mode);
+  float* buf = smem;
+  float* nxt = smem + n * p;
+  if constexpr (kFromWire) {
+    // Host rows [0, m) from the host slice, guest rows [gb, gb + gm) from
+    // the guest slice; any other row of the tile is zero.
+    const uint8_t* wd = wire + d * wrows * PW;
+    const float* sd = scales + d * stot;
+    const int32_t hn = max(0, min(n, ms[b] - r0));
+    fill_from_wire(buf, 0, (int64_t)r0 * p, (int64_t)(r0 + hn) * p, wd,
+                   sd + host.soff, PW, host, mode, warp, lane);
+    int32_t g0 = 0, g1 = 0;  // tile rows holding guest samples
+    if (gbase != nullptr && gbase[b] >= 0) {
+      const int32_t gb = gbase[b];
+      g0 = max(r0, gb) - r0;
+      g1 = max(g0, min(r0 + n, gb + gms[b]) - r0);
+      fill_from_wire(buf, g0 * p, (int64_t)(r0 + g0 - gb) * p,
+                     (int64_t)(r0 + g1 - gb) * p, wd, sd + guest.soff, PW,
+                     guest, mode, warp, lane);
     }
-    od[e] = v;
+    for (int32_t i = warp; i < n; i += kSegWarps)
+      if (i >= hn && (i < g0 || i >= g1))
+        for (int32_t c = lane; c < p; c += 32) buf[i * p + c] = 0.0f;
+  } else {
+    const float* s = src + (plane * R + r0) * (int64_t)P;
+    for (int32_t i = warp; i < n; i += kSegWarps)
+      for (int32_t c = lane; c < p; c += 32)
+        buf[i * p + c] = s[(int64_t)i * P + c];
+  }
+  __syncthreads();
+  const int32_t Z = R - 1;
+  for (int32_t l = 0; l < Lloc; ++l) {
+    const int64_t row0 = ((int64_t)l * B + b) * R + r0;
+    for (int32_t i = warp; i < n; i += kSegWarps) {
+      const int32_t hh = h[row0 + i];
+      const int32_t tt = t[row0 + i];
+      merge_row(hh == Z ? nullptr : buf + (hh - r0) * p,
+                tt == Z ? nullptr : buf + (tt - r0) * p, shift[row0 + i] % p,
+                p, nxt + i * p, lane);
+    }
+    __syncthreads();
+    float* x = buf;
+    buf = nxt;
+    nxt = x;
+  }
+  for (int32_t i = warp; i < n; i += kSegWarps) {
+    float* o = dst + (int64_t)i * P;
+    for (int32_t c = lane; c < P; c += 32)
+      o[c] = c < p ? buf[i * p + c] : 0.0f;
   }
 }
 
-__global__ void ffa_level_kernel(
+// One FFA level over the whole (D, B, R, P) container: one warp per row,
+// kLevelWarps rows per block; blockIdx.x = plane * chunks + chunk, so
+// the blocks in flight walk each plane's rows in order and the second
+// read of a source row finds it in L2.
+__global__ void __launch_bounds__(kLevelWarps * 32) ffa_level_kernel(
     const float* __restrict__ in, float* __restrict__ out,
     const int32_t* __restrict__ h, const int32_t* __restrict__ t,
     const int32_t* __restrict__ shift, const int32_t* __restrict__ ps,
-    int32_t B, int32_t R, int32_t P) {
-  const int64_t plane = blockIdx.x;
+    int32_t B, int32_t R, int32_t P, int32_t chunks) {
+  const int64_t plane = blockIdx.x / chunks;
+  const int32_t r = (int32_t)(blockIdx.x - plane * chunks) * kLevelWarps +
+                    (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int lane = threadIdx.x & 31;
   const int32_t b = (int32_t)(plane % B);
   const int32_t p = ps[b];
-  const int64_t RP = (int64_t)R * P;
-  const float* src = in + plane * RP;
-  float* dst = out + plane * RP;
-  const int32_t* hb = h + (int64_t)b * R;
-  const int32_t* tb = t + (int64_t)b * R;
-  const int32_t* sb = shift + (int64_t)b * R;
-  for (int64_t e = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; e < RP;
-       e += (int64_t)gridDim.y * blockDim.x) {
-    const int32_t i = (int32_t)(e / P);
-    const int32_t j = (int32_t)(e - (int64_t)i * P);
-    float v = 0.0f;
-    if (j < p) {
-      const int32_t c2 = (j + sb[i]) % p;
-      v = __fadd_rn(src[(int64_t)hb[i] * P + j], src[(int64_t)tb[i] * P + c2]);
-    }
-    dst[e] = v;
-  }
+  const int32_t Z = R - 1;
+  const int64_t e = (int64_t)b * R + r;
+  const int32_t hh = h[e];
+  const int32_t tt = t[e];
+  const float* src = in + plane * R * (int64_t)P;
+  float* o = out + (plane * R + r) * (int64_t)P;
+  merge_row(hh == Z ? nullptr : src + (int64_t)hh * P,
+            tt == Z ? nullptr : src + (int64_t)tt * P, shift[e] % p, p, o,
+            lane);
+  for (int32_t c = p + lane; c < P; c += 32) o[c] = 0.0f;
 }
 
 // One warp per evaluated row (d, b, r < RE). The row's inclusive prefix
@@ -277,69 +363,86 @@ __global__ void boxcar_snr_kernel(
   }
 }
 
-dim3 plane_grid(int64_t planes, int64_t per_plane) {
-  const int64_t y = ceil_div(per_plane, kThreads);
-  return dim3((unsigned)planes, (unsigned)(y < 65535 ? y : 65535));
-}
-
 }  // namespace
 
 extern "C" {
 
 int rt_snr_warps() { return kSnrWarps; }
 
+int rt_max_dynamic_smem() { return kMaxDynamicSmem; }
+
 const char* rt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// wire (D, wrows, PW) u8, scales (D, stot) f32, ms/ps (B,) i32,
-// out (D, B, R, P) f32.
-int rt_decode_pack(const void* wire, const void* scales, const void* ms,
-                   const void* ps, void* out, long long D, int B, int R, int P,
-                   long long wrows, int PW, long long stot, long long roff,
-                   long long pr, long long soff, int mode, void* stream) {
-  if (D * B == 0) return 0;
-  decode_pack_kernel<<<plane_grid(D * B, (int64_t)R * P), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const uint8_t*)wire, (const float*)scales, (const int32_t*)ms,
-      (const int32_t*)ps, (float*)out, B, R, P, wrows, PW, stot, roff, pr,
-      soff, mode);
+// Once per process, when the library loads: let the kernels that take
+// more than 48 KB of dynamic shared memory opt into the H100's 227 KB.
+int rt_init() {
+  const void* fns[] = {(const void*)boxcar_snr_kernel,
+                       (const void*)segment_cascade_kernel<true>,
+                       (const void*)segment_cascade_kernel<false>};
+  for (const void* fn : fns) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// The segment kernel over D x ntiles blocks with `smem` bytes each.
+// src (D, B, R, P) f32 for K2, else null and the wire (D, wrows, PW) u8
+// + scales (D, stot) f32 with the host slice (roff, pr, soff) and, for
+// K3, gms/gbase (B,) i32 and the guest slice (else null / ignored).
+// tiles (ntiles, 4) i32; h/t/shift (L, B, R) i32 (levels 0..Lloc-1 are
+// read); ms/ps (B,) i32; out (D, B, R, P) f32, not aliasing src.
+int rt_segment_cascade(const void* src, const void* wire, const void* scales,
+                       const void* tiles, int ntiles, const void* h,
+                       const void* t, const void* shift, const void* ms,
+                       const void* ps, const void* gms, const void* gbase,
+                       void* out, long long D, int B, int R, int P, int Lloc,
+                       int smem, long long wrows, int PW, long long stot,
+                       long long roff, long long pr, long long soff,
+                       long long groff, long long gpr, long long gsoff,
+                       int mode, void* stream) {
+  const int64_t blocks = D * ntiles;
+  if (blocks == 0) return 0;
+  const StageSlice host{roff, pr, soff};
+  const StageSlice guest{groff, gpr, gsoff};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (src == nullptr) {
+    segment_cascade_kernel<true><<<(unsigned)blocks, kSegThreads, smem, st>>>(
+        nullptr, (const uint8_t*)wire, (const float*)scales,
+        (const int32_t*)tiles, ntiles, (const int32_t*)h, (const int32_t*)t,
+        (const int32_t*)shift, (const int32_t*)ms, (const int32_t*)ps,
+        (const int32_t*)gms, (const int32_t*)gbase, (float*)out, B, R, P, Lloc,
+        wrows, PW, stot, host, guest, mode);
+  } else {
+    segment_cascade_kernel<false><<<(unsigned)blocks, kSegThreads, smem, st>>>(
+        (const float*)src, nullptr, nullptr, (const int32_t*)tiles, ntiles,
+        (const int32_t*)h, (const int32_t*)t, (const int32_t*)shift,
+        (const int32_t*)ms, (const int32_t*)ps, nullptr, nullptr, (float*)out,
+        B, R, P, Lloc, 0, 0, 0, host, guest, mode);
+  }
   return (int)cudaGetLastError();
 }
 
-// As rt_decode_pack, plus gms/gbase (B,) i32 and the guest stage's wire
-// row offset, plane rows and scale row offset.
-int rt_decode_pack_paired(const void* wire, const void* scales, const void* ms,
-                          const void* ps, const void* gms, const void* gbase,
-                          void* out, long long D, int B, int R, int P,
-                          long long wrows, int PW, long long stot,
-                          long long roff, long long pr, long long soff,
-                          long long groff, long long gpr, long long gsoff,
-                          int mode, void* stream) {
-  if (D * B == 0) return 0;
-  decode_pack_paired_kernel<<<plane_grid(D * B, (int64_t)R * P), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      (const uint8_t*)wire, (const float*)scales, (const int32_t*)ms,
-      (const int32_t*)ps, (const int32_t*)gms, (const int32_t*)gbase,
-      (float*)out, B, R, P, wrows, PW, stot, roff, pr, soff, groff, gpr, gsoff,
-      mode);
-  return (int)cudaGetLastError();
-}
-
-// L levels ping-ponging a -> b -> a ...; the result lies in a when L is
-// even, else in b. Tables h/t/shift are (L, B, R) i32.
+// Levels first..last-1 ping-ponging a -> b -> a ...; the result lies in a
+// when last - first is even, else in b. Tables h/t/shift are (L, B, R)
+// i32.
 int rt_ffa_levels(void* a, void* b, const void* h, const void* t,
-                  const void* shift, const void* ps, int L, long long D, int B,
-                  int R, int P, void* stream) {
+                  const void* shift, const void* ps, int first, int last,
+                  long long D, int B, int R, int P, void* stream) {
   if (D * B == 0) return 0;
-  const dim3 grid = plane_grid(D * B, (int64_t)R * P);
+  const int32_t chunks = (int32_t)ceil_div(R, kLevelWarps);
+  const int64_t blocks = D * B * chunks;
   const int64_t lvl = (int64_t)B * R;
-  for (int l = 0; l < L; ++l) {
-    const float* src = (const float*)(l % 2 == 0 ? a : b);
-    float* dst = (float*)(l % 2 == 0 ? b : a);
-    ffa_level_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        src, dst, (const int32_t*)h + l * lvl, (const int32_t*)t + l * lvl,
-        (const int32_t*)shift + l * lvl, (const int32_t*)ps, B, R, P);
+  for (int l = first; l < last; ++l) {
+    const bool even = (l - first) % 2 == 0;
+    ffa_level_kernel<<<(unsigned)blocks, kLevelWarps * 32, 0,
+                       (cudaStream_t)stream>>>(
+        (const float*)(even ? a : b), (float*)(even ? b : a),
+        (const int32_t*)h + l * lvl, (const int32_t*)t + l * lvl,
+        (const int32_t*)shift + l * lvl, (const int32_t*)ps, B, R, P, chunks);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -357,12 +460,6 @@ int rt_boxcar_snr(const void* in, void* out, const void* ps,
   const int64_t nrows = D * B * (int64_t)RE;
   if (nrows == 0) return 0;
   const size_t smem = (size_t)kSnrWarps * P * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        boxcar_snr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   boxcar_snr_kernel<<<(unsigned)ceil_div(nrows, kSnrWarps), kSnrWarps * 32,
                       smem, (cudaStream_t)stream>>>(
       (const float*)in, (float*)out, (const int32_t*)ps,

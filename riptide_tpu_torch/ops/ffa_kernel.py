@@ -11,7 +11,7 @@ wrapper                replaces (riptide_tpu/ops/ffa_kernel.py)
                        the FFA levels, boxcar S/N
 :func:`cascade_stage`  K2 ``_kernel``: FFA levels + boxcar S/N on an
                        already packed float container (the float32
-                       wire, and K1's cascade half)
+                       wire); K1 and K3 share its kernels
 :func:`paired_stage`   K3 ``_fused_kernel_paired``: K1 for a row-packed
                        container, a host trial plus a same-p guest
                        trial of a later stage in the host's dead rows
@@ -23,16 +23,29 @@ built with ``nvcc`` for ``sm_90a`` (``NVCC_FLAGS``) at first use, into
 ``riptide_tpu_torch/_build/`` keyed by a hash of the source and flags,
 and loaded with ctypes, by ``utils/cuda_build.py``.
 
+Each stage is three kinds of CUDA launch: the segment kernel
+(``segment_cascade_kernel``) fills shared-memory row tiles (from the
+wire for K1 and K3, from the packed container for K2) and runs the
+container's leading ``Tables.local`` levels there
+(:func:`~.plan.segment_plan`), ``ffa_level`` runs each
+remaining level over the whole container, and ``boxcar_snr`` computes
+the S/N. :func:`segment_levels` runs the first two and returns the
+container, for checks.
+
 A wrapper given CUDA tensors launches its kernels on the current stream
 or raises (failed build, refused shape, launch error); it never falls
 back. Tensors on the CPU run the plain versions :func:`fused_stage_plain`
-/ :func:`cascade_stage_plain`, built from the same plain functions the
-engine uses (``search.engine._udecode_view`` and ``_pack``,
-``ops.ffa.ffa_levels``, ``ops.snr.snr_batched``). Every wrapper adds one
-to its entry of :data:`LAUNCHES` where it launches its kernels;
-:func:`fused_stage` runs its cascade half through :func:`cascade_stage`,
-so a K1 stage counts one launch of each. :func:`paired_stage` runs
-the same cascade half without counting a K2 launch: K3 counts alone.
+/ :func:`cascade_stage_plain` / :func:`paired_stage_plain`, built from
+the same plain functions the engine uses (``search.engine._udecode_view``
+and ``_pack``, ``ops.ffa.ffa_levels``, ``ops.snr.snr_batched``).
+:func:`segment_levels_plain` runs the levels as the kernels split them
+(tile by tile, then over the container), for the tests.
+
+Counts. Every wrapper adds one to its own entry of :data:`LAUNCHES`
+where it launches its kernels, and to no other. :data:`KERNEL_LAUNCHES`
+counts the CUDA launches by kernel: the segment kernel's two forms apart
+(``segment_wire`` fills its tiles from the wire, for K1 and K3;
+``segment_container`` from a packed float container, for K2).
 
 Shapes. Container (D, B, R, P) float32 with R the tables' height (rows
 outside the trials kept zero because the level tables read the zero row
@@ -42,8 +55,9 @@ first RE rows. A row-packed container's tables carry the guest
 rows at or above a trial's guest base take the guest's S/N coefficients
 (``Coefs.ghcoef``/``gbcoef``/``gstdnoise``). The TPU's p <= 2047
 and PW <= 2048 limits came from packed-word fields the port does not
-have; the port's one limit is the S/N kernel's shared memory,
-``SNR_WARPS * P * 4`` bytes per block (at most ``MAX_DYNAMIC_SMEM``).
+have; the port's limits are shared memory: the S/N kernel's
+``SNR_WARPS * P * 4`` bytes per block and a segment tile's
+``Tables.smem`` (at most ``MAX_DYNAMIC_SMEM`` each).
 """
 import ctypes
 from typing import NamedTuple
@@ -55,12 +69,13 @@ from ..utils.cuda_build import MAX_DYNAMIC_SMEM, NVCC_FLAGS
 from ..utils.cuda_build import check as _check
 from ..utils.cuda_build import require as _require
 from ..utils.cuda_build import stream as _stream
-from .ffa import ffa_levels
+from .ffa import _level_step, ffa_levels
 from .snr import snr_batched
 
-__all__ = ["fused_stage", "cascade_stage", "paired_stage",
+__all__ = ["fused_stage", "cascade_stage", "paired_stage", "segment_levels",
            "fused_stage_plain", "cascade_stage_plain", "paired_stage_plain",
-           "StageGeom", "Tables", "Coefs", "LAUNCHES", "reset_launches",
+           "segment_levels_plain", "fill_plain", "StageGeom", "WireSource",
+           "Tables", "Coefs", "LAUNCHES", "KERNEL_LAUNCHES", "reset_launches",
            "build", "bucket_rows", "WIRE_MODES"]
 
 SOURCE = cuda_build.CSRC / "ffa_stage.cu"
@@ -74,12 +89,15 @@ _MODE_CODE = {"uint6": 6, "uint8": 8, "uint12": 12}
 SNR_WARPS = 4
 
 LAUNCHES = {"fused_stage": 0, "cascade_stage": 0, "paired_stage": 0}
+KERNEL_LAUNCHES = {"segment_wire": 0, "segment_container": 0,
+                   "ffa_level": 0, "boxcar_snr": 0}
 
 
 def reset_launches():
-    """Set every launch count to 0."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Set every launch count to 0 (wrapper calls and CUDA launches)."""
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 class StageGeom(NamedTuple):
@@ -94,12 +112,26 @@ class StageGeom(NamedTuple):
     n: int
 
 
+class WireSource(NamedTuple):
+    """A container's samples in the shipped wire (D, WROWS, PW) uint8
+    and scales (D, STOT) float32: the host stage at ``geom`` and, for a
+    row-packed container, the guest stage at ``guest``."""
+    wire: torch.Tensor
+    scales: torch.Tensor
+    geom: StageGeom
+    guest: StageGeom = None
+
+
 class Tables(NamedTuple):
     """A container's FFA level tables on the device: h, t, shift (L, B,
     R) int32; p, m (B,) int32; P the container width and ``span`` the
-    largest m * p, the samples the pack reads. A row-packed container
-    adds the guest's rows ``gm`` and base row ``gbase`` (B,) int32 (-1:
-    no guest on that trial) and ``gspan``, the largest gm * p."""
+    largest m * p, the samples the pack reads. ``tiles`` (ntiles, 4)
+    int32, ``local`` and ``smem`` are its :class:`~.plan.SegmentPlan`:
+    the segment kernel's tiles, the levels it runs and its shared memory
+    per block (CUDA tables only; without them the plain levels run
+    every level over the container). A row-packed container adds the guest's rows ``gm`` and
+    base row ``gbase`` (B,) int32 (-1: no guest on that trial) and
+    ``gspan``, the largest gm * p."""
     h: torch.Tensor
     t: torch.Tensor
     shift: torch.Tensor
@@ -107,6 +139,9 @@ class Tables(NamedTuple):
     m: torch.Tensor
     P: int
     span: int
+    tiles: torch.Tensor = None
+    local: int = 0
+    smem: int = 0
     gm: torch.Tensor = None
     gbase: torch.Tensor = None
     gspan: int = 0
@@ -152,21 +187,22 @@ def bucket_rows(ms, L):
 
 def _bind(lib):
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.rt_decode_pack.argtypes = [vp, vp, vp, vp, vp, ll, i32, i32, i32, ll,
-                                   i32, ll, ll, ll, ll, i32, vp]
-    lib.rt_ffa_levels.argtypes = [vp, vp, vp, vp, vp, vp, i32, ll, i32, i32,
-                                  i32, vp]
-    lib.rt_decode_pack_paired.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, ll, i32, i32, i32, ll, i32, ll, ll, ll,
-        ll, ll, ll, ll, i32, vp]
+    lib.rt_segment_cascade.argtypes = [
+        vp, vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, ll, i32, i32,
+        i32, i32, i32, ll, i32, ll, ll, ll, ll, ll, ll, ll, i32, vp]
+    lib.rt_ffa_levels.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, ll, i32,
+                                  i32, i32, vp]
     lib.rt_boxcar_snr.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                   ll, i32, i32, i32, i32, i32, vp]
-    for fn in (lib.rt_decode_pack, lib.rt_decode_pack_paired,
-               lib.rt_ffa_levels, lib.rt_boxcar_snr, lib.rt_snr_warps):
+    for fn in (lib.rt_segment_cascade, lib.rt_ffa_levels, lib.rt_boxcar_snr,
+               lib.rt_snr_warps, lib.rt_max_dynamic_smem):
         fn.restype = i32
     if lib.rt_snr_warps() != SNR_WARPS:
         raise RuntimeError("ffa_stage.cu and ffa_kernel.py disagree on "
                            "SNR_WARPS")
+    if lib.rt_max_dynamic_smem() != MAX_DYNAMIC_SMEM:
+        raise RuntimeError("ffa_stage.cu and cuda_build.py disagree on "
+                           "MAX_DYNAMIC_SMEM")
 
 
 _LIB = cuda_build.Library(SOURCE, _bind)
@@ -187,14 +223,27 @@ def _library():
     return _LIB.load()
 
 
-
-def _check_stage(tables, coefs, D, B, R, P, dev):
+def _check_tables(tables, B, R, dev):
     L = tables.h.shape[0]
     for nm in ("h", "t", "shift"):
         _require(getattr(tables, nm), f"tables.{nm}", torch.int32, dev,
                  (L, B, R))
     _require(tables.p, "tables.p", torch.int32, dev, (B,))
     _require(tables.m, "tables.m", torch.int32, dev, (B,))
+    if tables.tiles is not None:
+        _require(tables.tiles, "tables.tiles", torch.int32, dev,
+                 (tables.tiles.shape[0], 4))
+    if not 0 <= tables.local <= L or tables.smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"segment plan: {tables.local} local levels of "
+                         f"{L}, {tables.smem} bytes of shared memory per "
+                         f"tile (at most {MAX_DYNAMIC_SMEM})")
+    if tables.gbase is not None:
+        _require(tables.gm, "tables.gm", torch.int32, dev, (B,))
+        _require(tables.gbase, "tables.gbase", torch.int32, dev, (B,))
+
+
+def _check_stage(tables, coefs, D, B, R, P, dev):
+    _check_tables(tables, B, R, dev)
     NW = coefs.widths.shape[0]
     _require(coefs.widths, "coefs.widths", torch.int32, dev, (NW,))
     _require(coefs.hcoef, "coefs.hcoef", torch.float32, dev, (B, NW))
@@ -203,8 +252,6 @@ def _check_stage(tables, coefs, D, B, R, P, dev):
     if not 0 < coefs.rows <= R:
         raise ValueError(f"coefs.rows = {coefs.rows} outside (0, {R}]")
     if tables.gbase is not None:
-        _require(tables.gm, "tables.gm", torch.int32, dev, (B,))
-        _require(tables.gbase, "tables.gbase", torch.int32, dev, (B,))
         _require(coefs.ghcoef, "coefs.ghcoef", torch.float32, dev, (B, NW))
         _require(coefs.gbcoef, "coefs.gbcoef", torch.float32, dev, (B, NW))
         _require(coefs.gstdnoise, "coefs.gstdnoise", torch.float32, dev,
@@ -220,14 +267,12 @@ def _check_stage(tables, coefs, D, B, R, P, dev):
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def cascade_stage_plain(container, tables, coefs):
-    """Plain PyTorch K2: :func:`ffa_levels` then :func:`snr_batched`
-    over the first ``coefs.rows`` rows. (..., B, R, P) -> (..., B, RE,
-    NW). On a row-packed container the rows at or above a trial's guest
-    base take the guest's coefficients."""
-    tbuf = ffa_levels(container, tables.h, tables.t, tables.shift, tables.p)
+def _snr_plain(x, tables, coefs):
+    """Plain boxcar S/N of the first ``coefs.rows`` rows of a transformed
+    container; on a row-packed container the rows at or above a trial's
+    guest base take the guest's coefficients."""
     widths = tuple(int(w) for w in coefs.widths.tolist())
-    x = tbuf[..., : coefs.rows, :]
+    x = x[..., : coefs.rows, :]
     out = snr_batched(x, tables.p, widths, coefs.hcoef, coefs.bcoef,
                       coefs.stdnoise)
     if tables.gbase is None:
@@ -238,6 +283,15 @@ def cascade_stage_plain(container, tables, coefs):
     gb = tables.gbase.to(torch.int64)[:, None]
     guest = (gb >= 0) & (rows >= gb)
     return torch.where(guest[..., None], gout, out)
+
+
+def cascade_stage_plain(container, tables, coefs):
+    """Plain PyTorch K2: :func:`ffa_levels` then :func:`snr_batched`
+    over the first ``coefs.rows`` rows. (..., B, R, P) -> (..., B, RE,
+    NW). On a row-packed container the rows at or above a trial's guest
+    base take the guest's coefficients."""
+    tbuf = ffa_levels(container, tables.h, tables.t, tables.shift, tables.p)
+    return _snr_plain(tbuf, tables, coefs)
 
 
 def _decode(wire, scales, geom):
@@ -275,6 +329,78 @@ def decode_pack_paired_plain(wire, scales, geom, guest_geom, tables, R):
     return torch.where(in_guest, guest, host)
 
 
+def fill_plain(source, tables):
+    """The unmerged (D, B, R, P) container of ``source``: a float
+    container as it is, or a :class:`WireSource` decoded and packed
+    (:func:`decode_pack_plain`, :func:`decode_pack_paired_plain`)."""
+    if not isinstance(source, WireSource):
+        return source
+    R = tables.h.shape[2]
+    if source.guest is None:
+        return decode_pack_plain(source.wire, source.scales, source.geom,
+                                 tables, R)
+    return decode_pack_paired_plain(source.wire, source.scales, source.geom,
+                                    source.guest, tables, R)
+
+
+def _tile_levels_plain(x, tables):
+    """The segment kernel's work on a filled container, tile by tile:
+    each live tile's rows gathered into a block of their own (a zero row
+    appended), the leading ``tables.local`` levels run there with the
+    tables rebased to the tile, and the rows written back; dead tiles
+    and phases from p on written zero. Tables without a segment plan
+    run no level here."""
+    if tables.tiles is None:
+        return x
+    dev = x.device
+    R, P = x.shape[-2:]
+    tiles = tables.tiles.to(dev, torch.int64)
+    live = tiles[tiles[:, 3] == 1]
+    out = torch.zeros_like(x)
+    if live.shape[0] == 0:
+        return out
+    b, r0, n = live[:, 0], live[:, 1], live[:, 2]
+    T = int(n.max())
+    i = torch.arange(T, device=dev)
+    inside = i[None, :] < n[:, None]
+    rows = torch.where(inside, r0[:, None] + i[None, :], R - 1)
+    blk = x[..., b[:, None], rows, :]
+    blk = torch.cat([blk, torch.zeros_like(blk[..., :1, :])], dim=-2)
+    Z = torch.full((b.shape[0], 1), T, dtype=torch.int64, device=dev)
+
+    def local(tab):
+        # Rebase to the tile: the container's zero row, and the slots
+        # past a tile's rows, read the block's zero row T.
+        lt = torch.where(inside & (tab != R - 1), tab - r0[:, None], T)
+        return torch.cat([lt, Z], dim=1)
+
+    p = tables.p.to(dev)[b]
+    for lev in range(tables.local):
+        tab = [tables.h[lev], tables.t[lev], tables.shift[lev]]
+        tab = [x_.to(dev, torch.int64)[b[:, None], rows] for x_ in tab]
+        shift = torch.cat([tab[2], torch.zeros_like(Z)], dim=1)
+        blk = _level_step(blk, local(tab[0]), local(tab[1]), shift, p)
+    cols = torch.arange(P, device=dev)
+    blk = torch.where(cols < p[:, None, None], blk[..., :T, :], 0.0)
+    bi = b[:, None].expand(-1, T)[inside]
+    out[..., bi, rows[inside], :] = blk[..., inside, :]
+    return out
+
+
+def segment_levels_plain(source, tables, levels=None):
+    """Plain version of :func:`segment_levels`: :func:`fill_plain`, the
+    segment kernel's tile levels (:func:`_tile_levels_plain`), then
+    ``levels`` (default all) of the remaining levels over the whole
+    container with :func:`ffa_levels`. Bitwise equal to
+    :func:`ffa_levels` over the same leading levels of the filled
+    container."""
+    L, first = tables.h.shape[0], tables.local
+    last = L if levels is None else first + levels
+    x = _tile_levels_plain(fill_plain(source, tables), tables)
+    return ffa_levels(x, tables.h[first:last], tables.t[first:last],
+                      tables.shift[first:last], tables.p)
+
+
 def fused_stage_plain(wire, scales, geom, tables, coefs):
     """Plain PyTorch K1: :func:`decode_pack_plain` then
     :func:`cascade_stage_plain`."""
@@ -297,50 +423,68 @@ def paired_stage_plain(wire, scales, geom, guest_geom, tables, coefs):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _cascade(container, tables, coefs):
-    """Launch the level kernel L times and the S/N kernel on a checked
-    (D, B, R, P) container (its own scratch); counts nothing."""
-    dev = container.device
-    D, B, R, P = container.shape
-    lib = _library()
-    L = tables.h.shape[0]
-    other = torch.empty_like(container)
-    stream = _stream(dev)
+def _levels(lib, stream, source, tables, D, levels=None, scratch=None):
+    """Launch the segment kernel and the remaining levels (``levels`` of
+    them, default all) on checked operands. Returns the container: a
+    fresh (D, B, R, P) buffer, or ``scratch`` (the level ping-pong's
+    second buffer, fresh when None)."""
+    if tables.tiles is None:
+        raise ValueError("the CUDA stage kernels need the tables' segment "
+                         "plan (tiles, local, smem)")
+    B, R, P = tables.p.shape[0], tables.h.shape[2], tables.P
+    dev = tables.h.device
+    a = torch.empty((D, B, R, P), dtype=torch.float32, device=dev)
+    src = wire = scales = gm = gbase = None
+    wrows = PW = stot = mode = 0
+    host = guest = (0, 0, 0)
+    if isinstance(source, WireSource):
+        geom = source.geom
+        wire, scales = source.wire.data_ptr(), source.scales.data_ptr()
+        wrows, PW = source.wire.shape[1:]
+        stot, mode = source.scales.shape[1], _MODE_CODE[geom.mode]
+        host = (geom.roff, geom.pr, geom.soff)
+        if source.guest is not None:
+            g = source.guest
+            guest = (g.roff, g.pr, g.soff)
+            gm, gbase = tables.gm.data_ptr(), tables.gbase.data_ptr()
+    else:
+        src = source.data_ptr()
+    _check(lib, "segment_cascade", lib.rt_segment_cascade(
+        src, wire, scales, tables.tiles.data_ptr(), tables.tiles.shape[0],
+        tables.h.data_ptr(), tables.t.data_ptr(), tables.shift.data_ptr(),
+        tables.m.data_ptr(), tables.p.data_ptr(), gm, gbase, a.data_ptr(),
+        D, B, R, P, tables.local, tables.smem, wrows, PW, stot, *host,
+        *guest, mode, stream))
+    KERNEL_LAUNCHES["segment_wire" if isinstance(source, WireSource)
+                    else "segment_container"] += 1
+    last = tables.h.shape[0] if levels is None else tables.local + levels
+    if last == tables.local:
+        return a
+    b = torch.empty_like(a) if scratch is None else scratch
     _check(lib, "ffa_levels", lib.rt_ffa_levels(
-        container.data_ptr(), other.data_ptr(), tables.h.data_ptr(),
-        tables.t.data_ptr(), tables.shift.data_ptr(), tables.p.data_ptr(),
-        L, D, B, R, P, stream))
-    tbuf = container if L % 2 == 0 else other
+        a.data_ptr(), b.data_ptr(), tables.h.data_ptr(), tables.t.data_ptr(),
+        tables.shift.data_ptr(), tables.p.data_ptr(), tables.local, last, D,
+        B, R, P, stream))
+    KERNEL_LAUNCHES["ffa_level"] += last - tables.local
+    return a if (last - tables.local) % 2 == 0 else b
+
+
+def _snr(lib, stream, x, tables, coefs):
+    """Launch the S/N kernel on a transformed (D, B, R, P) container."""
+    D, B, R, P = x.shape
     NW = coefs.widths.shape[0]
     out = torch.empty((D, B, coefs.rows, NW), dtype=torch.float32,
-                      device=dev)
+                      device=x.device)
     # Null guest pointers (unpaired): every row takes the host's
     # coefficients.
     guest = (tables.gbase, coefs.ghcoef, coefs.gbcoef, coefs.gstdnoise)
     _check(lib, "boxcar_snr", lib.rt_boxcar_snr(
-        tbuf.data_ptr(), out.data_ptr(), tables.p.data_ptr(),
+        x.data_ptr(), out.data_ptr(), tables.p.data_ptr(),
         coefs.widths.data_ptr(), coefs.hcoef.data_ptr(),
         coefs.bcoef.data_ptr(), coefs.stdnoise.data_ptr(),
-        *(None if tables.gbase is None else x.data_ptr() for x in guest),
+        *(None if tables.gbase is None else g.data_ptr() for g in guest),
         D, B, R, P, coefs.rows, NW, stream))
-    return out
-
-
-def cascade_stage(container, tables, coefs):
-    """K2: FFA levels + boxcar S/N of a packed (D, B, R, P) float32
-    container -> (D, B, RE, NW) float32. CUDA tensors launch the kernels
-    of ``ffa_stage.cu`` (L level launches ping-ponging two buffers, then
-    the S/N kernel); CPU tensors run :func:`cascade_stage_plain`."""
-    if container.device.type == "cpu":
-        return cascade_stage_plain(container, tables, coefs)
-    dev = container.device
-    D, B, R, P = container.shape
-    _require(container, "container", torch.float32, dev)
-    _check_stage(tables, coefs, D, B, R, P, dev)
-    if P != tables.P:
-        raise ValueError(f"container width {P} != tables.P {tables.P}")
-    out = _cascade(container, tables, coefs)
-    LAUNCHES["cascade_stage"] += 1
+    KERNEL_LAUNCHES["boxcar_snr"] += 1
     return out
 
 
@@ -363,6 +507,76 @@ def _check_wire(wire, scales, geom, span, dev):
                          f"{tuple(wire.shape)} / scales {tuple(scales.shape)}")
 
 
+def _check_source(source, tables):
+    """Check a level source against its tables; returns D."""
+    dev = tables.h.device
+    B, R, P = tables.p.shape[0], tables.h.shape[2], tables.P
+    if isinstance(source, WireSource):
+        _check_wire(source.wire, source.scales, source.geom, tables.span,
+                    dev)
+        paired = source.guest is not None
+        if paired != (tables.gbase is not None):
+            raise ValueError("a row-packed container needs guest tables "
+                             "and a guest stage, an unpaired one neither")
+        if paired:
+            if source.guest.mode != source.geom.mode:
+                raise ValueError(f"host wire {source.geom.mode!r}, guest "
+                                 f"{source.guest.mode!r}")
+            _check_wire(source.wire, source.scales, source.guest,
+                        tables.gspan, dev)
+        return source.wire.shape[0]
+    _require(source, "container", torch.float32, dev)
+    if source.dim() != 4 or tuple(source.shape[1:]) != (B, R, P):
+        raise ValueError(f"container {tuple(source.shape)}, want "
+                         f"(D, {B}, {R}, {P}) by the tables")
+    return source.shape[0]
+
+
+def segment_levels(source, tables, levels=None):
+    """The container after the segment kernel and ``levels`` (default
+    all) of the remaining FFA levels: (D, B, R, P) float32. ``source`` is
+    a packed float container (K2's input; not modified) or a
+    :class:`WireSource` (K1, and K3 with its guest stage). CUDA tensors
+    launch the kernels; CPU tensors run :func:`segment_levels_plain`.
+    Counts no :data:`LAUNCHES` entry."""
+    if tables.h.device.type == "cpu":
+        return segment_levels_plain(source, tables, levels)
+    D = _check_source(source, tables)
+    _check_tables(tables, tables.p.shape[0], tables.h.shape[2],
+                  tables.h.device)
+    if levels is not None and not (
+            0 <= levels <= tables.h.shape[0] - tables.local):
+        raise ValueError(f"levels = {levels} outside [0, "
+                         f"{tables.h.shape[0] - tables.local}]")
+    return _levels(_library(), _stream(tables.h.device), source, tables, D,
+                   levels)
+
+
+def _stage(source, tables, coefs, scratch=None):
+    """Check, then launch the segment kernel, the remaining levels and
+    the S/N kernel."""
+    D = _check_source(source, tables)
+    B, R, P = tables.p.shape[0], tables.h.shape[2], tables.P
+    _check_stage(tables, coefs, D, B, R, P, tables.h.device)
+    lib, stream = _library(), _stream(tables.h.device)
+    x = _levels(lib, stream, source, tables, D, scratch=scratch)
+    return _snr(lib, stream, x, tables, coefs)
+
+
+def cascade_stage(container, tables, coefs):
+    """K2: FFA levels + boxcar S/N of a packed (D, B, R, P) float32
+    container -> (D, B, RE, NW) float32. CUDA tensors launch the kernels
+    of ``ffa_stage.cu`` (the segment kernel from the container, each
+    remaining level, the S/N kernel); the container is this call's
+    scratch (the levels' second buffer). CPU tensors run
+    :func:`cascade_stage_plain`."""
+    if container.device.type == "cpu":
+        return cascade_stage_plain(container, tables, coefs)
+    out = _stage(container, tables, coefs, scratch=container)
+    LAUNCHES["cascade_stage"] += 1
+    return out
+
+
 def fused_stage(wire, scales, geom, tables, coefs):
     """K1: one cascade stage (or lane bucket) from the shipped quantised
     wire.
@@ -370,31 +584,17 @@ def fused_stage(wire, scales, geom, tables, coefs):
     wire (D, WROWS, PW) uint8 and scales (D, STOT) float32 are the whole
     shipped byte-plane view (``search.engine._view_layout``); ``geom``
     locates this stage in it. Returns (D, B, RE, NW) float32. CUDA
-    tensors launch ``decode_pack`` into a fresh (D, B, R, P) container
-    and then :func:`cascade_stage`; CPU tensors run
-    :func:`fused_stage_plain`. The container is modified in place by the
-    level ping-pong (it is this call's own scratch)."""
+    tensors launch the segment kernel from the wire, each remaining
+    level and the S/N kernel, counted as one K1 launch; CPU tensors run
+    :func:`fused_stage_plain`."""
     if wire.device.type == "cpu":
         return fused_stage_plain(wire, scales, geom, tables, coefs)
-    dev = wire.device
-    _check_wire(wire, scales, geom, tables.span, dev)
     if tables.gbase is not None:
         raise ValueError("fused_stage takes unpaired tables; a row-packed "
                          "container runs paired_stage")
-    D, wrows, PW = wire.shape
-    B = tables.p.shape[0]
-    R = tables.h.shape[2]
-    P = tables.P
-    _check_stage(tables, coefs, D, B, R, P, dev)
-    lib = _library()
-    container = torch.empty((D, B, R, P), dtype=torch.float32, device=dev)
-    _check(lib, "decode_pack", lib.rt_decode_pack(
-        wire.data_ptr(), scales.data_ptr(), tables.m.data_ptr(),
-        tables.p.data_ptr(), container.data_ptr(), D, B, R, P, wrows, PW,
-        scales.shape[1], geom.roff, geom.pr, geom.soff,
-        _MODE_CODE[geom.mode], _stream(dev)))
+    out = _stage(WireSource(wire, scales, geom), tables, coefs)
     LAUNCHES["fused_stage"] += 1
-    return cascade_stage(container, tables, coefs)
+    return out
 
 
 def paired_stage(wire, scales, geom, guest_geom, tables, coefs):
@@ -404,32 +604,15 @@ def paired_stage(wire, scales, geom, guest_geom, tables, coefs):
     in the same wire, and ``tables``/``coefs`` carrying the guest
     (``gm``, ``gbase``; ``ghcoef``, ``gbcoef``, ``gstdnoise``). Returns
     (D, B, RE, NW) float32 holding both trials: host rows from 0, guest
-    rows from each trial's base. CUDA tensors launch
-    ``decode_pack_paired`` and the cascade half (counted here, not as a
-    K2 launch); CPU tensors run :func:`paired_stage_plain`."""
+    rows from each trial's base. CUDA tensors launch the segment kernel
+    (host and guest rows from their own stages' slices), each remaining
+    level and the S/N kernel, counted as one K3 launch; CPU tensors run
+    :func:`paired_stage_plain`."""
     if wire.device.type == "cpu":
         return paired_stage_plain(wire, scales, geom, guest_geom, tables,
                                   coefs)
-    dev = wire.device
     if tables.gbase is None or coefs.ghcoef is None:
         raise ValueError("paired_stage needs guest tables and coefficients")
-    if guest_geom.mode != geom.mode:
-        raise ValueError(f"host wire {geom.mode!r}, guest {guest_geom.mode!r}")
-    _check_wire(wire, scales, geom, tables.span, dev)
-    _check_wire(wire, scales, guest_geom, tables.gspan, dev)
-    D, wrows, PW = wire.shape
-    B = tables.p.shape[0]
-    R = tables.h.shape[2]
-    P = tables.P
-    _check_stage(tables, coefs, D, B, R, P, dev)
-    lib = _library()
-    container = torch.empty((D, B, R, P), dtype=torch.float32, device=dev)
-    _check(lib, "decode_pack_paired", lib.rt_decode_pack_paired(
-        wire.data_ptr(), scales.data_ptr(), tables.m.data_ptr(),
-        tables.p.data_ptr(), tables.gm.data_ptr(), tables.gbase.data_ptr(),
-        container.data_ptr(), D, B, R, P, wrows, PW, scales.shape[1],
-        geom.roff, geom.pr, geom.soff, guest_geom.roff, guest_geom.pr,
-        guest_geom.soff, _MODE_CODE[geom.mode], _stream(dev)))
-    out = _cascade(container, tables, coefs)
+    out = _stage(WireSource(wire, scales, geom, guest_geom), tables, coefs)
     LAUNCHES["paired_stage"] += 1
     return out

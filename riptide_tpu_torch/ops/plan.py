@@ -27,15 +27,24 @@ from the guest's base row up (:func:`pair_bucket_bases`). The guest's
 own tables are shifted up by its base, and its zero row is the
 container's Z, so the two trials share every level launch and neither
 reads the other's rows.
+
+Segments: a node merges at its own level from rows inside the node, so
+the leading levels whose nodes all fit a tile of shared memory never
+read outside it. :func:`segment_plan` finds how many levels that is for
+a container and cuts its rows into tiles; the CUDA segment kernel runs
+those levels in shared memory, one block per tile, and the level kernel
+runs the rest.
 """
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 
+from ..utils.limits import MAX_DYNAMIC_SMEM
 from .reference import _merge_mapping
 
 __all__ = ["ffa_plan", "FFAPlan", "FFABatchPlan", "num_levels",
-           "pair_bucket_bases"]
+           "pair_bucket_bases", "SegmentPlan", "segment_plan"]
 
 
 def num_levels(m):
@@ -232,3 +241,99 @@ class FFABatchPlan:
         self.p = np.asarray(ps, dtype=np.int32)
         self.gm = gm
         self.gbase = gbase
+
+    @property
+    def segments(self):
+        """This container's :class:`SegmentPlan` (:func:`segment_plan`),
+        built at first use and kept."""
+        seg = getattr(self, "_segments", None)
+        if seg is None:
+            seg = self._segments = segment_plan(self)
+        return seg
+
+
+class SegmentPlan(NamedTuple):
+    """How a container's levels split between the segment kernel and
+    the level kernel.
+
+    ``levels`` (Lloc): the leading levels that run tile by tile in
+    shared memory; levels Lloc + 1 .. L run over the whole container.
+    ``tiles`` (ntiles, 4) int32, one row per tile: plane b, first row,
+    rows, and 1 for a tile of live rows (filled from the trial's data,
+    then Lloc levels) or 0 for a run of dead rows (written zero). The
+    tiles of each plane cover its R rows once, in order. ``smem``: the
+    bytes of shared memory a block of live rows needs, two float32
+    buffers of rows x p."""
+    levels: int
+    tiles: np.ndarray
+    smem: int
+
+
+def _live_rows(b):
+    """(B, R) bool: the rows of each plane that hold a trial's data (the
+    host's m rows and the guest's); the others stay zero."""
+    rows = np.arange(b.R)
+    live = rows < b.m[:, None]
+    if b.gbase is not None:
+        gb = b.gbase[:, None]
+        live |= (gb >= 0) & (rows >= gb) & (rows < gb + b.gm[:, None])
+    return live
+
+
+def segment_plan(b):
+    """The :class:`SegmentPlan` of :class:`FFABatchPlan` ``b``, derived
+    from its level tables.
+
+    A plane of phase width p fits tiles of ``cap = MAX_DYNAMIC_SMEM //
+    (8 p)`` rows (two float32 buffers in an H100 block's opt-in shared
+    memory). After l levels a row depends on the rows of its node; those
+    spans are carried level by level through the tables (the zero row is
+    no dependency), and Lloc is the last level at which every live row's
+    span fits its plane's cap. The spans at Lloc are the closed nodes
+    (segments); a tile takes as many whole segments of one run of live
+    rows as fit the cap, and dead rows go in zero tiles of at most cap
+    rows."""
+    L, B, R = b.h.shape
+    Z = R - 1
+    cap = MAX_DYNAMIC_SMEM // (8 * b.p.astype(np.int64))
+    if (cap < 1).any():
+        raise ValueError(f"p = {int(b.p.max())} leaves no row of two "
+                         f"float32 buffers in {MAX_DYNAMIC_SMEM} bytes")
+    rows = np.arange(R, dtype=np.int32)
+    live = _live_rows(b)
+    # Spans [lo, hi] of the rows each row depends on, flat over (B, R);
+    # the zero row's span is empty (lo = R, hi = -1).
+    base = (np.arange(B, dtype=np.int32) * R)[:, None]
+    lo = np.broadcast_to(rows, (B, R)).copy()
+    hi = lo.copy()
+    lo[:, Z], hi[:, Z] = R, -1
+    levels = 0
+    for l in range(L):
+        hl, tl = (b.h[l] + base).ravel(), (b.t[l] + base).ravel()
+        nlo = np.minimum(lo.ravel()[hl], lo.ravel()[tl]).reshape(B, R)
+        nhi = np.maximum(hi.ravel()[hl], hi.ravel()[tl]).reshape(B, R)
+        nlo[:, Z], nhi[:, Z] = R, -1
+        size = np.maximum(nhi, rows) - np.minimum(nlo, rows) + 1
+        if (live & (size > cap[:, None])).any():
+            break
+        lo, hi, levels = nlo, nhi, l + 1
+    first = np.minimum(lo, rows)
+    size = np.maximum(hi, rows) - first + 1
+    tiles, smem = [], 0
+    for j in range(B):
+        c, p = int(cap[j]), int(b.p[j])
+        edges = np.flatnonzero(np.diff(np.concatenate(
+            ([0], live[j].view(np.int8), [0]))))
+        per = max(1, c // int(size[j][live[j]].max()))
+        dead = 0
+        for a, e in zip(edges[::2], edges[1::2]):
+            tiles += [(j, r, min(c, a - r), 0) for r in range(dead, a, c)]
+            starts = a + np.flatnonzero(first[j, a:e] == rows[a:e])
+            cuts = np.append(starts[::per], e)
+            tiles += [(j, r, n, 1) for r, n in zip(cuts[:-1].tolist(),
+                                                  np.diff(cuts).tolist())]
+            smem = max(smem, 8 * p * int(np.diff(cuts).max()))
+            dead = e
+        tiles += [(j, r, min(c, R - r), 0) for r in range(dead, R, c)]
+    return SegmentPlan(levels, np.asarray(tiles, np.int32).reshape(-1, 4),
+                       smem)

@@ -373,7 +373,9 @@ def _operands(b, widths, hcoef, bcoef, stdnoise, rows, device, guest=None):
     """(Tables, Coefs) on ``device`` of one container: the
     :class:`~riptide_tpu_torch.ops.plan.FFABatchPlan` ``b``, the S/N
     inputs of its trials and, for a row-packed container, ``guest`` =
-    (hcoef, bcoef, stdnoise) of the guest trials."""
+    (hcoef, bcoef, stdnoise) of the guest trials. On a CUDA device the
+    tables carry the segment kernel's plan (``b.segments``); the plain
+    CPU path runs every level over the container and takes none."""
     def dev(a, dtype):
         return _dev_tensor(a, dtype, device)
 
@@ -383,6 +385,10 @@ def _operands(b, widths, hcoef, bcoef, stdnoise, rows, device, guest=None):
         m=dev(b.m, np.int32), P=int(b.P),
         span=int(max(int(m) * int(p) for m, p in zip(b.m, b.p))),
     )
+    if device.type == "cuda":
+        seg = b.segments
+        tables = tables._replace(tiles=dev(seg.tiles, np.int32),
+                                 local=seg.levels, smem=seg.smem)
     coefs = Coefs(
         widths=dev(widths, np.int32), hcoef=dev(hcoef, np.float32),
         bcoef=dev(bcoef, np.float32), stdnoise=dev(stdnoise, np.float32),
@@ -584,8 +590,8 @@ def _stage_pairing(plan, rpm, i, st):
 
 def queued_launches(plan, mode=None):
     """The kernel launches one search of ``plan`` queues under the live
-    flags: {"fused_stage": K1, "paired_stage": K3, "cascade_stage": K2}
-    (K2 also counts K1's cascade half)."""
+    flags: {"fused_stage": K1, "paired_stage": K3, "cascade_stage": K2}.
+    A quantised wire runs K1 and K3 only, the float32 wire K2 only."""
     mode = mode or _wire_mode()
     if mode not in WIRE_MODES:
         n = len(plan.stages)
@@ -600,7 +606,7 @@ def queued_launches(plan, mode=None):
             role = rpm.get((i, k), ("",))[0]
             k1 += role == ""
             k3 += role == "host"
-    return {"fused_stage": k1, "cascade_stage": k1, "paired_stage": k3}
+    return {"fused_stage": k1, "cascade_stage": 0, "paired_stage": k3}
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from .limits import MAX_DYNAMIC_SMEM
+
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "MAX_DYNAMIC_SMEM", "Library",
            "build", "require", "stream", "check"]
 
@@ -33,8 +35,6 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-# The largest dynamic shared memory an H100 block may opt into.
-MAX_DYNAMIC_SMEM = 232448
 
 
 def _nvcc():
@@ -79,9 +79,11 @@ def build(source, flags=NVCC_FLAGS, info=None):
 
 class Library:
     """One CUDA source's library: built at first use, loaded once per
-    process, its C functions declared by ``bind(lib)``. ``info`` holds
-    the build's path, nvcc output and seconds (0 when it was built
-    already)."""
+    process, its C functions declared by ``bind(lib)``; a source that
+    exports ``int rt_init()`` (kernel attributes such as the opt-in
+    shared memory, set once rather than at every launch) has it called
+    at load. ``info`` holds the build's path, nvcc output and seconds (0
+    when it was built already)."""
 
     def __init__(self, source, bind, flags=NVCC_FLAGS):
         self.source = Path(source)
@@ -103,6 +105,10 @@ class Library:
                 lib.rt_error_string.argtypes = [ctypes.c_int]
                 lib.rt_error_string.restype = ctypes.c_char_p
                 self._bind(lib)
+                init = getattr(lib, "rt_init", None)
+                if init is not None:
+                    init.restype = ctypes.c_int
+                    check(lib, f"{self.source.name} rt_init", init())
                 self._lib = lib
         return self._lib
 

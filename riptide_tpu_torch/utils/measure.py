@@ -8,7 +8,7 @@ import time
 import torch
 
 __all__ = ["PEAK_BYTES_PER_S", "PEAK_OPS_PER_S", "bound_ms", "timed",
-           "median_ms"]
+           "median_ms", "graph_ms"]
 
 # Published H100 SXM peaks: the device memory rate, and float32 outside
 # the tensor cores. The data sheet's 67 TFLOP/s counts an FMA as two
@@ -50,3 +50,18 @@ def median_ms(fn, dev, reps=20):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return statistics.median(timed(fn, dev)[1] for _ in range(reps))
+
+
+def graph_ms(fn, dev, reps=20):
+    """Device milliseconds of ``fn()`` (all its launches) on a card: the
+    calls captured into one CUDA graph, replayed once to warm up, then
+    :func:`median_ms` of ``reps`` replays. This leaves out the host's
+    work per launch, which paces eager calls of short kernels."""
+    fn()
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = median_ms(graph.replay, dev, reps)
+    del graph
+    return ms

@@ -1,0 +1,255 @@
+#!/usr/bin/env python3
+"""
+Stage-loop and stage-kernel times of one checkout of the PyTorch port,
+on one CUDA card:
+
+    python3 stage_times.py [--tree DIR] [--survey] [--profile]
+
+``--tree`` imports ``riptide_tpu_torch`` from DIR (default: the
+directory of this script), so that two versions of the port are timed
+by the same code on the same card in one call, in turns (old, new, new,
+old). The configurations and data are those of this checkout's
+``chip_smoke.py`` (the headline plan and series, the parity oracle, the
+survey batch); the timers are this script's own, so every tree is timed
+alike. Prints the card (``nvidia-smi`` name and power limit), then one
+JSON object:
+
+* ``build_s``: kernel build and load; ``cold_search_s``: the first
+  headline ``ffa_search`` of the process (planning, operands and the
+  kernels' first launches included);
+* ``ffa_search_stage_loop_s``: the stage loop of 3 warm recorded
+  ``ffa_search`` calls (the split ``chip_smoke.py`` phase 2 prints),
+  and ``stage_loop_s`` / ``stage_events_s``: median and 10th / 90th
+  percentiles of 101 stage loops over the same shipped wire, host wall
+  and the sum of the per-stage CUDA event times (D = 1);
+* ``launches``: wrapper calls per headline search and, where the tree
+  counts them, ``cuda_launches`` by kernel;
+* ``K1`` over the headline's 43 launches and ``K2`` over the parity
+  oracle's 17 float32 launches: ``graph_ms``, device time from CUDA
+  graph replays of all the launches (median of 20), and ``wrapper_ms``,
+  CUDA events around the eager wrapper calls (median of 20);
+* with ``--survey``: ``survey_prep_s``, the host wire prep of
+  ``chip_smoke.py`` phase 5's D = 32 batch; ``survey_stage_loop_s``,
+  the median stage loop of 3 run (a) batches; ``K3`` over run (b)'s 10
+  launches (``RIPTIDE_KERNEL_BASE3=0``) as above;
+* with ``--profile``: one D = 1 stage loop (and, with ``--survey``, the
+  K3 calls) under ``torch.profiler``, device time by kernel and the
+  slowest launches.
+
+Imports nothing of jax and nothing of the JAX package.
+"""
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPS = 20
+# D = 1 stage loops over one shipped wire: the host's clock spreads.
+LOOPS = 101
+
+
+def _load_smoke():
+    """This checkout's chip_smoke.py, loaded from its file (a tree on
+    ``sys.path`` may hold a chip_smoke.py of its own)."""
+    spec = importlib.util.spec_from_file_location(
+        "stage_times_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _spread(xs):
+    """Median, 10th and 90th percentile."""
+    q = statistics.quantiles(xs, n=10)
+    return {"median": statistics.median(xs), "p10": q[0], "p90": q[-1]}
+
+
+def _event_ms(fn):
+    """Milliseconds of one ``fn()`` between CUDA events."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def _times(fn):
+    """``graph_ms``: device ms of ``fn()`` (all its launches), the median
+    of REPS replays of one CUDA graph of it; ``wrapper_ms``: the median of
+    REPS eager calls between CUDA events. Both after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    wrapper = statistics.median(_event_ms(fn) for _ in range(REPS))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    dev_ms = statistics.median(_event_ms(graph.replay) for _ in range(REPS))
+    del graph
+    return {"graph_ms": dev_ms, "wrapper_ms": wrapper}
+
+
+def _profile(fn):
+    """Device time of ``fn()``'s kernels under torch.profiler: by kernel
+    name (launches, ms) and the 8 slowest launches (position in launch
+    order, name, us)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    by_name = {}
+    for e in kern:
+        n, us = by_name.get(e.name[:60], (0, 0.0))
+        by_name[e.name[:60]] = (n + 1, us + e.time_range.elapsed_us())
+    slow = sorted(((i, e.name[:40], e.time_range.elapsed_us())
+                   for i, e in enumerate(kern)), key=lambda x: -x[2])[:8]
+    return {"by_kernel": {k: [n, us / 1e3] for k, (n, us) in
+                          sorted(by_name.items(), key=lambda kv: -kv[1][1])},
+            "slowest_us": slow}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=HERE,
+                    help="checkout whose riptide_tpu_torch is timed")
+    ap.add_argument("--survey", action="store_true",
+                    help="also prepare the D = 32 survey wire and time its "
+                         "stage loop and K3")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one D = 1 stage loop (and the K3 "
+                         "calls) with torch.profiler")
+    args = ap.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("stage_times: no CUDA device", file=sys.stderr)
+        return 2
+    smoke = _load_smoke()
+    from riptide_tpu_torch import ffa_search
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.search import engine
+
+    card = smoke.gpu_line()
+    print(f"{card}; {fk.__file__}", flush=True)
+    dev = torch.device("cuda")
+    res = {"tree": tree, "card": card}
+    t0 = time.perf_counter()
+    fk._LIB.load()
+    res["build_s"] = time.perf_counter() - t0
+
+    cfg = smoke.HEADLINE
+    ts = smoke.headline_series()
+    kw = dict(period_min=cfg["period_min"], period_max=cfg["period_max"],
+              bins_min=cfg["bins_min"], bins_max=cfg["bins_max"], device=dev)
+    t0 = time.perf_counter()
+    ffa_search(ts, **kw)
+    res["cold_search_s"] = time.perf_counter() - t0
+    loops = []
+    counted = getattr(fk, "KERNEL_LAUNCHES", None)
+    for _ in range(3):
+        fk.reset_launches()
+        with engine.recording() as rec:
+            ffa_search(ts, **kw)
+        loops.append(rec["stages_s"])
+    res["ffa_search_stage_loop_s"] = loops
+    res["launches"] = dict(fk.LAUNCHES)
+    if counted is not None:
+        res["cuda_launches"] = dict(counted)
+
+    plan = smoke.headline_plan()
+    shipped = (rec["wire"], rec["meta"])
+    walls, events, stage_ms = [], [], []
+    for _ in range(LOOPS):
+        with engine.recording() as r2:
+            engine._queue_batch(plan, None, dev, shipped=shipped)
+        walls.append(r2["stages_s"])
+        events.append(sum(r2["stage_ms"]) / 1e3)
+        stage_ms.append(r2["stage_ms"])
+    res["stage_loop_s"] = _spread(walls)
+    res["stage_events_s"] = _spread(events)
+    res["stage_ms"] = [statistics.median(x) for x in zip(*stage_ms)]
+    if args.profile:
+        res["profile_stage_loop"] = _profile(
+            lambda: engine._queue_batch(plan, None, dev, shipped=shipped))
+
+    k1 = [r["args"] for r in rec["launches"] if r["kind"] == "fused_stage"]
+    res["K1"] = dict(calls=len(k1), **_times(
+        lambda: [fk.fused_stage(*a) for a in k1]))
+    del rec, r2
+
+    with smoke.wire_dtype("float32"), engine.recording() as rec:
+        ffa_search(smoke.oracle_series(), **smoke.ORACLE_SEARCH, device=dev)
+    k2 = [r["args"] for r in rec["launches"] if r["kind"] == "cascade_stage"]
+    # cascade_stage may use its container as scratch: time it on copies
+    # (the work does not depend on the values).
+    k2 = [(a[0].clone(),) + tuple(a[1:]) for a in k2]
+    res["K2"] = dict(calls=len(k2), **_times(
+        lambda: [fk.cascade_stage(*a) for a in k2]))
+    del rec
+
+    if args.survey:
+        res.update(_survey(smoke, plan, dev, fk, engine, args.profile))
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def _survey(smoke, plan, dev, fk, engine, profile=False):
+    import torch
+
+    D = 32
+    tobs = smoke.HEADLINE["nsamp"] * smoke.HEADLINE["tsamp"]
+    batch = smoke.survey_batch(plan, D)
+    t0 = time.perf_counter()
+    prepared = engine.prepare_stage_data(plan, batch)
+    out = {"survey_prep_s": time.perf_counter() - t0}
+    del batch
+    for name, flags in smoke.LAYOUTS[:2]:
+        with smoke.layout_flags(flags):
+            loops = []
+            for _ in range(3):
+                with engine.recording() as rec:
+                    h = engine.queue_search_batch(plan, None, tobs,
+                                                  prepared=prepared,
+                                                  device=dev)
+                    engine.collect_search_batch(h, np.zeros(D))
+                loops.append(rec["stages_s"])
+            if name == "b":
+                k3 = [r["args"] for r in rec["launches"]
+                      if r["kind"] == "paired_stage"]
+                out["K3"] = dict(calls=len(k3), **_times(
+                    lambda: [fk.paired_stage(*a) for a in k3]))
+                if profile:
+                    out["profile_K3"] = _profile(
+                        lambda: [fk.paired_stage(*a) for a in k3])
+            else:
+                out["survey_stage_loop_s"] = statistics.median(loops)
+        del rec, h
+        torch.cuda.empty_cache()
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -155,3 +155,124 @@ def test_wrapper_refuses_bad_input(dev, case):
                       dtype=torch.float64)
     with pytest.raises(ValueError):
         fk.cascade_stage(bad, tables, coefs)
+
+
+# Tile-edge containers of the segment kernel: (ms, ps, guests). A plane
+# of width p fits tiles of MAX_DYNAMIC_SMEM // (8 p) rows: 113 at p =
+# 256, 2 at the widest p the S/N kernel takes, 3632 at p = 8.
+P_WIDE = fk.MAX_DYNAMIC_SMEM // (4 * fk.SNR_WARPS)
+EDGES = {
+    "cap113": ([113, 114, 226, 227, 1], [256, 255, 256, 250, 256], None),
+    "cap2": ([1, 2, 3, 5, 8], [P_WIDE] * 5, None),
+    "cap3632": ([3632, 3633, 7], [8, 8, 5], None),
+    "paired": ([200, 190, 1], [33, 40, 33], [(24, 208), None, (1, 2)]),
+    "paired-cap113": ([113, 100], [256, 256], [(114, 120), (56, 128)]),
+    # Guests right above their hosts: one tile holds host and guest rows.
+    "paired-adjacent": ([100, 60], [64, 61], [(50, 100), (30, 60)]),
+}
+
+
+def _edge_case(name, mode, dev, D=2, PW=64, seed=5):
+    """The container's plan, Tables on ``dev``, and its three sources: a
+    hand-made byte-plane wire of mode ``mode`` holding the host stage
+    (and the guest stage), and a packed float container of the same
+    samples."""
+    from riptide_tpu_torch.ops.plan import FFABatchPlan
+
+    ms, ps, guests = EDGES[name]
+    R = max([m + 1 for m in ms] + [g[0] + g[1] + 1 for g in guests or ()
+                                   if g])
+    b = FFABatchPlan(ms, ps, R=R, guests=guests)
+    B = b.B
+    one = np.ones((B, 1), np.float32)
+    tables = engine._operands(
+        b, (1,), one, one, one[:, 0], 1, dev,
+        guest=None if guests is None else (one, one, one[:, 0]))[0]
+    group, planes = fk.WIRE_MODES[mode]
+    rng = np.random.default_rng(seed)
+    geoms, roff, soff = [], 0, 0
+    for span in (tables.span, tables.gspan if guests else 0):
+        if not span:
+            continue
+        r0 = -(-span // PW)
+        pr = -(-r0 // group)
+        geoms.append(fk.StageGeom(mode, roff, pr, soff, r0, span))
+        roff, soff = roff + planes * pr, soff + r0
+    wire = torch.from_numpy(rng.integers(0, 256, (D, roff, PW),
+                                         dtype=np.uint8)).to(dev)
+    scales = torch.from_numpy(rng.uniform(0.05, 0.2, (D, soff)).astype(
+        np.float32)).to(dev)
+    src = fk.WireSource(wire, scales, *geoms)
+    return b, tables, src, fk.fill_plain(src, tables)
+
+
+@pytest.mark.parametrize("name", sorted(EDGES))
+@pytest.mark.parametrize("kind", ["K1", "K2"])
+def test_segment_kernel_bitwise_at_tile_edges(dev, name, kind):
+    """The container after the segment kernel and after each global
+    level is segment_levels_plain's, bit for bit (signs of zeros
+    included): from the wire (K1; K3 where the container carries
+    guests) and from the packed float container (K2)."""
+    b, tables, wsrc, packed = _edge_case(name, "uint6", dev)
+    src = wsrc if kind == "K1" else packed.clone()
+    L = tables.h.shape[0]
+    for g in range(L - tables.local + 1):
+        before = dict(fk.KERNEL_LAUNCHES)
+        got = fk.segment_levels(src, tables, g)
+        form = "segment_wire" if kind == "K1" else "segment_container"
+        assert fk.KERNEL_LAUNCHES[form] == before[form] + 1
+        assert fk.KERNEL_LAUNCHES["ffa_level"] == before["ffa_level"] + g
+        want = fk.segment_levels_plain(src, tables, g)
+        assert torch.equal(got, want), (name, kind, g)
+        assert torch.equal(torch.signbit(got), torch.signbit(want))
+    if kind == "K2":
+        assert torch.equal(src, packed)
+
+
+@pytest.mark.parametrize("mode", ["uint8", "uint12"])
+def test_segment_kernel_decodes_every_wire_mode(dev, mode):
+    for name in ("cap113", "paired"):
+        _, tables, src, _ = _edge_case(name, mode, dev)
+        assert torch.equal(fk.segment_levels(src, tables, 0),
+                           fk.segment_levels_plain(src, tables, 0))
+
+
+def test_stage_counts_cuda_launches(dev, case):
+    """A K1 call is one segment launch from the wire, one level launch
+    per level past the tiles and one S/N launch, counted as a K1 call
+    only; a K2 call the same with the segment kernel's container form."""
+    plan, batch = case
+    wire, meta = engine.ship_stage_data(
+        engine.prepare_stage_data(plan, batch, mode="uint6"), dev)
+    st = plan.stages[0]
+    tables, coefs = engine._stage_operands(st, plan, dev)
+    fk.reset_launches()
+    fk.fused_stage(wire, meta["scales_dev"], engine.stage_geom(meta, 0, st.n),
+                   tables, coefs)
+    levels = tables.h.shape[0] - tables.local
+    assert fk.LAUNCHES == {"fused_stage": 1, "cascade_stage": 0,
+                           "paired_stage": 0}
+    assert fk.KERNEL_LAUNCHES == {"segment_wire": 1, "segment_container": 0,
+                                  "ffa_level": levels, "boxcar_snr": 1}
+    fk.reset_launches()
+    fk.cascade_stage(fk.fill_plain(fk.WireSource(
+        wire, meta["scales_dev"], engine.stage_geom(meta, 0, st.n)), tables),
+        tables, coefs)
+    assert fk.LAUNCHES == {"fused_stage": 0, "cascade_stage": 1,
+                           "paired_stage": 0}
+    assert fk.KERNEL_LAUNCHES == {"segment_wire": 0, "segment_container": 1,
+                                  "ffa_level": levels, "boxcar_snr": 1}
+
+
+def test_cuda_operands_ship_the_segment_plan(dev, case):
+    """The CUDA operands carry the container's segment plan, built once
+    and cached with them."""
+    plan, _ = case
+    st = plan.stages[0]
+    t1, _ = engine._stage_operands(st, plan, dev)
+    t2, _ = engine._stage_operands(st, plan, dev)
+    assert t1 is t2
+    seg = st.batch.segments
+    assert t1.tiles.device.type == "cuda"
+    np.testing.assert_array_equal(t1.tiles.cpu().numpy(), seg.tiles)
+    assert (t1.local, t1.smem) == (seg.levels, seg.smem)
