@@ -6,10 +6,15 @@ Smoke run of the PyTorch port (``riptide_tpu_torch``) on one CUDA card.
 
 Builds the cascade-stage kernels (``riptide_tpu_torch/csrc/ffa_stage.cu``)
 and the chip probes' kernels (``riptide_tpu_torch/csrc/probes.cu``) from
-this checkout with nvcc, one process each, started together, then:
+this checkout with nvcc, and the native host runtime
+(``riptide_tpu_torch/native/src/riptide_native.cpp``) with g++, one
+process each, started together, then:
 
 0. prints the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions and the kernel build time;
+   CUDA versions, the kernel build time, the native build's g++ seconds,
+   the host's cores and the prep threads in use; fails unless the
+   native runtime loaded (every wire the script records must be the
+   native prep's, ``meta["prep"]``);
 1. the S/N parity oracle: ``ffa_search`` of the seeded 128 s / 256 us
    pulsar must give S/N 18.5 +/- 0.15 at width 13, on the uint6 wire
    (K1) and on the float32 wire (device pack, then K2: K2's own path).
@@ -28,7 +33,12 @@ this checkout with nvcc, one process each, started together, then:
    (``ops.plan.segment_plan`` of all 43 containers) is timed. The search
    is recorded (``engine.recording``): its time split into host wire
    preparation, copies and the stage loop, and every K1 launch's output
-   held against ``fused_stage_plain`` on the same operands;
+   held against ``fused_stage_plain`` on the same operands. The rest of
+   the warm search is split into the data-quality steps
+   (``quality.scan_samples``, ``fill_masked``, ``TimeSeries.deredden``,
+   ``normalise``), and the wire prep is timed by the native runtime (the
+   engine's) and by the numpy path (called directly) in this call, the
+   two wires and scales the same bits;
 3. K1 ``fused_stage`` on every launch of that search (D = 1) and K2
    ``cascade_stage`` on the oracle's 17 float32 launches and on the
    containers K1's front half builds: the container after the segment
@@ -42,7 +52,9 @@ this checkout with nvcc, one process each, started together, then:
    over the oracle's;
 4. ``run_periodogram_batch`` at the headline configuration with D = 32:
    DM-trials/s, peak device memory, the launch counts, the time split,
-   and every K1 launch's output against its plain version;
+   and every K1 launch's output against its plain version; the prep by
+   both paths, twice each (wall and process CPU seconds), the wires and
+   scales the same bits;
 5. the survey batch: ``run_search_batch`` at the headline configuration
    with D = 32 (a pulsar in series 0) from one ``prepare_stage_data``,
    under (a) the default container flags, (b) ``RIPTIDE_KERNEL_BASE3=0``,
@@ -53,7 +65,21 @@ this checkout with nvcc, one process each, started together, then:
    lists identical, and series 0 must give the pulsar. Every K3 launch of
    run (b) is held against ``paired_stage_plain``, its containers after
    the segment kernel and every global level against the plain levels
-   bit for bit, and K3 is timed over all of them;
+   bit for bit, and K3 is timed over all of them. The prep is timed by
+   both paths (the same bits), and one two-chunk survey runs with the
+   prep overlapped: chunk 2 is prepared on a worker thread into a pinned
+   ``StagingPool`` while the card runs chunk 1, twice (the second pass
+   from recycled buffers);
+5f. the file entry points: the phase 2 series written by this script as
+   a PRESTO .inf/.dat pair and as 32-bit and 8-bit SIGPROC files, read
+   back with ``TimeSeries.from_presto_inf`` / ``from_sigproc`` and
+   searched with ``ffa_search`` (counts set to 0 just before each search
+   and read just after): the 32-bit reads give the in-memory search's
+   S/N bits, the 8-bit read recovers the pulsar;
+5w. wide phases: three searches whose padded width P crosses 14,528 (the
+   S/N kernel's 4-row shared memory), 29,056 (a segment tile's row
+   pair) and 58,112 (one S/N row), each on the uint6 wire (K1) and the
+   float32 wire (K2), every launch held against its plain version;
 6. the chip probes P1-P3 (``riptide_tpu_torch.probes``) through their
    entry points at the JAX tools' shapes: ``ptime.main(["all"])``,
    ``ptime2.main`` with all six bodies at NITER 20000 and
@@ -114,6 +140,14 @@ REPS = 20
 # float32 (sums of 2048 products in another order, outputs ~1-4).
 PROBE_MM_RTOL, PROBE_MM_ATOL = 1e-5, 1e-5
 
+
+# Phase 5w: searches across the kernels' wide-phase limits: (the limit
+# the padded width P crosses, nsamp, tsamp, bins_min, bins_max); the
+# period range is bins_max to 1.001 * bins_max samples (2-7 stages).
+WIDE = ((14528, 2 ** 18, 16e-6, 16000, 16008),
+        (29056, 2 ** 19, 16e-6, 30000, 30008),
+        (58112, 2 ** 20, 16e-6, 60000, 60008))
+WIDE_WIDTHS = (1, 2, 4, 8, 16)
 
 # Phase 1's parity oracle: the seeded series and its search.
 ORACLE_SERIES = dict(length=128.0, tsamp=256e-6, period=1.0, amplitude=20.0,
@@ -299,6 +333,109 @@ def print_split(rec, D):
     return total
 
 
+@contextlib.contextmanager
+def dq_steps():
+    """Host seconds of each data-quality step in the searches run inside
+    the block (``quality.prepare_time_series``' steps, wrapped for the
+    block): yields {step: [calls, seconds]}."""
+    from riptide_tpu_torch import quality
+    from riptide_tpu_torch.time_series import TimeSeries
+
+    steps = {}
+    targets = [(quality, "scan_samples"), (quality, "fill_masked"),
+               (TimeSeries, "deredden"), (TimeSeries, "normalise")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
+
+    def wrap(name, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                c = steps.setdefault(name, [0, 0.0])
+                c[0] += 1
+                c[1] += time.perf_counter() - t0
+        return timed
+
+    for obj, name, fn in saved:
+        setattr(obj, name, wrap(name, fn))
+    try:
+        yield steps
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Python's garbage-collector passes during the block: yields a list
+    that gets (generation, ms, seconds since the block began) for each."""
+    import gc
+
+    pauses, t = [], {}
+    t0 = time.perf_counter()
+
+    def hook(phase, info):
+        if phase == "start":
+            t["start"] = time.perf_counter()
+        elif "start" in t:
+            now = time.perf_counter()
+            pauses.append((info["generation"], (now - t.pop("start")) * 1e3,
+                           now - t0))
+
+    gc.callbacks.append(hook)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(hook)
+
+
+def _prep_run(fn):
+    """(output, wall s, process CPU s of all its threads) of one prep."""
+    c0, t0 = time.process_time(), time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0, time.process_time() - c0
+
+
+def prep_both(plan, batch, name, reps=1, mode="uint6"):
+    """The wire prep of ``batch`` by the native runtime (the engine's
+    ``prepare_stage_data``) and by the numpy path
+    (``engine._prepare_uint_numpy``, called directly), ``reps`` times
+    each in turns, in this call: prints wall and process CPU seconds
+    (CPU seconds that move with the wall point at the work, not at
+    waiting), and checks that the two paths' wires and scales are the
+    same bits.
+    Returns the first native result and {path: [wall s, ...]}."""
+    from riptide_tpu_torch.search import engine
+
+    walls = {"native": [], "numpy": []}
+    first = {}
+    for _ in range(reps):
+        for path in ("native", "numpy"):
+            if path == "native":
+                out, wall, cpu = _prep_run(
+                    lambda: engine.prepare_stage_data(plan, batch, mode=mode))
+                check(out[1]["prep"] == "native",
+                      f"{name}: the engine's prep took the {out[1]['prep']} "
+                      "path")
+            else:
+                out, wall, cpu = _prep_run(
+                    lambda: engine._prepare_uint_numpy(plan, batch, mode))
+            first.setdefault(path, out)
+            walls[path].append(wall)
+            print(f"  {name} wire prep, {path}: {wall:.4f} s wall, "
+                  f"{cpu:.4f} s process CPU", flush=True)
+    (nwire, nmeta), (pwire, pscales) = first["native"], first["numpy"]
+    check(np.array_equal(nwire, pwire) and np.array_equal(nmeta["scales"],
+                                                          pscales),
+          f"{name}: the native and numpy wires or scales differ")
+    print(f"  {name}: native and numpy wires ({nwire.nbytes / 2 ** 20:.1f} "
+          f"MiB) and scales the same bits; native "
+          f"{min(walls['native']):.4f} s against numpy "
+          f"{min(walls['numpy']):.4f} s (fastest of {reps})", flush=True)
+    return first["native"], walls
+
+
 def phase_oracle(dev):
     """Phase 1: the 18.5 +/- 0.15 parity oracle, on the default uint6 wire
     (K1) and on the float32 wire (device pack, then K2), the launch
@@ -373,12 +510,14 @@ def phase_headline(dev, plan, cfg=HEADLINE, period=PULSAR["period"],
     ffa_search(ts, **kw)
     cold = time.perf_counter() - t0
     fk.reset_launches()
-    with engine.recording() as rec:
+    with engine.recording() as rec, dq_steps() as steps, gc_pauses() as gcs:
         t0 = time.perf_counter()
         tsn, pgram = ffa_search(ts, **kw)
         warm = time.perf_counter() - t0
     launches = dict(fk.LAUNCHES)
     cuda = dict(fk.KERNEL_LAUNCHES)
+    check(rec["meta"]["prep"] == "native",
+          f"headline: the wire was made by the {rec['meta']['prep']} prep")
     ntrials = pgram.periods.size
     ip, iw = np.unravel_index(np.argmax(pgram.snrs), pgram.snrs.shape)
     snr = float(pgram.snrs[ip, iw])
@@ -407,11 +546,24 @@ def phase_headline(dev, plan, cfg=HEADLINE, period=PULSAR["period"],
           "one S/N launch per K1 call, one level launch per FFA level past "
           "the tiles")
     total = print_split(rec, 1)
-    print(f"  rest of the warm search (DQ scan, de-reddening, normalisation):"
-          f" {warm - total:.4f} s", flush=True)
+    dq = sum(sec for _, sec in steps.values())
+    print(f"  rest of the warm search: {warm - total:.4f} s, of which "
+          + ", ".join(f"{k} {sec:.4f} s ({n} calls)"
+                      for k, (n, sec) in steps.items())
+          + (f", fill_masked 0 calls" if "fill_masked" not in steps else "")
+          + f"; other host work {warm - total - dq:.4f} s", flush=True)
+    print(f"  garbage-collector passes in the warm search: {len(gcs)} "
+          f"({sum(g == 2 for g, _, _ in gcs)} of generation 2), "
+          f"{sum(ms for _, ms, _ in gcs):.3f} ms in all; the longest "
+          + ", ".join(f"gen {g} {ms:.3f} ms ending at {at:.4f} s"
+                      for g, ms, at in sorted(gcs, key=lambda x: -x[1])[:3])
+          + f" (the stage loop ran from "
+          f"{warm - rec['out_s'] - rec['stages_s']:.4f} to "
+          f"{warm - rec['out_s']:.4f} s of the search)", flush=True)
     err = compare_stages("K1 fused_stage in the search",
                          kernel_outs(rec, "fused_stage"),
                          plain_launches(rec, "fused_stage"))
+    prep_both(plan, tsn.data[None], "headline D = 1")
     return launches, rec, err, tsn.data, seg_s
 
 
@@ -600,6 +752,8 @@ def phase_batch(dev, plan, D=32, seed=2):
         warm = time.perf_counter() - t0
     launches = dict(fk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    check(rec["meta"]["prep"] == "native",
+          f"D = {D}: the wire was made by the {rec['meta']['prep']} prep")
     check(snrs.shape == (D, plan.length, len(plan.widths)),
           f"batch S/N shape {snrs.shape}")
     check(np.isfinite(snrs).all(), "non-finite batch S/N")
@@ -611,6 +765,8 @@ def phase_batch(dev, plan, D=32, seed=2):
     compare_stages(f"K1 fused_stage at D = {D}",
                    kernel_outs(rec, "fused_stage"),
                    plain_launches(rec, "fused_stage"))
+    del rec
+    prep_both(plan, batch, f"D = {D} batch", reps=2)
 
 
 @contextlib.contextmanager
@@ -659,11 +815,9 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
     tobs = cfg["nsamp"] * cfg["tsamp"]
     nw = len(plan.widths)
     batch = survey_batch(plan, D, cfg=cfg)
-    t0 = time.perf_counter()
-    prepared = engine.prepare_stage_data(plan, batch)
-    prep = time.perf_counter() - t0
+    prepared, walls = prep_both(plan, batch, f"D = {D} survey")
+    prep = walls["native"][0]
     view = prepared[1]["view"]
-    print(f"  D = {D}: one host wire prep {prep:.3f} s", flush=True)
     runs = {}
     for name, flags in LAYOUTS:
         with layout_flags(flags):
@@ -711,7 +865,7 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
             D, plan.length, nw), f"run ({name}): S/N cube {tuple(snr.shape)}")
         runs[name] = dict(pairs=pairs, absorbed=absorbed, launches=launches,
                           snr=snr, peaks=peaks, rec=rec, k3=k3,
-                          k3_trials=k3_trials)
+                          k3_trials=k3_trials, wall=wall)
     a, b, c = runs["a"], runs["b"], runs["c"]
     check(a["pairs"] == c["pairs"] == 0 and b["pairs"] == want_pairs,
           f"pairs {a['pairs']}, {b['pairs']}, {c['pairs']}: want 0, "
@@ -734,6 +888,8 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
           f"{best.snr:.3f} at P = {best.period:.6f} s, width {best.width} "
           f"(|df| = {dfreq:.3e} Hz, 1/T = {1.0 / tobs:.3e} Hz)", flush=True)
     check(dfreq < 1.0 / tobs, "series 0: injected pulsar not recovered")
+    overlapped_survey(dev, plan, D, batch, a["peaks"], a["wall"],
+                      walls, cfg)
 
     k3, args = b["k3"], [r["args"] for r in b["k3"]]
     check_levels("K3 levels", [(fk.WireSource(*x[:4]), x[4]) for x in args])
@@ -754,6 +910,219 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
           f"through the wrappers; plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
           f"by {bnd[1]})", flush=True)
     return b["launches"]["paired_stage"], err, (ms, pms, *bnd)
+
+
+def write_presto(path, data, tsamp):
+    """Write a float32 series as a PRESTO .inf/.dat pair (``path`` +
+    ".inf"/".dat"): PRESTO's header lines with their '=' at column 40,
+    ``tsamp`` written exactly (repr). Returns the .inf path."""
+    lines = (
+        ("Data file name without suffix", os.path.basename(path)),
+        ("Telescope used", "Parkes"), ("Instrument used", "Multibeam"),
+        ("Object being observed", "Pulsar"),
+        ("J2000 Right Ascension (hh:mm:ss.ssss)", "00:00:01.0000"),
+        ("J2000 Declination     (dd:mm:ss.ssss)", "-00:00:01.0000"),
+        ("Data observed by", "chip_smoke"),
+        ("Epoch of observation (MJD)", "59000.000000"),
+        ("Barycentered?           (1=yes, 0=no)", "1"),
+        ("Number of bins in the time series", str(data.size)),
+        ("Width of each time series bin (sec)", repr(float(tsamp))),
+        ("Any breaks in the data? (1=yes, 0=no)", "0"),
+        ("Type of observation (EM band)", "Radio"),
+        ("Beam diameter (arcsec)", "981"),
+        ("Dispersion measure (cm-3 pc)", "0.0"),
+        ("Central freq of low channel (Mhz)", "1182.1953125"),
+        ("Total bandwidth (Mhz)", "400"), ("Number of channels", "1024"),
+        ("Channel bandwidth (Mhz)", "0.390625"),
+        ("Data analyzed by", "chip_smoke"))
+    with open(path + ".inf", "w") as fobj:
+        fobj.write("".join(f" {k}".ljust(40) + f"=  {v}\n" for k, v in lines))
+    np.asarray(data, np.float32).tofile(path + ".dat")
+    return path + ".inf"
+
+
+def write_sigproc(path, data, tsamp, nbits):
+    """Write a one-channel SIGPROC time series: float32 (nbits 32) or
+    signed 8-bit samples (nbits 8, the 'signed' key set)."""
+    import struct
+
+    def key(k):
+        return struct.pack("i", len(k)) + k.encode()
+
+    hdr = key("HEADER_START") + key("source_name") + key("Pulsar")
+    for k, v in (("src_raj", 1.0), ("src_dej", -1.0), ("tstart", 59000.0),
+                 ("tsamp", float(tsamp)), ("refdm", 0.0)):
+        hdr += key(k) + struct.pack("d", v)
+    for k, v in (("nbits", nbits), ("nchans", 1), ("nifs", 1)):
+        hdr += key(k) + struct.pack("i", v)
+    if nbits == 8:
+        hdr += key("signed") + struct.pack("B", 1)
+    hdr += key("HEADER_END")
+    payload = np.asarray(data, np.float32 if nbits == 32 else np.int8)
+    with open(path, "wb") as fobj:
+        fobj.write(hdr + payload.tobytes())
+    return path
+
+
+def phase_files(dev, plan, ts, cfg=HEADLINE, period=PULSAR["period"]):
+    """Phase 5f: the headline series ``ts`` written as a PRESTO pair and as
+    32-bit and 8-bit SIGPROC files, read back with the loaders and
+    searched with ffa_search, the counts set to 0 just before each
+    search and read just after. The 32-bit reads must give the in-memory
+    search's S/N bits; the 8-bit read (the series at 16 steps per unit,
+    clipped to int8) must recover the pulsar."""
+    import tempfile
+
+    from riptide_tpu_torch import TimeSeries, ffa_search
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.search import engine
+    from riptide_tpu_torch.utils.cuda_build import BUILD_DIR
+
+    kw = dict(period_min=cfg["period_min"], period_max=cfg["period_max"],
+              bins_min=cfg["bins_min"], bins_max=cfg["bins_max"], device=dev)
+    length = cfg["nsamp"] * cfg["tsamp"]
+    _, want = ffa_search(ts, **kw)
+    q8 = np.clip(np.rint(ts.data * 8.0), -128, 127)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        base = os.path.join(tmp, "headline")
+        files = (("PRESTO .inf/.dat", TimeSeries.from_presto_inf,
+                  write_presto(base, ts.data, ts.tsamp), True),
+                 ("SIGPROC 32-bit", TimeSeries.from_sigproc,
+                  write_sigproc(base + "_32.tim", ts.data, ts.tsamp, 32), True),
+                 ("SIGPROC 8-bit", TimeSeries.from_sigproc,
+                  write_sigproc(base + "_8.tim", q8, ts.tsamp, 8), False))
+        for name, load, path, exact in files:
+            t0 = time.perf_counter()
+            tsl = load(path)
+            read_s = time.perf_counter() - t0
+            check(tsl.nsamp == ts.nsamp and tsl.tsamp == ts.tsamp,
+                  f"{name}: read {tsl.nsamp} samples at {tsl.tsamp} s")
+            fk.reset_launches()
+            with engine.recording() as rec:
+                _, pgram = ffa_search(tsl, **kw)
+            launches = dict(fk.LAUNCHES)
+            check_launches(name, launches, engine.queued_launches(plan))
+            check(rec["meta"]["prep"] == "native",
+                  f"{name}: the wire was made by the {rec['meta']['prep']} "
+                  "prep")
+            ip, iw = np.unravel_index(np.argmax(pgram.snrs), pgram.snrs.shape)
+            dfreq = abs(1.0 / pgram.periods[ip] - 1.0 / period)
+            same = np.array_equal(pgram.snrs, want.snrs)
+            print(f"  {name}: read {read_s:.3f} s; launches {launches}; best "
+                  f"S/N {pgram.snrs[ip, iw]:.3f} at P = "
+                  f"{pgram.periods[ip]:.6f} s (|df| = {dfreq:.3e} Hz); S/N "
+                  f"{'the same bits as' if same else 'differs from'} the "
+                  "in-memory search", flush=True)
+            if exact:
+                check(same, f"{name}: S/N differs from the in-memory search")
+            else:
+                check(dfreq < 1.0 / length and pgram.snrs[ip, iw] > 10.0,
+                      f"{name}: the pulsar was not recovered")
+
+
+def phase_wide(dev, wide=WIDE, widths=WIDE_WIDTHS):
+    """Phase 5w: a search per ``wide`` entry whose padded width P crosses
+    the entry's limit, on the uint6 wire (K1) and the float32 wire (K2),
+    the counts set to 0 just before each search and read just after;
+    every launch held against its plain version. Seeded noise with a
+    pulse every 1.0005 * bins_max samples."""
+    from riptide_tpu_torch.libffa import generate_signal
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.search import engine, periodogram_plan
+
+    for limit, nsamp, tsamp, bmin, bmax in wide:
+        pmin = bmax * tsamp
+        plan = periodogram_plan(nsamp, tsamp, widths, pmin, 1.001 * pmin,
+                                bmin, bmax)
+        check(plan.P > limit, f"P = {plan.P} does not cross {limit}")
+        np.random.seed(5)
+        data = generate_signal(nsamp, 1.0005 * bmax, amplitude=20.0,
+                               ducy=0.01)
+        data = ((data - data.mean()) / data.std()).astype(np.float32)
+        for mode, kind in (("uint6", "fused_stage"), ("float32",
+                                                      "cascade_stage")):
+            with wire_dtype(mode):
+                fk.reset_launches()
+                with engine.recording() as rec:
+                    _, _, snrs = engine.run_periodogram(plan, data,
+                                                        device=dev)
+                launches = dict(fk.LAUNCHES)
+                cuda = dict(fk.KERNEL_LAUNCHES)
+                check_launches(f"P > {limit}, {mode}", launches,
+                               engine.queued_launches(plan, mode))
+            check(launches[kind] > 0 and np.isfinite(snrs).all(),
+                  f"P > {limit}, {mode}: {kind} did not run")
+            locs = sorted({r["args"][-2].local for r in rec["launches"]})
+            print(f"  P = {plan.P} (> {limit}), {len(plan.stages)} stages, "
+                  f"{plan.length} trials, {mode} wire: launches {launches}, "
+                  f"CUDA launches {cuda}; S/N launch (rows, smem, scratch) "
+                  f"{fk.snr_launch(plan.P)}, tile-local levels {locs}; best "
+                  f"S/N {snrs.max():.3f}", flush=True)
+            compare_stages(f"{kind} at P = {plan.P}", kernel_outs(rec, kind),
+                           plain_launches(rec, kind))
+            del rec
+
+
+def overlapped_survey(dev, plan, D, batch, want_peaks, wall, walls,
+                      cfg=HEADLINE, seed=4):
+    """Two survey chunks with the prep overlapped, as a survey runs them:
+    chunk 1 prepared into a pinned :class:`StagingPool` and queued, chunk
+    2 prepared on a worker thread into the pool while the card runs
+    chunk 1, then collected and run; twice, the second pass from the
+    buffers the first gave back. Chunk 1 is phase 5's batch: its peaks
+    must be run (a)'s. Prints DM-trials/s beside run (a)'s without the
+    prep (``wall``) and with it (``walls``, the serial prep)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from riptide_tpu_torch.search import engine
+
+    tobs = cfg["nsamp"] * cfg["tsamp"]
+    batches = (batch, survey_batch(plan, D, seed=seed, cfg=cfg))
+    dms = np.zeros(D)
+    pool = engine.StagingPool(dev)
+    seen = set()
+    for rnd in (1, 2):
+        ptrs = set()
+        t0 = time.perf_counter()
+        p1 = engine.prepare_stage_data(plan, batches[0], pool=pool)
+        h1 = engine.queue_search_batch(plan, None, tobs, prepared=p1,
+                                       device=dev, pool=pool)
+        with ThreadPoolExecutor(1) as ex:
+            f2 = ex.submit(engine.prepare_stage_data, plan, batches[1],
+                           pool=pool)
+            peaks1, _ = engine.collect_search_batch(h1, dms)
+            p2 = f2.result()
+        h2 = engine.queue_search_batch(plan, None, tobs, prepared=p2,
+                                       device=dev, pool=pool)
+        peaks2, _ = engine.collect_search_batch(h2, dms)
+        wall2 = time.perf_counter() - t0
+        for p in (p1, p2):
+            check(p[1]["prep"] == "native" and len(p[1]["staging"]) == 2
+                  and all(t.is_pinned() for t in p[1]["staging"]),
+                  "overlapped survey: a chunk was not prepared natively into "
+                  "pinned pool buffers")
+            ptrs |= {t.data_ptr() for t in p[1]["staging"]}
+        # Chunk 1 acquires its buffers before anything else of the pass:
+        # on the second pass they must be buffers the first gave back.
+        first = {t.data_ptr() for t in p1[1]["staging"]}
+        check(peaks1 == want_peaks, "overlapped survey: chunk 1's peaks "
+              "differ from run (a)'s")
+        check(all(np.isfinite([pk.snr for pk in x]).all() for x in peaks2),
+              "overlapped survey: chunk 2 gave non-finite peaks")
+        reused = len(ptrs & seen)
+        recycled_first = first <= seen
+        seen |= ptrs
+        print(f"  overlapped survey, pass {rnd}: 2 chunks of D = {D} in "
+              f"{wall2:.3f} s, {2 * D / wall2:.3f} DM-trials/s with the prep "
+              f"overlapped ({reused} of {len(ptrs)} staging buffers recycled);"
+              f" run (a) {D / wall:.3f} DM-trials/s without the prep, "
+              f"{D / (wall + walls['native'][0]):.3f} with the native prep and"
+              f" {D / (wall + walls['numpy'][0]):.3f} with the numpy prep in "
+              "series", flush=True)
+        del p1, p2, h1, h2
+    check(recycled_first, "overlapped survey: the second pass's chunk 1 did "
+          "not run from the first pass's staging buffers")
 
 
 def phase_probes(dev):
@@ -856,15 +1225,24 @@ def main(argv=None):
     card = gpu_line()
     print(f"phase 0: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
+    from riptide_tpu_torch import native
+    from riptide_tpu_torch.search import engine
+
     t0 = time.perf_counter()
     libs = (fk._LIB, probes.LIB)
-    with ThreadPoolExecutor(len(libs)) as pool:
-        for done in [pool.submit(lib.build) for lib in libs]:
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        for done in [pool.submit(lib.build) for lib in libs] + [
+                pool.submit(native.build)]:
             done.result()
     for lib in libs:
         lib.load()
-    print(f"  kernel builds + loads {time.perf_counter() - t0:.2f} s, "
-          "together", flush=True)
+    check(native.available(), "the native host runtime did not load")
+    print(f"  kernel and native builds + loads {time.perf_counter() - t0:.2f}"
+          " s, together", flush=True)
+    print(f"  native host runtime: g++ {native.BUILD_INFO['seconds']:.2f} s "
+          f"-> {native.BUILD_INFO['path']}; {os.cpu_count()} host cores, "
+          f"prep threads {engine._prep_nthreads() or native.default_threads()}",
+          flush=True)
     for lib in libs:
         print(f"  {lib.source.name}: nvcc {lib.info['seconds']:.2f} s -> "
               f"{lib.info['path']}", flush=True)
@@ -888,6 +1266,11 @@ def main(argv=None):
     print("phase 5: run_search_batch, D = 32, three container layouts",
           flush=True)
     n3, err3, times["K3"] = phase_survey(dev, plan)
+    print("phase 5f: file entry points (PRESTO, SIGPROC 32- and 8-bit)",
+          flush=True)
+    phase_files(dev, plan, headline_series())
+    print("phase 5w: wide phase widths through K1 and K2", flush=True)
+    phase_wide(dev)
     print("phase 6: chip probes P1-P3 through their entry points",
           flush=True)
     t6 = time.perf_counter()

@@ -24,6 +24,13 @@
 //   boxcar_snr_kernel       the S/N epilogue of all three; rows at or
 //                           above a trial's guest base take the guest's
 //                           coefficients.
+// Every phase width the JAX package takes runs here. Where no row pair
+// of two float32 buffers fits a block's shared memory (p > 29,056), the
+// segment plan has no tile-local level: the segment kernel writes each
+// row straight to the container and every level is a level launch. The
+// S/N kernel keeps as many rows' prefix sums in shared memory as fit
+// (4 up to P = 14,528, 1 up to 58,112) and, above that, in a scratch row
+// of device memory per evaluated row.
 //
 // Design. A GPU reads by index, so both level kernels execute the
 // (h, t, shift) tables of ops/plan.py directly, as the plain PyTorch
@@ -182,7 +189,12 @@ __device__ __forceinline__ void merge_row(
 // [gbase_b, gbase_b + gm_b) from the guest slice), then runs levels
 // 0..Lloc-1 ping-ponging A and B with the level tables rebased to the
 // tile (Z -> literal zero), then writes its rows, zero from p to P.
-template <bool kFromWire>
+// kDirect serves the plan of phase widths whose row pair does not fit a
+// tile (no tile-local level, one-row tiles, no shared memory): a tile is
+// filled straight into its container row. It is a template parameter so
+// that each form knows its buffers' address space (a pointer that may be
+// shared or global memory makes every access a generic one).
+template <bool kFromWire, bool kDirect>
 __global__ void __launch_bounds__(kSegThreads) segment_cascade_kernel(
     const float* __restrict__ src, const uint8_t* __restrict__ wire,
     const float* __restrict__ scales, const int32_t* __restrict__ tiles,
@@ -207,7 +219,9 @@ __global__ void __launch_bounds__(kSegThreads) segment_cascade_kernel(
     return;
   }
   const int32_t p = ps[b];
-  float* buf = smem;
+  // kDirect: the tile's one row is its own buffer (its stride P does not
+  // matter for one row).
+  float* buf = kDirect ? dst : smem;
   float* nxt = smem + n * p;
   if constexpr (kFromWire) {
     // Host rows [0, m) from the host slice, guest rows [gb, gb + gm) from
@@ -234,6 +248,11 @@ __global__ void __launch_bounds__(kSegThreads) segment_cascade_kernel(
     for (int32_t i = warp; i < n; i += kSegWarps)
       for (int32_t c = lane; c < p; c += 32)
         buf[i * p + c] = s[(int64_t)i * P + c];
+  }
+  if constexpr (kDirect) {
+    for (int32_t c = p + (int32_t)threadIdx.x; c < P; c += blockDim.x)
+      dst[c] = 0.0f;
+    return;
   }
   __syncthreads();
   const int32_t Z = R - 1;
@@ -286,33 +305,36 @@ __global__ void __launch_bounds__(kLevelWarps * 32) ffa_level_kernel(
   for (int32_t c = p + lane; c < P; c += 32) o[c] = 0.0f;
 }
 
-// One warp per evaluated row (d, b, r < RE). The row's inclusive prefix
-// sum lives in shared memory (P floats per warp): each lane scans a
-// contiguous chunk, a shuffle scan adds the chunk offsets. Then for
+// One warp per evaluated row (d, b, r < RE), blockDim.x / 32 rows a
+// block. The row's inclusive prefix sum lives in shared memory (P floats
+// per warp) or, with kScratch (rows too wide for shared memory), in the
+// row's own P floats of `scratch`: each lane scans a contiguous chunk, a
+// shuffle scan adds the chunk offsets. Then for
 // each width the warp takes the maximum over the p phases of the
 // circular window sum cs[(j + w) mod p] (+ total on wrap) - cs[j], and
 // lane 0 writes ((h + b) * dmax - b * total) / std (ops/snr.py). With
 // gbase (row-packed containers; null otherwise), rows r >= gbase[b] >= 0
 // take the guest trial's gh/gb/gstd instead.
+template <bool kScratch>
 __global__ void boxcar_snr_kernel(
     const float* __restrict__ in, float* __restrict__ out,
     const int32_t* __restrict__ ps, const int32_t* __restrict__ widths,
     const float* __restrict__ hcoef, const float* __restrict__ bcoef,
     const float* __restrict__ stdnoise, const int32_t* __restrict__ gbase,
     const float* __restrict__ ghcoef, const float* __restrict__ gbcoef,
-    const float* __restrict__ gstdnoise, int64_t nrows, int32_t B, int32_t R,
-    int32_t P, int32_t RE, int32_t NW) {
+    const float* __restrict__ gstdnoise, float* __restrict__ scratch,
+    int64_t nrows, int32_t B, int32_t R, int32_t P, int32_t RE, int32_t NW) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kSnrWarps + warp;
+  const int64_t row = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= nrows) return;  // whole warps leave together
   const int64_t q = row / RE;
   const int32_t r = (int32_t)(row - q * RE);
   const int32_t b = (int32_t)(q % B);
   const int32_t p = ps[b];
   const float* x = in + (q * R + r) * P;
-  float* cs = smem + warp * P;
+  float* cs = kScratch ? scratch + row * P : smem + warp * P;
   const bool guest = gbase != nullptr && gbase[b] >= 0 && r >= gbase[b];
   const float* hc = guest ? ghcoef : hcoef;
   const float* bc = guest ? gbcoef : bcoef;
@@ -378,9 +400,9 @@ const char* rt_error_string(int code) {
 // Once per process, when the library loads: let the kernels that take
 // more than 48 KB of dynamic shared memory opt into the H100's 227 KB.
 int rt_init() {
-  const void* fns[] = {(const void*)boxcar_snr_kernel,
-                       (const void*)segment_cascade_kernel<true>,
-                       (const void*)segment_cascade_kernel<false>};
+  const void* fns[] = {(const void*)boxcar_snr_kernel<false>,
+                       (const void*)segment_cascade_kernel<true, false>,
+                       (const void*)segment_cascade_kernel<false, false>};
   for (const void* fn : fns) {
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
@@ -395,6 +417,8 @@ int rt_init() {
 // K3, gms/gbase (B,) i32 and the guest slice (else null / ignored).
 // tiles (ntiles, 4) i32; h/t/shift (L, B, R) i32 (levels 0..Lloc-1 are
 // read); ms/ps (B,) i32; out (D, B, R, P) f32, not aliasing src.
+// smem 0 selects the direct form: Lloc must be 0 and every tile one
+// row (ops/plan.py::segment_plan).
 int rt_segment_cascade(const void* src, const void* wire, const void* scales,
                        const void* tiles, int ntiles, const void* h,
                        const void* t, const void* shift, const void* ms,
@@ -406,23 +430,21 @@ int rt_segment_cascade(const void* src, const void* wire, const void* scales,
                        int mode, void* stream) {
   const int64_t blocks = D * ntiles;
   if (blocks == 0) return 0;
+  const bool direct = smem == 0;
+  if (direct && Lloc != 0) return (int)cudaErrorInvalidValue;
   const StageSlice host{roff, pr, soff};
   const StageSlice guest{groff, gpr, gsoff};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (src == nullptr) {
-    segment_cascade_kernel<true><<<(unsigned)blocks, kSegThreads, smem, st>>>(
-        nullptr, (const uint8_t*)wire, (const float*)scales,
-        (const int32_t*)tiles, ntiles, (const int32_t*)h, (const int32_t*)t,
-        (const int32_t*)shift, (const int32_t*)ms, (const int32_t*)ps,
-        (const int32_t*)gms, (const int32_t*)gbase, (float*)out, B, R, P, Lloc,
-        wrows, PW, stot, host, guest, mode);
-  } else {
-    segment_cascade_kernel<false><<<(unsigned)blocks, kSegThreads, smem, st>>>(
-        (const float*)src, nullptr, nullptr, (const int32_t*)tiles, ntiles,
-        (const int32_t*)h, (const int32_t*)t, (const int32_t*)shift,
-        (const int32_t*)ms, (const int32_t*)ps, nullptr, nullptr, (float*)out,
-        B, R, P, Lloc, 0, 0, 0, host, guest, mode);
-  }
+  const auto kernel =
+      src == nullptr ? (direct ? segment_cascade_kernel<true, true>
+                               : segment_cascade_kernel<true, false>)
+                     : (direct ? segment_cascade_kernel<false, true>
+                               : segment_cascade_kernel<false, false>);
+  kernel<<<(unsigned)blocks, kSegThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)src, (const uint8_t*)wire, (const float*)scales,
+      (const int32_t*)tiles, ntiles, (const int32_t*)h, (const int32_t*)t,
+      (const int32_t*)shift, (const int32_t*)ms, (const int32_t*)ps,
+      (const int32_t*)gms, (const int32_t*)gbase, (float*)out, B, R, P, Lloc,
+      wrows, PW, stot, host, guest, mode);
   return (int)cudaGetLastError();
 }
 
@@ -452,20 +474,30 @@ int rt_ffa_levels(void* a, void* b, const void* h, const void* t,
 // in (D, B, R, P) f32, out (D, B, RE, NW) f32; widths (NW,) i32,
 // hcoef/bcoef (B, NW) f32, stdnoise (B,) f32. gbase (B,) i32 and the
 // guest's ghcoef/gbcoef/gstdnoise for a row-packed container, else null.
+// `rows` rows (warps) a block with their prefix sums in rows * P floats
+// of shared memory; or, with `scratch` (D * B * RE * P f32), kSnrWarps
+// rows a block with their prefix sums there.
 int rt_boxcar_snr(const void* in, void* out, const void* ps,
                   const void* widths, const void* hcoef, const void* bcoef,
                   const void* stdnoise, const void* gbase, const void* ghcoef,
-                  const void* gbcoef, const void* gstdnoise, long long D,
-                  int B, int R, int P, int RE, int NW, void* stream) {
+                  const void* gbcoef, const void* gstdnoise, void* scratch,
+                  int rows, long long D, int B, int R, int P, int RE, int NW,
+                  void* stream) {
   const int64_t nrows = D * B * (int64_t)RE;
   if (nrows == 0) return 0;
-  const size_t smem = (size_t)kSnrWarps * P * sizeof(float);
-  boxcar_snr_kernel<<<(unsigned)ceil_div(nrows, kSnrWarps), kSnrWarps * 32,
-                      smem, (cudaStream_t)stream>>>(
+  if (scratch != nullptr) rows = kSnrWarps;
+  if (rows < 1 || rows > kSnrWarps) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      scratch == nullptr ? (size_t)rows * P * sizeof(float) : 0;
+  const auto kernel = scratch == nullptr ? boxcar_snr_kernel<false>
+                                          : boxcar_snr_kernel<true>;
+  kernel<<<(unsigned)ceil_div(nrows, rows), rows * 32, smem,
+           (cudaStream_t)stream>>>(
       (const float*)in, (float*)out, (const int32_t*)ps,
       (const int32_t*)widths, (const float*)hcoef, (const float*)bcoef,
       (const float*)stdnoise, (const int32_t*)gbase, (const float*)ghcoef,
-      (const float*)gbcoef, (const float*)gstdnoise, nrows, B, R, P, RE, NW);
+      (const float*)gbcoef, (const float*)gstdnoise, (float*)scratch, nrows,
+      B, R, P, RE, NW);
   return (int)cudaGetLastError();
 }
 

@@ -55,9 +55,11 @@ first RE rows. A row-packed container's tables carry the guest
 rows at or above a trial's guest base take the guest's S/N coefficients
 (``Coefs.ghcoef``/``gbcoef``/``gstdnoise``). The TPU's p <= 2047
 and PW <= 2048 limits came from packed-word fields the port does not
-have; the port's limits are shared memory: the S/N kernel's
-``SNR_WARPS * P * 4`` bytes per block and a segment tile's
-``Tables.smem`` (at most ``MAX_DYNAMIC_SMEM`` each).
+have, and the kernels take every phase width: the S/N kernel keeps
+:func:`snr_launch` rows' prefix sums in a block's shared memory, or a
+scratch row each in device memory when not one fits, and a container
+whose row pair does not fit a segment tile runs every level as a level
+launch (:func:`~.plan.segment_plan`).
 """
 import ctypes
 from typing import NamedTuple
@@ -76,7 +78,7 @@ __all__ = ["fused_stage", "cascade_stage", "paired_stage", "segment_levels",
            "fused_stage_plain", "cascade_stage_plain", "paired_stage_plain",
            "segment_levels_plain", "fill_plain", "StageGeom", "WireSource",
            "Tables", "Coefs", "LAUNCHES", "KERNEL_LAUNCHES", "reset_launches",
-           "build", "bucket_rows", "WIRE_MODES"]
+           "build", "bucket_rows", "snr_launch", "WIRE_MODES"]
 
 SOURCE = cuda_build.CSRC / "ffa_stage.cu"
 
@@ -85,8 +87,21 @@ SOURCE = cuda_build.CSRC / "ffa_stage.cu"
 WIRE_MODES = {"uint8": (1, 1), "uint12": (2, 3), "uint6": (4, 3)}
 _MODE_CODE = {"uint6": 6, "uint8": 8, "uint12": 12}
 
-# Rows (one warp each) per boxcar_snr block, as in ffa_stage.cu.
+# Rows (one warp each) per boxcar_snr block at most, as in ffa_stage.cu.
 SNR_WARPS = 4
+
+
+def snr_launch(P):
+    """The S/N kernel's launch shape for container width P: (rows per
+    block, dynamic shared memory bytes, scratch). As many rows as fit
+    ``rows * P * 4 <= MAX_DYNAMIC_SMEM``, at most :data:`SNR_WARPS` (4 up
+    to P = 14,528, 1 up to 58,112); where not one row fits, SNR_WARPS
+    rows a block with their prefix sums in a device scratch row each
+    (``scratch`` True, no shared memory)."""
+    rows = min(SNR_WARPS, MAX_DYNAMIC_SMEM // (4 * int(P)))
+    if rows < 1:
+        return SNR_WARPS, 0, True
+    return rows, rows * int(P) * 4, False
 
 LAUNCHES = {"fused_stage": 0, "cascade_stage": 0, "paired_stage": 0}
 KERNEL_LAUNCHES = {"segment_wire": 0, "segment_container": 0,
@@ -193,7 +208,7 @@ def _bind(lib):
     lib.rt_ffa_levels.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, ll, i32,
                                   i32, i32, vp]
     lib.rt_boxcar_snr.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                  ll, i32, i32, i32, i32, i32, vp]
+                                  vp, i32, ll, i32, i32, i32, i32, i32, vp]
     for fn in (lib.rt_segment_cascade, lib.rt_ffa_levels, lib.rt_boxcar_snr,
                lib.rt_snr_warps, lib.rt_max_dynamic_smem):
         fn.restype = i32
@@ -256,11 +271,6 @@ def _check_stage(tables, coefs, D, B, R, P, dev):
         _require(coefs.gbcoef, "coefs.gbcoef", torch.float32, dev, (B, NW))
         _require(coefs.gstdnoise, "coefs.gstdnoise", torch.float32, dev,
                  (B,))
-    if SNR_WARPS * P * 4 > MAX_DYNAMIC_SMEM:
-        raise ValueError(
-            f"P = {P} needs {SNR_WARPS * P * 4} bytes of shared memory per "
-            f"S/N block; at most {MAX_DYNAMIC_SMEM} (P <= "
-            f"{MAX_DYNAMIC_SMEM // (4 * SNR_WARPS)})")
 
 
 # ---------------------------------------------------------------------------
@@ -470,11 +480,15 @@ def _levels(lib, stream, source, tables, D, levels=None, scratch=None):
 
 
 def _snr(lib, stream, x, tables, coefs):
-    """Launch the S/N kernel on a transformed (D, B, R, P) container."""
+    """Launch the S/N kernel on a transformed (D, B, R, P) container,
+    in the launch shape :func:`snr_launch` gives P."""
     D, B, R, P = x.shape
     NW = coefs.widths.shape[0]
     out = torch.empty((D, B, coefs.rows, NW), dtype=torch.float32,
                       device=x.device)
+    rows, _, wide = snr_launch(P)
+    scratch = (torch.empty((D, B, coefs.rows, P), dtype=torch.float32,
+                           device=x.device) if wide else None)
     # Null guest pointers (unpaired): every row takes the host's
     # coefficients.
     guest = (tables.gbase, coefs.ghcoef, coefs.gbcoef, coefs.gstdnoise)
@@ -483,6 +497,7 @@ def _snr(lib, stream, x, tables, coefs):
         coefs.widths.data_ptr(), coefs.hcoef.data_ptr(),
         coefs.bcoef.data_ptr(), coefs.stdnoise.data_ptr(),
         *(None if tables.gbase is None else g.data_ptr() for g in guest),
+        None if scratch is None else scratch.data_ptr(), rows,
         D, B, R, P, coefs.rows, NW, stream))
     KERNEL_LAUNCHES["boxcar_snr"] += 1
     return out

@@ -292,15 +292,21 @@ def segment_plan(b):
     span fits its plane's cap. The spans at Lloc are the closed nodes
     (segments); a tile takes as many whole segments of one run of live
     rows as fit the cap, and dead rows go in zero tiles of at most cap
-    rows."""
+    rows.
+
+    Where some plane's cap is below two rows (p > 29,056), no level fits
+    a tile: Lloc is 0, every row is a tile of its own (filled straight
+    into the container, no shared memory) and every level runs over the
+    whole container."""
     L, B, R = b.h.shape
     Z = R - 1
     cap = MAX_DYNAMIC_SMEM // (8 * b.p.astype(np.int64))
-    if (cap < 1).any():
-        raise ValueError(f"p = {int(b.p.max())} leaves no row of two "
-                         f"float32 buffers in {MAX_DYNAMIC_SMEM} bytes")
-    rows = np.arange(R, dtype=np.int32)
     live = _live_rows(b)
+    if (cap < 2).any():
+        plane, row = np.divmod(np.arange(B * R), R)
+        tiles = np.stack([plane, row, np.ones_like(row), live.ravel()], 1)
+        return SegmentPlan(0, tiles.astype(np.int32), 0)
+    rows = np.arange(R, dtype=np.int32)
     # Spans [lo, hi] of the rows each row depends on, flat over (B, R);
     # the zero row's span is empty (lo = R, hi = -1).
     base = (np.arange(B, dtype=np.int32) * R)[:, None]

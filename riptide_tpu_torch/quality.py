@@ -15,11 +15,18 @@ module:
   ``TimeSeries.normalise``) excludes masked samples from the mean/std
   and applies the effective-nsamp S/N correction ``nsamp / n_good``;
 * series whose masked fraction exceeds ``max_masked_frac`` are
-  **quarantined** — reported and excluded from the search.
+  **quarantined** — reported and excluded from the search;
+* ``strict | salvage | skip`` ingest policies decide whether a
+  truncated/malformed file raises (:class:`MalformedFile`), salvages
+  the readable prefix, or is skipped with a structured
+  :class:`DegradedInputWarning` (:func:`report_malformed`,
+  :func:`read_raw_samples`).
 
 These are the parts of the JAX package's ``quality`` module that
-:func:`prepare_time_series` reaches, with the same semantics; the
-survey metrics and incident records of the JAX package are not kept.
+:func:`prepare_time_series` and the file loaders reach, with the same
+semantics. The JAX package's survey metrics registry is not ported yet:
+the salvaged and skipped files are counted in the plain counters of
+:data:`METRICS`, and its incident records are not kept.
 """
 import logging
 import os
@@ -33,7 +40,11 @@ __all__ = [
     "DQConfig",
     "QualityReport",
     "QuarantinedSeries",
+    "MalformedFile",
     "DegradedInputWarning",
+    "INGEST_POLICIES",
+    "METRICS",
+    "reset_metrics",
     "scan_samples",
     "fill_masked",
     "masked_moments",
@@ -41,7 +52,20 @@ __all__ = [
     "prepare_time_series",
     "check_finite_array",
     "ingest_scan",
+    "read_raw_samples",
+    "report_malformed",
 ]
+
+INGEST_POLICIES = ("strict", "salvage", "skip")
+
+# Files the ingest policies salvaged or skipped in this process.
+METRICS = {"files_salvaged": 0, "files_skipped": 0}
+
+
+def reset_metrics():
+    """Set every counter of :data:`METRICS` to 0."""
+    for k in METRICS:
+        METRICS[k] = 0
 
 
 class DegradedInputWarning(UserWarning):
@@ -52,6 +76,11 @@ class DegradedInputWarning(UserWarning):
         self.fname = fname
         self.reason = reason
         super().__init__(f"{fname}: {reason}")
+
+
+class MalformedFile(ValueError):
+    """A data file failed structural validation on ingest (empty,
+    truncated mid-sample, or with an impossible header)."""
 
 
 class QuarantinedSeries(RuntimeError):
@@ -383,4 +412,90 @@ def ingest_scan(data, source=None):
                 source or "<array>",
                 f"{bad}/{arr.size} non-finite samples at ingest",
             ))
+    return data
+
+
+# ----------------------------------------------------------------------------
+# Ingest policies for malformed / truncated files
+# ----------------------------------------------------------------------------
+
+def _check_policy(policy):
+    if policy not in INGEST_POLICIES:
+        raise ValueError(
+            f"ingest policy must be one of {INGEST_POLICIES}, got {policy!r}"
+        )
+
+
+def report_malformed(fname, reason, policy, salvageable=False):
+    """
+    Apply an ingest policy to a malformed-file condition:
+
+    * ``strict``  -> raise :class:`MalformedFile`;
+    * ``salvage`` -> if ``salvageable``, warn + count ``files_salvaged``
+      and return True (caller proceeds with the readable prefix);
+      otherwise degrade to skip;
+    * ``skip``    -> warn + count ``files_skipped`` and return False
+      (caller returns None for the file).
+    """
+    _check_policy(policy)
+    if policy == "strict":
+        raise MalformedFile(f"{fname}: {reason}")
+    if policy == "salvage" and salvageable:
+        METRICS["files_salvaged"] += 1
+        warnings.warn(DegradedInputWarning(fname, reason + " (salvaged)"))
+        log.warning("salvaging %s: %s", fname, reason)
+        return True
+    METRICS["files_skipped"] += 1
+    warnings.warn(DegradedInputWarning(fname, reason + " (skipped)"))
+    log.warning("skipping %s: %s", fname, reason)
+    return False
+
+
+def read_raw_samples(fname, dtype=np.float32, policy="strict", offset=0,
+                     expect=None):
+    """
+    Read raw samples from ``fname`` under an ingest policy. Rejects
+    empty payloads and byte counts not divisible by the dtype itemsize
+    (``strict`` raises :class:`MalformedFile`; ``salvage`` keeps the
+    readable prefix; ``skip`` returns None). ``expect`` is the sample
+    count a header claims: fewer available samples means a truncated
+    file and triggers the same policy handling. Returns the sample
+    array, or None when the file was skipped.
+    """
+    _check_policy(policy)
+    itemsize = np.dtype(dtype).itemsize
+    size = os.path.getsize(fname) - offset
+    if size <= 0:
+        # No readable prefix exists, so 'salvage' degrades to skip
+        # (report_malformed's salvageable=False path) and only 'strict'
+        # raises.
+        report_malformed(fname, "empty file (no samples)", policy,
+                         salvageable=False)
+        return None
+    rem = size % itemsize
+    n = size // itemsize
+    problems = []
+    if rem:
+        problems.append(
+            f"{size} data bytes is not a multiple of the "
+            f"{np.dtype(dtype).name} itemsize ({itemsize}); "
+            f"{rem} trailing bytes"
+        )
+    if expect is not None and n < expect:
+        problems.append(
+            f"file holds {n} samples but the header claims {int(expect)} "
+            "(truncated)"
+        )
+    if problems:
+        # One policy event per file, whatever the defect count.
+        if not report_malformed(fname, "; ".join(problems), policy,
+                                salvageable=n > 0):
+            return None
+    with open(fname, "rb") as fobj:
+        fobj.seek(offset)
+        data = np.fromfile(fobj, dtype=dtype, count=n)
+    if data.size != n:
+        raise MalformedFile(
+            f"{fname}: short read ({data.size} of {n} samples)"
+        )
     return data

@@ -6,9 +6,9 @@ batch, with peak detection on the device.
 from ..ffautils import generate_width_trials
 from ..periodogram import Periodogram
 from ..timing import timing
-from .engine import (collect_search_batch, queue_search_batch,
-                     run_periodogram, run_periodogram_batch, run_search_batch,
-                     search_snr_dev)
+from .engine import (StagingPool, collect_search_batch, prepare_stage_data,
+                     queue_search_batch, release_prepared, run_periodogram,
+                     run_periodogram_batch, run_search_batch, search_snr_dev)
 from .plan import (PeriodogramPlan, periodogram_plan, plan_arrays,
                    plan_from_arrays, plan_occupancy)
 
@@ -25,6 +25,9 @@ __all__ = [
     "queue_search_batch",
     "collect_search_batch",
     "search_snr_dev",
+    "prepare_stage_data",
+    "release_prepared",
+    "StagingPool",
 ]
 
 

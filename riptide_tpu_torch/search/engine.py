@@ -1,15 +1,22 @@
 """
 Execution of a periodogram plan.
 
-Host half (numpy, float64): every cascade stage's downsampling of the
-(D, N) batch, from one prefix sum per series (mirroring the reference's
-double accumulator, riptide/cpp/downsample.hpp:44-82), then the wire the
-device reads. The default wire is ``uint6``: each stage's samples laid out
-as (r0, PW) view rows, quantised at one float32 scale per row and packed
-four samples to three byte planes (:func:`_view_layout`,
-:func:`_prepare_uint`). ``RIPTIDE_WIRE_DTYPE`` selects ``uint8``,
-``uint12`` or ``float32`` instead. Every byte of the wire, and every
-scale, is identical to the JAX package's.
+Host half (float64 accumulation): every cascade stage's downsampling of
+the (D, N) batch, from one prefix sum per series (mirroring the
+reference's double accumulator, riptide/cpp/downsample.hpp:44-82), then
+the wire the device reads. The default wire is ``uint6``: each stage's
+samples laid out as (r0, PW) view rows, quantised at one float32 scale
+per row and packed four samples to three byte planes
+(:func:`_view_layout`, :func:`_prepare_uint`). ``RIPTIDE_WIRE_DTYPE``
+selects ``uint8``, ``uint12``, ``float16`` or ``float32`` instead. The
+native threaded runtime (:mod:`riptide_tpu_torch.native`,
+``RIPTIDE_PREP_THREADS`` threads) prepares the wire when it built; the
+numpy path (:func:`_prepare_uint_numpy`) is the fallback, and each
+prepared wire names its path in ``meta["prep"]``. Both give the same
+bytes, and every byte of the wire, and every scale, is identical to the
+JAX package's. A :class:`StagingPool` recycles the host buffers across
+chunks (pinned for the card); :func:`ship_stage_data` copies them on a
+copy stream of their own that the stage loop waits on.
 
 Device half (torch): the wire ships as one tensor; the stages then queue
 (:func:`_queue_stages`), with the JAX package's layout decisions:
@@ -41,6 +48,7 @@ Replaces the reference's single-threaded C++ search loop
 (riptide/cpp/periodogram.hpp:117-201).
 """
 import contextlib
+import threading
 import time
 
 import numpy as np
@@ -54,7 +62,8 @@ from ..utils.device import resolve_device
 
 __all__ = ["run_periodogram", "run_periodogram_batch", "run_search_batch",
            "queue_search_batch", "collect_search_batch", "search_snr_dev",
-           "prepare_stage_data", "ship_stage_data", "recording"]
+           "prepare_stage_data", "ship_stage_data", "release_prepared",
+           "StagingPool", "recording"]
 
 # Tail slack of the wire layout, as in the JAX package's byte-plane view
 # (its fused TPU kernel streamed planes in DMA_CHUNK-row chunks and could
@@ -77,9 +86,13 @@ _WIRE_Q = {"uint6": (31.0, 32), "uint8": (127.0, 128),
            "uint12": (2047.0, 2048)}
 
 
-# Every wire transport: the quantised byte-plane views, and float32
-# samples that the device packs itself.
-WIRES = (*_WIRE_Q, "float32")
+# Float wires: samples that the device widens to float32 (float16) and
+# packs itself.
+_WIRE_FLOAT = ("float32", "float16")
+
+# Every wire transport: the quantised byte-plane views and the float
+# wires.
+WIRES = (*_WIRE_Q, *_WIRE_FLOAT)
 
 
 def _wire_mode():
@@ -162,6 +175,45 @@ def _prefix_anchored(data):
     return d64, c32, anchors
 
 
+def _ds_pack(plan):
+    """Stacked (S, nout) downsample-plan arrays, cached on the plan."""
+    pk = getattr(plan, "_ds_pack", None)
+    if pk is None:
+        cols = list(zip(*(st.ds_plan for st in plan.stages)))
+        pk = plan._ds_pack = tuple(np.stack(c) for c in cols)
+    return pk
+
+
+def _prep_nthreads():
+    """Worker threads of the native wire prep: ``RIPTIDE_PREP_THREADS``
+    when positive, else None (the native default, every core up to 32).
+    The (stage, trial) jobs write disjoint output regions, so the bytes
+    are the same at any count."""
+    n = int(envflags.get("RIPTIDE_PREP_THREADS"))
+    return n if n > 0 else None
+
+
+def _native():
+    """The native runtime when it built and loaded, else None."""
+    from .. import native
+
+    return native if native.available() else None
+
+
+def _host_downsample_all(plan, batch, dtype):
+    """Every cascade stage's downsampling of a (D, N) batch as one (S, D,
+    nout) array of ``dtype`` (float32 or float16): the native threaded
+    runtime when available, else numpy."""
+    nat = _native()
+    if nat is not None:
+        imin, imax, wmin, wmax, wint = _ds_pack(plan)
+        return nat.downsample_stages(batch, imin, imax, wmin, wmax, wint,
+                                     dtype=dtype, nthreads=_prep_nthreads())
+    d64, c32, anchors = _prefix_anchored(batch)
+    return np.stack([_stage_downsample(st, d64, c32, anchors).astype(dtype)
+                     for st in plan.stages])
+
+
 def _view_width(plan):
     """Plan-wide wire view width PW: bins_max rounded up to 128 lanes.
     One width for every stage, so a single (D, WROWS, PW) byte tensor
@@ -217,11 +269,28 @@ def _wire_layout(plan, mode):
     return offs[:-1], lens, int(offs[-1])
 
 
-def _prepare_uint(plan, batch, mode):
+def _prepare_uint(plan, batch, mode, out=None, scales=None):
     """Quantised wire preparation in the byte-plane view
-    (:func:`_view_layout`): float64 downsampling, float32 reciprocal,
-    round-half-even. Returns (wire (D, tot_rows, PW) uint8, scales
-    (D, stot) f32)."""
+    (:func:`_view_layout`): the native single pass when available, else
+    :func:`_prepare_uint_numpy`, the same bytes and scales.
+    ``out``/``scales`` (native only) are recycled staging buffers, reset
+    before they are written. Returns (wire (D, tot_rows, PW) uint8,
+    scales (D, stot) f32)."""
+    nat = _native()
+    if nat is None:
+        return _prepare_uint_numpy(plan, batch, mode)
+    vl = _view_layout(plan, mode)
+    imin, imax, wmin, wmax, wint = _ds_pack(plan)
+    nouts = np.asarray([st.n for st in plan.stages], np.int32)
+    return nat.prepare_wire_view(
+        batch, imin, imax, wmin, wmax, wint, nouts, mode, vl["PW"],
+        vl["roffs"], vl["tot_rows"], vl["soffs"], vl["stot"],
+        nthreads=_prep_nthreads(), out=out, scales=scales)
+
+
+def _prepare_uint_numpy(plan, batch, mode):
+    """The numpy form of :func:`_prepare_uint`: float64 downsampling,
+    float32 reciprocal, round-half-even, one stage at a time."""
     vl = _view_layout(plan, mode)
     qmax, bias = _WIRE_Q[mode]
     group, PW = vl["group"], vl["PW"]
@@ -261,43 +330,172 @@ def _prepare_uint(plan, batch, mode):
     return out, scales
 
 
-def prepare_stage_data(plan, batch, mode=None):
+class StagingPool:
+    """Recyclable host staging buffers for the wire prep (the JAX
+    package's ``_StagingPool``): after the first chunk, the prep writes
+    into buffers an earlier chunk gave back instead of allocating (and,
+    for the card, pinning) new ones. Buffers are torch tensors, pinned
+    when ``device`` is a CUDA device (the card when None), so that
+    :func:`ship_stage_data` copies them asynchronously; the native
+    runtime writes them through their ``.numpy()`` views. Keyed by
+    (shape, dtype), at most ``max_per_key`` free buffers each.
+
+    A buffer is out of the pool from :meth:`acquire` until
+    :meth:`release`; a released buffer whose copy to the card (its
+    ``event``) has not completed is not handed out. Thread-safe: the
+    next chunk may be prepared on a worker thread while the card runs
+    the current one."""
+
+    def __init__(self, device=None, max_per_key=4):
+        self.pin = resolve_device(device).type == "cuda"
+        self._lock = threading.Lock()
+        self._free = {}
+        self._max = int(max_per_key)
+
+    @staticmethod
+    def _key(shape, dtype):
+        return tuple(int(x) for x in shape), dtype
+
+    def acquire(self, shape, dtype):
+        """A free buffer of exactly (shape, torch ``dtype``) whose last
+        copy has completed, else a new one."""
+        key = self._key(shape, dtype)
+        with self._lock:
+            stack = self._free.get(key, [])
+            for j in range(len(stack) - 1, -1, -1):
+                buf, event = stack[j]
+                if event is None or event.query():
+                    del stack[j]
+                    return buf
+        return torch.empty(key[0], dtype=dtype, pin_memory=self.pin)
+
+    def release(self, buf, event=None):
+        """Give ``buf`` back once the chunk that used it is collected;
+        ``event`` marks the end of its last copy to the card. Buffers
+        beyond ``max_per_key`` are dropped."""
+        key = self._key(buf.shape, buf.dtype)
+        with self._lock:
+            stack = self._free.setdefault(key, [])
+            if len(stack) < self._max:
+                stack.append((buf, event))
+
+
+def release_prepared(pool, prepared):
+    """Give a :func:`prepare_stage_data` result's staging buffers back to
+    ``pool``, once the chunk's results are collected, with the event of
+    its last copy to the card. No-op when either is None."""
+    if pool is None or prepared is None:
+        return
+    meta = prepared[1]
+    for buf in meta.get("staging", ()):
+        pool.release(buf, meta.get("copy_event"))
+
+
+def _staged(pool, shape, np_dtype):
+    """A staging buffer from ``pool`` as (tensor, numpy view), or (None,
+    None) without a pool."""
+    if pool is None:
+        return None, None
+    buf = pool.acquire(shape, torch.from_numpy(np.empty(0, np_dtype)).dtype)
+    return buf, buf.numpy()
+
+
+def prepare_stage_data(plan, batch, mode=None, pool=None):
     """
     HOST half of a search: every cascade stage's downsampling of the
     (D, N) batch, laid out as ONE wire buffer in the transport ``mode``
-    (default :func:`_wire_mode`). Returns ``(flat, meta)``: the byte-plane
-    view (D, tot_rows, PW) uint8 with meta ``scales`` (D, stot) float32
-    for the quantised modes, else the flat (D, total) float32 buffer
-    with per-stage element offsets ``offs``.
+    (default :func:`_wire_mode`). Runs in the native threaded runtime
+    when it is available (``RIPTIDE_PREP_THREADS`` threads; ctypes
+    releases the GIL, so a worker thread can prepare the next chunk
+    while the card runs this one), else in numpy. ``pool`` (a
+    :class:`StagingPool`) supplies the output buffers; hand them back
+    with :func:`release_prepared` once the chunk is collected.
+
+    Returns ``(flat, meta)``: the byte-plane view (D, tot_rows, PW)
+    uint8 with meta ``scales`` (D, stot) float32 for the quantised
+    modes, else the flat (D, total) float32 or float16 buffer with
+    per-stage element offsets ``offs``. ``meta["prep"]`` is ``"native"``
+    or ``"numpy"``, and ``meta["staging"]`` the pool's tensors.
     """
     batch = np.asarray(batch, dtype=np.float32)
     if batch.ndim != 2 or batch.shape[1] != plan.size:
         raise ValueError("batch must be (D, N) with N matching the plan")
     mode = mode or _wire_mode()
-    offs, lens, tot = _wire_layout(plan, mode)
-    if mode in _WIRE_Q:
-        flat, scales = _prepare_uint(plan, batch, mode)
-        return flat, {"mode": mode, "offs": offs, "scales": scales,
-                      "view": _view_layout(plan, mode)}
     if mode not in WIRES:
         raise ValueError(f"wire mode {mode!r}: expected one of {WIRES}")
-    d64, c32, anchors = _prefix_anchored(batch)
-    flat = np.empty((batch.shape[0], tot), np.float32)
+    D = batch.shape[0]
+    prep = "native" if _native() is not None else "numpy"
+    offs, lens, tot = _wire_layout(plan, mode)
+    if mode in _WIRE_Q:
+        vl = _view_layout(plan, mode)
+        staging = ()
+        sout = sscales = None
+        if prep == "native" and pool is not None:
+            t_out, sout = _staged(pool, (D, vl["tot_rows"], vl["PW"]),
+                                  np.uint8)
+            t_sc, sscales = _staged(pool, (D, vl["stot"]), np.float32)
+            staging = (t_out, t_sc)
+        flat, scales = _prepare_uint(plan, batch, mode, out=sout,
+                                     scales=sscales)
+        return flat, {"mode": mode, "offs": offs, "scales": scales,
+                      "view": vl, "prep": prep, "staging": staging}
+    dtype = np.dtype(mode)
+    xds = _host_downsample_all(plan, batch, dtype)
+    t_flat, flat = _staged(pool, (D, tot), dtype)
+    if flat is None:
+        flat = np.empty((D, tot), dtype)
     for i, st in enumerate(plan.stages):
-        xd = _stage_downsample(st, d64, c32, anchors)
-        flat[:, offs[i] : offs[i] + st.n] = xd[..., : st.n]
-    return flat, {"mode": mode, "offs": offs, "scales": None}
+        flat[:, offs[i] : offs[i] + st.n] = xds[i][..., : st.n]
+    return flat, {"mode": mode, "offs": offs, "scales": None, "prep": prep,
+                  "staging": () if t_flat is None else (t_flat,)}
+
+
+# One copy stream per CUDA device, made at its first copy.
+_COPY_STREAMS = {}
+
+
+def _copy_stream(dev):
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    st = _COPY_STREAMS.get(key)
+    if st is None:
+        st = _COPY_STREAMS[key] = torch.cuda.Stream(device=key)
+    return st
 
 
 def ship_stage_data(prepared, device):
     """Copy a prepared wire buffer (and its scales) to ``device`` as one
-    tensor each. Returns ``(wire, meta)`` with meta ``scales_dev``."""
+    tensor each. Returns ``(wire, meta)`` with meta ``scales_dev``.
+
+    On a CUDA device the copies run ``non_blocking`` on the device's copy
+    stream (asynchronous from a pool's pinned buffers), after the work
+    already queued on the current stream; the current stream then waits
+    on their event before the first stage. The event is also kept as
+    ``prepared[1]["copy_event"]`` for :func:`release_prepared`."""
     flat, meta = prepared
-    wire = torch.from_numpy(flat).to(device)
+    dev = torch.device(device)
+    host = [torch.from_numpy(flat)]
+    if meta["scales"] is not None:
+        host.append(torch.from_numpy(meta["scales"]))
+    if dev.type != "cuda":
+        outs = [h.to(dev) for h in host]
+    else:
+        cur = torch.cuda.current_stream(dev)
+        cs = _copy_stream(dev)
+        # Allocated on the current stream, written on the copy stream
+        # once the current stream's earlier work (which may have used
+        # this memory) is done.
+        outs = [torch.empty(h.shape, dtype=h.dtype, device=dev) for h in host]
+        cs.wait_stream(cur)
+        with torch.cuda.stream(cs):
+            for o, h in zip(outs, host):
+                o.copy_(h, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(cs)
+        cur.wait_event(event)
+        meta["copy_event"] = event
     meta = dict(meta)
-    meta["scales_dev"] = (None if meta["scales"] is None
-                          else torch.from_numpy(meta["scales"]).to(device))
-    return wire, meta
+    meta["scales_dev"] = outs[1] if len(outs) > 1 else None
+    return outs[0], meta
 
 
 # ---------------------------------------------------------------------------
@@ -490,8 +688,8 @@ def _bucket_shape(st, idx):
 
 
 def _smem_fits(P):
-    """The S/N kernel's one shape limit: SNR_WARPS rows of P floats in
-    shared memory per block."""
+    """Whether the S/N kernel keeps its full SNR_WARPS rows of P floats
+    in a block's shared memory (P <= 14,528)."""
     return SNR_WARPS * P * 4 <= MAX_DYNAMIC_SMEM
 
 
@@ -499,8 +697,11 @@ def _kernel_eligible(st, plan):
     """Whether the stage takes the lane-bucketed kernel layout: at least
     three FFA levels (the JAX package's ``kernel_depth >= 3``; smaller
     stages keep one container) and every trial's width inside the S/N
-    kernel's shared memory. Hopper's limits replace the TPU's VMEM
-    budget and packed-word fields."""
+    kernel's full shared-memory shape (:func:`_smem_fits`). Hopper's
+    limits replace the TPU's VMEM budget and packed-word fields. A wider
+    stage runs whole, as the JAX package runs its wide stages on the
+    gather path; the kernels take its width (fewer S/N rows a block,
+    and no tile-local level where a row pair does not fit)."""
     return st.kernel_depth >= 3 and _smem_fits(max(st.ps_padded))
 
 
@@ -636,8 +837,9 @@ def _launch(kind, fn, args, **where):
 def _run_stage(st, plan, i, wire, meta):
     """Queue one whole cascade stage in one container; returns its
     (D, B, RE, NW) S/N (unsynced on a CUDA device). Quantised wires run
-    K1 (:func:`fused_stage`) straight from the shipped view; the float32
-    wire slices the stage, packs it with :func:`_pack` and runs K2
+    K1 (:func:`fused_stage`) straight from the shipped view; a float wire
+    slices the stage, widens float16 to float32 (as the JAX package
+    does), packs it with :func:`_pack` and runs K2
     (:func:`cascade_stage`)."""
     tables, coefs = _stage_operands(st, plan, wire.device)
     if meta["mode"] in _WIRE_Q:
@@ -645,8 +847,8 @@ def _run_stage(st, plan, i, wire, meta):
                        (wire, meta["scales_dev"], stage_geom(meta, i, st.n),
                         tables, coefs), stage=i, bucket=None)
     off = int(meta["offs"][i])
-    container = _pack(wire[:, off : off + st.n], tables.p, tables.m,
-                      st.batch.R, tables.P)
+    container = _pack(wire[:, off : off + st.n].to(torch.float32), tables.p,
+                      tables.m, st.batch.R, tables.P)
     return _launch("cascade_stage", cascade_stage, (container, tables, coefs),
                    stage=i, bucket=None)
 
@@ -797,15 +999,17 @@ class _Split:
         self.t = now
 
 
-def _queue_batch(plan, batch, dev, prepared=None, shipped=None):
-    """Prepare (unless given), ship (unless given) and queue every stage;
-    returns the device S/N cube (D, n_trials, NW), unsynced."""
+def _queue_batch(plan, batch, dev, prepared=None, shipped=None, pool=None):
+    """Prepare (unless given; into ``pool``'s buffers), ship (unless
+    given) and queue every stage; returns the device S/N cube (D,
+    n_trials, NW), unsynced, the split and the prepared wire (None when
+    ``shipped`` was given)."""
     split = _Split(dev)
     if split.rec is not None:
         split.rec.clear()
     if shipped is None:
         if prepared is None:
-            prepared = prepare_stage_data(plan, batch)
+            prepared = prepare_stage_data(plan, batch, pool=pool)
         split.mark("prep_s")
         shipped = ship_stage_data(prepared, dev)
     split.mark("ship_s")
@@ -820,11 +1024,11 @@ def _queue_batch(plan, batch, dev, prepared=None, shipped=None):
         split.rec.update(stage_ms=[a.elapsed_time(b)
                                    for a, b in zip(events, events[1:])],
                          wire=wire, meta=meta, outs=outs, layout=layout)
-    return _assemble_device(plan, layout, outs), split
+    return _assemble_device(plan, layout, outs), split, prepared
 
 
 def _search(plan, batch, device):
-    snr_dev, split = _queue_batch(plan, batch, device)
+    snr_dev, split, _ = _queue_batch(plan, batch, device)
     # One device->host copy for the whole cube.
     snrs = np.ascontiguousarray(snr_dev.cpu().numpy(), dtype=np.float32)
     split.mark("out_s")
@@ -885,34 +1089,41 @@ def _peak_plan(plan, tobs, **peak_kwargs):
 
 
 def queue_search_batch(plan, batch, tobs, prepared=None, shipped=None,
-                       device=None, **peak_kwargs):
+                       device=None, pool=None, **peak_kwargs):
     """Queue one batch's whole device side without syncing: the stage
     launches, the device assembly of the S/N cube and the peak program.
     ``prepared`` (from :func:`prepare_stage_data`) skips the host prep,
     ``shipped`` (from :func:`ship_stage_data`) the copy as well, and then
-    the wire's device is used. Returns a handle for
+    the wire's device is used. With ``pool`` (a :class:`StagingPool`) the
+    batch is prepared into the pool's buffers, and the chunk's staging
+    buffers (its own, or those of ``prepared``) go back to the pool when
+    :func:`collect_search_batch` has collected it. Returns a handle for
     :func:`collect_search_batch`."""
     from .peaks_device import queue_find_peaks
 
     dev = shipped[0].device if shipped is not None else resolve_device(device)
     pp = _peak_plan(plan, tobs, **peak_kwargs)
-    snr_dev, split = _queue_batch(plan, batch, dev, prepared, shipped)
+    snr_dev, split, prepared = _queue_batch(plan, batch, dev, prepared,
+                                            shipped, pool)
     split.mark("assemble_s")
     handle = queue_find_peaks(pp, snr_dev)
     split.mark("peaks_s")
-    return pp, handle
+    return pp, handle, (pool, prepared)
 
 
 def collect_search_batch(handle, dms):
-    """Sync one queued batch: one device->host pull and the host tail.
-    Returns (peaks_per_trial, polycos_per_trial)."""
+    """Sync one queued batch: one device->host pull and the host tail;
+    then the chunk's staging buffers go back to its pool (their copy
+    has completed by then). Returns (peaks_per_trial,
+    polycos_per_trial)."""
     from .peaks_device import collect_peaks
 
-    pp, peaks_handle = handle
+    pp, peaks_handle, staged = handle
     t0 = time.perf_counter()
     out = collect_peaks(pp, peaks_handle, dms)
     if _RECORD is not None:
         _RECORD["collect_s"] = time.perf_counter() - t0
+    release_prepared(*staged)
     return out
 
 
@@ -923,19 +1134,20 @@ def search_snr_dev(handle):
 
 
 def run_search_batch(plan, batch, tobs, dms=None, prepared=None,
-                     shipped=None, device=None, **peak_kwargs):
+                     shipped=None, device=None, pool=None, **peak_kwargs):
     """
     Batched search with peak detection on the device: the periodogram
     stages, device assembly, the peak program, then the host's exact
     check and clustering (reference semantics:
     riptide/peak_detection.py:146-222). Only the peak buffers cross to
     the host. Runs on ``device`` (the card when None), or where
-    ``shipped`` lies; ``dms`` (D,) defaults to zeros.
+    ``shipped`` lies; ``dms`` (D,) defaults to zeros. ``pool`` as in
+    :func:`queue_search_batch`.
 
     Returns (peaks_per_trial, polycos_per_trial).
     """
     handle = queue_search_batch(plan, batch, tobs, prepared=prepared,
-                                shipped=shipped, device=device,
+                                shipped=shipped, device=device, pool=pool,
                                 **peak_kwargs)
     if dms is None:
         dms = np.zeros(search_snr_dev(handle).shape[0], np.float64)

@@ -2,14 +2,18 @@
 TimeSeries: the core input container for FFA searches.
 Reference contract: riptide/time_series.py. Data lives on the host as
 float32 numpy; device transfer happens inside the search/detrending ops.
-Folding and the file readers (PRESTO, SIGPROC, binary, .npy) are not in
-this package yet.
+The file loaders read PRESTO .inf/.dat pairs, SIGPROC time series (the
+native reader when it built), headerless binary and .npy files under the
+ingest policies of :mod:`riptide_tpu_torch.quality`.
 """
 import copy
+import os
+import warnings
 
 import numpy as np
 
 from . import quality
+from .folding import fold
 from .libffa import downsample, generate_signal
 from .metadata import Metadata
 from .running_medians import fast_running_median
@@ -119,6 +123,11 @@ class TimeSeries:
                 downsample(self.data, factor), factor * self.tsamp, metadata=self.metadata
             )
 
+    def fold(self, period, bins, subints=None):
+        """Fold at ``period`` seconds into ``bins`` phase bins; see
+        :func:`riptide_tpu_torch.folding.fold`."""
+        return fold(self, period, bins, subints=subints)
+
     @classmethod
     def generate(cls, length, tsamp, period, phi0=0.5, ducy=0.02, amplitude=10.0, stdnoise=1.0):
         """
@@ -154,6 +163,127 @@ class TimeSeries:
         """From a plain array of samples."""
         quality.ingest_scan(array, source="TimeSeries.from_numpy_array")
         return cls(array, tsamp, copy=copy)
+
+    @classmethod
+    def from_binary(cls, fname, tsamp, dtype=np.float32, policy="strict"):
+        """
+        From a headerless binary file of raw samples. Empty files and
+        byte sizes not divisible by the dtype itemsize are rejected with
+        a clear ValueError under the default ``policy='strict'``;
+        ``'salvage'`` keeps the readable whole-sample prefix and
+        ``'skip'`` returns None with a structured warning
+        (:mod:`riptide_tpu_torch.quality`).
+        """
+        data = quality.read_raw_samples(fname, dtype=dtype, policy=policy)
+        if data is None:
+            return None
+        quality.ingest_scan(data, source=fname)
+        return cls(data, tsamp, metadata=Metadata({"fname": fname}))
+
+    @classmethod
+    def from_npy_file(cls, fname, tsamp, policy="strict"):
+        """From a .npy array file. A truncated/malformed file raises
+        under ``policy='strict'`` and is skipped (returning None, with a
+        structured warning) under ``'salvage'`` or ``'skip'`` — a broken
+        .npy holds no readable prefix to salvage."""
+        try:
+            data = np.load(fname)
+        except Exception as err:
+            quality.report_malformed(
+                fname, f"not a readable .npy file ({err})", policy,
+                salvageable=False,
+            )
+            return None
+        quality.ingest_scan(data, source=fname)
+        return cls(data, tsamp, metadata=Metadata({"fname": fname}))
+
+    @classmethod
+    @timing
+    def from_presto_inf(cls, fname, policy="strict"):
+        """
+        From a PRESTO .inf header (loads the companion .dat file). Warns
+        on X-ray/Gamma data, whose white-noise statistics assumption does
+        not hold (riptide/time_series.py:283-316). ``policy`` governs
+        truncated/malformed companion files: ``strict`` raises,
+        ``salvage`` keeps the readable prefix, ``skip`` returns None
+        (:mod:`riptide_tpu_torch.quality`).
+        """
+        from .reading import PrestoInf
+
+        try:
+            inf = PrestoInf(fname)
+        except (ValueError, OSError) as err:
+            quality.report_malformed(fname, f"unreadable .inf header ({err})",
+                                     policy, salvageable=False)
+            return None
+        metadata = Metadata.from_presto_inf(inf)
+        if metadata.get("em_band", None) in ("X-ray", "Gamma"):
+            warnings.warn(
+                "Loading X-ray or Gamma-ray data: the FFA search assumes "
+                "Gaussian white noise, which photon-counting data generally "
+                "violate. Interpret S/N values with caution."
+            )
+        data = inf.load_data(policy=policy)
+        if data is None:
+            return None
+        quality.ingest_scan(data, source=inf.data_fname)
+        return cls(data, metadata["tsamp"], metadata=metadata)
+
+    @classmethod
+    @timing
+    def from_sigproc(cls, fname, extra_keys=None, policy="strict"):
+        """
+        From a SIGPROC dedispersed time series (32-bit float, or 8-bit
+        with the 'signed' header key; riptide/time_series.py:318-362).
+        ``policy`` governs corrupt headers and truncated payloads:
+        ``strict`` raises, ``salvage`` keeps the whole-sample prefix,
+        ``skip`` returns None (:mod:`riptide_tpu_torch.quality`).
+        """
+        from .reading import SigprocHeader
+
+        from . import native
+
+        try:
+            sh = SigprocHeader(fname, extra_keys=extra_keys or {})
+        except (ValueError, KeyError, OSError) as err:
+            quality.report_malformed(fname, f"corrupt SIGPROC header ({err})",
+                                     policy, salvageable=False)
+            return None
+        metadata = Metadata.from_sigproc(sh)
+        nbits = sh["nbits"]
+        payload = os.path.getsize(fname) - sh.bytesize
+        if payload <= 0:
+            # Nothing to salvage: 'salvage' degrades to skip, 'strict'
+            # raises (inside report_malformed).
+            quality.report_malformed(fname, "no data payload", policy,
+                                     salvageable=False)
+            return None
+        rem = payload % sh.bytes_per_sample
+        if rem:
+            reason = (
+                f"{payload} payload bytes is not a multiple of the "
+                f"{sh.bytes_per_sample}-byte sample size ({rem} trailing "
+                "bytes)"
+            )
+            if not quality.report_malformed(fname, reason, policy,
+                                            salvageable=sh.nsamp > 0):
+                return None
+        nsamp = sh.nsamp
+        if nbits == 32 and native.available():
+            data = native.read_f32(fname, sh.bytesize, nsamp)
+        else:
+            with open(fname, "rb") as fobj:
+                fobj.seek(sh.bytesize)
+                if nbits == 32:
+                    data = np.fromfile(fobj, dtype=np.float32, count=nsamp)
+                elif native.available():
+                    data = native.decode8(fobj.read(), signed=sh["signed"])
+                elif sh["signed"]:
+                    data = np.fromfile(fobj, dtype=np.int8).astype(np.float32)
+                else:
+                    data = np.fromfile(fobj, dtype=np.uint8).astype(np.float32)
+        quality.ingest_scan(data, source=fname)
+        return cls(data, metadata["tsamp"], metadata=metadata)
 
     def to_dict(self):
         return {"data": self.data, "tsamp": self.tsamp, "metadata": self.metadata}

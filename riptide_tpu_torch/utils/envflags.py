@@ -17,7 +17,7 @@ _FALSE_WORDS = ("0", "false", "off", "no")
 
 
 class EnvFlag(NamedTuple):
-    """One flag: ``type`` is ``bool`` or ``choice`` (one of
+    """One flag: ``type`` is ``bool``, ``int`` or ``choice`` (one of
     ``choices``)."""
     name: str
     type: str
@@ -30,9 +30,17 @@ _ALL = [
     EnvFlag(
         "RIPTIDE_WIRE_DTYPE", "choice", None,
         "Host->device wire transport of the downsampled stage data. "
-        "Default (unset): `uint6`. The port has no `float16` wire and "
-        "takes no short aliases.",
-        choices=("float32", "uint12", "uint8", "uint6"),
+        "Default (unset): `uint6`. The port takes no short aliases.",
+        choices=("float32", "float16", "uint12", "uint8", "uint6"),
+    ),
+    EnvFlag(
+        "RIPTIDE_PREP_THREADS", "int", 0,
+        "Worker threads of the native wire-prep runtime (downsample + "
+        "quantise). `0` (default) uses every core (capped at 32); a "
+        "positive value pins the count, e.g. `1` for single-core "
+        "baselines. The native job pool writes disjoint output regions "
+        "per (stage, trial) job, so the wire bytes are identical at any "
+        "thread count.",
     ),
     EnvFlag(
         "RIPTIDE_KERNEL_BASE3", "bool", True,
@@ -68,6 +76,12 @@ FLAGS = {f.name: f for f in _ALL}
 def _parse(flag, raw):
     if flag.type == "bool":
         return raw.strip().lower() not in _FALSE_WORDS
+    if flag.type == "int":
+        try:
+            return int(raw)
+        except ValueError:
+            raise ValueError(f"unsupported {flag.name}={raw!r}: expected an "
+                             "integer") from None
     if raw not in flag.choices:
         raise ValueError(f"unsupported {flag.name}={raw!r}: expected one "
                          f"of {flag.choices}")

@@ -17,8 +17,11 @@ JSON object:
 * ``build_s``: kernel build and load; ``cold_search_s``: the first
   headline ``ffa_search`` of the process (planning, operands and the
   kernels' first launches included);
-* ``ffa_search_stage_loop_s``: the stage loop of 3 warm recorded
-  ``ffa_search`` calls (the split ``chip_smoke.py`` phase 2 prints),
+* ``ffa_search_wall_s``: 3 warm recorded ``ffa_search`` calls, host
+  wall; ``ffa_search_prep_s`` the last one's host wire prep;
+  ``snr_sha256`` a digest of its S/N bits (equal digests: the trees give
+  the same periodogram); ``ffa_search_stage_loop_s``: their stage loops
+  (the split ``chip_smoke.py`` phase 2 prints),
   and ``stage_loop_s`` / ``stage_events_s``: median and 10th / 90th
   percentiles of 101 stage loops over the same shipped wire, host wall
   and the sum of the per-stage CUDA event times (D = 1);
@@ -39,6 +42,7 @@ JSON object:
 Imports nothing of jax and nothing of the JAX package.
 """
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -167,14 +171,20 @@ def main(argv=None):
     t0 = time.perf_counter()
     ffa_search(ts, **kw)
     res["cold_search_s"] = time.perf_counter() - t0
-    loops = []
+    loops, walls = [], []
     counted = getattr(fk, "KERNEL_LAUNCHES", None)
     for _ in range(3):
         fk.reset_launches()
         with engine.recording() as rec:
-            ffa_search(ts, **kw)
+            t0 = time.perf_counter()
+            _, pgram = ffa_search(ts, **kw)
+            walls.append(time.perf_counter() - t0)
         loops.append(rec["stages_s"])
+    res["ffa_search_wall_s"] = walls
+    res["ffa_search_prep_s"] = rec["prep_s"]
     res["ffa_search_stage_loop_s"] = loops
+    res["snr_sha256"] = hashlib.sha256(
+        np.ascontiguousarray(pgram.snrs).tobytes()).hexdigest()[:16]
     res["launches"] = dict(fk.LAUNCHES)
     if counted is not None:
         res["cuda_launches"] = dict(counted)

@@ -153,17 +153,17 @@ def test_cascade_stage_plain_matches_pallas_k2(stage_case):
 
 def test_stage_checks_refuse_bad_operands(stage_case):
     """The checks a CUDA wrapper makes before launching: operand dtypes
-    and shapes, and the one shape limit of the port (the S/N kernel's
-    shared memory, P <= MAX_DYNAMIC_SMEM / (4 * SNR_WARPS))."""
+    and shapes. The container width P is no limit: the S/N kernel takes
+    every width (fewer rows a block past the 4-row shared-memory width,
+    a device scratch row past one row's)."""
     _, plan, _, _, _, _, _ = stage_case
     st = plan.stages[0]
     tables, coefs = engine._stage_operands(st, plan, CPU)
     B, R, P = st.batch.B, st.batch.R, st.batch.P
     fk._check_stage(tables, coefs, 2, B, R, P, CPU)
     pmax = fk.MAX_DYNAMIC_SMEM // (4 * fk.SNR_WARPS)
-    fk._check_stage(tables, coefs, 2, B, R, pmax, CPU)
-    with pytest.raises(ValueError, match="shared memory"):
-        fk._check_stage(tables, coefs, 2, B, R, pmax + 1, CPU)
+    for wide in (pmax, pmax + 1, 4 * pmax + 1, 70000):
+        fk._check_stage(tables, coefs, 2, B, R, wide, CPU)
     with pytest.raises(ValueError, match="tables.h"):
         fk._check_stage(tables._replace(h=tables.h.long()), coefs, 2, B, R,
                         P, CPU)

@@ -169,6 +169,10 @@ EDGES = {
     "paired-cap113": ([113, 100], [256, 256], [(114, 120), (56, 128)]),
     # Guests right above their hosts: one tile holds host and guest rows.
     "paired-adjacent": ([100, 60], [64, 61], [(50, 100), (30, 60)]),
+    # No row pair fits a tile (p > 14,528): one-row tiles written
+    # straight to the container, no tile-local level.
+    "direct": ([3, 1, 5], [30000, 14529, 60001], None),
+    "direct-paired": ([3, 2], [20000, 20001], [(2, 4), None]),
 }
 
 
@@ -276,3 +280,82 @@ def test_cuda_operands_ship_the_segment_plan(dev, case):
     assert t1.tiles.device.type == "cuda"
     np.testing.assert_array_equal(t1.tiles.cpu().numpy(), seg.tiles)
     assert (t1.local, t1.smem) == (seg.levels, seg.smem)
+
+
+# Searches across the kernels' wide-phase limits (as chip_smoke.py's
+# phase 5w, shorter): the limit the padded width P crosses, nsamp,
+# tsamp, bins_min, bins_max.
+WIDE = ((14528, 2 ** 17, 16e-6, 16000, 16004),
+        (29056, 2 ** 18, 16e-6, 30000, 30004),
+        (58112, 2 ** 19, 16e-6, 60000, 60004))
+
+
+@pytest.mark.parametrize("wide", WIDE, ids=[str(w[0]) for w in WIDE])
+@pytest.mark.parametrize("mode,kind", [("uint6", "fused_stage"),
+                                       ("float32", "cascade_stage")])
+def test_wide_phase_matches_plain(dev, monkeypatch, wide, mode, kind):
+    """A plan whose padded P crosses each limit runs through K1 (uint6)
+    and K2 (float32) on the card, no ValueError, every launch within
+    the tolerance of its plain version."""
+    limit, nsamp, tsamp, bmin, bmax = wide
+    monkeypatch.setenv("RIPTIDE_WIRE_DTYPE", mode)
+    plan = periodogram_plan(nsamp, tsamp, (1, 2, 4, 8), bmax * tsamp,
+                            1.001 * bmax * tsamp, bmin, bmax)
+    assert plan.P > limit
+    data = np.random.default_rng(8).standard_normal(nsamp).astype(np.float32)
+    fk.reset_launches()
+    with engine.recording() as rec:
+        _, _, snrs = engine.run_periodogram(plan, data, device=dev)
+    assert fk.LAUNCHES[kind] == engine.queued_launches(plan)[kind] > 0
+    assert np.isfinite(snrs).all()
+    calls = [r for r in rec["launches"] if r["kind"] == kind]
+    plain = getattr(fk, f"{kind}_plain")
+    for r in calls:
+        torch.testing.assert_close(r["out"], plain(*r["args"]), rtol=RTOL,
+                                   atol=ATOL)
+    if limit >= 29056:
+        assert {r["args"][-2].local for r in calls} == {0}
+
+
+def test_native_pinned_copy_stream_matches_numpy_plain_ship(dev, case,
+                                                            monkeypatch):
+    """The native prep into pinned pool buffers, shipped on the copy
+    stream, gives the S/N bits of a search whose wire the numpy path
+    made and a plain .to(device) shipped."""
+    from riptide_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("the native runtime did not build")
+    plan, batch = case
+    pool = engine.StagingPool(dev)
+    prepared = engine.prepare_stage_data(plan, batch, mode="uint6", pool=pool)
+    assert prepared[1]["prep"] == "native"
+    assert all(t.is_pinned() for t in prepared[1]["staging"])
+    shipped = engine.ship_stage_data(prepared, dev)
+    got = engine._queue_batch(plan, None, dev, shipped=shipped)[0]
+    monkeypatch.setattr(engine, "_native", lambda: None)
+    flat, meta = engine.prepare_stage_data(plan, batch, mode="uint6")
+    assert meta["prep"] == "numpy"
+    meta = dict(meta, scales_dev=torch.from_numpy(meta["scales"]).to(dev))
+    want = engine._queue_batch(plan, None, dev, shipped=(
+        torch.from_numpy(flat).to(dev), meta))[0]
+    assert torch.equal(got, want)
+    engine.release_prepared(pool, prepared)
+
+
+def test_pool_buffer_not_reused_before_its_copy_completes(dev):
+    """A released buffer whose copy event has not completed is not
+    handed out; once it has, the pool hands it out again."""
+    pool = engine.StagingPool(dev)
+    buf = pool.acquire((4, 1024), torch.uint8)
+    assert buf.is_pinned()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)
+        event = torch.cuda.Event()
+        event.record(side)
+    pool.release(buf, event)
+    other = pool.acquire((4, 1024), torch.uint8)
+    assert other.data_ptr() != buf.data_ptr()
+    event.synchronize()
+    assert pool.acquire((4, 1024), torch.uint8).data_ptr() == buf.data_ptr()

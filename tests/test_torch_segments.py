@@ -292,8 +292,16 @@ def test_paired_tiles_hold_host_and_guest_rows(guests, shared):
 
 
 def test_segment_plan_refuses_a_phase_width_without_room():
-    with pytest.raises(ValueError, match="no row"):
-        segment_plan(FFABatchPlan([4], [MAX_DYNAMIC_SMEM // 8 + 1]))
+    """A phase width with no room for a tile row gets a plan instead of
+    an error: no tile-local level, every row a tile of its own filled
+    straight into the container (no shared memory), and the plain split
+    gives ``ffa_levels``' bits."""
+    b = FFABatchPlan([4], [MAX_DYNAMIC_SMEM // 8 + 1])
+    seg = segment_plan(b)
+    assert seg.levels == 0 and seg.smem == 0
+    np.testing.assert_array_equal(seg.tiles[:, 2], 1)
+    np.testing.assert_array_equal(seg.tiles[:, 3], [1, 1, 1, 1, 0])
+    _check_split(b, _filled(b, seed=4))
 
 
 def test_segment_tables_built_once_and_shipped_with_the_operands(headline,

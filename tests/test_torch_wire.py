@@ -77,7 +77,8 @@ def test_float_wire_identical(plans, batch, monkeypatch):
                                       ("uint8", "uint8"),
                                       ("uint12", "uint12"),
                                       ("float32", "float32"),
-                                      ("float16", None), ("u6", None)])
+                                      ("float16", "float16"),
+                                      ("bfloat16", None), ("u6", None)])
 def test_wire_mode_from_environment(monkeypatch, raw, mode):
     """``RIPTIDE_WIRE_DTYPE`` picks the wire (``uint6`` when unset or
     empty); a value the engine has no wire for raises."""
