@@ -94,6 +94,28 @@ process each, started together, then:
    bit, and each probe's kernel time printed beside its plain version's
    (P2's plain versions run once, at the full NITER) and its bound.
 
+7. the pipeline (``rffa``) at full width: 48 PRESTO DM trials of the
+   headline series (2^23 samples at 64 us, 1.5 GiB, written by this
+   script under the build directory and removed at the end), the phase
+   2 pulsar's amplitude peaking at the middle trial, the trials 2 pc
+   cm^-3 apart so that ``DMIterator`` keeps all 48 (checked), through
+   ``Pipeline(config, device="cuda").process`` with ``processes: 16``
+   (three chunks of 16, each prepared while the card runs the one
+   before) and the headline's range, the config a dict (no YAML, no
+   plots). The launch counts are set to 0 just before and read just
+   after: K1 ran ``queued_launches(plan)`` times a chunk. Each trial's
+   peaks must be ``run_search_batch``'s on the same chunk's loaded and
+   prepared series (the same S/N bits); those reruns are recorded, and
+   each of their K1 launches (D = 16, the pipeline's shapes) is held
+   against its plain version as in phase 3. The top candidate must be
+   the pulsar at the brightest trial's DM, and every product written
+   and loaded back with ``load_json``. Prints whether pandas, PyYAML and
+   matplotlib are importable, each stage's wall, the search's spans per
+   chunk (stage, ship, queue, collect), DM-trials/s of the pipeline and
+   of its search, and peak device memory. Then ``rseek`` on the
+   headline series as a PRESTO file with ``--device cuda``: its table
+   must list the pulsar.
+
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
 with the Chrome trace written to DIR.
@@ -139,6 +161,16 @@ REPS = 20
 # Phase 6: the hand-written float32 GEMM against torch.matmul in full
 # float32 (sums of 2048 products in another order, outputs ~1-4).
 PROBE_MM_RTOL, PROBE_MM_ATOL = 1e-5, 1e-5
+
+
+# Phase 7: the pipeline on PIPE_FILES DM trials of the headline series,
+# PIPE_CHUNK trials a chunk, the trials PIPE_DM_STEP apart (DMIterator
+# keeps every one: each trial's coverage radius is 1.59 pc cm^-3 at the
+# headline's 2.08 ms narrowest pulse), the pulsar's amplitude a Gaussian
+# of PIPE_SPREAD trials over them, peaking at the middle one.
+PIPE_FILES, PIPE_CHUNK, PIPE_DM_STEP, PIPE_SPREAD = 48, 16, 2.0, 4.0
+PIPE_RANGE = dict(fpmin=8, wtsp=1.5, ducy_max=0.2)
+PIPE_FIND_PEAKS = dict(smin=7.0)
 
 
 # Phase 5w: searches across the kernels' wide-phase limits: (the limit
@@ -337,11 +369,14 @@ def print_split(rec, D):
 def dq_steps():
     """Host seconds of each data-quality step in the searches run inside
     the block (``quality.prepare_time_series``' steps, wrapped for the
-    block): yields {step: [calls, seconds]}."""
+    block, from any thread): yields {step: [calls, seconds]}."""
+    import threading
+
     from riptide_tpu_torch import quality
     from riptide_tpu_torch.time_series import TimeSeries
 
     steps = {}
+    lock = threading.Lock()
     targets = [(quality, "scan_samples"), (quality, "fill_masked"),
                (TimeSeries, "deredden"), (TimeSeries, "normalise")]
     saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
@@ -352,9 +387,10 @@ def dq_steps():
             try:
                 return fn(*a, **k)
             finally:
-                c = steps.setdefault(name, [0, 0.0])
-                c[0] += 1
-                c[1] += time.perf_counter() - t0
+                with lock:
+                    c = steps.setdefault(name, [0, 0.0])
+                    c[0] += 1
+                    c[1] += time.perf_counter() - t0
         return timed
 
     for obj, name, fn in saved:
@@ -912,10 +948,10 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
     return b["launches"]["paired_stage"], err, (ms, pms, *bnd)
 
 
-def write_presto(path, data, tsamp):
+def write_presto(path, data, tsamp, dm=0.0):
     """Write a float32 series as a PRESTO .inf/.dat pair (``path`` +
     ".inf"/".dat"): PRESTO's header lines with their '=' at column 40,
-    ``tsamp`` written exactly (repr). Returns the .inf path."""
+    ``tsamp`` and ``dm`` written exactly (repr). Returns the .inf path."""
     lines = (
         ("Data file name without suffix", os.path.basename(path)),
         ("Telescope used", "Parkes"), ("Instrument used", "Multibeam"),
@@ -930,7 +966,7 @@ def write_presto(path, data, tsamp):
         ("Any breaks in the data? (1=yes, 0=no)", "0"),
         ("Type of observation (EM band)", "Radio"),
         ("Beam diameter (arcsec)", "981"),
-        ("Dispersion measure (cm-3 pc)", "0.0"),
+        ("Dispersion measure (cm-3 pc)", repr(float(dm))),
         ("Central freq of low channel (Mhz)", "1182.1953125"),
         ("Total bandwidth (Mhz)", "400"), ("Number of channels", "1024"),
         ("Channel bandwidth (Mhz)", "0.390625"),
@@ -1125,6 +1161,228 @@ def overlapped_survey(dev, plan, D, batch, want_peaks, wall, walls,
           "not run from the first pass's staging buffers")
 
 
+def pipeline_config(cfg=HEADLINE, chunk=PIPE_CHUNK):
+    """Phase 7's pipeline config, as a dict (no YAML): the headline's
+    period and bins range, ``chunk`` trials a device batch and loader
+    threads, no plots."""
+    return {
+        "processes": chunk,
+        "data": {"format": "presto", "fmin": None, "fmax": None,
+                 "nchans": None},
+        "dmselect": {"min": None, "max": None, "dmsinb_max": None},
+        "dereddening": {"rmed_width": 4.0, "rmed_minpts": 101},
+        "ranges": [{
+            "name": "headline",
+            "ffa_search": dict(period_min=cfg["period_min"],
+                               period_max=cfg["period_max"],
+                               bins_min=cfg["bins_min"],
+                               bins_max=cfg["bins_max"], **PIPE_RANGE),
+            "find_peaks": dict(PIPE_FIND_PEAKS),
+            "candidates": {"bins": 256, "subints": 32},
+        }],
+        "clustering": {"radius": 0.2},
+        "harmonic_flagging": {"denom_max": 100, "phase_distance_max": 1.0,
+                              "dm_distance_max": 3.0,
+                              "snr_distance_max": 3.0},
+        "candidate_filters": {"dm_min": None, "snr_min": 7.0,
+                              "remove_harmonics": True, "max_number": 16},
+        "plot_candidates": False,
+    }
+
+
+def write_dm_trials(root, n, cfg=HEADLINE, period=PULSAR["period"],
+                    amplitude=PULSAR["amplitude"], seed=7):
+    """``n`` PRESTO DM trials of the headline length at DMs 0,
+    PIPE_DM_STEP, ...: one seeded noise series shared by all (as
+    neighbouring DM trials share most of theirs) plus phase 2's pulse
+    train at an amplitude that peaks at trial n // 2. Returns the .inf
+    paths and the brightest trial's DM."""
+    from riptide_tpu_torch.libffa import generate_signal
+
+    noise = np.random.default_rng(seed).standard_normal(cfg["nsamp"])
+    pulse = generate_signal(cfg["nsamp"], period / cfg["tsamp"], ducy=0.05,
+                            amplitude=1.0, stdnoise=0.0)
+    files = []
+    for k in range(n):
+        amp = amplitude * np.exp(-0.5 * ((k - n // 2) / PIPE_SPREAD) ** 2)
+        dm = PIPE_DM_STEP * k
+        files.append(write_presto(os.path.join(root, f"trial_DM{dm:07.2f}"),
+                                  (noise + amp * pulse).astype(np.float32),
+                                  cfg["tsamp"], dm=dm))
+    return files, PIPE_DM_STEP * (n // 2)
+
+
+def span_table(tracer):
+    """{name: seconds} over the top-level spans and {(name, chunk):
+    seconds} over the chunk-tagged ones."""
+    stages, chunks = {}, {}
+    for name, _, dur, _, attrs, _ in tracer.events():
+        if "chunk" in attrs:
+            key = (name, attrs["chunk"])
+            chunks[key] = chunks.get(key, 0.0) + dur
+        else:
+            stages[name] = stages.get(name, 0.0) + dur
+    return stages, chunks
+
+
+def phase_pipeline(dev, cfg=HEADLINE, nfiles=PIPE_FILES, chunk=PIPE_CHUNK,
+                   period=PULSAR["period"]):
+    """Phase 7: ``Pipeline(config, device).process`` on ``nfiles``
+    PRESTO DM trials of the headline series, ``chunk`` trials a chunk,
+    then rseek on the headline series as a PRESTO file. Checks that
+    DMIterator keeps every trial, that each trial's peaks are
+    series (the same S/N bits), that each K1 launch of those reruns
+    agrees with its plain version, that the top candidate is the pulsar at
+    the brightest trial's DM, that K1 ran queued_launches(plan) times a
+    chunk, that every product is written and loads back, and that
+    rseek's table lists the pulsar. Prints the stage walls, the search's
+    per-chunk spans, DM-trials/s and peak device memory."""
+    import glob
+    import importlib.util
+    import logging
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from riptide_tpu_torch import load_json
+    from riptide_tpu_torch.apps import rseek
+    from riptide_tpu_torch.obs import trace
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.pipeline import Pipeline
+    from riptide_tpu_torch.search import engine
+    from riptide_tpu_torch.utils.cuda_build import BUILD_DIR
+
+    logging.basicConfig(level="WARNING")
+    print("  importable here: " + ", ".join(
+        f"{m} {importlib.util.find_spec(m) is not None}"
+        for m in ("pandas", "yaml", "matplotlib")), flush=True)
+    tobs = cfg["nsamp"] * cfg["tsamp"]
+    conf = pipeline_config(cfg, chunk)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        files, bright_dm = write_dm_trials(tmp, nfiles, cfg, period)
+        print(f"  wrote {nfiles} PRESTO DM trials of {cfg['nsamp']} samples "
+              f"({nfiles * cfg['nsamp'] * 4 / 2 ** 30:.2f} GiB) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        outdir = os.path.join(tmp, "products")
+        os.makedirs(outdir)
+        pipe = Pipeline(conf, device=dev)
+        tracer = trace.enable()
+        fk.reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with dq_steps() as steps:
+            pipe.process(files, outdir)
+        wall = time.perf_counter() - t0
+        launches = dict(fk.LAUNCHES)
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+        trace.disable()
+        stages, spans = span_table(tracer)
+
+        ntrials = len(pipe.dmiter.selected_dms)
+        check(ntrials == nfiles, f"pipeline: DMIterator kept {ntrials} of "
+              f"{nfiles} trials")
+        nchunks = -(-nfiles // chunk)
+        searcher = pipe.searcher
+        plan = searcher._plan_for(conf["ranges"][0], cfg["nsamp"],
+                                  cfg["tsamp"])
+        per_chunk = engine.queued_launches(plan)["fused_stage"]
+        print(f"  Pipeline.process: {nfiles} trials in {nchunks} chunks of "
+              f"{chunk}, {wall:.3f} s wall, {nfiles / wall:.3f} DM-trials/s; "
+              f"search stage {stages['search']:.3f} s, "
+              f"{nfiles / stages['search']:.3f} DM-trials/s; peak device "
+              f"memory {peak / 2 ** 30:.3f} GiB; launches {launches}",
+              flush=True)
+        print("  stage walls: " + ", ".join(
+            f"{k} {stages[k]:.3f} s" for k in (
+                "prepare", "search", "cluster_peaks", "flag_harmonics",
+                "apply_candidate_filters", "build_candidates",
+                "save_products")), flush=True)
+        for c in range(nchunks):
+            print(f"  search chunk {c}: " + ", ".join(
+                f"{k} {spans.get((k, c), 0.0):.3f} s"
+                for k in ("stage", "ship", "queue", "collect"))
+                + f"; inside stage: wire prep {spans.get(('prep', c), 0.0):.3f}"
+                " s, and summed over the loader threads load "
+                f"{spans.get(('load', c), 0.0):.3f} s, data-quality steps "
+                f"{spans.get(('dq', c), 0.0):.3f} s", flush=True)
+        print("  data-quality steps summed over all threads: " +
+              ", ".join(f"{k} {v[1]:.3f} s ({v[0]} calls)"
+                        for k, v in sorted(steps.items())), flush=True)
+        if dev.type == "cuda":
+            check(launches["fused_stage"] == nchunks * per_chunk > 0,
+                  f"pipeline: {launches['fused_stage']} K1 launches, want "
+                  f"{nchunks} chunks x {per_chunk}")
+
+        # Each chunk again through run_search_batch, on the same loaded
+        # and prepared series, recorded: its K1 launches, at the
+        # pipeline's shapes, are held against their plain version.
+        want = []
+        chunks = list(pipe.dmiter.iterate_filenames(chunksize=chunk))
+        with ThreadPoolExecutor(chunk) as ex:
+            for c, names in enumerate(chunks):
+                series = list(ex.map(
+                    lambda f: searcher.load_prepared(f, search=False), names))
+                batch = np.stack([ts.data for ts in series])
+                with engine.recording() as rec:
+                    ppt, _ = engine.run_search_batch(
+                        plan, batch, tobs,
+                        dms=[ts.metadata["dm"] for ts in series], device=dev,
+                        **PIPE_FIND_PEAKS)
+                want += [p for trial in ppt for p in trial]
+                compare_stages(
+                    f"K1 fused_stage, pipeline chunk {c} (D = {len(names)})",
+                    kernel_outs(rec, "fused_stage"),
+                    plain_launches(rec, "fused_stage"))
+                del rec
+        check(sorted(pipe.peaks) == sorted(want),
+              f"pipeline: {len(pipe.peaks)} peaks differ from "
+              f"run_search_batch's {len(want)} on the same series")
+        print(f"  peaks: {len(want)} over {nfiles} trials, each trial's the "
+              "same (S/N bits included) as run_search_batch on its chunk",
+              flush=True)
+
+        names = sorted(os.listdir(outdir))
+        for product in ("peaks.csv", "clusters.csv", "candidates.csv"):
+            check(product in names, f"pipeline: {product} not written")
+        cands = [load_json(f) for f in
+                 sorted(glob.glob(os.path.join(outdir, "candidate_*.json")))]
+        check(len(cands) == len(pipe.candidates) > 0,
+              f"pipeline: {len(cands)} candidate files for "
+              f"{len(pipe.candidates)} candidates")
+        top = cands[0].params
+        dfreq = abs(1.0 / top["period"] - 1.0 / period)
+        print(f"  products: {names[:3]}... {len(cands)} candidates; top "
+              f"P = {top['period']:.6f} s (|df| = {dfreq:.3e} Hz), DM "
+              f"{top['dm']}, S/N {top['snr']:.3f}", flush=True)
+        check(dfreq < 1.0 / tobs and top["dm"] == bright_dm,
+              f"pipeline: the top candidate {top} is not the pulsar at DM "
+              f"{bright_dm}")
+
+        ts = headline_series(cfg, period)
+        inf = write_presto(os.path.join(tmp, "headline"), ts.data, ts.tsamp)
+        args = rseek.get_parser().parse_args(
+            ["-f", "presto", "--Pmin", str(cfg["period_min"]), "--Pmax",
+             str(cfg["period_max"]), "--bmin", str(cfg["bins_min"]),
+             "--bmax", str(cfg["bins_max"]), "--device", dev.type, inf])
+        t0 = time.perf_counter()
+        table = rseek.run_program(args)
+        rs = time.perf_counter() - t0
+        check(table is not None, "rseek: no peaks")
+        hit = [i for i in range(len(table))
+               if abs(table["freq"][i] - 1.0 / period) < 1.0 / tobs]
+        check(hit and table["snr"][hit[0]] > 10.0,
+              "rseek: the table does not list the pulsar")
+        print(f"  rseek: {len(table)} rows in {rs:.3f} s, the pulsar at row "
+              f"{hit[0]} (S/N {table['snr'][hit[0]]:.3f})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_probes(dev):
     """Phase 6: the chip probes through their entry points. Returns one
     ``kernels`` entry per probe: its launches in the run, the largest
@@ -1276,6 +1534,11 @@ def main(argv=None):
     t6 = time.perf_counter()
     probe_entries = phase_probes(dev)
     print(f"  phase 6: {time.perf_counter() - t6:.1f} s wall", flush=True)
+    print(f"phase 7: the pipeline (rffa) on {PIPE_FILES} DM-trial files, "
+          "then rseek", flush=True)
+    t7 = time.perf_counter()
+    phase_pipeline(dev)
+    print(f"  phase 7: {time.perf_counter() - t7:.1f} s wall", flush=True)
     if args.profile:
         print("profile: headline run_periodogram", flush=True)
         profile_search(plan, data, dev, args.profile)

@@ -13,9 +13,14 @@ host wire preparation runs in the native threaded runtime
 it did not build. Series are loaded from PRESTO, SIGPROC, binary and
 .npy files (``TimeSeries.from_presto_inf`` and friends), and data
 products round-trip through JSON (:func:`save_json`,
-:func:`load_json`). The package imports neither jax nor
-``riptide_tpu``.
+:func:`load_json`). The multi-DM pipeline (``rffa``,
+:mod:`riptide_tpu_torch.pipeline`) turns DM-trial files into
+:class:`Candidate` products, and ``rseek``
+(:mod:`riptide_tpu_torch.apps.rseek`) searches one series; neither needs
+pandas, PyYAML or matplotlib unless asked to read a YAML file or plot.
+The package imports neither jax nor ``riptide_tpu``.
 """
+from .candidate import Candidate
 from .ffautils import generate_width_trials
 from .libffa import boxcar_snr, ffa1, ffa2, ffafreq, ffaprd, generate_signal
 from .metadata import Metadata
@@ -27,6 +32,7 @@ from .search import (ffa_search, periodogram_plan, plan_arrays,
                      plan_from_arrays, run_periodogram, run_periodogram_batch,
                      run_search_batch)
 from .serialization import load_json, save_json
+from .table import Table
 from .time_series import TimeSeries
 
 __version__ = "0.14.0"
@@ -43,6 +49,8 @@ __all__ = [
     "run_periodogram_batch",
     "run_search_batch",
     "Peak",
+    "Candidate",
+    "Table",
     "generate_width_trials",
     "generate_signal",
     "ffa1",

@@ -27,24 +27,56 @@ def running_median_torch(x, width):
     return x[idx].median(dim=-1).values
 
 
+# Window of the two-level float32 sums of :func:`_tree_sum`.
+SUM_WINDOW = 32
+
+
+def _tree_sum(x):
+    """Float32 sum over the last axis in the order XLA's CPU backend
+    sums it (its tree reduction: a sum longer than 32 is cut into
+    ceil(n / 32) windows of 32, zero-padded evenly at both ends, each
+    window and then the window sums added left to right), so that the
+    JAX package's running medians on the CPU are reproduced bit for bit.
+    Elementwise adds only: the same bits on any device."""
+    n = x.shape[-1]
+    if n <= SUM_WINDOW:
+        acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for j in range(n):
+            acc = acc + x[..., j]
+        return acc
+    windows = -(-n // SUM_WINDOW)
+    pad = windows * SUM_WINDOW - n
+    xp = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+    return _tree_sum(_tree_sum(xp.reshape(*x.shape[:-1], windows,
+                                          SUM_WINDOW)))
+
+
 def scrunch_torch(x, factor):
-    """Mean-pool by an integer factor (riptide/running_medians.py:40-46)."""
+    """Mean-pool by an integer factor (riptide/running_medians.py:40-46):
+    each block's :func:`_tree_sum` times the float32 reciprocal of the
+    factor, as the JAX package's ``mean`` computes it."""
     n = (x.shape[0] // factor) * factor
-    return x[:n].reshape(-1, factor).mean(dim=1)
+    inv = float(np.float32(1.0) / np.float32(factor))
+    return _tree_sum(x[:n].reshape(-1, factor)) * inv
 
 
 def _interp(x, xp, fp):
     """Linear interpolation with ``numpy.interp``'s edge clamping, in
-    float32 (the operation order of ``jax.numpy.interp``)."""
+    float32, in the operation order of ``jax.numpy.interp`` as XLA's CPU
+    backend runs it: ``fp[i-1] + (delta / dx) * df`` contracted into a
+    fused multiply-add. The product of two float32 values is exact in
+    float64, so the sum is taken there and rounded to float32 (one
+    rounding, as the fused multiply-add, but for a double rounding in
+    rare ties)."""
     i = torch.searchsorted(xp, x, right=True).clamp(1, xp.shape[0] - 1)
     df = fp[i] - fp[i - 1]
     dx = xp[i] - xp[i - 1]
     delta = x - xp[i - 1]
     eps = float(np.spacing(np.finfo(np.float32).eps))
     dx0 = dx.abs() <= eps
-    f = torch.where(dx0, fp[i - 1],
-                    fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx),
-                                                     dx)) * df)
+    q = delta / torch.where(dx0, torch.ones_like(dx), dx)
+    f = (fp[i - 1].double() + q.double() * df.double()).float()
+    f = torch.where(dx0, fp[i - 1], f)
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
 

@@ -1,0 +1,416 @@
+"""
+Device batch searcher of the pipeline: the port of the JAX package's
+``pipeline/batcher.py``, the replacement of the reference's
+process-per-DM-trial WorkerPool (riptide/pipeline/worker_pool.py).
+
+Where the reference forks one OS process per DM trial and searches each
+series with single-threaded C++ on its own CPU core, this stage:
+
+1. loads, scans, repairs, de-reddens and normalises a chunk of DM-trial
+   files on a pool of host loader threads, and prepares the chunk's
+   wire (:func:`~riptide_tpu_torch.search.engine.prepare_stage_data`)
+   into a pinned :class:`~riptide_tpu_torch.search.engine.StagingPool`,
+   while the card searches the chunk before (:meth:`process_stream`);
+2. stacks equal-length series into one (D, N) batch, padded to
+   ``batch_size`` trials so that a ragged last chunk keeps the plan's
+   shapes;
+3. copies the wire to the card on a ship thread (the engine's copy
+   stream) and queues every configured period range's search of the
+   batch through :func:`~riptide_tpu_torch.search.engine.queue_search_batch`:
+   the FFA stages (K1, and K3 where buckets pair) and the device peak
+   program;
+4. collects chunk i - 1's peaks after chunk i is queued, so the card
+   stays busy while the host pays the previous chunk's round trip.
+
+Only the peaks are kept, mirroring the reference's choice to move file
+paths in and small Peak lists out of its workers
+(riptide/pipeline/worker_pool.py:47-71).
+
+The loader threads de-redden on their current CUDA stream, the one the
+chunks are queued on: a chunk's search takes about the same time beside
+16 de-reddening threads on that stream as alone (``loader_streams.py``
+measures it against streams of their own). A chunk's staging buffers
+go back to the pool in :meth:`release_chunk` once the chunk is
+collected (the engine is not given the pool, so exactly one place
+releases them). A device
+out-of-memory error on a batch bisects it (:meth:`_collect_bisected`):
+the failed batch's tensors are dropped, and the halves prepare and
+search their own wire, recursively down to ``oom_floor`` trials.
+
+Not ported yet: the JAX package's device-mesh path, the peak-HBM model
+that splits a batch before it is queued, and the journal's per-chunk
+summaries.
+"""
+import logging
+import os
+from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from .. import quality
+from ..ffautils import generate_width_trials
+from ..obs.trace import span
+from ..search import periodogram_plan
+from ..search.engine import (StagingPool, collect_search_batch, is_oom_error,
+                             prepare_stage_data, queue_search_batch,
+                             release_prepared, run_search_batch,
+                             ship_stage_data)
+from ..survey import incidents
+from ..survey.metrics import get_metrics
+from ..time_series import TimeSeries
+from ..utils.device import resolve_device
+
+log = logging.getLogger("riptide_tpu_torch.pipeline.batcher")
+
+__all__ = ["BatchSearcher"]
+
+
+class BatchSearcher:
+    """
+    Parameters
+    ----------
+    deredden_params : dict with keys rmed_width, rmed_minpts
+    range_confs : list of dicts
+        The 'ranges' section of the pipeline config.
+    fmt : str
+        Input file format ('presto' or 'sigproc').
+    io_threads : int
+        Host threads used to load + detrend input files.
+    batch_size : int or None
+        When set, device batches are zero-padded up to this many trials
+        (the padded trials are discarded).
+    dq : dict or DQConfig or None
+        Data-quality configuration (:class:`riptide_tpu_torch.quality.DQConfig`):
+        every loaded series is scanned, repaired and mask-normalised;
+        series over max_masked_frac are quarantined (dropped from the
+        batch with a report); the ingest_policy governs
+        truncated/malformed files. None -> defaults.
+    faults : FaultPlan or None
+        Fault-injection hooks (the nan_inject and oom kinds fire here).
+    oom_floor : int
+        Smallest DM sub-batch the OOM bisection will retry; a batch
+        that still exhausts device memory at this size propagates.
+    device : str, torch.device or None
+        Where the de-reddening and the search run: None means the card
+        (``"cuda"``); pass ``"cpu"`` for the plain PyTorch versions.
+    """
+
+    TIMESERIES_LOADERS = {
+        "presto": TimeSeries.from_presto_inf,
+        "sigproc": TimeSeries.from_sigproc,
+    }
+
+    def __init__(self, deredden_params, range_confs, fmt="presto",
+                 io_threads=4, batch_size=None, dq=None, faults=None,
+                 oom_floor=1, device=None):
+        self.deredden_params = deredden_params
+        self.range_confs = range_confs
+        self.loader = self.TIMESERIES_LOADERS[fmt]
+        self.io_threads = int(io_threads)
+        self.batch_size = batch_size
+        self.dq = quality.DQConfig.from_any(dq)
+        self.faults = faults
+        self.oom_floor = max(1, int(oom_floor))
+        self.device = resolve_device(device)
+        # basename -> QualityReport of every file this searcher loaded
+        # (quarantined ones included); read by the pipeline for the
+        # peaks.csv/candidates provenance columns. dict assignment is
+        # atomic under the GIL, so loader threads may write concurrently.
+        self.dq_reports = {}
+        # Wire-prep output buffers recycle across chunks through this
+        # pool (acquired in _prepare_chunk, given back by release_chunk
+        # once a chunk's results are collected).
+        self._staging_pool = None
+
+    # -- host side ----------------------------------------------------------
+
+    def load_prepared(self, fname, chunk_id=0, search=True):
+        """Load one file, then scan/repair/de-redden/mask-normalise it
+        (once, shared by all search ranges —
+        riptide/pipeline/worker_pool.py:54-58). Returns None when the
+        file was skipped by the ingest policy or the series was
+        quarantined by the data-quality scan.
+
+        ``search=False`` is the candidate-rebuild reload: no fault
+        injection, no DQ metrics, and the search-time QualityReport is
+        kept."""
+        with span("load", chunk=chunk_id):
+            ts = self.loader(fname, policy=self.dq.ingest_policy)
+        if ts is None:
+            return None
+        if search and self.faults is not None:
+            self.faults.nan_inject(chunk_id, ts.data)
+        with span("dq", chunk=chunk_id):
+            prepared, report = quality.prepare_time_series(
+                ts,
+                rmed_width=self.deredden_params["rmed_width"],
+                rmed_minpts=self.deredden_params["rmed_minpts"],
+                dq=self.dq,
+                device=self.device,
+                record=search,
+            )
+        if search:
+            self.dq_reports[os.path.basename(fname)] = report
+        return prepared
+
+    def dq_by_dm(self):
+        """{dm: masked_frac} provenance map over every loaded series.
+        A series without a DM in its metadata files under 0.0 — the
+        same fallback its Peak rows carry — and collisions keep the
+        largest masked fraction."""
+        out = {}
+        for r in self.dq_reports.values():
+            key = float(r.dm) if r.dm is not None else 0.0
+            out[key] = max(out.get(key, 0.0), r.masked_frac)
+        return out
+
+    # -- chunk processing ---------------------------------------------------
+
+    def process_stream(self, fname_chunks):
+        """Search a stream of DM-trial file chunks with cross-chunk
+        overlap: while the card searches chunk i, the host is already
+        loading, detrending and wire-preparing chunk i+1. Returns a flat
+        list of Peaks."""
+        chunks = [list(c) for c in fname_chunks]
+        peaks = []
+        metrics = get_metrics()
+        # Three pools: `stager` runs the one-per-chunk prepare task
+        # (load + detrend + wire preparation), `shipper` the chunk's
+        # copy to the card, and `loaders` the file loads INSIDE the
+        # staging task. (One shared pool would deadlock at
+        # io_threads=1: the staging task would occupy the only worker
+        # while waiting on its own load futures.)
+        with ThreadPoolExecutor(max_workers=1) as stager, \
+                ThreadPoolExecutor(max_workers=1) as shipper, \
+                ThreadPoolExecutor(max_workers=self.io_threads) as loaders:
+
+            def stage_chunk(fnames, cid):
+                with span("stage", chunk=cid):
+                    tslist = list(loaders.map(
+                        lambda f: self.load_prepared(f, chunk_id=cid),
+                        fnames
+                    ))
+                    items = self._prepare_chunk(tslist)
+                return items, shipper.submit(self._ship_spanned, items, cid)
+
+            def drain(queued, cid, prep_items):
+                with span("collect", chunk=cid):
+                    peaks.extend(self._collect_chunk(queued))
+                # Collected: this chunk's staging buffers may be reused
+                # by the stager once their copies have completed.
+                self.release_chunk(prep_items)
+                metrics.add("chunks_done")
+
+            pending = (stager.submit(stage_chunk, chunks[0], 0)
+                       if chunks else None)
+            queued = q_items = None
+            for i, chunk in enumerate(chunks):
+                metrics.set_gauge("queue_depth", len(chunks) - i)
+                prep_items, ship_fut = pending.result()  # prep done
+                pending = (stager.submit(stage_chunk, chunks[i + 1], i + 1)
+                           if i + 1 < len(chunks) else None)
+                items = ship_fut.result()     # copy queued
+                # The futures hold the shipped wire too: drop them, so
+                # that it is freed once its search is queued.
+                ship_fut = None
+                # Queue chunk i's device work BEFORE collecting chunk
+                # i-1: the card stays busy while the host pays the
+                # previous chunk's result round trip.
+                with span("queue", chunk=i):
+                    nxt = self._queue_chunk(items)
+                del items
+                if queued is not None:
+                    drain(queued, i - 1, q_items)
+                queued, q_items = nxt, prep_items
+                log.debug(
+                    f"Chunk {i + 1}/{len(chunks)} ({len(chunk)} files) "
+                    f"queued, total peaks: {len(peaks)}"
+                )
+            if queued is not None:
+                drain(queued, len(chunks) - 1, q_items)
+            metrics.set_gauge("queue_depth", 0)
+        return peaks
+
+    def _plan_for(self, conf, nsamp, tsamp):
+        kw = conf["ffa_search"]
+        widths = generate_width_trials(
+            kw["bins_min"],
+            ducy_max=kw.get("ducy_max", 0.20),
+            wtsp=kw.get("wtsp", 1.5),
+        )
+        return periodogram_plan(
+            nsamp, tsamp, tuple(int(w) for w in widths),
+            float(kw["period_min"]), float(kw["period_max"]),
+            int(kw["bins_min"]), int(kw["bins_max"]),
+        )
+
+    def _prepare_chunk(self, tslist):
+        """Host half of one chunk: group by shape, build the (D, N)
+        batches (padded to ``batch_size``) and prepare their wire into
+        the staging pool. Returns a list of (members, batch, conf, plan,
+        prepared) work items. Entries of ``tslist`` that are None (files
+        skipped by the ingest policy or series quarantined by the DQ
+        scan) are dropped here."""
+        if self._staging_pool is None:
+            self._staging_pool = StagingPool(self.device)
+
+        tslist = [ts for ts in tslist if ts is not None]
+        # Batch programs need equal-shape inputs: group by (nsamp, tsamp).
+        # In practice all DM trials of one observation are identical.
+        groups = defaultdict(list)
+        for ts in tslist:
+            groups[(ts.nsamp, round(ts.tsamp, 12))].append(ts)
+
+        items = []
+        for (nsamp, _), members in groups.items():
+            batch = np.stack([ts.data for ts in members])
+            if self.batch_size and len(members) < self.batch_size:
+                pad = self.batch_size - len(members)
+                batch = np.concatenate(
+                    [batch, np.zeros((pad, nsamp), np.float32)]
+                )
+            for conf in self.range_confs:
+                plan = self._plan_for(conf, batch.shape[1], members[0].tsamp)
+                with span("prep"):
+                    prepared = prepare_stage_data(plan, batch,
+                                                  pool=self._staging_pool)
+                items.append((members, batch, conf, plan, prepared))
+        return items
+
+    def _ship_spanned(self, items, cid):
+        """:meth:`_ship_chunk` in a chunk-tagged span (on the ship
+        thread)."""
+        with span("ship", chunk=cid):
+            return self._ship_chunk(items)
+
+    def _ship_chunk(self, items):
+        """Start every prepared work item's copy to the card (on the
+        engine's copy stream)."""
+        return [
+            (members, batch, conf, plan, ship_stage_data(prepared,
+                                                         self.device))
+            for members, batch, conf, plan, prepared in items
+        ]
+
+    def _queue_chunk(self, items):
+        return [
+            self._queue_range(conf, members, batch, plan, shipped)
+            for members, batch, conf, plan, shipped in items
+        ]
+
+    def _collect_chunk(self, queued):
+        return [p for collect in queued for p in collect()]
+
+    def release_chunk(self, items):
+        """Give a collected chunk's wire-prep buffers back to the staging
+        pool, each with the event of its copy to the card: the pool
+        hands a buffer out again only once that copy has completed.
+        Call only once the chunk's results are in hand."""
+        if self._staging_pool is None or not items:
+            return
+        for it in items:
+            release_prepared(self._staging_pool, it[-1])
+
+    def _queue_range(self, conf, members, batch, plan, shipped):
+        """Queue one (search range x chunk) device search; returns a
+        zero-argument collector producing the chunk's Peak list."""
+        dms = [float(ts.metadata["dm"] or 0.0) for ts in members]
+        dms += [0.0] * (batch.shape[0] - len(members))
+        tobs = batch.shape[1] * members[0].tsamp
+        fp_kwargs = conf.get("find_peaks", {})
+        nreal = len(members)
+        args = (plan, batch, dms, tobs, fp_kwargs, nreal)
+        try:
+            self._maybe_oom(batch.shape[0])
+            handle = queue_search_batch(
+                plan, batch, tobs=tobs, shipped=shipped, **fp_kwargs
+            )
+        except Exception as exc:
+            if not is_oom_error(exc):
+                raise
+            # Queue-time OOM: fall back to a bisecting collector. The
+            # traceback goes, so the failed queue's tensors are freed.
+            err = exc.with_traceback(None)
+            return lambda: self._collect_bisected(*args, err)
+
+        def collect():
+            nonlocal handle
+            try:
+                peaks_per_trial, _ = collect_search_batch(handle, dms)
+            except Exception as exc:
+                if not is_oom_error(exc):
+                    raise
+                err = exc.with_traceback(None)
+            else:
+                # Padded trials (zero data) produce no peaks; slice to
+                # the real ones.
+                return [p for d in range(nreal) for p in peaks_per_trial[d]]
+            finally:
+                handle = None
+            # The failed batch's tensors are unreferenced by now.
+            return self._collect_bisected(*args, err)
+
+        return collect
+
+    # -- OOM-aware adaptive bisection ---------------------------------------
+
+    def _maybe_oom(self, batch_size):
+        """Fault-injection hook: a configured ``oom`` directive raises a
+        simulated out-of-memory error here, before the batch is queued,
+        so the bisection path runs on the CPU too."""
+        if self.faults is not None:
+            self.faults.maybe_oom(batch_size)
+
+    def _collect_bisected(self, plan, batch, dms, tobs, fp_kwargs, nreal,
+                          err):
+        """Recovery after device memory exhaustion on a full (search
+        range x chunk) batch: split the DM batch in half and search the
+        halves synchronously, recursing down to ``oom_floor`` trials.
+        Each split is counted as ``oom_bisections``. The halves prepare
+        their own wire; per-trial quantisation makes the sub-batch S/N
+        (hence the peaks) identical to an unthrottled run's."""
+        D = batch.shape[0]
+        if D <= self.oom_floor:
+            raise err
+        get_metrics().add("oom_bisections")
+        incidents.emit("oom_bisection", batch=D, halves=[(D + 1) // 2,
+                                                         D - (D + 1) // 2])
+        log.warning(
+            "device OOM on a %d-trial batch (%s); bisecting into %d + %d",
+            D, err, (D + 1) // 2, D - (D + 1) // 2,
+        )
+        dms = np.asarray(dms, dtype=float)
+        mid = (D + 1) // 2
+        ppt = (
+            self._search_slice(plan, batch, dms, tobs, fp_kwargs, 0, mid)
+            + self._search_slice(plan, batch, dms, tobs, fp_kwargs, mid, D)
+        )
+        return [p for d in range(nreal) for p in ppt[d]]
+
+    def _search_slice(self, plan, batch, dms, tobs, fp_kwargs, lo, hi):
+        """Search DM trials [lo, hi) as one device batch, bisecting
+        recursively on further OOM; returns per-trial peak lists."""
+        D = hi - lo
+        try:
+            self._maybe_oom(D)
+            ppt, _ = run_search_batch(
+                plan, batch[lo:hi], tobs=tobs, dms=dms[lo:hi],
+                device=self.device, **fp_kwargs
+            )
+            return list(ppt)
+        except Exception as exc:
+            if not is_oom_error(exc) or D <= self.oom_floor:
+                raise
+            err = exc.with_traceback(None)
+        get_metrics().add("oom_bisections")
+        mid = lo + (D + 1) // 2
+        incidents.emit("oom_bisection", batch=D, halves=[mid - lo, hi - mid])
+        log.warning(
+            "device OOM on a %d-trial sub-batch (%s); bisecting into "
+            "%d + %d", D, err, mid - lo, hi - mid,
+        )
+        return (
+            self._search_slice(plan, batch, dms, tobs, fp_kwargs, lo, mid)
+            + self._search_slice(plan, batch, dms, tobs, fp_kwargs, mid, hi)
+        )

@@ -24,15 +24,18 @@ module:
 
 These are the parts of the JAX package's ``quality`` module that
 :func:`prepare_time_series` and the file loaders reach, with the same
-semantics. The JAX package's survey metrics registry is not ported yet:
-the salvaged and skipped files are counted in the plain counters of
-:data:`METRICS`, and its incident records are not kept.
+semantics. The scan and the quarantine record into the survey metrics
+registry (:mod:`riptide_tpu_torch.survey.metrics`; a quarantine also
+emits an incident record) unless ``record=False``; the ingest tripwire
+and the salvaged and skipped files are counted there too.
 """
 import logging
 import os
 import warnings
 
 import numpy as np
+
+from .survey.metrics import get_metrics
 
 log = logging.getLogger("riptide_tpu_torch.quality")
 
@@ -43,8 +46,6 @@ __all__ = [
     "MalformedFile",
     "DegradedInputWarning",
     "INGEST_POLICIES",
-    "METRICS",
-    "reset_metrics",
     "scan_samples",
     "fill_masked",
     "masked_moments",
@@ -57,16 +58,6 @@ __all__ = [
 ]
 
 INGEST_POLICIES = ("strict", "salvage", "skip")
-
-# Files the ingest policies salvaged or skipped in this process.
-METRICS = {"files_salvaged": 0, "files_skipped": 0}
-
-
-def reset_metrics():
-    """Set every counter of :data:`METRICS` to 0."""
-    for k in METRICS:
-        METRICS[k] = 0
-
 
 class DegradedInputWarning(UserWarning):
     """Structured warning about a degraded input: carries the offending
@@ -96,10 +87,12 @@ class QuarantinedSeries(RuntimeError):
 
 
 class DQConfig:
-    """Data-quality scan thresholds.
+    """Data-quality scan thresholds and ingest behaviour.
 
     Parameters
     ----------
+    enabled : bool
+        Master switch; disabled -> no scan, no masking.
     max_masked_frac : float
         Quarantine threshold on the masked sample fraction.
     clip_run_min : int
@@ -113,15 +106,30 @@ class DQConfig:
     dc_nstd : float or None
         Mask a block whose mean sits more than this many robust
         standard deviations from the global median; None disables.
+    ingest_policy : str
+        'strict' | 'salvage' | 'skip' handling of malformed files.
     """
 
-    def __init__(self, max_masked_frac=0.5, clip_run_min=64,
-                 dead_run_min=1024, dc_block=8192, dc_nstd=6.0):
+    def __init__(self, enabled=True, max_masked_frac=0.5, clip_run_min=64,
+                 dead_run_min=1024, dc_block=8192, dc_nstd=6.0,
+                 ingest_policy="strict"):
+        self.enabled = bool(enabled)
         self.max_masked_frac = float(max_masked_frac)
         self.clip_run_min = int(clip_run_min)
         self.dead_run_min = int(dead_run_min)
         self.dc_block = int(dc_block)
         self.dc_nstd = None if dc_nstd is None else float(dc_nstd)
+        _check_policy(ingest_policy)
+        self.ingest_policy = ingest_policy
+
+    @classmethod
+    def from_any(cls, obj):
+        """Coerce None / dict / DQConfig to a DQConfig."""
+        if obj is None:
+            return cls()
+        if isinstance(obj, cls):
+            return obj
+        return cls(**dict(obj))
 
 
 class QualityReport:
@@ -170,19 +178,21 @@ def _constant_runs(data):
     return starts, lengths, data[starts]
 
 
-def scan_samples(data, config=None, fname=None, dm=None):
+def scan_samples(data, config=None, fname=None, dm=None, record=True):
     """
     Scan a series for degraded samples; returns ``(mask, report)`` where
     ``mask`` is a boolean bad-sample array (True = bad) and ``report``
     the :class:`QualityReport`. Detects, in order: non-finite samples,
     clipped/saturated runs pinned at the global extremes, zero-variance
-    dead spans, and DC-dominated blocks.
+    dead spans, and DC-dominated blocks. With ``record`` (default),
+    ``dq_scanned_samples`` / ``dq_masked_samples`` go into the metrics
+    registry; pass False when re-scanning data already counted.
     """
-    cfg = config or DQConfig()
+    cfg = DQConfig.from_any(config)
     data = np.asarray(data)
     report = QualityReport(data.size, fname=fname, dm=dm)
     mask = np.zeros(data.size, dtype=bool)
-    if data.size == 0:
+    if not cfg.enabled or data.size == 0:
         return mask, report
 
     finite = np.isfinite(data)
@@ -219,6 +229,11 @@ def scan_samples(data, config=None, fname=None, dm=None):
                 report.reasons.append(f"{n} samples in DC-dominated blocks")
 
     report.n_masked = int(np.count_nonzero(mask))
+    if record:
+        metrics = get_metrics()
+        metrics.add("dq_scanned_samples", report.nsamp)
+        if report.n_masked:
+            metrics.add("dq_masked_samples", report.n_masked)
     if report.n_masked:
         log.warning("data-quality scan: %s", report.describe())
     return mask, report
@@ -304,9 +319,10 @@ def masked_moments(data, mask=None):
     return good.mean(dtype=np.float64), good.var(dtype=np.float64), good.size
 
 
-def quarantine_check(report, max_masked_frac):
+def quarantine_check(report, max_masked_frac, record=True):
     """Mark the series as quarantined when its masked fraction exceeds
-    the threshold — or when no unmasked samples remain at all. Returns
+    the threshold — or when no unmasked samples remain at all; with
+    ``record``, count it and emit a ``quarantine`` incident. Returns
     True when quarantined."""
     fully_masked = report.n_masked >= report.nsamp
     if report.masked_frac <= max_masked_frac and not fully_masked:
@@ -319,6 +335,13 @@ def quarantine_check(report, max_masked_frac):
             f"masked_frac {report.masked_frac:.3f} > max_masked_frac "
             f"{max_masked_frac:.3f}"
         )
+    if record:
+        get_metrics().add("series_quarantined")
+        from .survey.incidents import emit as emit_incident
+
+        emit_incident("quarantine", fname=report.fname,
+                      masked_frac=round(report.masked_frac, 6),
+                      reasons=list(report.reasons))
     warnings.warn(DegradedInputWarning(report.fname or "<series>",
                                        report.describe()))
     log.warning("quarantined: %s", report.describe())
@@ -326,7 +349,7 @@ def quarantine_check(report, max_masked_frac):
 
 
 def prepare_time_series(ts, rmed_width=None, rmed_minpts=101, dq=None,
-                        normalise=True, device=None):
+                        normalise=True, device=None, record=True):
     """
     DQ-aware search preparation of one TimeSeries: scan -> quarantine
     check -> repair -> (optional, when ``rmed_width`` is set) deredden
@@ -334,7 +357,9 @@ def prepare_time_series(ts, rmed_width=None, rmed_minpts=101, dq=None,
     Returns ``(prepared, report)``; ``prepared`` is None when the series
     was quarantined. The prepared series' metadata carries
     ``dq_masked_frac`` and ``dq_nsamp_eff``. Running medians run on
-    ``device`` (the card when None).
+    ``device`` (the card when None). ``dq`` is a :class:`DQConfig`, a
+    dict of its arguments or None; ``record`` as in
+    :func:`scan_samples`.
 
     ``normalise=False`` serves externally-normalised input: the full
     normalisation is skipped, but masked samples are still zeroed and
@@ -345,12 +370,12 @@ def prepare_time_series(ts, rmed_width=None, rmed_minpts=101, dq=None,
     from .time_series import TimeSeries
 
     original = ts
-    cfg = dq or DQConfig()
+    cfg = DQConfig.from_any(dq)
     mask, report = scan_samples(
         ts.data, cfg, fname=ts.metadata.get("fname"),
-        dm=ts.metadata.get("dm"),
+        dm=ts.metadata.get("dm"), record=record,
     )
-    if quarantine_check(report, cfg.max_masked_frac):
+    if quarantine_check(report, cfg.max_masked_frac, record=record):
         return None, report
     if report.n_masked:
         width = None
@@ -398,8 +423,9 @@ def check_finite_array(x, where="input"):
 
 def ingest_scan(data, source=None):
     """
-    Cheap ingest tripwire used by the TimeSeries constructors: emit one
-    :class:`DegradedInputWarning` when non-finite samples are present.
+    Cheap ingest tripwire used by the TimeSeries constructors: count
+    non-finite samples into the ``dq_ingest_nonfinite`` metric and emit
+    one :class:`DegradedInputWarning`.
     Never raises and never modifies the data — full masking/repair
     happens in :func:`scan_samples` / :func:`prepare_time_series`.
     Returns ``data``.
@@ -408,6 +434,7 @@ def ingest_scan(data, source=None):
     if arr.dtype.kind == "f" and arr.size:
         bad = int(arr.size - np.count_nonzero(np.isfinite(arr)))
         if bad:
+            get_metrics().add("dq_ingest_nonfinite", bad)
             warnings.warn(DegradedInputWarning(
                 source or "<array>",
                 f"{bad}/{arr.size} non-finite samples at ingest",
@@ -441,11 +468,11 @@ def report_malformed(fname, reason, policy, salvageable=False):
     if policy == "strict":
         raise MalformedFile(f"{fname}: {reason}")
     if policy == "salvage" and salvageable:
-        METRICS["files_salvaged"] += 1
+        get_metrics().add("files_salvaged")
         warnings.warn(DegradedInputWarning(fname, reason + " (salvaged)"))
         log.warning("salvaging %s: %s", fname, reason)
         return True
-    METRICS["files_skipped"] += 1
+    get_metrics().add("files_skipped")
     warnings.warn(DegradedInputWarning(fname, reason + " (skipped)"))
     log.warning("skipping %s: %s", fname, reason)
     return False

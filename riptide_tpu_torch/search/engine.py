@@ -63,7 +63,24 @@ from ..utils.device import resolve_device
 __all__ = ["run_periodogram", "run_periodogram_batch", "run_search_batch",
            "queue_search_batch", "collect_search_batch", "search_snr_dev",
            "prepare_stage_data", "ship_stage_data", "release_prepared",
-           "StagingPool", "recording"]
+           "StagingPool", "recording", "is_oom_error"]
+
+# Substrings that mark device memory exhaustion in an exception message
+# (the JAX package's markers; the fault injector's simulated OOM carries
+# the first).
+_OOM_MARKERS = ("resource_exhausted", "resource exhausted", "out of memory")
+
+
+def is_oom_error(err):
+    """True when an exception is device memory exhaustion: a
+    ``torch.cuda.OutOfMemoryError``, or any error whose message carries
+    an OOM marker. The batcher recovers from it by halving the DM
+    batch; other errors propagate."""
+    if isinstance(err, torch.cuda.OutOfMemoryError):
+        return True
+    msg = str(err).lower()
+    return any(marker in msg for marker in _OOM_MARKERS)
+
 
 # Tail slack of the wire layout, as in the JAX package's byte-plane view
 # (its fused TPU kernel streamed planes in DMA_CHUNK-row chunks and could

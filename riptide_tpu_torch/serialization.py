@@ -4,10 +4,13 @@ Candidate, ...).
 
 Any object with ``to_dict()``/``from_dict()`` serializes as a tagged dict
 with ``__type__`` and ``__version__`` keys; numpy arrays are embedded as
-base64, DataFrames as values+columns, SkyCoord as ra/dec degrees. Same
-on-disk contract as the reference (riptide/serialization.py), and the
-decoder additionally accepts the reference's 'astropy.SkyCoord' tag so
-files written by riptide load here.
+base64, tables (:class:`~riptide_tpu_torch.table.Table`, and pandas
+DataFrames where pandas is loaded) as values+columns under the
+DataFrame tag, SkyCoord as ra/dec degrees. Same on-disk contract as the
+reference (riptide/serialization.py), and the decoder additionally
+accepts the reference's 'astropy.SkyCoord' tag so files written by
+riptide load here. A DataFrame record decodes into a
+:class:`~riptide_tpu_torch.table.Table`, so loading needs no pandas.
 """
 import base64
 import importlib
@@ -15,6 +18,7 @@ import json
 
 import numpy as np
 
+from .table import Table
 from .utils.coords import SkyCoord
 
 __all__ = ["JSONEncoder", "object_hook", "to_json", "from_json", "save_json", "load_json"]
@@ -45,6 +49,12 @@ class JSONEncoder(json.JSONEncoder):
             return int(obj)
         if isinstance(obj, np.floating):
             return float(obj)
+        if isinstance(obj, Table):
+            return {
+                "__type__": "pandas.DataFrame",
+                "values": self.default(obj.values),
+                "columns": obj.columns,
+            }
         # pandas is optional: only consult it if it is already loaded
         # (a DataFrame cannot exist otherwise).
         import sys
@@ -83,10 +93,8 @@ def object_hook(items):
         data = base64.b64decode(items["data"].encode())
         return np.frombuffer(data, items["dtype"]).reshape(items["shape"]).copy()
     if typename == "pandas.DataFrame":
-        import pandas
-
         # Decoding happens deepest-first: 'values' is already an ndarray.
-        return pandas.DataFrame(items["values"], columns=items["columns"])
+        return Table.from_values(items["values"], items["columns"])
     if typename in ("SkyCoord", "astropy.SkyCoord"):
         return SkyCoord(items["rajd"], items["decjd"])
     cls = _get_class(typename)

@@ -1,16 +1,17 @@
 """Wall-clock timing decorator logging to the 'riptide_tpu_torch.timing'
 logger at DEBUG level (reference: riptide/timing.py), plus a device-side
 profiler hook: ``device_trace`` captures a ``torch.profiler`` trace
-(kernel-level timeline) as a Chrome trace viewable in Perfetto."""
+(kernel-level timeline) as a Chrome trace viewable in Perfetto, and
+``maybe_trace``, the same when given a directory."""
 import logging
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from functools import wraps
 
 log = logging.getLogger("riptide_tpu_torch.timing")
 
-__all__ = ["timing", "device_trace"]
+__all__ = ["timing", "device_trace", "maybe_trace"]
 
 
 @contextmanager
@@ -32,6 +33,12 @@ def device_trace(trace_dir):
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(str(trace_dir), "trace.json"))
     log.info(f"device trace written to {trace_dir}")
+
+
+def maybe_trace(trace_dir):
+    """``device_trace(trace_dir)`` when a directory is given, else a
+    no-op context."""
+    return device_trace(trace_dir) if trace_dir else nullcontext()
 
 
 def timing(func):

@@ -52,7 +52,8 @@ def test_every_module_imports_without_jax():
 
 
 def test_sources_import_no_jax_or_reference():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in
+             ("chip_smoke.py", "stage_times.py", "loader_streams.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

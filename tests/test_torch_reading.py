@@ -27,6 +27,8 @@ from synth import write_presto, write_sigproc
 
 import riptide_tpu_torch as port
 from riptide_tpu_torch import native, quality
+from riptide_tpu_torch.survey.metrics import (MetricsRegistry, get_metrics,
+                                              set_metrics)
 from riptide_tpu_torch.utils.coords import SkyCoord
 
 TSAMP = 256e-6
@@ -186,15 +188,19 @@ KINDS = ("presto-truncated", "presto-empty", "presto-header", "sigproc-odd",
 @pytest.mark.parametrize("kind", KINDS)
 def test_damaged_files_same_outcome(tmp_path, kind, policy):
     name, args = _truncated(tmp_path, kind)
-    quality.reset_metrics()
-    got, want = _both(name, *args, policy=policy)
+    prev = set_metrics(MetricsRegistry())
+    try:
+        got, want = _both(name, *args, policy=policy)
+        counts = {k: get_metrics().counter(k)
+                  for k in ("files_salvaged", "files_skipped")}
+    finally:
+        set_metrics(prev)
     _assert_same(got, want)
     if policy == "strict":
         assert got[0] == "raise"
     salvaged = int(got[0] == "data")
     skipped = int(got[0] == "none")
-    assert quality.METRICS == {"files_salvaged": salvaged,
-                               "files_skipped": skipped}
+    assert counts == {"files_salvaged": salvaged, "files_skipped": skipped}
 
 
 def test_strict_raises_malformed_file(tmp_path):
