@@ -92,7 +92,11 @@ process each, started together, then:
    ``PROBE_MM_RTOL``/``PROBE_MM_ATOL`` of ``torch.matmul`` in full
    float32), every P3 level against the tool's numpy sequence bit for
    bit, and each probe's kernel time printed beside its plain version's
-   (P2's plain versions run once, at the full NITER) and its bound.
+   (P2's plain versions run once, at the full NITER) and its bound. P1's
+   GEMM (four products, device time from CUDA graph replays) is printed
+   beside four ``torch.matmul`` calls timed alike, and its ratio to them;
+   its entry in the ``kernels`` line carries both (``gemm_ms``,
+   ``library_ms``).
 
 7. the pipeline (``rffa``) at full width: 48 PRESTO DM trials of the
    headline series (2^23 samples at 64 us, 1.5 GiB, written by this
@@ -158,8 +162,9 @@ HEADLINE_PAIRS = 10
 RTOL, ATOL = 1e-5, 1e-4
 # Timed calls of a kernel over the main path's launches (median).
 REPS = 20
-# Phase 6: the hand-written float32 GEMM against torch.matmul in full
-# float32 (sums of 2048 products in another order, outputs ~1-4).
+# Phase 6: the hand-written 3xTF32 GEMM against torch.matmul in full
+# float32 (sums of 2048 products in another order, each operand split
+# into two TF32 parts to ~2^-22 relative; outputs ~1-4).
 PROBE_MM_RTOL, PROBE_MM_ATOL = 1e-5, 1e-5
 
 
@@ -1388,8 +1393,11 @@ def phase_probes(dev):
     ``kernels`` entry per probe: its launches in the run, the largest
     difference from plain, and the sums over its patterns of kernel ms
     (the entry point's device time per call, from CUDA graph replays),
-    plain ms and bound ms."""
-    from riptide_tpu_torch.probes import probe1536, ptime, ptime2
+    plain ms and bound ms. P1's entry also carries its GEMM's own device
+    ms (``gemm_ms``, the matmul pattern's four products) beside
+    ``library_ms``, the same four products by ``torch.matmul`` in full
+    float32, timed alike (``measure.graph_ms``)."""
+    from riptide_tpu_torch.probes import common, probe1536, ptime, ptime2
 
     probes = (("P1", "P1 ptime", ptime, ["all"], "tools/ptime.py:86"),
               ("P2", "P2 ptime2", ptime2, list(ptime2.BODIES),
@@ -1407,8 +1415,8 @@ def phase_probes(dev):
     entries = []
     for key, name, mod, _, replaces in probes:
         err = ms = pms = 0.0
-        bounds = {"bytes": 0.0, "operations": 0.0}
-        lib_ms = None
+        bounds = {}
+        lib_ms = gemm_ms = products = None
         for r in results[key]:
             plain = getattr(mod, f"{r.wrapper}_plain")
             if key == "P2":
@@ -1426,8 +1434,10 @@ def phase_probes(dev):
                                      atol=PROBE_MM_ATOL),
                       f"{key} {r.name}: max |kernel - plain| {e:.3e}")
                 a, x, reps = r.args
-                lib_ms = measure.median_ms(
-                    lambda: [torch.matmul(a, x) for _ in range(r.passes)],
+                gemm_ms, products = r.ms, r.passes
+                bms_mm = r.bound()[0]
+                lib_ms = measure.graph_ms(
+                    lambda: [torch.matmul(a, x) for _ in range(products)],
                     dev, REPS)
             else:
                 check(torch.equal(r.out, want), f"{key} {r.name}: not the "
@@ -1435,25 +1445,38 @@ def phase_probes(dev):
             check(r.ok is not False, f"{key} {r.name}: differs from the "
                   "tool's numpy sequence")
             bms, by = r.bound()
-            bounds[by] += bms
+            bounds[by] = bounds.get(by, 0.0) + bms
             err, ms, pms = max(err, e), ms + r.ms, pms + p_ms
             print(f"  {key} {r.name}: max |kernel - plain| {e:.3e}; kernel "
                   f"{r.ms:.4f} ms, plain {p_ms:.4f} ms, bound {bms:.6f} ms by "
-                  f"{by}", flush=True)
+                  f"{by} ({bms / r.ms:.1%} of it)", flush=True)
         bms = sum(bounds.values())
         by = max(bounds, key=bounds.get)
         print(f"  {key}: {len(results[key])} patterns, kernels {ms:.4f} ms "
-              f"(plain {pms:.4f} ms, bound {bms:.4f} ms, mostly by {by}"
-              + (f"; {r.passes} x torch.matmul {lib_ms:.4f} ms"
-                 if lib_ms is not None else "") + ")", flush=True)
-        entries.append({
+              f"(plain {pms:.4f} ms, bound {bms:.4f} ms, mostly by {by})",
+              flush=True)
+        if gemm_ms is not None:
+            rate = common.mma_tf32_tflops(dev)
+            share = rate * 1e12 / measure.PEAK_TF32_FLOPS_PER_S
+            print(f"  {key} GEMM: {products} products {gemm_ms:.4f} ms, "
+                  f"{products} x torch.matmul (full float32) {lib_ms:.4f} "
+                  f"ms, both from CUDA graph replays: {gemm_ms / lib_ms:.3f}"
+                  f" x the library's time; mma.sync TF32 alone {rate:.1f} "
+                  f"TFLOP/s ({share:.1%} of the dense peak), so its least "
+                  f"time for the products is {bms_mm / share:.4f} ms",
+                  flush=True)
+        entry = {
             "name": name, "route": "cuda",
             "source": "riptide_tpu_torch/csrc/probes.cu",
             "replaces": replaces,
             "launches": sum(launches[key].values()), "max_abs_err": err,
-            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms,
-        })
+            "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            # "operations (tensor cores)" counts as operations here
+            "bound_by": by.split()[0], "library_ms": lib_ms,
+        }
+        if gemm_ms is not None:
+            entry["gemm_ms"] = gemm_ms
+        entries.append(entry)
     return entries
 
 

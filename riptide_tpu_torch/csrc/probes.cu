@@ -22,52 +22,138 @@
 //                      only x in every repetition (acc = acc + f(x, i))
 //                      sum their REPS terms in a register, in the Pallas
 //                      order.
-//   p2_point_kernel    one thread per element: the P2 bodies with no
-//                      coupling (add, select) run NITER passes in a
-//                      register.
+//   p2_add_kernel      P2 add (body_add): one thread per element, NITER
+//                      passes in a register.
+//   p2_select_kernel   P2 select (body_select, where(col < i % P, acc *
+//                      1.0001, acc)): K rows of one column a thread, so
+//                      one compare of the column against the pass index
+//                      serves K elements; the passes run in runs of `cols`
+//                      with i % P the inner loop's index. Every element
+//                      takes its multiply and a select in every pass. The
+//                      select is a bit select (lop3) by the compare's
+//                      all-ones mask: ptxas folds a select written in C,
+//                      or as selp or slct, into a multiply predicated on
+//                      the mask, which skips the elements the mask leaves.
+//                      Bound: the two operations a pass; the select runs
+//                      on the integer pipe, at half the float32 rate, but
+//                      beside the multiply.
+//   row_warp_kernel    P2 roll1, dynroll and barrelbit: one row a warp, in
+//                      registers, V = cols / 32 values a lane. No shared
+//                      memory and no barrier. roll1 (body_roll) holds
+//                      columns [V l, V l + V) in lane l: a roll by one is
+//                      a register shift plus one __shfl_sync a lane, so it
+//                      is bound by its two float32 operations. barrelbit
+//                      (body_barrelbit) holds residue class l & 3 of the
+//                      columns in lane l, positions (l >> 2) V + j of it:
+//                      the roll by 4 is a shift by one position in the
+//                      class (one shuffle from lane l - 4), and the mask
+//                      (col & 3) == (i & 3) is (l & 3) == (i & 3), a
+//                      run-time predicate of the lane that every element
+//                      selects on (FSEL) in every pass, whatever the
+//                      unrolling. Bound: its one select a pass, which the
+//                      card runs at half the float32 rate (16 lanes a
+//                      scheduler), so half of the bound is its ceiling.
+//                      dynroll (body_dynroll) rolls by i % P, a new shift
+//                      each pass: shift q V + k comes from lanes l - q and
+//                      l - q - 1 at register offset k. The passes run in
+//                      unrolled groups of V from a pass i with i % V == 0,
+//                      so within a group k is the unrolled index and q is
+//                      fixed: V shuffles a lane a pass, from two lanes
+//                      computed once a group, and no register index at run
+//                      time. Every element crosses lanes in every pass, so
+//                      it is bound by the shuffle rate, a quarter of the
+//                      float32 rate (at most half of its two-operation
+//                      bound). A warp-private shared row would take two
+//                      shared accesses an element at the same quarter
+//                      rate: half again.
+//   column_kernel      P2 rollrow (body_rollrow): one column a block, R
+//                      consecutive rows a thread in registers; a roll by
+//                      one row is a register shift plus one shuffle from
+//                      the lane before, and between warps one value a warp
+//                      a pass crosses shared memory (double-buffered by
+//                      pass parity: one barrier a pass). All passes in one
+//                      launch; the roll's wrap from row 0 to the last row
+//                      stays in the block. Bound: its two float32
+//                      operations; the barrier costs each warp a stall a
+//                      pass, which the other blocks on the SM fill.
 //   lane_loop_kernel   a tile of whole rows in shared memory, ping-ponged
-//                      once a pass: the row-local patterns whose pass
-//                      reads the previous pass (P1 barrel; P2 roll1,
-//                      dynroll, barrelbit).
+//                      once a pass: P1 barrel.
 //   strip_loop_kernel  a strip of columns of one row group in shared
 //                      memory, ping-ponged once a pass: the patterns that
 //                      couple rows (P1 interleave, repeat_tpu and parity
-//                      select; P2 rollrow, whose group is every row; P3's
-//                      slot level). Each of them is column-local, so a
-//                      narrow strip of a whole group fits in shared memory
-//                      where the group's full width would not (one
-//                      1536 x 384 float32 group is 2.25 MiB): every pass
-//                      runs in one launch, with no grid-wide sync.
-//   sgemm_kernel       a tiled float32 GEMM for P1's matmul: 64 x 64 block
-//                      tiles, 16-deep k slices in shared memory, 4 x 4
-//                      outputs a thread, SIMT FMAs; one launch a product.
+//                      select; P3's slot level). Each of them is
+//                      column-local, so a narrow strip of a whole group
+//                      fits in shared memory where the group's full width
+//                      would not (one 1536 x 384 float32 group is 2.25
+//                      MiB): every pass runs in one launch, with no
+//                      grid-wide sync.
+//   tf32x3_gemm_kernel P1's matmul (kern_matmul) on the tensor cores in
+//                      3xTF32: each float32 operand splits as big =
+//                      tf32(x) and small = tf32(x - big), both rounded as
+//                      cvt.rna.tf32.f32 rounds, and the products sum big *
+//                      big + big * small + small * big (mma.sync m16n8k8
+//                      TF32) in float32. The split keeps ~22 of float32's
+//                      24 significant bits of each operand (the dropped
+//                      small * small term is ~2^-22 relative), so the
+//                      products stay within 1e-5 of full float32, where one
+//                      TF32 product is 2^-11 off. One launch a product,
+//                      one 64 x 96 output tile a block: 4 x 32 = 128 blocks
+//                      at the tool's (2048, 384) output, one for each SM
+//                      but four (64 x 64 tiles gave 192 blocks, two on 60
+//                      SMs and one on 72). Eight warps a block: four
+//                      quarters of 32 x 48 (2 x 6 m16n8 tiles) times the
+//                      two k halves of each k tile, so each scheduler has
+//                      two warps; the halves' sums meet through shared
+//                      memory at the end. Tiles of A (64 x 64) and B (64
+//                      x 96) come in through a 3-stage shared-memory ring
+//                      by cp.async (16-byte copies when K and N are
+//                      multiples of 4 and the operands are 16-byte
+//                      aligned, else 4-byte copies), the copy of stage k +
+//                      2 in flight while stage k is multiplied; a k tile
+//                      64 deep halves the barriers (each drains the
+//                      warps' pipelines) against 32. Padded rows (A 4
+//                      floats, B 4) make the fragment reads conflict-free. Ragged edges are
+//                      zero-filled by the copies and masked at the store.
+//                      Each k tile's three products sum from zero and join
+//                      the float32 total with one rounding: the tensor
+//                      cores truncate as they accumulate, and one running
+//                      sum over K = 2048 drifted by ~1e-5 relative.
+//                      Bound: 3 x 2 M N K TF32 flops at the tensor cores'
+//                      dense peak (495 TFLOP/s). mma.sync alone reaches
+//                      only part of it (mma_rate_kernel measures how
+//                      much; wgmma, with its operands in shared memory, is
+//                      the way to the rest), and the split costs four
+//                      instructions an operand value.
 //
 // Bound. A P1 pattern reads x once and writes its output once (6.3 MB at
 // (2048, 384)) against one or two operations per element and repetition:
 // bound by bytes. P2 keeps the tile on chip for NITER passes of one or two
 // operations per element: bound by operations. A P3 launch reads x and w
 // and writes its output once against two operations per element and pass:
-// bound by bytes. The matmul's M * N * K FMAs bound it by operations.
+// bound by bytes. The matmul by its tensor-core flops.
 //
 // Numerics. Built with --fmad=false, so acc * 1.0001f + x stays two
 // roundings, as in PyTorch's separate kernels: every pattern but the
-// matmul is bit identical to its plain version. The matmul's FMAs are
-// explicit (__fmaf_rn); its epilogue (* alpha, then + beta) rounds twice,
-// as the plain (a @ acc) * 0.001 + i does.
+// matmul is bit identical to its plain version. The matmul's epilogue (*
+// alpha, then + beta) rounds twice, as the plain (a @ acc) * 0.001 + i
+// does.
 //
 // Interface. Plain extern "C" launchers (loaded with ctypes), each
 // launching on the caller's stream and returning cudaGetLastError(). A
 // launcher takes a pattern code (rt_probe_code gives it by name). Nothing
 // here allocates or synchronises; the Python wrappers allocate every
-// output with torch.empty and choose the tiles.
+// output with torch.empty, choose the tiles and refuse the shapes no
+// kernel takes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 namespace {
 
-constexpr int kThreads = 256;      // threads per block, all kernels but lane_loop
+constexpr int kThreads = 256;      // threads per block, the point kernels and strip_loop
 constexpr int kLaneThreads = 128;  // threads per lane_loop block (one row at a time)
+constexpr int kRowWarps = 2;       // rows (warps) per row_warp_kernel block
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Pattern : int {
   kAdd = 1,      // P1 kern_add / make_tile_add: acc * 1.0001 + x
@@ -149,30 +235,176 @@ __global__ void __launch_bounds__(kThreads) p1_point_kernel(
   out[e] = acc;
 }
 
-template <int PAT>
-__global__ void __launch_bounds__(kThreads) p2_point_kernel(
-    const float* __restrict__ x, float* __restrict__ out, int rows, int cols,
-    int niter) {
+__global__ void __launch_bounds__(kThreads) p2_add_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int n, int niter) {
   const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= rows * cols) return;
-  const int c = e % cols;
+  if (e >= n) return;
   float v = x[e];
-  int m = 0;  // i % cols
 #pragma unroll 4
-  for (int i = 0; i < niter; ++i) {
-    if (PAT == kAdd2) {
-      v = v * 1.0001f + 0.5f;
-    } else {  // kSelect2
-      if (c < m) v = v * 1.0001f;
-      if (++m == cols) m = 0;
-    }
-  }
+  for (int i = 0; i < niter; ++i) v = v * 1.0001f + 0.5f;
   out[e] = v;
 }
 
+// where(mask, a, b) for a mask of all ones or all zeros: a bit select
+// (lop3), one instruction. A select written in C, or as selp or slct in
+// PTX, is folded by ptxas into a multiply predicated on the mask, which
+// skips the multiply and the select of the elements the mask leaves; the
+// body's work is a multiply and a select of every element in every pass.
+__device__ __forceinline__ float bit_select(uint32_t mask, float a, float b) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xCA;"
+      : "=r"(r)
+      : "r"(mask), "r"(__float_as_uint(a)), "r"(__float_as_uint(b)));
+  return __uint_as_float(r);
+}
+
+// Rows [K r, K r + K) of column c for thread r * cols + c; rows past
+// `rows` are carried as zeros and never stored.
+template <int K>
+__global__ void __launch_bounds__(kThreads) p2_select_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int rows, int cols,
+    int niter) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int c = g % cols;
+  const int r0 = g / cols * K;
+  if (r0 >= rows) return;
+  float v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    v[k] = r0 + k < rows ? x[(int64_t)(r0 + k) * cols + c] : 0.0f;
+  for (int i0 = 0; i0 < niter; i0 += cols) {
+    const int n = min(cols, niter - i0);
+#pragma unroll 4
+    for (int m = 0; m < n; ++m) {  // pass i0 + m, whose i % P is m
+      const uint32_t take = (uint32_t)((c - m) >> 31);  // ~0 where col < i % P
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] = bit_select(take, v[k] * 1.0001f, v[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (r0 + k < rows) out[(int64_t)(r0 + k) * cols + c] = v[k];
+}
+
+// Column of register j of `lane` in row_warp_kernel's layouts (cols = 32 V).
+template <int PAT, int V>
+__device__ __forceinline__ int row_col(int lane, int j) {
+  return PAT == kBarrelBit ? (lane & 3) + 4 * ((lane >> 2) * V + j)
+                           : lane * V + j;
+}
+
+// V passes of dynroll from a pass i with i % V == 0 (the last group
+// stops after `left` passes when kTail): pass i + k rolls by q V + k,
+// whose source for register j is register (j - k) mod V of lane sa = l - q
+// (j >= k) or sb = l - q - 1 (j < k).
+template <int V, bool kTail>
+__device__ __forceinline__ void dynroll_group(float (&v)[V], int sa, int sb,
+                                              int left) {
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (kTail && k >= left) return;
+    float t[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      t[j] = __shfl_sync(kFull, v[j >= k ? j - k : j - k + V], j >= k ? sa : sb);
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = v[j] + t[j] * 1e-6f;
+  }
+}
+
+// Row blockIdx.x * kRowWarps + warp, all passes in registers.
+template <int PAT, int V>
+__global__ void __launch_bounds__(kRowWarps * 32) row_warp_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int rows,
+    int niter) {
+  constexpr int cols = 32 * V;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;  // the whole warp: no shuffle waits on it
+  const float* xr = x + (int64_t)r * cols;
+  float v[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = xr[row_col<PAT, V>(lane, j)];
+  if (PAT == kRoll1) {
+    const int src = (lane + 31) & 31;  // column l V - 1 is lane l - 1's last
+#pragma unroll 4
+    for (int i = 0; i < niter; ++i) {
+      const float left = __shfl_sync(kFull, v[V - 1], src);
+#pragma unroll
+      for (int j = V - 1; j > 0; --j) v[j] = v[j] + v[j - 1] * 1e-6f;
+      v[0] = v[0] + left * 1e-6f;
+    }
+  } else if (PAT == kBarrelBit) {
+    const int src = (lane + 28) & 31;  // the class's position before (l >> 2) V
+#pragma unroll 4
+    for (int i = 0; i < niter; ++i) {
+      const float left = __shfl_sync(kFull, v[V - 1], src);
+      const bool take = ((lane ^ i) & 3) == 0;  // (col & 3) == (i & 3)
+#pragma unroll
+      for (int j = V - 1; j > 0; --j) v[j] = take ? v[j - 1] : v[j];
+      v[0] = take ? left : v[0];
+    }
+  } else {  // kDynRoll2
+    int q = 0;  // (i % cols) / V at the group's first pass i
+    int i = 0;
+    for (; i + V <= niter; i += V) {
+      dynroll_group<V, false>(v, (lane - q) & 31, (lane - q - 1) & 31, V);
+      q = (q + 1) & 31;
+    }
+    if (i < niter)
+      dynroll_group<V, true>(v, (lane - q) & 31, (lane - q - 1) & 31,
+                             niter - i);
+  }
+  float* o = out + (int64_t)r * cols;
+#pragma unroll
+  for (int j = 0; j < V; ++j) o[row_col<PAT, V>(lane, j)] = v[j];
+}
+
+// Column blockIdx.x: thread t < T = rows / R holds rows [t R, t R + R); the
+// block is ceil(T / 32) warps. Pass i: each thread's first row takes the
+// last row of the thread before (lane l - 1 by shuffle; lane 0 of a warp
+// from the warp before through slot[i & 1], written by its last live
+// lane; row 0 from row rows - 1).
+template <int R>
+__global__ void __launch_bounds__(1024) column_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int rows, int cols,
+    int niter) {
+  __shared__ float slot[2][32];
+  const int c = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31, w = t >> 5;
+  const int T = rows / R;
+  const int W = blockDim.x >> 5;
+  const bool live = t < T;
+  float v[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    v[k] = live ? x[(int64_t)(t * R + k) * cols + c] : 0.0f;
+  const int src = lane > 0 ? lane - 1 : (W == 1 ? T - 1 : 0);
+  const bool put = lane == min(31, T - 1 - 32 * w);  // this warp's last live lane
+  float* const mine = &slot[0][w];
+  const float* const before = &slot[0][w > 0 ? w - 1 : W - 1];
+#pragma unroll 2
+  for (int i = 0; i < niter; ++i) {
+    float up = __shfl_sync(kFull, v[R - 1], src);
+    if (W > 1) {
+      const int b = (i & 1) * 32;
+      if (put) mine[b] = v[R - 1];
+      __syncthreads();
+      if (lane == 0) up = before[b];
+    }
+#pragma unroll
+    for (int k = R - 1; k > 0; --k) v[k] = v[k] + v[k - 1] * 1e-6f;
+    v[0] = v[0] + up * 1e-6f;
+  }
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) out[(int64_t)(t * R + k) * cols + c] = v[k];
+  }
+}
+
 // `tr` whole rows from row blockIdx.x * tr, two buffers of tr * cols
-// floats in dynamic shared memory; pass i reads one and writes the other.
-template <int PAT>
+// floats in dynamic shared memory; step i reads one and writes the other.
 __global__ void __launch_bounds__(kLaneThreads) lane_loop_kernel(
     const float* __restrict__ x, float* __restrict__ out, int rows, int cols,
     int tr, int passes) {
@@ -185,25 +417,12 @@ __global__ void __launch_bounds__(kLaneThreads) lane_loop_kernel(
     cur[e] = x[r0 * cols + e];
   __syncthreads();
   for (int i = 0; i < passes; ++i) {
-    const int shift = (PAT == kBarrel    ? (1 << i)
-                       : PAT == kRoll1   ? 1
-                       : PAT == kDynRoll2 ? i
-                                         : 4) % cols;  // kBarrelBit
+    const int shift = (1 << i) % cols;
     for (int lr = 0; lr < nr; ++lr) {
       const float* row = cur + lr * cols;
-      const bool take = PAT == kBarrel ? ((r0 + lr) >> i) & 1 : true;
-      for (int c = threadIdx.x; c < cols; c += kLaneThreads) {
-        const float src = row[rolled(c, shift, cols)];
-        float v = row[c];
-        if (PAT == kBarrel) {
-          if (take) v = src;
-        } else if (PAT == kBarrelBit) {
-          if ((c & 3) == (i & 3)) v = src;
-        } else {  // kRoll1, kDynRoll2
-          v = v + src * 1e-6f;
-        }
-        nxt[lr * cols + c] = v;
-      }
+      const bool take = ((r0 + lr) >> i) & 1;
+      for (int c = threadIdx.x; c < cols; c += kLaneThreads)
+        nxt[lr * cols + c] = take ? row[rolled(c, shift, cols)] : row[c];
     }
     __syncthreads();
     float* t = cur;
@@ -258,8 +477,6 @@ __global__ void __launch_bounds__(kThreads) strip_loop_kernel(
         v = (cur[(h << lg) + cc] + cur[((half + h) << lg) + cc]) + fi;
       } else if (PAT == kParity) {  // even rows keep, odd take the row above
         v = cur[((s & ~1) << lg) + cc] + fi;
-      } else if (PAT == kRollRow) {
-        v = cur[e] + cur[((s == 0 ? S - 1 : s - 1) << lg) + cc] * 1e-6f;
       } else {  // kSlot: (s + delta) mod S with delta in [-2, 1]
         const int t = s + delta[e];
         const int src = t < 0 ? t + S : (t >= S ? t - S : t);
@@ -278,59 +495,273 @@ __global__ void __launch_bounds__(kThreads) strip_loop_kernel(
   }
 }
 
-constexpr int kBM = 64, kBN = 64, kBK = 16;
+// ---------------------------------------------------------------------------
+// 3xTF32 GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int kGM = 64, kGN = 96, kGK = 64;  // block tile
+constexpr int kGStages = 3;                  // shared-memory ring depth
+constexpr int kGThreads = 256;  // 8 warps: 4 quarters of 32 x 48, 2 k groups
+constexpr int kGKS = kGThreads / 128;        // k groups
+constexpr int kGNI = kGN / 16;               // n8 tiles of a warp's quarter
+constexpr int kAStride = kGK + 4;            // floats a row of an A tile
+constexpr int kBStride = kGN + 4;            // floats a row of a B tile
+constexpr int kAStage = kGM * kAStride, kBStage = kGK * kBStride;
+constexpr size_t kGemmSmem =
+    (size_t)kGStages * (kAStage + kBStage) * sizeof(float);
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Copy BYTES (16 or 4) from global src to shared dst, or zero-fill dst
+// when !valid (src must still be a readable address).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  const int n = valid ? BYTES : 0;
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = big + small to ~22 bits: big = tf32(x), small = tf32(x - big),
+// rounded as cvt.rna.tf32.f32 rounds (to nearest on the 13 low mantissa
+// bits, ties away from zero), which ptxas spends four instructions on for
+// sm_90a. Adding half of the 13 bits' unit is that rounding as the tensor
+// cores see it (they read a TF32 operand's 19 high bits and drop the
+// rest); x - big needs big's value, so it is masked first. Three integer
+// instructions and one float32 subtraction.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// d += a (16 x 8, row) @ b (8 x 8, col) on the tensor cores, TF32 in,
+// float32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Stage `slot` of the ring <- A[m0 : m0 + 64, k0 : k0 + 32] and
+// B[k0 : k0 + 32, n0 : n0 + 96], zeros outside the matrices. kVec: 16-byte
+// copies (K and N multiples of 4, A and B 16-byte aligned).
+template <bool kVec>
+__device__ __forceinline__ void gemm_load(float* As, float* Bs,
+                                          const float* __restrict__ A,
+                                          const float* __restrict__ B, int M,
+                                          int N, int K, int m0, int n0, int k0) {
+  const int tid = threadIdx.x;
+  if (kVec) {
+#pragma unroll
+    for (int q = 0; q < kGM * kGK / 4 / kGThreads; ++q) {
+      const int e = tid + q * kGThreads;
+      const int r = e / (kGK / 4), c = e % (kGK / 4) * 4;
+      const bool ok = m0 + r < M && k0 + c < K;
+      cp_async<16>(As + r * kAStride + c,
+                   ok ? A + (int64_t)(m0 + r) * K + k0 + c : A, ok);
+    }
+#pragma unroll
+    for (int q = 0; q < kGK * kGN / 4 / kGThreads; ++q) {
+      const int e = tid + q * kGThreads;
+      const int r = e / (kGN / 4), c = e % (kGN / 4) * 4;
+      const bool ok = k0 + r < K && n0 + c < N;
+      cp_async<16>(Bs + r * kBStride + c,
+                   ok ? B + (int64_t)(k0 + r) * N + n0 + c : B, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < kGM * kGK / kGThreads; ++q) {
+      const int e = tid + q * kGThreads;
+      const int r = e / kGK, c = e % kGK;
+      const bool ok = m0 + r < M && k0 + c < K;
+      cp_async<4>(As + r * kAStride + c,
+                  ok ? A + (int64_t)(m0 + r) * K + k0 + c : A, ok);
+    }
+#pragma unroll 4
+    for (int q = 0; q < kGK * kGN / kGThreads; ++q) {
+      const int e = tid + q * kGThreads;
+      const int r = e / kGN, c = e % kGN;
+      const bool ok = k0 + r < K && n0 + c < N;
+      cp_async<4>(Bs + r * kBStride + c,
+                  ok ? B + (int64_t)(k0 + r) * N + n0 + c : B, ok);
+    }
+  }
+}
 
 // C (M, N) = (A (M, K) @ B (K, N)) * alpha + beta. Block (bx, by) computes
-// C[64 by : 64 by + 64, 64 bx : 64 bx + 64]; thread (tx, ty) of 16 x 16 the
-// rows ty + 16 u and columns tx + 16 v (u, v < 4), so that a warp's shared
-// memory reads are broadcasts or consecutive words.
-__global__ void __launch_bounds__(kThreads) sgemm_kernel(
+// C[64 by : 64 by + 64, 96 bx : 96 bx + 96]; warp w the 32 x 48 quarter at
+// rows 32 ((w >> 1) & 1), columns 48 (w & 1), 2 x 6 m16n8 tiles, over k
+// group w >> 2 of each k tile (its 8-deep steps kGK / kGKS (w >> 2) ...):
+// the k groups give each scheduler kGKS warps. Each tile sums the three
+// products of one k tile in `part` from zero (the tensor cores truncate
+// as they accumulate, so one running sum over K would drift), added into
+// `acc` with one rounding a k tile; at the end the other k groups' sums
+// go through shared memory to group 0's warps, which add them in group
+// order and store. Within each 8-deep step, fragment k index t (t < 4) reads tile
+// column 2t and k index t + 4 column 2t + 1, in A and B alike (a
+// permutation of the step's k, which the sum does not see): A's two
+// values of a row are then one 8-byte shared load.
+template <bool kVec>
+__global__ void __launch_bounds__(kGThreads) tf32x3_gemm_kernel(
     const float* __restrict__ A, const float* __restrict__ B,
     float* __restrict__ C, int M, int N, int K, float alpha, float beta) {
-  __shared__ float As[kBK][kBM + 1];
-  __shared__ float Bs[kBK][kBN];
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int l = threadIdx.x; l < kBM * kBK; l += kThreads) {
-      const int mm = l / kBK, kk = l % kBK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = gm < M && gk < K ? A[(int64_t)gm * K + gk] : 0.0f;
-    }
-    for (int l = threadIdx.x; l < kBK * kBN; l += kThreads) {
-      const int kk = l / kBN, nn = l % kBN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      Bs[kk][nn] = gk < K && gn < N ? B[(int64_t)gk * N + gn] : 0.0f;
-    }
-    __syncthreads();
+  extern __shared__ float smem[];
+  float* As = smem;                       // kGStages tiles of kAStage
+  float* Bs = smem + kGStages * kAStage;  // kGStages tiles of kBStage
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row / k index
+  const int wm = ((warp >> 1) & 1) * 32, wn = (warp & 1) * (kGN / 2);
+  const int kg = warp >> 2;               // this warp's k group
+  const int kh = kg * (kGK / kGKS);       // its first k in a k tile
+  float acc[2][kGNI][4] = {};
+  const int KT = (K + kGK - 1) / kGK;
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[4];
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < KT)
+      gemm_load<kVec>(As + s * kAStage, Bs + s * kBStage, A, B, M, N, K, m0,
+                      n0, s * kGK);
+    cp_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_wait<kGStages - 2>();  // tile kt has landed (this thread's copies)
+    __syncthreads();          // ... everyone's, and slot kt - 1 is free
+    const int nk = kt + kGStages - 1;
+    if (nk < KT)
+      gemm_load<kVec>(As + (nk % kGStages) * kAStage,
+                      Bs + (nk % kGStages) * kBStage, A, B, M, N, K, m0, n0,
+                      nk * kGK);
+    cp_commit();
+    const float* as = As + (kt % kGStages) * kAStage + (wm + g) * kAStride +
+                      kh + 2 * t4;
+    const float* bs = Bs + (kt % kGStages) * kBStage +
+                      (kh + 2 * t4) * kBStride + wn + g;
+    float part[2][kGNI][4] = {};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        a[j] = As[kk][ty + 16 * j];
-        b[j] = Bs[kk][tx + 16 * j];
+    for (int kk = 0; kk < kGK / kGKS; kk += 8) {
+      uint32_t ab[2][4], al[2][4], bb[kGNI][2], bl[kGNI][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float2 r0 = *reinterpret_cast<const float2*>(
+            as + mi * 16 * kAStride + kk);
+        const float2 r8 = *reinterpret_cast<const float2*>(
+            as + (mi * 16 + 8) * kAStride + kk);
+        split(r0.x, ab[mi][0], al[mi][0]);  // row g,     k t
+        split(r8.x, ab[mi][1], al[mi][1]);  // row g + 8, k t
+        split(r0.y, ab[mi][2], al[mi][2]);  // row g,     k t + 4
+        split(r8.y, ab[mi][3], al[mi][3]);  // row g + 8, k t + 4
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int ni = 0; ni < kGNI; ++ni) {
+        const float* p = bs + kk * kBStride + ni * 8;
+        split(p[0], bb[ni][0], bl[ni][0]);         // k t,     column g
+        split(p[kBStride], bb[ni][1], bl[ni][1]);  // k t + 4, column g
+      }
+      // Each term over all tiles before the next: 12 independent sums
+      // between two products into the same one.
 #pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = __fmaf_rn(a[u], b[v], acc[u][v]);
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kGNI; ++ni) mma_tf32(part[mi][ni], al[mi], bb[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kGNI; ++ni) mma_tf32(part[mi][ni], ab[mi], bl[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kGNI; ++ni) mma_tf32(part[mi][ni], ab[mi], bb[ni]);
     }
-    __syncthreads();
-  }
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int gm = m0 + ty + 16 * u;
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int gn = n0 + tx + 16 * v;
-      if (gm < M && gn < N)
-        C[(int64_t)gm * N + gn] = __fadd_rn(__fmul_rn(acc[u][v], alpha), beta);
-    }
+      for (int ni = 0; ni < kGNI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          acc[mi][ni][h] = __fadd_rn(acc[mi][ni][h], part[mi][ni][h]);
   }
+  // The other k groups' sums, 8 kGNI a thread, through the idle ring:
+  // element j of thread t of quarter q in group g at red[g - 1][j][q * 32
+  // + t].
+  constexpr int kRed = 8 * kGNI * 128;
+  static_assert((kGKS - 1) * kRed <= kGStages * (kAStage + kBStage),
+                "the k groups' sums fit the ring");
+  __syncthreads();
+  const int slot = (warp & 3) * 32 + lane;
+  if (kg) {
+    float* red = smem + (kg - 1) * kRed + slot;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kGNI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          red[((mi * kGNI + ni) * 4 + h) * 128] = acc[mi][ni][h];
+  }
+  __syncthreads();
+  if (kg) return;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kGNI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {  // c0, c1: row g; c2, c3: row g + 8
+        const int gm = m0 + wm + mi * 16 + g + (h >> 1) * 8;
+        const int gn = n0 + wn + ni * 8 + 2 * t4 + (h & 1);
+        float sum = acc[mi][ni][h];
+#pragma unroll
+        for (int o = 0; o < kGKS - 1; ++o)
+          sum = __fadd_rn(
+              sum, smem[o * kRed + ((mi * kGNI + ni) * 4 + h) * 128 + slot]);
+        if (gm < M && gn < N)
+          C[(int64_t)gm * N + gn] = __fadd_rn(__fmul_rn(sum, alpha), beta);
+      }
+}
+
+// The rate of mma.sync m16n8k8 TF32 alone, the practical ceiling of
+// tf32x3_gemm_kernel's products: `iters` rounds of 12 independent
+// products a warp on register operands, no loads and no split. A
+// measurement, not a port: nothing calls it but the timing scripts.
+__global__ void mma_rate_kernel(float* __restrict__ out, int iters) {
+  uint32_t a[4], b[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = __float_as_uint(1.0f + threadIdx.x * 1e-3f + i) & 0xffffe000u;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    b[i] = __float_as_uint(0.5f + threadIdx.x * 1e-3f + i) & 0xffffe000u;
+  float d[12][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int t = 0; t < 12; ++t) mma_tf32(d[t], a, b);
+  }
+  float sum = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 12; ++t)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) sum += d[t][h];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
 }
 
 // Opt `kernel` into `smem` bytes of dynamic shared memory above the 48 KB
@@ -343,18 +774,6 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, size_t* allowed) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess) *allowed = smem;
   return err;
-}
-
-template <int PAT>
-int launch_lane(const float* x, float* out, int rows, int cols, int tr,
-                int passes, cudaStream_t st) {
-  static size_t allowed = 0;
-  const size_t smem = 2 * (size_t)tr * cols * sizeof(float);
-  const cudaError_t err = allow_smem(lane_loop_kernel<PAT>, smem, &allowed);
-  if (err != cudaSuccess) return (int)err;
-  lane_loop_kernel<PAT><<<(rows + tr - 1) / tr, kLaneThreads, smem, st>>>(
-      x, out, rows, cols, tr, passes);
-  return (int)cudaGetLastError();
 }
 
 template <int PAT>
@@ -372,7 +791,43 @@ int launch_strip(const float* x, const int32_t* w, float* out, int rows,
   return (int)cudaGetLastError();
 }
 
-inline unsigned blocks_for(int n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+template <int PAT, int V>
+int launch_row(const float* x, float* out, int rows, int niter,
+               cudaStream_t st) {
+  row_warp_kernel<PAT, V><<<(rows + kRowWarps - 1) / kRowWarps,
+                            kRowWarps * 32, 0, st>>>(x, out, rows, niter);
+  return (int)cudaGetLastError();
+}
+
+template <int PAT>
+int launch_row_width(const float* x, float* out, int rows, int cols,
+                     int niter, cudaStream_t st) {
+  switch (cols) {
+    case 32: return launch_row<PAT, 1>(x, out, rows, niter, st);
+    case 64: return launch_row<PAT, 2>(x, out, rows, niter, st);
+    case 128: return launch_row<PAT, 4>(x, out, rows, niter, st);
+    case 256: return launch_row<PAT, 8>(x, out, rows, niter, st);
+    case 384: return launch_row<PAT, 12>(x, out, rows, niter, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kVec>
+int launch_gemm(const float* a, const float* b, float* c, int M, int N, int K,
+                float alpha, float beta, cudaStream_t st) {
+  static size_t allowed = 0;
+  const cudaError_t err =
+      allow_smem(tf32x3_gemm_kernel<kVec>, kGemmSmem, &allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + kGN - 1) / kGN, (M + kGM - 1) / kGM);
+  tf32x3_gemm_kernel<kVec><<<grid, kGThreads, kGemmSmem, st>>>(
+      a, b, c, M, N, K, alpha, beta);
+  return (int)cudaGetLastError();
+}
+
+inline unsigned blocks_for(int64_t n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
 
 }  // namespace
 
@@ -395,7 +850,7 @@ int rt_p1_point(int pat, const void* x, const void* shifts, void* out,
   const auto* xs = (const float*)x;
   const auto* sh = (const int32_t*)shifts;
   auto* o = (float*)out;
-  const unsigned grid = blocks_for(rows * cols);
+  const unsigned grid = blocks_for((int64_t)rows * cols);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (pat) {
 #define P1_CASE(P)                                                           \
@@ -415,39 +870,92 @@ int rt_p1_point(int pat, const void* x, const void* shifts, void* out,
   return (int)cudaGetLastError();
 }
 
-// x, out (rows, cols) f32.
-int rt_p2_point(int pat, const void* x, void* out, int rows, int cols,
-                int niter, void* stream) {
+// P2 add: x, out (rows, cols) f32, one thread an element.
+int rt_p2_add(const void* x, void* out, int rows, int cols, int niter,
+              void* stream) {
+  const int n = rows * cols;
+  p2_add_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, n, niter);
+  return (int)cudaGetLastError();
+}
+
+// P2 select: x, out (rows, cols) f32, K (1, 2, 4 or 8) rows a thread.
+int rt_p2_select(const void* x, void* out, int rows, int cols, int K,
+                 int niter, void* stream) {
   const auto* xs = (const float*)x;
   auto* o = (float*)out;
-  const unsigned grid = blocks_for(rows * cols);
+  const unsigned grid = blocks_for((int64_t)((rows + K - 1) / K) * cols);
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (pat) {
-    case kAdd2:
-      p2_point_kernel<kAdd2><<<grid, kThreads, 0, st>>>(xs, o, rows, cols, niter);
-      break;
-    case kSelect2:
-      p2_point_kernel<kSelect2><<<grid, kThreads, 0, st>>>(xs, o, rows, cols, niter);
-      break;
+  switch (K) {
+#define SEL_CASE(KK)                                                         \
+  case KK:                                                                   \
+    p2_select_kernel<KK><<<grid, kThreads, 0, st>>>(xs, o, rows, cols, niter); \
+    break;
+    SEL_CASE(1)
+    SEL_CASE(2)
+    SEL_CASE(4)
+    SEL_CASE(8)
+#undef SEL_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// x, out (rows, cols) f32; `tr` rows a block.
-int rt_lane_loop(int pat, const void* x, void* out, int rows, int cols,
-                 int tr, int passes, void* stream) {
+// P2 roll1, dynroll, barrelbit: x, out (rows, cols) f32, cols one of 32,
+// 64, 128, 256, 384 (one row a warp in registers).
+int rt_row_warp(int pat, const void* x, void* out, int rows, int cols,
+                int niter, void* stream) {
   const auto* xs = (const float*)x;
   auto* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (pat) {
-    case kBarrel: return launch_lane<kBarrel>(xs, o, rows, cols, tr, passes, st);
-    case kRoll1: return launch_lane<kRoll1>(xs, o, rows, cols, tr, passes, st);
-    case kDynRoll2: return launch_lane<kDynRoll2>(xs, o, rows, cols, tr, passes, st);
-    case kBarrelBit: return launch_lane<kBarrelBit>(xs, o, rows, cols, tr, passes, st);
+    case kRoll1: return launch_row_width<kRoll1>(xs, o, rows, cols, niter, st);
+    case kDynRoll2:
+      return launch_row_width<kDynRoll2>(xs, o, rows, cols, niter, st);
+    case kBarrelBit:
+      return launch_row_width<kBarrelBit>(xs, o, rows, cols, niter, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// P2 rollrow: x, out (rows, cols) f32; R (1, 2, 4, 8 or 16, dividing rows)
+// rows a thread, rows / R <= 1024 threads a column.
+int rt_column(const void* x, void* out, int rows, int cols, int R, int niter,
+              void* stream) {
+  const auto* xs = (const float*)x;
+  auto* o = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (R < 1 || rows % R || rows / R > 1024) return (int)cudaErrorInvalidValue;
+  const int threads = (rows / R + 31) / 32 * 32;
+  switch (R) {
+#define COL_CASE(RR)                                                        \
+  case RR:                                                                  \
+    column_kernel<RR><<<cols, threads, 0, st>>>(xs, o, rows, cols, niter);  \
+    break;
+    COL_CASE(1)
+    COL_CASE(2)
+    COL_CASE(4)
+    COL_CASE(8)
+    COL_CASE(16)
+#undef COL_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// P1 barrel: x, out (rows, cols) f32; `tr` rows a block.
+int rt_lane_loop(const void* x, void* out, int rows, int cols, int tr,
+                 int passes, void* stream) {
+  static size_t allowed = 0;
+  const size_t smem = 2 * (size_t)tr * cols * sizeof(float);
+  const cudaError_t err = allow_smem(lane_loop_kernel, smem, &allowed);
+  if (err != cudaSuccess) return (int)err;
+  lane_loop_kernel<<<(rows + tr - 1) / tr, kLaneThreads, smem,
+                     (cudaStream_t)stream>>>((const float*)x, (float*)out,
+                                             rows, cols, tr, passes);
+  return (int)cudaGetLastError();
 }
 
 // x, out (rows, cols) f32; w (rows, cols) i32 (kSlot only, else unused);
@@ -465,8 +973,6 @@ int rt_strip_loop(int pat, const void* x, const void* w, void* out, int rows,
       return launch_strip<kRepeatTpu>(xs, ws, o, rows, cols, S, lg, passes, st);
     case kParity:
       return launch_strip<kParity>(xs, ws, o, rows, cols, S, lg, passes, st);
-    case kRollRow:
-      return launch_strip<kRollRow>(xs, ws, o, rows, cols, S, lg, passes, st);
     case kSlot:
       return launch_strip<kSlot>(xs, ws, o, rows, cols, S, lg, passes, st);
     default:
@@ -474,13 +980,25 @@ int rt_strip_loop(int pat, const void* x, const void* w, void* out, int rows,
   }
 }
 
-// c (M, N) = (a (M, K) @ b (K, N)) * alpha + beta, all f32 row-major.
-int rt_sgemm(const void* a, const void* b, void* c, int M, int N, int K,
-             float alpha, float beta, void* stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  sgemm_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)b, (float*)c, M, N, K, alpha, beta);
+// mma_rate_kernel: `blocks` x `threads` threads, out (blocks * threads,)
+// f32; 12 * iters mma.sync m16n8k8 TF32 products a warp.
+int rt_mma_rate(void* out, int blocks, int threads, int iters, void* stream) {
+  mma_rate_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>((float*)out,
+                                                                iters);
   return (int)cudaGetLastError();
+}
+
+// c (M, N) = (a (M, K) @ b (K, N)) * alpha + beta, all f32 row-major, in
+// 3xTF32 on the tensor cores.
+int rt_tf32x3_gemm(const void* a, const void* b, void* c, int M, int N, int K,
+                   float alpha, float beta, void* stream) {
+  const auto* as = (const float*)a;
+  const auto* bs = (const float*)b;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool vec = K % 4 == 0 && N % 4 == 0 &&
+                   (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
+  return vec ? launch_gemm<true>(as, bs, (float*)c, M, N, K, alpha, beta, st)
+             : launch_gemm<false>(as, bs, (float*)c, M, N, K, alpha, beta, st);
 }
 
 }  // extern "C"

@@ -21,8 +21,11 @@ from ..utils import cuda_build, measure
 from ..utils.cuda_build import MAX_DYNAMIC_SMEM
 
 __all__ = ["SOURCE", "LIB", "BUILD_INFO", "Result", "count", "time_call",
-           "format_result", "device_name", "p1_point", "p2_point",
-           "lane_loop", "strip_loop", "sgemm", "lane_rows", "strip_log2"]
+           "format_result", "device_name", "p1_point", "p2_add", "p2_select",
+           "row_warp", "column", "lane_loop", "strip_loop", "tf32x3_gemm",
+           "lane_rows", "strip_log2", "select_rows", "row_values",
+           "column_rows", "gemm_grid", "mma_tf32_tflops", "ROW_WIDTHS",
+           "GEMM_TILE"]
 
 SOURCE = cuda_build.CSRC / "probes.cu"
 # Calls of a pattern that :func:`time_call` times, and the replays of
@@ -31,6 +34,18 @@ CALLS, REPLAYS = 8, 3
 # Streaming multiprocessors of an H100 SXM: the tile choices aim at two
 # blocks for each.
 SM_COUNT = 132
+# The shapes probes.cu's kernels are built for (its launchers refuse
+# others): row widths of ``row_warp_kernel`` (32 V columns, V values a
+# lane in registers; launch_row_width), rows a thread of
+# ``column_kernel`` (R dividing the rows, at most 1024 threads a column;
+# rt_column) and of ``p2_select_kernel`` (rt_p2_select; the largest
+# that leaves two warps for each of an SM's four schedulers), and
+# ``tf32x3_gemm_kernel``'s block tile (kGM, kGN and kGK: M, N, K depth
+# a stage).
+ROW_WIDTHS = (32, 64, 128, 256, 384)
+COLUMN_ROWS, COLUMN_THREADS = (16, 8, 4, 2, 1), 1024
+SELECT_ROWS = (8, 4, 2, 1)
+GEMM_TILE = (64, 96, 64)
 
 _PATTERNS = ("p1.add", "p1.roll_lanes", "p1.roll_rows", "p1.select",
              "p1.dynroll", "p1.stride_roll", "p1.barrel", "p1.interleave",
@@ -44,13 +59,19 @@ def _bind(lib):
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rt_probe_code.argtypes = [ctypes.c_char_p]
     lib.rt_p1_point.argtypes = [i32, vp, vp, vp, i32, i32, i32, vp]
-    lib.rt_p2_point.argtypes = [i32, vp, vp, i32, i32, i32, vp]
-    lib.rt_lane_loop.argtypes = [i32, vp, vp, i32, i32, i32, i32, vp]
+    lib.rt_p2_add.argtypes = [vp, vp, i32, i32, i32, vp]
+    lib.rt_p2_select.argtypes = [vp, vp, i32, i32, i32, i32, vp]
+    lib.rt_row_warp.argtypes = [i32, vp, vp, i32, i32, i32, vp]
+    lib.rt_column.argtypes = [vp, vp, i32, i32, i32, i32, vp]
+    lib.rt_lane_loop.argtypes = [vp, vp, i32, i32, i32, i32, vp]
     lib.rt_strip_loop.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, i32,
                                   vp]
-    lib.rt_sgemm.argtypes = [vp, vp, vp, i32, i32, i32, f32, f32, vp]
-    for fn in (lib.rt_probe_code, lib.rt_p1_point, lib.rt_p2_point,
-               lib.rt_lane_loop, lib.rt_strip_loop, lib.rt_sgemm):
+    lib.rt_tf32x3_gemm.argtypes = [vp, vp, vp, i32, i32, i32, f32, f32, vp]
+    lib.rt_mma_rate.argtypes = [vp, i32, i32, i32, vp]
+    for fn in (lib.rt_probe_code, lib.rt_p1_point, lib.rt_p2_add,
+               lib.rt_p2_select, lib.rt_row_warp, lib.rt_column,
+               lib.rt_lane_loop, lib.rt_strip_loop, lib.rt_tf32x3_gemm,
+               lib.rt_mma_rate):
         fn.restype = i32
     for name in _PATTERNS:
         code = lib.rt_probe_code(name.encode())
@@ -124,6 +145,44 @@ def strip_log2(rows, cols, S, cell_bytes=8):
     return lg
 
 
+def select_rows(rows, cols):
+    """Rows per thread of ``p2_select_kernel``: the largest of
+    :data:`SELECT_ROWS` whose grid still has two warps for each of the
+    SMs' four schedulers (1 when none has)."""
+    for k in SELECT_ROWS:
+        if -(-rows // k) * cols >= 2 * 4 * 32 * SM_COUNT:
+            return k
+    return 1
+
+
+def row_values(cols):
+    """Values per lane of ``row_warp_kernel`` (one row a warp in
+    registers): cols / 32. Raises ValueError for a width not in
+    :data:`ROW_WIDTHS`."""
+    if cols not in ROW_WIDTHS:
+        raise ValueError(f"{cols} columns: one row a warp in registers "
+                         f"takes {ROW_WIDTHS}")
+    return cols // 32
+
+
+def column_rows(rows):
+    """(R, warps) of ``column_kernel``: R rows a thread, the largest of
+    :data:`COLUMN_ROWS` dividing ``rows``, and the warps of a column's
+    block. Raises ValueError when a column needs more than
+    :data:`COLUMN_THREADS` threads."""
+    R = next(r for r in COLUMN_ROWS if rows % r == 0)
+    if rows // R > COLUMN_THREADS:
+        raise ValueError(f"{rows} rows at {R} a thread need {rows // R} "
+                         f"threads a column, at most {COLUMN_THREADS}")
+    return R, -(-(rows // R) // 32)
+
+
+def gemm_grid(M, N):
+    """(blocks along N, blocks along M) of ``tf32x3_gemm_kernel``: one
+    block a :data:`GEMM_TILE` output tile."""
+    return -(-N // GEMM_TILE[1]), -(-M // GEMM_TILE[0])
+
+
 # ---------------------------------------------------------------------------
 # Launchers (CUDA tensors only)
 # ---------------------------------------------------------------------------
@@ -141,25 +200,61 @@ def p1_point(pattern, x, reps, shifts=None):
     return out
 
 
-def p2_point(pattern, x, niter):
-    """``p2_point_kernel``: one thread per element, ``niter`` passes."""
+def p2_add(x, niter):
+    """``p2_add_kernel``: one thread per element, ``niter`` passes."""
     rows, cols = check_matrix(x)
     niter = check_count(niter, "niter")
     out = torch.empty_like(x)
-    _launch("rt_p2_point", x.device, _code(pattern), x.data_ptr(),
+    _launch("rt_p2_add", x.device, x.data_ptr(), out.data_ptr(), rows, cols,
+            niter)
+    return out
+
+
+def p2_select(x, niter):
+    """``p2_select_kernel``: :func:`select_rows` rows of one column a
+    thread, ``niter`` passes."""
+    rows, cols = check_matrix(x)
+    niter = check_count(niter, "niter")
+    out = torch.empty_like(x)
+    _launch("rt_p2_select", x.device, x.data_ptr(), out.data_ptr(), rows,
+            cols, select_rows(rows, cols), niter)
+    return out
+
+
+def row_warp(pattern, x, niter):
+    """``row_warp_kernel``: one row a warp in registers, ``niter`` passes
+    (``p2.roll1``, ``p2.dynroll``, ``p2.barrelbit``); the width must be
+    one of :data:`ROW_WIDTHS`."""
+    rows, cols = check_matrix(x)
+    niter = check_count(niter, "niter")
+    row_values(cols)
+    out = torch.empty_like(x)
+    _launch("rt_row_warp", x.device, _code(pattern), x.data_ptr(),
             out.data_ptr(), rows, cols, niter)
     return out
 
 
-def lane_loop(pattern, x, passes):
+def column(x, niter):
+    """``column_kernel``: one column a block in registers, ``niter``
+    passes of ``p2.rollrow``; see :func:`column_rows`."""
+    rows, cols = check_matrix(x)
+    niter = check_count(niter, "niter")
+    R, _ = column_rows(rows)
+    out = torch.empty_like(x)
+    _launch("rt_column", x.device, x.data_ptr(), out.data_ptr(), rows, cols,
+            R, niter)
+    return out
+
+
+def lane_loop(x, passes):
     """``lane_loop_kernel``: whole rows in shared memory, ``passes``
-    passes."""
+    steps of P1's barrel."""
     rows, cols = check_matrix(x)
     passes = check_count(passes, "passes")
     tr = lane_rows(rows, cols)
     out = torch.empty_like(x)
-    _launch("rt_lane_loop", x.device, _code(pattern), x.data_ptr(),
-            out.data_ptr(), rows, cols, tr, passes)
+    _launch("rt_lane_loop", x.device, x.data_ptr(), out.data_ptr(), rows,
+            cols, tr, passes)
     return out
 
 
@@ -183,18 +278,35 @@ def strip_loop(pattern, x, S, passes, w=None):
     return out
 
 
-def sgemm(a, b, alpha, beta):
-    """``sgemm_kernel``: (a @ b) * alpha + beta for float32 a (M, K) and
-    b (K, N)."""
+def tf32x3_gemm(a, b, alpha, beta):
+    """``tf32x3_gemm_kernel``: (a @ b) * alpha + beta for float32 a (M, K)
+    and b (K, N), any sizes, on the tensor cores in 3xTF32."""
     M, K = check_matrix(a, "a")
     K2, N = check_matrix(b, "b")
     if K2 != K or a.device != b.device:
         raise ValueError(f"a {tuple(a.shape)} on {a.device} and b "
                          f"{tuple(b.shape)} on {b.device} do not multiply")
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    _launch("rt_sgemm", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            M, N, K, float(alpha), float(beta))
+    _launch("rt_tf32x3_gemm", a.device, a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), M, N, K, float(alpha), float(beta))
     return out
+
+
+def mma_tf32_tflops(dev, iters=4096, warps=8):
+    """TFLOP/s of ``mma.sync`` m16n8k8 TF32 alone on the card (an FMA two
+    flops): ``mma_rate_kernel`` on two blocks of ``warps`` warps an SM,
+    timed between CUDA events after a warm-up launch. The practical
+    ceiling of :func:`tf32x3_gemm`'s products, beside the tensor cores'
+    published dense TF32 peak (``measure.PEAK_TF32_FLOPS_PER_S``)."""
+    blocks, threads = 2 * SM_COUNT, 32 * warps
+    out = torch.empty(blocks * threads, dtype=torch.float32, device=dev)
+
+    def run(n):
+        _launch("rt_mma_rate", dev, out.data_ptr(), blocks, threads, n)
+
+    run(16)
+    _, ms = measure.timed(lambda: run(iters), dev)
+    return blocks * warps * iters * 12 * 2 * 16 * 8 * 8 / (ms * 1e-3) / 1e12
 
 
 def _code(pattern):
@@ -213,8 +325,9 @@ class Result(NamedTuple):
     ``call_ms`` one call's device time and its time through the wrapper
     (:func:`time_call`), ``passes`` the passes one call makes, ``nbytes``
     and ``ops`` the compulsory bytes and the operations of one call
-    (:func:`~..utils.measure.bound_ms`), ``ok`` a host check's verdict (None where
-    the probe makes none)."""
+    (:func:`~..utils.measure.bound_ms`; with ``tensor``, TF32 flops on
+    the tensor cores), ``ok`` a host check's verdict (None where the
+    probe makes none)."""
     name: str
     wrapper: str
     args: tuple
@@ -225,11 +338,12 @@ class Result(NamedTuple):
     nbytes: int
     ops: int
     ok: bool = None
+    tensor: bool = False
 
     def bound(self):
-        """(ms, "bytes" or "operations"): the least time the card could
-        take for one call."""
-        return measure.bound_ms(self.nbytes, self.ops)
+        """(ms, what bounds it): the least time the card could take for
+        one call (:func:`~..utils.measure.bound_ms`)."""
+        return measure.bound_ms(self.nbytes, self.ops, self.tensor)
 
 
 def count(launches, kind):

@@ -253,7 +253,7 @@ def barrel(x, reps=REPS):
     memory."""
     if x.device.type == "cpu":
         return barrel_plain(x, reps)
-    out = common.lane_loop("p1.barrel", x, _passes("barrel", reps))
+    out = common.lane_loop(x, _passes("barrel", reps))
     common.count(LAUNCHES, "barrel")
     return out
 
@@ -289,15 +289,15 @@ def repeat_flat(x, reps=REPS):
 
 def matmul(a, x, reps=REPS):
     """``kern_matmul``: max(reps // 8, 1) products (a @ acc) * 0.001 + i
-    of a square float32 ``a`` (rows, rows) through the hand-written GEMM,
-    one launch each."""
+    of a square float32 ``a`` (rows, rows) through the hand-written 3xTF32
+    tensor-core GEMM, one launch each."""
     if x.device.type == "cpu":
         return matmul_plain(a, x, reps)
     if a.shape[0] != a.shape[-1]:
         raise ValueError(f"a {tuple(a.shape)}: want a square matrix")
     acc = x
     for i in range(_passes("matmul", reps)):
-        acc = common.sgemm(a, acc, 0.001, float(i))
+        acc = common.tf32x3_gemm(a, acc, 0.001, float(i))
         common.count(LAUNCHES, "matmul")
     return acc
 
@@ -314,13 +314,15 @@ _OPS = {"add": 2, "roll_lanes": 1, "roll_rows": 1, "select": 2, "barrel": 1,
 
 def work(kind, rows, cols, reps):
     """(passes, compulsory bytes, operations) of one call: x read and the
-    output written once (the matmul also reads a; dynroll its 8 shifts);
-    the matmul counts rows * rows * cols FMAs and its two-operation
-    epilogue per product."""
+    output written once (the matmul also reads a; dynroll its 8 shifts).
+    The matmul's operations are TF32 flops on the tensor cores: a
+    float32-accurate product there is three TF32 products (3xTF32), 3 *
+    2 * rows * rows * cols flops a product; its float32 epilogue (two
+    operations an output) is left out, under 0.3 % of that time."""
     n = rows * cols
     passes = _passes(kind, reps)
     if kind == "matmul":
-        return passes, 4 * (rows * rows + 2 * n), passes * (rows * n + 2 * n)
+        return passes, 4 * (rows * rows + 2 * n), passes * 6 * rows * n
     return passes, 8 * n + (32 if kind == "dynroll" else 0), _OPS[kind] * n * passes
 
 
@@ -380,7 +382,8 @@ def run(which=("all",), rows=ROWS, cols=P, reps=REPS, device=None):
         out, ms, call_ms = common.time_call(lambda: matmul(a, x, reps), dev)
         passes, nbytes, ops = work("matmul", rows, cols, reps)
         results.append(common.Result("matmul", "matmul", (a, x, reps), out,
-                                     ms, call_ms, passes, nbytes, ops))
+                                     ms, call_ms, passes, nbytes, ops,
+                                     tensor=True))
     return results
 
 

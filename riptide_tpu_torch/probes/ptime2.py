@@ -19,11 +19,15 @@ barrelbit  body_barrelbit :59      where(col & 3 == i & 3,
                                    roll(acc, 4, 1), acc)
 =========  ======================  =====================================
 
-``add`` and ``select`` keep each element in a register; ``roll1``,
-``dynroll`` and ``barrelbit`` keep whole rows in shared memory;
-``rollrow`` couples every row to the one above, but each column only to
-itself, so it keeps column strips of all rows in shared memory. No
-body needs a grid-wide sync.
+Every body keeps its data in registers for all passes. ``add`` runs one
+element a thread; ``select`` a few rows of one column a thread, so one
+compare of the column against i % P serves them all; ``roll1``,
+``dynroll`` and ``barrelbit`` one row a warp (``cols / 32`` values a
+lane, for the widths of :data:`~.common.ROW_WIDTHS`; the lanes exchange
+values by shuffles); ``rollrow`` couples every row to the one above, but
+each column only to itself, so it runs one column a block, a few
+consecutive rows a thread (a shuffle between lanes, one value a warp
+through shared memory between warps). No body needs a grid-wide sync.
 
 Each wrapper takes CUDA tensors to its kernel (counted in
 :data:`LAUNCHES`) or raises; on CPU tensors it runs ``<wrapper>_plain``,
@@ -122,47 +126,46 @@ def _counted(kind, out):
 
 
 def add(x, niter=NITER):
-    """``body_add``: elements in registers."""
+    """``body_add``: one element a thread, in a register."""
     if x.device.type == "cpu":
         return add_plain(x, niter)
-    return _counted("add", common.p2_point("p2.add", x, niter))
+    return _counted("add", common.p2_add(x, niter))
 
 
 def select(x, niter=NITER):
-    """``body_select``: elements in registers."""
+    """``body_select``: a few rows of one column a thread, in registers."""
     if x.device.type == "cpu":
         return select_plain(x, niter)
-    return _counted("select", common.p2_point("p2.select", x, niter))
+    return _counted("select", common.p2_select(x, niter))
 
 
 def roll1(x, niter=NITER):
-    """``body_roll``: whole rows in shared memory."""
+    """``body_roll``: one row a warp, in registers."""
     if x.device.type == "cpu":
         return roll1_plain(x, niter)
-    return _counted("roll1", common.lane_loop("p2.roll1", x, niter))
+    return _counted("roll1", common.row_warp("p2.roll1", x, niter))
 
 
 def dynroll(x, niter=NITER):
-    """``body_dynroll``: whole rows in shared memory."""
+    """``body_dynroll``: one row a warp, in registers."""
     if x.device.type == "cpu":
         return dynroll_plain(x, niter)
-    return _counted("dynroll", common.lane_loop("p2.dynroll", x, niter))
+    return _counted("dynroll", common.row_warp("p2.dynroll", x, niter))
 
 
 def barrelbit(x, niter=NITER):
-    """``body_barrelbit``: whole rows in shared memory."""
+    """``body_barrelbit``: one row a warp, in registers."""
     if x.device.type == "cpu":
         return barrelbit_plain(x, niter)
-    return _counted("barrelbit", common.lane_loop("p2.barrelbit", x, niter))
+    return _counted("barrelbit", common.row_warp("p2.barrelbit", x, niter))
 
 
 def rollrow(x, niter=NITER):
-    """``body_rollrow``: column strips of every row in shared memory (8
-    bytes per row and column)."""
+    """``body_rollrow``: one column a block, a few rows a thread, in
+    registers."""
     if x.device.type == "cpu":
         return rollrow_plain(x, niter)
-    return _counted("rollrow", common.strip_loop("p2.rollrow", x, x.shape[0],
-                                                 niter))
+    return _counted("rollrow", common.column(x, niter))
 
 
 BODIES = {"add": add, "roll1": roll1, "rollrow": rollrow,

@@ -7,24 +7,30 @@ import time
 
 import torch
 
-__all__ = ["PEAK_BYTES_PER_S", "PEAK_OPS_PER_S", "bound_ms", "timed",
-           "median_ms", "graph_ms"]
+__all__ = ["PEAK_BYTES_PER_S", "PEAK_OPS_PER_S", "PEAK_TF32_FLOPS_PER_S",
+           "bound_ms", "timed", "median_ms", "graph_ms"]
 
-# Published H100 SXM peaks: the device memory rate, and float32 outside
-# the tensor cores. The data sheet's 67 TFLOP/s counts an FMA as two
-# operations; the kernels count one operation per arithmetic
-# instruction or select on an element and one per FMA, so their
-# ceiling is half.
+# Published H100 SXM peaks: the device memory rate, float32 outside the
+# tensor cores, and dense TF32 on the tensor cores. The data sheet's 67
+# TFLOP/s counts an FMA as two operations; the kernels count one
+# operation per arithmetic instruction or select on an element and one
+# per FMA, so their ceiling is half. The TF32 peak counts an FMA as two
+# flops, and so does the work of a product on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12 / 2
+PEAK_TF32_FLOPS_PER_S = 495e12
 
 
-def bound_ms(nbytes, ops):
-    """(ms, "bytes" or "operations"): the least time the card could take
-    to move ``nbytes`` compulsory bytes and do ``ops`` operations."""
+def bound_ms(nbytes, ops, tensor=False):
+    """(ms, "bytes", "operations" or "operations (tensor cores)"): the
+    least time the card could take to move ``nbytes`` compulsory bytes
+    and do ``ops`` float32 operations, or with ``tensor`` ``ops`` TF32
+    flops on the tensor cores."""
     tb = nbytes / PEAK_BYTES_PER_S
-    to = ops / PEAK_OPS_PER_S
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+    to = ops / (PEAK_TF32_FLOPS_PER_S if tensor else PEAK_OPS_PER_S)
+    if tb >= to:
+        return tb * 1e3, "bytes"
+    return to * 1e3, "operations (tensor cores)" if tensor else "operations"
 
 
 def timed(fn, dev):

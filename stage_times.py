@@ -4,6 +4,7 @@ Stage-loop and stage-kernel times of one checkout of the PyTorch port,
 on one CUDA card:
 
     python3 stage_times.py [--tree DIR] [--survey] [--profile]
+    python3 stage_times.py [--tree DIR] --probes
 
 ``--tree`` imports ``riptide_tpu_torch`` from DIR (default: the
 directory of this script), so that two versions of the port are timed
@@ -39,6 +40,18 @@ JSON object:
   K3 calls) under ``torch.profiler``, device time by kernel and the
   slowest launches.
 
+``--probes`` times the tree's chip probes instead of the search: P2's
+six bodies (``ptime2.BODIES``) at the JAX tool's four shapes and NITER
+(:data:`P2_SHAPES`, :data:`P2_NITER`), and P1's ``matmul`` (the four
+(2048, 2048) @ (2048, 384) products of ``tools/ptime.py``) beside four
+``torch.matmul`` calls in full float32, on inputs drawn here as the
+tools draw them. Each entry of ``probes`` ("p2.<body> RxC", "p1.matmul
+2048x384", "torch.matmul x4 2048x384") holds ``graph_ms`` and
+``wrapper_ms`` as above and ``sha256``, a digest of the output's bits
+(equal digests: the trees give the same bits); "mma.sync TF32 TFLOP/s",
+where the tree has it, is the tensor cores' rate for ``mma.sync`` TF32
+alone (``probes.common.mma_tf32_tflops``).
+
 Imports nothing of jax and nothing of the JAX package.
 """
 import argparse
@@ -56,6 +69,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPS = 20
 # D = 1 stage loops over one shipped wire: the host's clock spreads.
 LOOPS = 101
+# --probes: the JAX tools' shapes (tools/ptime2.py, tools/ptime.py).
+P2_SHAPES = ((2048, 384), (1024, 384), (2048, 128), (256, 384))
+P2_NITER = 20000
+P1_ROWS, P1_COLS, P1_REPS = 2048, 384, 32
 
 
 def _load_smoke():
@@ -143,6 +160,9 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also profile one D = 1 stage loop (and the K3 "
                          "calls) with torch.profiler")
+    ap.add_argument("--probes", action="store_true",
+                    help="time the tree's P1 matmul and P2 bodies at the "
+                         "tools' shapes instead of the search")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -151,6 +171,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("stage_times: no CUDA device", file=sys.stderr)
         return 2
+    if args.probes:
+        card = _load_smoke().gpu_line()
+        print(card, flush=True)
+        print(json.dumps({"tree": tree, "card": card,
+                          "probes": _probes(torch.device("cuda"))}),
+              flush=True)
+        return 0
     smoke = _load_smoke()
     from riptide_tpu_torch import ffa_search
     from riptide_tpu_torch.ops import ffa_kernel as fk
@@ -224,6 +251,44 @@ def main(argv=None):
         res.update(_survey(smoke, plan, dev, fk, engine, args.profile))
     print(json.dumps(res), flush=True)
     return 0
+
+
+def _probes(dev):
+    """Device and wrapper ms (:func:`_times`) and output digests of the
+    tree's P2 bodies and P1 matmul, and of four torch.matmul calls."""
+    import torch
+    from riptide_tpu_torch.probes import ptime, ptime2
+
+    def digest(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    out = {}
+    for name, fn in ptime2.BODIES.items():
+        for shape in P2_SHAPES:
+            rng = np.random.default_rng(0)
+            x = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32) * np.float32(1e-3)).to(dev)
+            key = f"p2.{name} {shape[0]}x{shape[1]}"
+            out[key] = dict(sha256=digest(fn(x, P2_NITER)),
+                            **_times(lambda: fn(x, P2_NITER)))
+            print(f"  {key}: {out[key]}", flush=True)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((P1_ROWS, P1_COLS)).astype(
+        np.float32)).to(dev)
+    a = torch.from_numpy(rng.standard_normal((P1_ROWS, P1_ROWS)).astype(
+        np.float32)).to(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = f"{P1_ROWS}x{P1_COLS}"
+    out[f"p1.matmul {shape}"] = dict(
+        sha256=digest(ptime.matmul(a, x, P1_REPS)),
+        **_times(lambda: ptime.matmul(a, x, P1_REPS)))
+    products = max(P1_REPS // 8, 1)
+    out[f"torch.matmul x{products} {shape}"] = _times(
+        lambda: [torch.matmul(a, x) for _ in range(products)])
+    from riptide_tpu_torch.probes import common
+    if hasattr(common, "mma_tf32_tflops"):
+        out["mma.sync TF32 TFLOP/s"] = common.mma_tf32_tflops(dev)
+    return out
 
 
 def _survey(smoke, plan, dev, fk, engine, profile=False):

@@ -333,7 +333,7 @@ def test_tile_choices_and_refusals():
     assert common.strip_log2(2048, 384, 256) == 3        # interleave
     lg = common.strip_log2(1536, 384, 1536, 9)           # P3, S_d = 1536
     assert 1536 * 9 << lg <= common.MAX_DYNAMIC_SMEM
-    assert common.strip_log2(2048, 384, 2048) == 0       # P2 rollrow
+    assert common.strip_log2(2048, 384, 2048) == 0       # one 2048-row group
     with pytest.raises(ValueError, match="shared memory"):
         common.lane_rows(8, 40000)
     with pytest.raises(ValueError, match="shared memory"):
@@ -348,25 +348,100 @@ def test_tile_choices_and_refusals():
         probe1536.slot_level_plain(torch.zeros((24, 8)),
                                    torch.zeros((24, 8), dtype=torch.int32), 9)
     with pytest.raises(ValueError, match="S = 0"):
-        common.strip_loop("p2.rollrow", torch.zeros((4, 4)), 0, 1)
+        common.strip_loop("p1.repeat_flat", torch.zeros((4, 4)), 0, 1)
+
+
+def test_register_layouts_and_refusals():
+    """The register layouts of P2's kernels and the GEMM's grid at the
+    tools' shapes, and the shapes they refuse (ValueError before any
+    launch): ``select`` K rows of one column a thread, two warps per
+    scheduler where the shape allows; ``roll1``/``dynroll``/``barrelbit``
+    one row a warp, cols / 32 values a lane; ``rollrow`` R rows a thread
+    of one column a block; the GEMM 64 x 96 output tiles, one launch a
+    product, 128 blocks at (2048, 384): one for each of 128 of the H100's
+    132 SMs."""
+    assert [common.select_rows(*s) for s in ptime2.SHAPES] == [8, 8, 4, 2]
+    assert common.select_rows(15, 32) == 1
+    assert [common.row_values(c) for c in (32, 128, 384)] == [1, 4, 12]
+    for cols in (40, 96, 512, 40000):
+        with pytest.raises(ValueError, match="one row a warp"):
+            common.row_values(cols)
+    assert [common.column_rows(r) for r in (2048, 1024, 256, 15, 16)] == [
+        (16, 4), (16, 2), (16, 1), (1, 1), (16, 1)]
+    assert common.column_rows(16384) == (16, 32)
+    for rows in (40000, 16400, 1025):
+        with pytest.raises(ValueError, match="threads a column"):
+            common.column_rows(rows)
+    assert common.GEMM_TILE == (64, 96, 64)
+    assert common.gemm_grid(2048, 384) == (4, 32)
+    assert common.gemm_grid(100, 70) == (1, 2)
+    assert common.gemm_grid(129, 65) == (1, 3)
+
+
+def _tf32(x):
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest on
+    the 13 low mantissa bits, ties away from zero."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_product(a, x, terms):
+    """a @ x from TF32 parts, the products summed in float64: ``terms`` 1
+    is one TF32 product, 3 the 3xTF32 split (big = tf32(v), small =
+    tf32(v - big); big * big + big * small + small * big)."""
+    ab, xb = _tf32(a), _tf32(x)
+    parts = [(ab, xb)]
+    if terms == 3:
+        parts += [(ab, _tf32(x - xb)), (_tf32(a - ab), xb)]
+    return sum(u.astype(np.float64) @ v.astype(np.float64)
+               for u, v in parts).astype(np.float32)
+
+
+def test_3xtf32_split_holds_the_matmul_tolerance():
+    """P1's chain of four products (a @ acc) * 0.001 + i, emulated with
+    3xTF32 products, stays within the card's GEMM tolerance
+    (``PROBE_MM_RTOL``/``ATOL`` 1e-5, tests/test_torch_probes_cuda.py) of
+    the float32 chain, at under 1 % of it; one TF32 product a step does
+    not (the tensor cores alone at TF32 cannot be the port's GEMM)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((512, 128)).astype(np.float32)
+    a = rng.standard_normal((512, 512)).astype(np.float32)
+    ref = t3 = t1 = x
+    for i in range(4):
+        ref = (a @ ref) * np.float32(0.001) + np.float32(i)
+        t3 = _tf32_product(a, t3, 3) * np.float32(0.001) + np.float32(i)
+        t1 = _tf32_product(a, t1, 1) * np.float32(0.001) + np.float32(i)
+    limit = 1e-5 + 1e-5 * np.abs(ref)
+    assert (np.abs(t3 - ref) / limit).max() < 0.01
+    np.testing.assert_allclose(t3, ref, rtol=1e-5, atol=1e-5)
+    assert (np.abs(t1 - ref) / limit).max() > 1.0
+    # The split itself: big + small keeps all but ~2 of float32's bits.
+    v = rng.standard_normal(4096).astype(np.float32)
+    big = _tf32(v)
+    assert not np.array_equal(big, v)
+    err = np.abs(v.astype(np.float64) - big - _tf32(v - big)) / np.abs(v)
+    assert err.max() < 2.0 ** -21
 
 
 def test_bounds_at_the_tools_shapes():
     """The bounds the chip smoke test prints, from the work counts: a P1
     pattern at (2048, 384) moves 6.29 MB (~1.9 us, bound by bytes); the
-    matmul's 4 products are 6.4e9 FMAs (~0.19 ms); a P2 launch is bound
-    by operations; a P3 launch moves 7.1 MB."""
-    def bound(nbytes, ops):
+    matmul's 4 products are 3.87e10 TF32 flops in 3xTF32 (three TF32
+    products each) at the tensor cores' 495 TFLOP/s (~0.078 ms); a P2
+    launch is bound by operations; a P3 launch moves 7.1 MB."""
+    def bound(nbytes, ops, tensor=False):
         return common.Result("", "", (), torch.zeros(1, 1), 1.0, 1.0, 1,
-                             nbytes, ops).bound()
+                             nbytes, ops, tensor=tensor).bound()
 
     passes, nbytes, ops = ptime.work("roll_lanes", 2048, 384, 32)
     assert (passes, nbytes) == (32, 6291456)
     ms, by = bound(nbytes, ops)
     assert by == "bytes" and abs(ms - 1.878e-3) < 1e-5
     passes, nbytes, ops = ptime.work("matmul", 2048, 384, 32)
-    ms, by = bound(nbytes, ops)
-    assert passes == 4 and by == "operations" and abs(ms - 0.1924) < 1e-3
+    assert ops == 4 * 3 * 2 * 2048 * 384 * 2048
+    ms, by = bound(nbytes, ops, tensor=True)
+    assert passes == 4 and by == "operations (tensor cores)"
+    assert abs(ms - 0.07809) < 1e-4
     nbytes, ops = ptime2.work("add", 2048, 384, 20000)
     ms, by = bound(nbytes, ops)
     assert by == "operations" and abs(ms / 20000 * 1e3 - 0.0470) < 1e-3

@@ -7,8 +7,9 @@ run on a card with ``python -m pytest --noconftest
 tests/test_torch_probes_cuda.py``. Every kernel but the matmul is the
 same float32 operations in the same order as its plain version
 (``--fmad=false``), so the outputs are the same bits; the matmul's sums
-of K products run in another order than cuBLAS's (rtol 1e-5, atol
-1e-5 on outputs of magnitude ~1-4).
+of K products run in another order than cuBLAS's, each operand split
+into two TF32 parts on the tensor cores (3xTF32: rtol 1e-5, atol 1e-5 on
+outputs of magnitude ~1-4).
 """
 import numpy as np
 import pytest
@@ -62,15 +63,38 @@ def test_p1_kernel_matches_plain(dev, name, shape):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("niter", [300, 389])
 @pytest.mark.parametrize("shape", [(16, 32), (15, 32), (2048, 384),
-                                   (256, 384)])
+                                   (256, 384), (15, 384), (2048, 128),
+                                   (15, 128), (2048, 32)])
 @pytest.mark.parametrize("name", list(ptime2.BODIES))
-def test_p2_kernel_matches_plain(dev, name, shape):
+def test_p2_kernel_matches_plain(dev, name, shape, niter):
+    """At 384, 128 and 32 columns, 15 to 2048 rows, and at an NITER that
+    is not a multiple of 4 (nor of 12, dynroll's group at 384 columns)
+    and is above the width (select's runs of cols passes)."""
     x = _randn(np.random.default_rng(0), shape, dev) * 1e-3
     before = ptime2.LAUNCHES[name]
-    got = ptime2.BODIES[name](x, 300)
+    got = ptime2.BODIES[name](x, niter)
     assert ptime2.LAUNCHES[name] == before + 1
-    assert torch.equal(got, getattr(ptime2, f"{name}_plain")(x, 300))
+    assert torch.equal(got, getattr(ptime2, f"{name}_plain")(x, niter))
+
+
+@pytest.mark.parametrize("M,N,K", [(100, 70, 37), (129, 65, 1000),
+                                   (2048, 384, 2048), (64, 64, 64),
+                                   (1, 1, 1), (65, 8, 4)])
+def test_gemm_matches_matmul(dev, M, N, K):
+    """The 3xTF32 GEMM at ragged shapes (edges masked; 4-byte copies
+    where K or N is not a multiple of 4) and at the tool's shape, with
+    the (* alpha) + beta epilogue, within 1e-5 of torch.matmul in full
+    float32."""
+    rng = np.random.default_rng(1)
+    a, b = _randn(rng, (M, K), dev), _randn(rng, (K, N), dev)
+    got = common.tf32x3_gemm(a, b, 0.001, 2.0)
+    want = torch.matmul(a, b) * 0.001 + 2.0
+    torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+    got = common.tf32x3_gemm(a, b, 1.0, 0.0)
+    torch.testing.assert_close(got, torch.matmul(a, b), rtol=MM_RTOL,
+                               atol=MM_ATOL * K ** 0.5)
 
 
 @pytest.mark.parametrize("rows,cols,depth", [(96, 128, 7), (1536, 384, 11)])
@@ -101,8 +125,9 @@ def test_time_call_counts_eager_launches_only(dev):
 
 
 def test_wrappers_refuse_bad_input(dev):
-    """A wrong dtype, or a shape whose tile exceeds shared memory, raises
-    ValueError before any launch."""
+    """A wrong dtype, a shape whose tile exceeds shared memory, a width
+    that one row a warp in registers does not take, or a column too tall
+    for one block, raises ValueError before any launch."""
     x64 = torch.zeros((64, 128), dtype=torch.float64, device=dev)
     wide = torch.zeros((2, 40000), device=dev)
     tall = torch.zeros((40000, 2), device=dev)
@@ -116,3 +141,13 @@ def test_wrappers_refuse_bad_input(dev):
                      40000)):
         with pytest.raises(ValueError):
             call()
+    before = dict(ptime2.LAUNCHES)
+    for cols in (40, 96, 512):
+        x = torch.zeros((8, cols), device=dev)
+        for name in ("roll1", "dynroll", "barrelbit"):
+            with pytest.raises(ValueError, match="one row a warp"):
+                ptime2.BODIES[name](x, 4)
+    for rows in (16400, 1025):
+        with pytest.raises(ValueError, match="threads a column"):
+            ptime2.rollrow(torch.zeros((rows, 4), device=dev), 4)
+    assert ptime2.LAUNCHES == before
