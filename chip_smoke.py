@@ -96,7 +96,14 @@ process each, started together, then:
    GEMM (four products, device time from CUDA graph replays) is printed
    beside four ``torch.matmul`` calls timed alike, and its ratio to them;
    its entry in the ``kernels`` line carries both (``gemm_ms``,
-   ``library_ms``).
+   ``library_ms``). P1's other 26 patterns are summed in three parts, each
+   beside its bound: the gathering patterns (lane and row rolls, select,
+   dynroll, stride roll), the loop patterns (add, barrel, the interleaves,
+   the parity select) and the tile sweep (``gathering_ms``, ``loop_ms``,
+   ``tile_ms`` in P1's entry). The launches of each CUDA kernel of
+   ``probes.cu`` are counted too (``common.KERNEL_LAUNCHES``, set to 0
+   with the others) and each must be non-zero; the launch floor, an
+   empty kernel timed as the patterns are, is printed beside them.
 
 7. the pipeline (``rffa``) at full width: 48 PRESTO DM trials of the
    headline series (2^23 samples at 64 us, 1.5 GiB, written by this
@@ -1388,6 +1395,14 @@ def phase_pipeline(dev, cfg=HEADLINE, nfiles=PIPE_FILES, chunk=PIPE_CHUNK,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 6: P1's gathering patterns (the tool's names), and the grids
+# (blocks, threads) of the empty kernel timed as the launch floor: one
+# block, and the grid of an element kernel at (2048, 384).
+P1_GATHERING = ("roll lanes", "roll rows", "select", "dynroll",
+                "stride_roll")
+PROBE_FLOOR_GRIDS = ((1, 32), (3072, 256))
+
+
 def phase_probes(dev):
     """Phase 6: the chip probes through their entry points. Returns one
     ``kernels`` entry per probe: its launches in the run, the largest
@@ -1406,12 +1421,22 @@ def phase_probes(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     for _, _, mod, _, _ in probes:
         mod.reset_launches()
+    common.reset_kernel_launches()
     results = {key: mod.main(argv) for key, _, mod, argv, _ in probes}
     launches = {key: dict(mod.LAUNCHES) for key, _, mod, _, _ in probes}
+    kernels = dict(common.KERNEL_LAUNCHES)
     print(f"  launches {launches}", flush=True)
+    print(f"  launches by CUDA kernel {kernels}", flush=True)
     for key, counts in launches.items():
         idle = sorted(k for k, n in counts.items() if n == 0)
         check(not idle, f"{key}: kernels {idle} never launched in the run")
+    idle = sorted(k for k, n in kernels.items() if n == 0)
+    check(not idle, f"probes.cu kernels {idle} never launched in the run")
+    floors = {(b, t): common.launch_floor_ms(dev, b, t)
+              for b, t in PROBE_FLOOR_GRIDS}
+    print("  launch floor (an empty kernel, timed as the patterns are): "
+          + ", ".join(f"{ms * 1e3:.2f} us at {b} x {t} threads"
+                      for (b, t), ms in floors.items()), flush=True)
     entries = []
     for key, name, mod, _, replaces in probes:
         err = ms = pms = 0.0
@@ -1455,6 +1480,12 @@ def phase_probes(dev):
         print(f"  {key}: {len(results[key])} patterns, kernels {ms:.4f} ms "
               f"(plain {pms:.4f} ms, bound {bms:.4f} ms, mostly by {by})",
               flush=True)
+        if key == "P1":
+            sums = p1_sums(results[key])
+            for part, (n, k_ms, b_ms) in sums.items():
+                print(f"  P1 {part}: {n} patterns, kernels {k_ms:.4f} ms, "
+                      f"bound {b_ms:.4f} ms ({b_ms / k_ms:.1%} of it)",
+                      flush=True)
         if gemm_ms is not None:
             rate = common.mma_tf32_tflops(dev)
             share = rate * 1e12 / measure.PEAK_TF32_FLOPS_PER_S
@@ -1476,8 +1507,31 @@ def phase_probes(dev):
         }
         if gemm_ms is not None:
             entry["gemm_ms"] = gemm_ms
+        if key == "P1":
+            entry.update({f"{part.split()[0]}_ms": k_ms
+                          for part, (_, k_ms, _) in sums.items()})
         entries.append(entry)
     return entries
+
+
+def p1_sums(results):
+    """P1's patterns other than the matmul in three parts, each (patterns,
+    kernel ms, bound ms): the gathering patterns (:data:`P1_GATHERING`),
+    the tile sweep (``ptime.TILES``, named "add RxC" and "roll RxC") and
+    the loop patterns (the other five at the tool's shape)."""
+    from riptide_tpu_torch.probes import ptime
+
+    tiles = {f"{k} {r}x{c}" for r, c in ptime.TILES for k in ("add", "roll")}
+    sums = {"gathering patterns": [0, 0.0, 0.0],
+            "loop patterns": [0, 0.0, 0.0], "tile sweep": [0, 0.0, 0.0]}
+    for r in results:
+        if r.wrapper == "matmul":
+            continue
+        part = ("gathering patterns" if r.name in P1_GATHERING else
+                "tile sweep" if r.name in tiles else "loop patterns")
+        s = sums[part]
+        s[0], s[1], s[2] = s[0] + 1, s[1] + r.ms, s[2] + r.bound()[0]
+    return {k: tuple(v) for k, v in sums.items()}
 
 
 def _same_layout(x, y):

@@ -17,11 +17,46 @@
 // The fused FFA kernel is built from these patterns; the kernels here do
 // the same work on the card, so the probes time the card's primitives.
 //
-// Design, by how a pattern couples elements:
-//   p1_point_kernel    one thread per element: the P1 patterns that read
-//                      only x in every repetition (acc = acc + f(x, i))
-//                      sum their REPS terms in a register, in the Pallas
-//                      order.
+// Design, by how a pattern couples elements. P1's rolls take each of
+// their REPS terms from another element of x, its row patterns from the
+// tile before the pass; every P1 kernel takes its terms from an on-chip
+// copy (registers or shared memory), with no division in the repetition
+// loop (each shift or threshold is a running value, s += step; if (s >=
+// n) s -= n):
+//   p1_add_kernel      P1 add (kern_add, make_tile_add): one thread per
+//                      element, REPS terms in a register.
+//   lane_row_kernel    P1 roll_lanes (and the tile sweep's roll),
+//                      stride_roll and barrel: one row a warp, stored
+//                      twice in shared memory so that every roll's source
+//                      column c + cols - s needs no wrap; lane l holds
+//                      columns l + 32 j. A term is one conflict-free
+//                      shared-memory read and one add; a barrel step one
+//                      read and two writes an element (rows whose bit is
+//                      clear roll by 0), with a __syncwarp and no block
+//                      barrier. Floor: shared memory moves 128 bytes a
+//                      clock on each SM, so REPS reads of 4 bytes an
+//                      element (100 MB at 2048 x 384 x 32) take ~3.4 us
+//                      on 132 SMs at ~1.75 GHz, above the 1.9 us of bytes.
+//   row_window_kernel  P1 roll_rows: a block computes 64 rows of a strip
+//                      of 32 columns from a window of 64 + smax rows of
+//                      that strip (smax the largest shift, 156 at the
+//                      tool's shape), loaded once (each x element read
+//                      from L2 ~3.4 times, not 32); a term is one
+//                      shared-memory read at an immediate offset. The same
+//                      ~3.4 us floor.
+//   dynroll_kernel     P1 dynroll: only 8 shifts, so each element loads
+//                      its 8 sources into registers once (8 coalesced
+//                      reads through L2, 25 MB at the tool's shape) and
+//                      adds register i % 8 in term i.
+//   p1_select_kernel   P1 select: no gather; K rows of one column a
+//                      thread, one compare of the column against the
+//                      running threshold serves K elements, and each takes
+//                      its add, its multiply and a lop3 bit select (below)
+//                      every repetition.
+//   pair_kernel        P1 parity select (kern_repeat_flat): row pairs
+//                      never mix, so a thread holds whole pairs of one
+//                      column in registers; the select is a register
+//                      choice made at compile time. Bound by bytes.
 //   p2_add_kernel      P2 add (body_add): one thread per element, NITER
 //                      passes in a register.
 //   p2_select_kernel   P2 select (body_select, where(col < i % P, acc *
@@ -76,17 +111,38 @@
 //                      stays in the block. Bound: its two float32
 //                      operations; the barrier costs each warp a stall a
 //                      pass, which the other blocks on the SM fill.
-//   lane_loop_kernel   a tile of whole rows in shared memory, ping-ponged
-//                      once a pass: P1 barrel.
-//   strip_loop_kernel  a strip of columns of one row group in shared
-//                      memory, ping-ponged once a pass: the patterns that
-//                      couple rows (P1 interleave, repeat_tpu and parity
-//                      select; P3's slot level). Each of them is
-//                      column-local, so a narrow strip of a whole group
-//                      fits in shared memory where the group's full width
-//                      would not (one 1536 x 384 float32 group is 2.25
-//                      MiB): every pass runs in one launch, with no
-//                      grid-wide sync.
+//   strip_kernel       the row-group patterns that couple rows across a
+//                      group (P1 interleave and repeat_tpu, P3's slot
+//                      levels from S_d = 96): each is column-local, so a
+//                      strip of columns of a whole group stays in shared
+//                      memory for every pass (one 1536 x 384 float32
+//                      group is 2.25 MiB; a strip of 1 to 32 columns fits)
+//                      with no grid-wide sync. Element s's two source
+//                      rows are the same in every pass (w does not
+//                      change), so each thread computes its elements'
+//                      source offsets once, before the passes, and keeps
+//                      them in registers: a pass is two reads, one add
+//                      and one write an element, and one barrier. Strips
+//                      narrow until the grid has two blocks for each SM.
+//                      Floor: 12 bytes of shared memory an element and
+//                      pass, 226 MB a P3 level, ~7.6 us at 128 bytes a
+//                      clock on 132 SMs.
+//   strip_cluster_kernel the same when the strip is one column (S_d = 1536
+//                      at P = 384): a thread-block cluster of 8 blocks on
+//                      adjacent columns loads and stores its 8 columns
+//                      together through distributed shared memory, a
+//                      whole 32-byte sector of a row at a time (one
+//                      column alone moved 4 bytes of each sector, 8 times
+//                      the traffic through L2).
+//   slot_regs_kernel   P3's small slot levels (S_d = 12, 24, 48): one
+//                      thread holds a whole group column in registers.
+//                      Element 2m + b's head row ((s + delta) mod S_d) //
+//                      2 is m - 1, m or (b = 1) m + 1: three candidates at
+//                      register indices fixed at compile time, picked by
+//                      selects on bits set once from w, as the tool's
+//                      jnp.where chain picks them. No shared memory and no
+//                      barrier: a pass is one or two selects and one add
+//                      an element.
 //   tf32x3_gemm_kernel P1's matmul (kern_matmul) on the tensor cores in
 //                      3xTF32: each float32 operand splits as big =
 //                      tf32(x) and small = tf32(x - big), both rounded as
@@ -127,52 +183,61 @@
 //
 // Bound. A P1 pattern reads x once and writes its output once (6.3 MB at
 // (2048, 384)) against one or two operations per element and repetition:
-// bound by bytes. P2 keeps the tile on chip for NITER passes of one or two
-// operations per element: bound by operations. A P3 launch reads x and w
-// and writes its output once against two operations per element and pass:
-// bound by bytes. The matmul by its tensor-core flops.
+// bound by bytes (1.9 us). P2 keeps the tile on chip for NITER passes of
+// one or two operations per element: bound by operations. A P3 launch
+// reads x and w and writes its output once against two operations per
+// element and pass: bound by bytes (2.1 us). The matmul by its
+// tensor-core flops. Under every pattern lies the cost of one launch
+// (empty_kernel, ~2 us in a CUDA graph), which the tile sweep's small
+// shapes cannot go below.
 //
 // Numerics. Built with --fmad=false, so acc * 1.0001f + x stays two
-// roundings, as in PyTorch's separate kernels: every pattern but the
-// matmul is bit identical to its plain version. The matmul's epilogue (*
-// alpha, then + beta) rounds twice, as the plain (a @ acc) * 0.001 + i
-// does.
+// roundings, as in PyTorch's separate kernels. Every pattern adds its
+// terms to each element in the tool's order of i, one float32 rounding
+// each, and its gathers and selects move values without arithmetic, so
+// every pattern but the matmul is bit identical to its plain version,
+// however the elements are laid out. The matmul's epilogue (* alpha, then
+// + beta) rounds twice, as the plain (a @ acc) * 0.001 + i does.
 //
 // Interface. Plain extern "C" launchers (loaded with ctypes), each
 // launching on the caller's stream and returning cudaGetLastError(). A
-// launcher takes a pattern code (rt_probe_code gives it by name). Nothing
-// here allocates or synchronises; the Python wrappers allocate every
-// output with torch.empty, choose the tiles and refuse the shapes no
-// kernel takes.
+// launcher of several patterns takes a pattern code (rt_probe_code gives
+// it by name). Nothing here allocates or synchronises; the Python
+// wrappers allocate every output with torch.empty, choose the tiles and
+// refuse the shapes no kernel takes.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;      // threads per block, the point kernels and strip_loop
-constexpr int kLaneThreads = 128;  // threads per lane_loop block (one row at a time)
-constexpr int kRowWarps = 2;       // rows (warps) per row_warp_kernel block
+constexpr int kThreads = 256;    // threads per block, the element kernels
+constexpr int kRowWarps = 2;     // rows (warps) per row_warp_kernel block
+constexpr int kLaneWarps = 8;    // rows (warps) per lane_row_kernel block
+constexpr int kWinWarps = 8;     // warps per row_window_kernel block
+constexpr int kWinRows = 8;      // output rows a row_window_kernel thread
+constexpr int kWinTile = kWinWarps * kWinRows;  // output rows a block
+constexpr int kStripE = 4;       // most elements a strip_kernel thread
+constexpr int kClusterE = 8;     // most elements a strip_cluster_kernel thread
+constexpr int kClusterCols = 8;  // blocks (columns) a strip_cluster_kernel cluster
+constexpr int kSlotThreads = 64; // threads per slot_regs_kernel block
 constexpr unsigned kFull = 0xffffffffu;
 
+// The patterns a launcher takes by code (rt_lane_row, rt_strip,
+// rt_strip_cluster, rt_row_warp); the other kernels run one pattern each.
 enum Pattern : int {
-  kAdd = 1,      // P1 kern_add / make_tile_add: acc * 1.0001 + x
-  kRollLanes,    // P1 kern_roll / make_tile_roll: acc + roll(x, (7i + 1) % P, 1)
-  kRollRows,     // P1 kern_roll_rows: acc + roll(x, (5i + 1) % ROWS, 0)
-  kSelect,       // P1 kern_select: where(col < 11i % P, acc + 1, acc * 0.5)
-  kDynRoll,      // P1 kern_dynroll: acc + roll(x, shifts[i % 8], 0)
-  kStrideRoll,   // P1 kern_stride_roll: row r of x rolled by i % P + r
-  kBarrel,       // P1 kern_barrel: step k rolls rows with bit k set by 2^k
-  kInterleave,   // P1 kern_interleave: jnp.repeat halves of 8 groups
-  kRepeatTpu,    // P1 kern_repeat_tpu: pltpu.repeat (a tile) of the halves
-  kParity,       // P1 kern_repeat_flat: odd rows take the row above
-  kAdd2,         // P2 body_add: acc * 1.0001 + 0.5
-  kSelect2,      // P2 body_select: where(col < i % P, acc * 1.0001, acc)
-  kRoll1,        // P2 body_roll: acc + roll(acc, 1, 1) * 1e-6
-  kDynRoll2,     // P2 body_dynroll: acc + roll(acc, i % P, 1) * 1e-6
-  kBarrelBit,    // P2 body_barrelbit: where(col & 3 == i & 3, roll(acc, 4, 1), acc)
-  kRollRow,      // P2 body_rollrow: acc + roll(acc, 1, 0) * 1e-6
-  kSlot,         // P3 _one_pass: interleave, delta select, add
+  kRollLanes = 1,  // P1 kern_roll / make_tile_roll: acc + roll(x, (7i + 1) % P, 1)
+  kStrideRoll,     // P1 kern_stride_roll: row r of x rolled by i % P + r
+  kBarrel,         // P1 kern_barrel: step k rolls rows with bit k set by 2^k
+  kInterleave,     // P1 kern_interleave: jnp.repeat halves of 8 groups
+  kRepeatTpu,      // P1 kern_repeat_tpu: pltpu.repeat (a tile) of the halves
+  kRoll1,          // P2 body_roll: acc + roll(acc, 1, 1) * 1e-6
+  kDynRoll2,       // P2 body_dynroll: acc + roll(acc, i % P, 1) * 1e-6
+  kBarrelBit,      // P2 body_barrelbit: where(col & 3 == i & 3, roll(acc, 4, 1), acc)
+  kSlot,           // P3 _one_pass: interleave, delta select, add
 };
 
 struct Named {
@@ -181,57 +246,22 @@ struct Named {
 };
 
 constexpr Named kNames[] = {
-    {"p1.add", kAdd},           {"p1.roll_lanes", kRollLanes},
-    {"p1.roll_rows", kRollRows}, {"p1.select", kSelect},
-    {"p1.dynroll", kDynRoll},   {"p1.stride_roll", kStrideRoll},
-    {"p1.barrel", kBarrel},     {"p1.interleave", kInterleave},
-    {"p1.repeat_tpu", kRepeatTpu}, {"p1.repeat_flat", kParity},
-    {"p2.add", kAdd2},          {"p2.select", kSelect2},
-    {"p2.roll1", kRoll1},       {"p2.dynroll", kDynRoll2},
-    {"p2.barrelbit", kBarrelBit}, {"p2.rollrow", kRollRow},
+    {"p1.roll_lanes", kRollLanes}, {"p1.stride_roll", kStrideRoll},
+    {"p1.barrel", kBarrel},        {"p1.interleave", kInterleave},
+    {"p1.repeat_tpu", kRepeatTpu}, {"p2.roll1", kRoll1},
+    {"p2.dynroll", kDynRoll2},     {"p2.barrelbit", kBarrelBit},
     {"p3.slot", kSlot},
 };
 
-// a mod n in [0, n), for any int a (n > 0).
-__device__ __forceinline__ int wrap(int a, int n) {
-  const int r = a % n;
-  return r < 0 ? r + n : r;
-}
-
-// np.roll(v, s)[c] == v[(c - s) mod n]: the source index of a roll, for
-// c and s in [0, n). No remainder: the patterns' inner loops call it for
-// every element.
-__device__ __forceinline__ int rolled(int c, int s, int n) {
-  const int j = c - s;
-  return j < 0 ? j + n : j;
-}
-
-template <int PAT>
-__global__ void __launch_bounds__(kThreads) p1_point_kernel(
-    const float* __restrict__ x, const int32_t* __restrict__ shifts,
-    float* __restrict__ out, int rows, int cols, int reps) {
+// P1 add (kern_add, make_tile_add): one thread per element, REPS terms in
+// a register.
+__global__ void __launch_bounds__(kThreads) p1_add_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int n, int reps) {
   const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= rows * cols) return;
-  const int r = e / cols;
-  const int c = e - r * cols;
-  const int rc = r % cols;
+  if (e >= n) return;
   const float xe = x[e];
   float acc = xe;
-  for (int i = 0; i < reps; ++i) {
-    if (PAT == kAdd) {
-      acc = acc * 1.0001f + xe;
-    } else if (PAT == kRollLanes) {
-      acc = acc + x[r * cols + rolled(c, (i * 7 + 1) % cols, cols)];
-    } else if (PAT == kRollRows) {
-      acc = acc + x[rolled(r, (i * 5 + 1) % rows, rows) * cols + c];
-    } else if (PAT == kSelect) {
-      acc = c < (i * 11) % cols ? acc + 1.0f : acc * 0.5f;
-    } else if (PAT == kDynRoll) {
-      acc = acc + x[rolled(r, wrap(shifts[i % 8], rows), rows) * cols + c];
-    } else {  // kStrideRoll: shift i % cols, plus one per row (stride 1)
-      acc = acc + x[r * cols + rolled(c, (i % cols + rc) % cols, cols)];
-    }
-  }
+  for (int i = 0; i < reps; ++i) acc = acc * 1.0001f + xe;
   out[e] = acc;
 }
 
@@ -403,96 +433,436 @@ __global__ void __launch_bounds__(1024) column_kernel(
   }
 }
 
-// `tr` whole rows from row blockIdx.x * tr, two buffers of tr * cols
-// floats in dynamic shared memory; step i reads one and writes the other.
-__global__ void __launch_bounds__(kLaneThreads) lane_loop_kernel(
+// One row a warp in shared memory: P1's lane rolls (roll_lanes and the
+// tile sweep's roll, stride_roll) and the barrel. Row r = blockIdx.x *
+// kLaneWarps + warp is stored twice in the warp's span of cols + 32 V
+// floats, columns [0, cols) at [0, cols) and again at [cols, 2 cols), so
+// that np.roll(row, s)[c] = row[(c - s) mod cols] is span[c + cols - s]
+// for every shift s in [0, cols): no wrap and no remainder in the loop.
+// Lane l holds columns l + 32 j, j < V (32 V >= cols; the lanes past the
+// row read the span's tail and store nothing). The shifts are running
+// values: roll_lanes s_i = (7 i + 1) mod cols, stride_roll s_i = (r + i)
+// mod cols, the barrel's 2^k mod cols. A term is one conflict-free
+// shared-memory read (consecutive lanes, consecutive words) and one add.
+template <int PAT, int V>
+__global__ void __launch_bounds__(kLaneWarps * 32) lane_row_kernel(
     const float* __restrict__ x, float* __restrict__ out, int rows, int cols,
-    int tr, int passes) {
+    int passes) {
   extern __shared__ float smem[];
-  float* cur = smem;
-  float* nxt = smem + tr * cols;
-  const int r0 = blockIdx.x * tr;
-  const int nr = min(tr, rows - r0);
-  for (int e = threadIdx.x; e < nr * cols; e += kLaneThreads)
-    cur[e] = x[r0 * cols + e];
-  __syncthreads();
-  for (int i = 0; i < passes; ++i) {
-    const int shift = (1 << i) % cols;
-    for (int lr = 0; lr < nr; ++lr) {
-      const float* row = cur + lr * cols;
-      const bool take = ((r0 + lr) >> i) & 1;
-      for (int c = threadIdx.x; c < cols; c += kLaneThreads)
-        nxt[lr * cols + c] = take ? row[rolled(c, shift, cols)] : row[c];
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kLaneWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;  // the whole warp: only __syncwarp below
+  float* const span = smem + (threadIdx.x >> 5) * (cols + 32 * V);
+  const float* const xr = x + (int64_t)r * cols;
+  float v[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = lane + 32 * j;
+    v[j] = 0.0f;
+    if (c < cols) {
+      v[j] = xr[c];
+      span[c] = v[j];
+      span[c + cols] = v[j];
     }
-    __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
   }
-  for (int e = threadIdx.x; e < nr * cols; e += kLaneThreads)
-    out[r0 * cols + e] = cur[e];
+  __syncwarp();
+  if (PAT == kBarrel) {
+    // Step k < passes <= 31: rows with bit k set take roll(acc, 2^k), the
+    // others roll(acc, 0); every element is read and written each step.
+    int sh = 1 % cols;
+    for (int k = 0; k < passes; ++k) {
+      const float* const src = span + cols + lane - (((r >> k) & 1) ? sh : 0);
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = src[32 * j];
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int c = lane + 32 * j;
+        if (c < cols) {
+          span[c] = v[j];
+          span[c + cols] = v[j];
+        }
+      }
+      __syncwarp();
+      sh += sh;
+      if (sh >= cols) sh -= cols;
+    }
+  } else {  // kRollLanes, kStrideRoll: acc += roll(x, s_i), x stays in span
+    int s = PAT == kRollLanes ? 1 % cols : r % cols;
+    const int step = (PAT == kRollLanes ? 7 : 1) % cols;
+#pragma unroll 4
+    for (int i = 0; i < passes; ++i) {
+      const float* const src = span + cols + lane - s;
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = v[j] + src[32 * j];
+      s += step;
+      if (s >= cols) s -= cols;
+    }
+  }
+  float* const o = out + (int64_t)r * cols;
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (lane + 32 * j < cols) o[lane + 32 * j] = v[j];
 }
 
-// Columns [c0, c0 + ct) (ct = 1 << lg) of the group of S rows from row
-// g0: two buffers of S * ct floats (row-major, ct wide) in dynamic shared
-// memory, plus S * ct int8 deltas for kSlot. Pass i reads one buffer and
-// writes the other. Columns past `cols` are carried as zeros and never
-// stored; only kParity may have a short last group (rows % S != 0).
+// P1 roll_rows: acc += roll(x, s_i, 0), s_i = (5 i + 1) mod rows, from a
+// window of the column strip in shared memory. Block (bx, by) computes
+// columns [32 bx, 32 bx + 32) (lane = column) of output rows [r0, r0 +
+// kWinTile), r0 = kWinTile by; warp w the rows r0 + kWinRows w + k. The
+// window holds the source rows (r0 - smax + j) mod rows, j < kWinTile +
+// smax, 32 floats a row, where smax >= every s_i (the wrapper's): output
+// row r's term of shift s is window row r - r0 + smax - s, so a term is one
+// shared-memory read at an immediate offset from the thread's base.
+__global__ void __launch_bounds__(kWinWarps * 32) row_window_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int rows, int cols,
+    int reps, int smax) {
+  extern __shared__ float win[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const int r0 = blockIdx.y * kWinTile;
+  // Warp w loads window rows w, w + kWinWarps, ...: source row q a
+  // running value, four loads in flight.
+  int q = (int)(((int64_t)r0 - smax + rows + warp) % rows);  // smax < rows
+  const int hop = kWinWarps % rows;
+#pragma unroll 4
+  for (int j = warp; j < kWinTile + smax; j += kWinWarps) {
+    win[j * 32 + lane] = c < cols ? x[(int64_t)q * cols + c] : 0.0f;
+    q += hop;
+    if (q >= rows) q -= rows;
+  }
+  __syncthreads();
+  const float* const mine = win + (kWinRows * warp + smax) * 32 + lane;
+  float acc[kWinRows];
+#pragma unroll
+  for (int k = 0; k < kWinRows; ++k) acc[k] = mine[32 * k];  // shift 0: x
+  int s = 1 % rows;
+  const int step = 5 % rows;
+#pragma unroll 4
+  for (int i = 0; i < reps; ++i) {
+    const float* const src = mine - 32 * s;
+#pragma unroll
+    for (int k = 0; k < kWinRows; ++k) acc[k] = acc[k] + src[32 * k];
+    s += step;
+    if (s >= rows) s -= rows;
+  }
+  if (c >= cols) return;
+#pragma unroll
+  for (int k = 0; k < kWinRows; ++k) {
+    const int r = r0 + kWinRows * warp + k;
+    if (r < rows) out[(int64_t)r * cols + c] = acc[k];
+  }
+}
+
+// P1 dynroll: acc += roll(x, shifts[i % 8], 0). An element's eight source
+// values are loaded once into registers (coalesced: lanes on consecutive
+// columns), and term i adds register i % 8 (the pass loop unrolled by 8):
+// one thread per element, nine loads and REPS adds.
+__global__ void __launch_bounds__(kThreads) dynroll_kernel(
+    const float* __restrict__ x, const int32_t* __restrict__ shifts,
+    float* __restrict__ out, int rows, int cols, int reps) {
+  __shared__ int sh[8];
+  if (threadIdx.x < 8) {
+    const int r = shifts[threadIdx.x] % rows;
+    sh[threadIdx.x] = r < 0 ? r + rows : r;
+  }
+  __syncthreads();
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= rows * cols) return;
+  const int r = e / cols;
+  const int c = e - r * cols;
+  float v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int q = r - sh[k];
+    v[k] = x[(q < 0 ? q + rows : q) * cols + c];
+  }
+  float acc = x[e];
+  int i = 0;
+  for (; i + 8 <= reps; i += 8) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc = acc + v[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 7; ++k)
+    if (k < reps - i) acc = acc + v[k];
+  out[e] = acc;
+}
+
+// P1 select: where(col < t_i, acc + 1, acc * 0.5), t_i = 11 i mod cols a
+// running value. Rows [K r, K r + K) of column c for thread r * cols + c:
+// one compare serves K elements; each element takes the add, the multiply
+// and a bit select (lop3) by the compare's all-ones mask in every
+// repetition. Rows past `rows` are carried as zeros and never stored.
+template <int K>
+__global__ void __launch_bounds__(kThreads) p1_select_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int rows, int cols,
+    int reps) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int c = g % cols;
+  const int r0 = g / cols * K;
+  if (r0 >= rows) return;
+  float v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    v[k] = r0 + k < rows ? x[(int64_t)(r0 + k) * cols + c] : 0.0f;
+  int t = 0;
+  const int step = 11 % cols;
+  for (int i = 0; i < reps; ++i) {
+    const uint32_t take = (uint32_t)((c - t) >> 31);  // ~0 where col < t_i
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = bit_select(take, v[k] + 1.0f, v[k] * 0.5f);
+    t += step;
+    if (t >= cols) t -= cols;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (r0 + k < rows) out[(int64_t)(r0 + k) * cols + c] = v[k];
+}
+
+// P1 parity select (kern_repeat_flat): where(row even, acc, roll(acc, 1,
+// 0)) + i. Row pairs (2m, 2m + 1) never mix with other pairs, so a thread
+// holds K (even) consecutive rows of one column from an even row, in
+// registers: the select is a choice of register, made when the kernel is
+// compiled, and both rows of a pair take acc[2m] + i. Rows past `rows`
+// are carried as zeros and never stored.
+template <int K>
+__global__ void __launch_bounds__(kThreads) pair_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int rows, int cols,
+    int passes) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int c = g % cols;
+  const int r0 = g / cols * K;
+  if (r0 >= rows) return;
+  float v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    v[k] = r0 + k < rows ? x[(int64_t)(r0 + k) * cols + c] : 0.0f;
+  for (int i = 0; i < passes; ++i) {
+    const float fi = (float)i;
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+      const float a = v[k] + fi;  // row 2m keeps acc[2m]; 2m + 1 takes it
+      v[k] = a;
+      v[k + 1] = a;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (r0 + k < rows) out[(int64_t)(r0 + k) * cols + c] = v[k];
+}
+
+// The gather map of a row-group pattern: element s (of S rows, S even)
+// takes rows h and t of the group before the pass (half = S / 2).
 template <int PAT>
-__global__ void __launch_bounds__(kThreads) strip_loop_kernel(
+__device__ __forceinline__ void group_sources(int s, int S, int da, int& h,
+                                              int& t) {
+  const int half = S >> 1;
+  if (PAT == kInterleave) {  // jnp.repeat: row s of each half is s // 2
+    h = s >> 1;
+    t = half + h;
+  } else if (PAT == kRepeatTpu) {  // pltpu.repeat tiles: s mod (S / 2)
+    h = s < half ? s : s - half;
+    t = half + h;
+  } else {  // kSlot: head (s + delta) mod S, delta = da - 2 (da 2: 0), // 2
+    int q = s + (da == 2 ? 0 : da - 2);
+    q = q < 0 ? q + S : (q >= S ? q - S : q);
+    h = q >> 1;
+    t = half + (s >> 1);
+  }
+}
+
+// The row-group patterns in shared memory: P1 interleave and repeat_tpu,
+// and P3's slot levels that slot_regs_kernel does not take. Columns [c0,
+// c0 + ct) (ct = 1 << lg) of the group of S rows from row g0 =
+// blockIdx.y * S: two buffers of n = S * ct floats (row-major, ct wide)
+// in dynamic shared memory; pass i reads one and writes the other. Thread
+// j holds elements j + blockDim.x * q, q < kStripE, and their two source
+// offsets, computed once before the passes (the gather map does not
+// change), so a pass is two reads, an add and a write an element, and one
+// barrier. Columns past `cols` are carried as zeros and never stored; S
+// divides the rows.
+template <int PAT>
+__global__ void __launch_bounds__(1024) strip_kernel(
     const float* __restrict__ x, const int32_t* __restrict__ w,
-    float* __restrict__ out, int rows, int cols, int S, int lg, int passes) {
+    float* __restrict__ out, int cols, int S, int lg, int passes) {
   extern __shared__ float smem[];
   const int ct = 1 << lg;
-  float* cur = smem;
-  float* nxt = smem + S * ct;
-  int8_t* delta = reinterpret_cast<int8_t*>(smem + 2 * S * ct);
+  const int n = S << lg;
   const int c0 = blockIdx.x * ct;
-  const int g0 = blockIdx.y * S;
-  const int n = min(S, rows - g0) << lg;
-  const int half = S >> 1;
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int c = c0 + (e & (ct - 1));
-    const int gi = (g0 + (e >> lg)) * cols + c;
-    cur[e] = c < cols ? x[gi] : 0.0f;
-    if (PAT == kSlot) {
-      // da = (w >> 22) & 3 selects the roll -delta with delta = da - 2
-      // for da in {0, 1, 3}; da == 2 keeps the unrolled row.
-      const int da = c < cols ? (w[gi] >> 22) & 3 : 2;
-      delta[e] = (int8_t)(da == 2 ? 0 : da - 2);
+  const int64_t g0 = (int64_t)blockIdx.y * S;
+  float* cur = smem;
+  float* nxt = smem + n;
+  int ho[kStripE], to[kStripE];
+#pragma unroll
+  for (int q = 0; q < kStripE; ++q) {
+    const int e = threadIdx.x + q * blockDim.x;
+    ho[q] = to[q] = 0;
+    if (e < n) {
+      const int s = e >> lg, cc = e & (ct - 1), c = c0 + cc;
+      const int64_t gi = (g0 + s) * cols + c;
+      cur[e] = c < cols ? x[gi] : 0.0f;
+      const int da = PAT == kSlot && c < cols ? (w[gi] >> 22) & 3 : 2;
+      int h, t;
+      group_sources<PAT>(s, S, da, h, t);
+      ho[q] = (h << lg) + cc;
+      to[q] = (t << lg) + cc;
     }
   }
   __syncthreads();
   for (int i = 0; i < passes; ++i) {
     const float fi = (float)i;
-    for (int e = threadIdx.x; e < n; e += kThreads) {
-      const int s = e >> lg;
-      const int cc = e & (ct - 1);
-      float v;
-      if (PAT == kInterleave) {  // jnp.repeat: row s of each half is s // 2
-        v = (cur[((s >> 1) << lg) + cc] + cur[((half + (s >> 1)) << lg) + cc]) +
-            fi;
-      } else if (PAT == kRepeatTpu) {  // pltpu.repeat tiles: s mod (S / 2)
-        const int h = s < half ? s : s - half;
-        v = (cur[(h << lg) + cc] + cur[((half + h) << lg) + cc]) + fi;
-      } else if (PAT == kParity) {  // even rows keep, odd take the row above
-        v = cur[((s & ~1) << lg) + cc] + fi;
-      } else {  // kSlot: (s + delta) mod S with delta in [-2, 1]
-        const int t = s + delta[e];
-        const int src = t < 0 ? t + S : (t >= S ? t - S : t);
-        v = cur[((src >> 1) << lg) + cc] + cur[((half + (s >> 1)) << lg) + cc];
+#pragma unroll
+    for (int q = 0; q < kStripE; ++q) {
+      const int e = threadIdx.x + q * blockDim.x;
+      if (e < n) {
+        float v = cur[ho[q]] + cur[to[q]];
+        if (PAT != kSlot) v = v + fi;
+        nxt[e] = v;
       }
-      nxt[e] = v;
     }
     __syncthreads();
-    float* t = cur;
+    float* const t = cur;
     cur = nxt;
     nxt = t;
   }
-  for (int e = threadIdx.x; e < n; e += kThreads) {
+#pragma unroll
+  for (int q = 0; q < kStripE; ++q) {
+    const int e = threadIdx.x + q * blockDim.x;
     const int c = c0 + (e & (ct - 1));
-    if (c < cols) out[(g0 + (e >> lg)) * cols + c] = cur[e];
+    if (e < n && c < cols) out[(g0 + (e >> lg)) * cols + c] = cur[e];
   }
+}
+
+// The row-group patterns whose strips are one column (a group of 1536
+// rows at the tools' width; strip_kernel would move 4 bytes of each
+// 32-byte sector, 8 times the traffic through L2): one column a block, in
+// a thread-block cluster of kClusterCols blocks on adjacent columns, which
+// loads and stores its columns together, 32 bytes of a row at a time. Block k of the cluster
+// moves elements [k S, k S + S) of the cluster's S x 8 (row f >> 3,
+// column f & 7) between device memory and the shared memory of the block
+// that owns the column (distributed shared memory); between the two, each
+// block runs the passes on its own column as strip_kernel does, its gather
+// map in registers. Columns past `cols` are carried as zeros and never
+// stored; S divides the rows.
+template <int PAT>
+__global__ void __launch_bounds__(1024) strip_cluster_kernel(
+    const float* __restrict__ x, const int32_t* __restrict__ w,
+    float* __restrict__ out, int cols, int S, int passes) {
+  extern __shared__ float smem[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int c0 = blockIdx.x - rank;  // the cluster's first column
+  const int64_t g0 = (int64_t)blockIdx.y * S;
+  float* cur = smem;
+  float* nxt = smem + S;
+  cluster.sync();  // every block of the cluster has started: its shared
+                   // memory may be written
+#pragma unroll
+  for (int q = 0; q < kClusterE; ++q) {
+    const int e = threadIdx.x + q * blockDim.x;
+    if (e < S) {
+      const int f = rank * S + e, r = f >> 3, j = f & 7, c = c0 + j;
+      const int64_t gi = (g0 + r) * cols + c;
+      cluster.map_shared_rank(cur, j)[r] = c < cols ? x[gi] : 0.0f;
+      if (PAT == kSlot)  // da, kept in the other buffer until the map is made
+        reinterpret_cast<int*>(cluster.map_shared_rank(nxt, j))[r] =
+            c < cols ? (w[gi] >> 22) & 3 : 2;
+    }
+  }
+  cluster.sync();
+  int ho[kClusterE], to[kClusterE];
+#pragma unroll
+  for (int q = 0; q < kClusterE; ++q) {
+    const int e = threadIdx.x + q * blockDim.x;
+    ho[q] = to[q] = 0;
+    if (e < S)
+      group_sources<PAT>(e, S, PAT == kSlot ? reinterpret_cast<int*>(nxt)[e] : 2,
+                         ho[q], to[q]);
+  }
+  __syncthreads();  // every da is read before the first pass writes nxt
+  for (int i = 0; i < passes; ++i) {
+    const float fi = (float)i;
+#pragma unroll
+    for (int q = 0; q < kClusterE; ++q) {
+      const int e = threadIdx.x + q * blockDim.x;
+      if (e < S) {
+        float v = cur[ho[q]] + cur[to[q]];
+        if (PAT != kSlot) v = v + fi;
+        nxt[e] = v;
+      }
+    }
+    __syncthreads();
+    float* const t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  cluster.sync();  // every block's passes are done
+#pragma unroll
+  for (int q = 0; q < kClusterE; ++q) {
+    const int e = threadIdx.x + q * blockDim.x;
+    if (e < S) {
+      const int f = rank * S + e, r = f >> 3, c = c0 + (f & 7);
+      if (c < cols)
+        out[(g0 + r) * cols + c] = cluster.map_shared_rank(cur, f & 7)[r];
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// One pass of a slot level of S rows held in registers: element s = 2m + b
+// takes head row ((s + delta) mod S) // 2, which is m - 1, m or (b = 1) m
+// + 1 mod S / 2: register indices fixed when the kernel is compiled,
+// chosen by bit selects (lop3) on all-ones masks set once from w (lo[s]:
+// m - 1; hi[m]: m + 1 for the odd element), plus the tail row S / 2 + m.
+template <int S>
+__device__ __forceinline__ void slot_pass(const float (&a)[S], float (&b)[S],
+                                          const uint32_t (&lo)[S],
+                                          const uint32_t (&hi)[S / 2]) {
+  constexpr int H = S / 2;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int m = s >> 1;
+    float head = bit_select(lo[s], a[(m + H - 1) % H], a[m]);
+    if (s & 1) head = bit_select(hi[m], a[(m + 1) % H], head);
+    b[s] = head + a[H + m];
+  }
+}
+
+// P3's small slot levels (S = 12, 24, 48) in registers: one thread a group
+// column (group g = t / cols, column c = t % cols), all S rows in
+// registers for every pass; loads and stores coalesced (lanes on
+// consecutive columns). No shared memory and no barrier.
+template <int S>
+__global__ void __launch_bounds__(kSlotThreads) slot_regs_kernel(
+    const float* __restrict__ x, const int32_t* __restrict__ w,
+    float* __restrict__ out, int rows, int cols, int passes) {
+  const int g = blockIdx.x * kSlotThreads + threadIdx.x;
+  const int c = g % cols;
+  const int grp = g / cols;
+  if (grp >= rows / S) return;
+  const int64_t base = (int64_t)grp * S * cols + c;
+  float a[S], b[S];
+  uint32_t lo[S], hi[S / 2];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    a[s] = x[base + (int64_t)s * cols];
+    const int da = (w[base + (int64_t)s * cols] >> 22) & 3;
+    const int d = da == 2 ? 0 : da - 2;  // delta in [-2, 1]
+    lo[s] = (s & 1 ? d == -2 : d < 0) ? ~0u : 0u;
+    if (s & 1) hi[s >> 1] = d == 1 ? ~0u : 0u;
+  }
+  int i = 0;
+  for (; i + 2 <= passes; i += 2) {
+    slot_pass<S>(a, b, lo, hi);
+    slot_pass<S>(b, a, lo, hi);
+  }
+  if (i < passes) {
+    slot_pass<S>(a, b, lo, hi);
+#pragma unroll
+    for (int s = 0; s < S; ++s) a[s] = b[s];
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) out[base + (int64_t)s * cols] = a[s];
 }
 
 // ---------------------------------------------------------------------------
@@ -764,6 +1134,11 @@ __global__ void mma_rate_kernel(float* __restrict__ out, int iters) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
 }
 
+// An empty kernel: the card's cost of one launch, the floor under the
+// probes' shortest patterns (timed as they are, from CUDA graph replays).
+// A measurement, not a port: nothing calls it but the timing scripts.
+__global__ void empty_kernel() {}
+
 // Opt `kernel` into `smem` bytes of dynamic shared memory above the 48 KB
 // default, once per size: later launches of the same or a smaller size
 // (and launches being captured into a CUDA graph) make no call.
@@ -776,18 +1151,93 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, size_t* allowed) {
   return err;
 }
 
+template <int PAT, int V>
+int launch_lane(const float* x, float* out, int rows, int cols, int passes,
+                cudaStream_t st) {
+  static size_t allowed = 0;
+  if (cols > 32 * V) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kLaneWarps * (cols + 32 * V) * sizeof(float);
+  const cudaError_t err =
+      allow_smem(lane_row_kernel<PAT, V>, smem, &allowed);
+  if (err != cudaSuccess) return (int)err;
+  lane_row_kernel<PAT, V><<<(rows + kLaneWarps - 1) / kLaneWarps,
+                            kLaneWarps * 32, smem, st>>>(x, out, rows, cols,
+                                                         passes);
+  return (int)cudaGetLastError();
+}
+
+template <int PAT>
+int launch_lane_width(const float* x, float* out, int rows, int cols, int V,
+                      int passes, cudaStream_t st) {
+  switch (V) {
+    case 1: return launch_lane<PAT, 1>(x, out, rows, cols, passes, st);
+    case 2: return launch_lane<PAT, 2>(x, out, rows, cols, passes, st);
+    case 4: return launch_lane<PAT, 4>(x, out, rows, cols, passes, st);
+    case 8: return launch_lane<PAT, 8>(x, out, rows, cols, passes, st);
+    case 12: return launch_lane<PAT, 12>(x, out, rows, cols, passes, st);
+    case 16: return launch_lane<PAT, 16>(x, out, rows, cols, passes, st);
+    case 24: return launch_lane<PAT, 24>(x, out, rows, cols, passes, st);
+    case 32: return launch_lane<PAT, 32>(x, out, rows, cols, passes, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <int PAT>
 int launch_strip(const float* x, const int32_t* w, float* out, int rows,
-                 int cols, int S, int lg, int passes, cudaStream_t st) {
+                 int cols, int S, int lg, int threads, int passes,
+                 cudaStream_t st) {
   static size_t allowed = 0;
-  const size_t cells = (size_t)S << lg;
-  const size_t smem = cells * (2 * sizeof(float) + (PAT == kSlot ? 1 : 0));
-  const cudaError_t err = allow_smem(strip_loop_kernel<PAT>, smem, &allowed);
+  const size_t n = (size_t)S << lg;
+  if (S < 2 || S & 1 || rows % S || threads < 32 || threads > 1024 ||
+      n > (size_t)kStripE * threads)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * n * sizeof(float);
+  const cudaError_t err = allow_smem(strip_kernel<PAT>, smem, &allowed);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(((cols >> lg) + ((cols & ((1 << lg) - 1)) != 0)),
-                  (rows + S - 1) / S);
-  strip_loop_kernel<PAT><<<grid, kThreads, smem, st>>>(x, w, out, rows, cols, S,
-                                                       lg, passes);
+  const dim3 grid((cols + (1 << lg) - 1) >> lg, rows / S);
+  strip_kernel<PAT><<<grid, threads, smem, st>>>(x, w, out, cols, S, lg,
+                                                 passes);
+  return (int)cudaGetLastError();
+}
+
+template <int PAT>
+int launch_strip_cluster(const float* x, const int32_t* w, float* out,
+                         int rows, int cols, int S, int threads, int passes,
+                         cudaStream_t st) {
+  static size_t allowed = 0;
+  if (S < 2 || S & 1 || rows % S || threads < 32 || threads > 1024 ||
+      S > kClusterE * threads)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)S * sizeof(float);
+  const cudaError_t err =
+      allow_smem(strip_cluster_kernel<PAT>, smem, &allowed);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((cols + kClusterCols - 1) / kClusterCols * kClusterCols,
+                     rows / S);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterCols;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t launched =
+      cudaLaunchKernelEx(&cfg, strip_cluster_kernel<PAT>, x, w, out, cols, S,
+                         passes);
+  return (int)(launched != cudaSuccess ? launched : cudaGetLastError());
+}
+
+template <int S>
+int launch_slot_regs(const float* x, const int32_t* w, float* out, int rows,
+                     int cols, int passes, cudaStream_t st) {
+  const int64_t threads = (int64_t)(rows / S) * cols;
+  slot_regs_kernel<S><<<(unsigned)((threads + kSlotThreads - 1) /
+                                   kSlotThreads),
+                        kSlotThreads, 0, st>>>(x, w, out, rows, cols, passes);
   return (int)cudaGetLastError();
 }
 
@@ -844,26 +1294,99 @@ int rt_probe_code(const char* name) {
   return -1;
 }
 
-// x, out (rows, cols) f32; shifts (8,) i32 (kDynRoll only, else unused).
-int rt_p1_point(int pat, const void* x, const void* shifts, void* out,
-                int rows, int cols, int reps, void* stream) {
+// P1 add: x, out (rows, cols) f32, one thread an element.
+int rt_p1_add(const void* x, void* out, int rows, int cols, int reps,
+              void* stream) {
+  const int n = rows * cols;
+  p1_add_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, n, reps);
+  return (int)cudaGetLastError();
+}
+
+// P1 roll_lanes, stride_roll (passes = reps) and barrel (passes <= 31
+// steps): x, out (rows, cols) f32, one row a warp in shared memory, V
+// (1, 2, 4, 8, 12, 16, 24 or 32, 32 V >= cols) values a lane.
+int rt_lane_row(int pat, const void* x, void* out, int rows, int cols, int V,
+                int passes, void* stream) {
   const auto* xs = (const float*)x;
-  const auto* sh = (const int32_t*)shifts;
   auto* o = (float*)out;
-  const unsigned grid = blocks_for((int64_t)rows * cols);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (pat) {
-#define P1_CASE(P)                                                           \
-  case P:                                                                    \
-    p1_point_kernel<P><<<grid, kThreads, 0, st>>>(xs, sh, o, rows, cols, reps); \
+    case kRollLanes:
+      return launch_lane_width<kRollLanes>(xs, o, rows, cols, V, passes, st);
+    case kStrideRoll:
+      return launch_lane_width<kStrideRoll>(xs, o, rows, cols, V, passes, st);
+    case kBarrel:
+      if (passes > 31) return (int)cudaErrorInvalidValue;
+      return launch_lane_width<kBarrel>(xs, o, rows, cols, V, passes, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// P1 roll_rows: x, out (rows, cols) f32; smax (< rows) at least every
+// shift (5 i + 1) mod rows, i < reps.
+int rt_row_window(const void* x, void* out, int rows, int cols, int reps,
+                  int smax, void* stream) {
+  static size_t allowed = 0;
+  if (smax < 0 || smax >= rows) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(kWinTile + smax) * 32 * sizeof(float);
+  const cudaError_t err = allow_smem(row_window_kernel, smem, &allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((cols + 31) / 32, (rows + kWinTile - 1) / kWinTile);
+  row_window_kernel<<<grid, kWinWarps * 32, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, rows, cols, reps, smax);
+  return (int)cudaGetLastError();
+}
+
+// P1 dynroll: x, out (rows, cols) f32, shifts (8,) i32.
+int rt_dynroll(const void* x, const void* shifts, void* out, int rows,
+               int cols, int reps, void* stream) {
+  dynroll_kernel<<<blocks_for((int64_t)rows * cols), kThreads, 0,
+                   (cudaStream_t)stream>>>((const float*)x,
+                                           (const int32_t*)shifts,
+                                           (float*)out, rows, cols, reps);
+  return (int)cudaGetLastError();
+}
+
+// P1 select: x, out (rows, cols) f32, K (1, 2, 4 or 8) rows a thread.
+int rt_p1_select(const void* x, void* out, int rows, int cols, int K,
+                 int reps, void* stream) {
+  const auto* xs = (const float*)x;
+  auto* o = (float*)out;
+  const unsigned grid = blocks_for((int64_t)((rows + K - 1) / K) * cols);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (K) {
+#define SEL_CASE(KK)                                                          \
+  case KK:                                                                    \
+    p1_select_kernel<KK><<<grid, kThreads, 0, st>>>(xs, o, rows, cols, reps); \
     break;
-    P1_CASE(kAdd)
-    P1_CASE(kRollLanes)
-    P1_CASE(kRollRows)
-    P1_CASE(kSelect)
-    P1_CASE(kDynRoll)
-    P1_CASE(kStrideRoll)
-#undef P1_CASE
+    SEL_CASE(1)
+    SEL_CASE(2)
+    SEL_CASE(4)
+    SEL_CASE(8)
+#undef SEL_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// P1 parity select: x, out (rows, cols) f32, K (2, 4 or 8) rows a thread.
+int rt_pair(const void* x, void* out, int rows, int cols, int K, int passes,
+            void* stream) {
+  const auto* xs = (const float*)x;
+  auto* o = (float*)out;
+  const unsigned grid = blocks_for((int64_t)((rows + K - 1) / K) * cols);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (K) {
+#define PAIR_CASE(KK)                                                        \
+  case KK:                                                                   \
+    pair_kernel<KK><<<grid, kThreads, 0, st>>>(xs, o, rows, cols, passes);   \
+    break;
+    PAIR_CASE(2)
+    PAIR_CASE(4)
+    PAIR_CASE(8)
+#undef PAIR_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -945,39 +1468,77 @@ int rt_column(const void* x, void* out, int rows, int cols, int R, int niter,
   return (int)cudaGetLastError();
 }
 
-// P1 barrel: x, out (rows, cols) f32; `tr` rows a block.
-int rt_lane_loop(const void* x, void* out, int rows, int cols, int tr,
-                 int passes, void* stream) {
-  static size_t allowed = 0;
-  const size_t smem = 2 * (size_t)tr * cols * sizeof(float);
-  const cudaError_t err = allow_smem(lane_loop_kernel, smem, &allowed);
-  if (err != cudaSuccess) return (int)err;
-  lane_loop_kernel<<<(rows + tr - 1) / tr, kLaneThreads, smem,
-                     (cudaStream_t)stream>>>((const float*)x, (float*)out,
-                                             rows, cols, tr, passes);
-  return (int)cudaGetLastError();
-}
-
-// x, out (rows, cols) f32; w (rows, cols) i32 (kSlot only, else unused);
-// groups of S rows, strips of 1 << lg columns.
-int rt_strip_loop(int pat, const void* x, const void* w, void* out, int rows,
-                  int cols, int S, int lg, int passes, void* stream) {
+// P1 interleave, repeat_tpu, P3 slot: x, out (rows, cols) f32; w (rows,
+// cols) i32 (kSlot only, else unused); groups of S (even, dividing rows)
+// rows, strips of 1 << lg columns, `threads` threads a block holding at
+// most kStripE elements each.
+int rt_strip(int pat, const void* x, const void* w, void* out, int rows,
+             int cols, int S, int lg, int threads, int passes, void* stream) {
   const auto* xs = (const float*)x;
   const auto* ws = (const int32_t*)w;
   auto* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (pat) {
     case kInterleave:
-      return launch_strip<kInterleave>(xs, ws, o, rows, cols, S, lg, passes, st);
+      return launch_strip<kInterleave>(xs, ws, o, rows, cols, S, lg, threads,
+                                       passes, st);
     case kRepeatTpu:
-      return launch_strip<kRepeatTpu>(xs, ws, o, rows, cols, S, lg, passes, st);
-    case kParity:
-      return launch_strip<kParity>(xs, ws, o, rows, cols, S, lg, passes, st);
+      return launch_strip<kRepeatTpu>(xs, ws, o, rows, cols, S, lg, threads,
+                                      passes, st);
     case kSlot:
-      return launch_strip<kSlot>(xs, ws, o, rows, cols, S, lg, passes, st);
+      return launch_strip<kSlot>(xs, ws, o, rows, cols, S, lg, threads,
+                                 passes, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The same patterns one column a block, in clusters of kClusterCols
+// blocks (strip_cluster_kernel): `threads` threads a block holding at most
+// kClusterE elements each.
+int rt_strip_cluster(int pat, const void* x, const void* w, void* out,
+                     int rows, int cols, int S, int threads, int passes,
+                     void* stream) {
+  const auto* xs = (const float*)x;
+  const auto* ws = (const int32_t*)w;
+  auto* o = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (pat) {
+    case kInterleave:
+      return launch_strip_cluster<kInterleave>(xs, ws, o, rows, cols, S,
+                                               threads, passes, st);
+    case kRepeatTpu:
+      return launch_strip_cluster<kRepeatTpu>(xs, ws, o, rows, cols, S,
+                                              threads, passes, st);
+    case kSlot:
+      return launch_strip_cluster<kSlot>(xs, ws, o, rows, cols, S, threads,
+                                         passes, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// P3 slot levels of S = 12, 24 or 48 rows (dividing rows) in registers: x,
+// out (rows, cols) f32, w (rows, cols) i32.
+int rt_slot_regs(const void* x, const void* w, void* out, int rows, int cols,
+                 int S, int passes, void* stream) {
+  const auto* xs = (const float*)x;
+  const auto* ws = (const int32_t*)w;
+  auto* o = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (rows % S) return (int)cudaErrorInvalidValue;
+  switch (S) {
+    case 12: return launch_slot_regs<12>(xs, ws, o, rows, cols, passes, st);
+    case 24: return launch_slot_regs<24>(xs, ws, o, rows, cols, passes, st);
+    case 48: return launch_slot_regs<48>(xs, ws, o, rows, cols, passes, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// empty_kernel on `blocks` x `threads` threads.
+int rt_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 
 // mma_rate_kernel: `blocks` x `threads` threads, out (blocks * threads,)

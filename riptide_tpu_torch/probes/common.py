@@ -9,7 +9,9 @@ output with ``torch.empty`` and launches on the current stream, or
 raises (ValueError for an operand or shape the kernel does not take,
 RuntimeError for a failed build or launch). The probe modules' wrappers
 call them only for CUDA tensors and count their own launches
-(:func:`count`).
+(:func:`count`); :data:`KERNEL_LAUNCHES` counts the launches of each
+CUDA kernel of ``probes.cu``, so a run shows which kernels a pattern
+went through.
 """
 import ctypes
 import statistics
@@ -21,11 +23,14 @@ from ..utils import cuda_build, measure
 from ..utils.cuda_build import MAX_DYNAMIC_SMEM
 
 __all__ = ["SOURCE", "LIB", "BUILD_INFO", "Result", "count", "time_call",
-           "format_result", "device_name", "p1_point", "p2_add", "p2_select",
-           "row_warp", "column", "lane_loop", "strip_loop", "tf32x3_gemm",
-           "lane_rows", "strip_log2", "select_rows", "row_values",
-           "column_rows", "gemm_grid", "mma_tf32_tflops", "ROW_WIDTHS",
-           "GEMM_TILE"]
+           "format_result", "device_name", "p1_add", "lane_row",
+           "row_window", "dynroll", "p1_select", "pair", "strip",
+           "slot_regs", "p2_add", "p2_select", "row_warp", "column",
+           "tf32x3_gemm", "lane_values", "window_shift", "pair_rows",
+           "strip_tile", "select_rows", "row_values", "column_rows",
+           "gemm_grid", "mma_tf32_tflops", "launch_floor_ms",
+           "KERNEL_LAUNCHES", "reset_kernel_launches", "ROW_WIDTHS",
+           "LANE_VALUES", "SLOT_REG_LEVELS", "GEMM_TILE"]
 
 SOURCE = cuda_build.CSRC / "probes.cu"
 # Calls of a pattern that :func:`time_call` times, and the replays of
@@ -36,43 +41,78 @@ CALLS, REPLAYS = 8, 3
 SM_COUNT = 132
 # The shapes probes.cu's kernels are built for (its launchers refuse
 # others): row widths of ``row_warp_kernel`` (32 V columns, V values a
-# lane in registers; launch_row_width), rows a thread of
-# ``column_kernel`` (R dividing the rows, at most 1024 threads a column;
-# rt_column) and of ``p2_select_kernel`` (rt_p2_select; the largest
-# that leaves two warps for each of an SM's four schedulers), and
-# ``tf32x3_gemm_kernel``'s block tile (kGM, kGN and kGK: M, N, K depth
-# a stage).
+# lane in registers; launch_row_width); values a lane of
+# ``lane_row_kernel`` (one row a warp in shared memory, 32 V >= cols;
+# launch_lane_width); the output tile of ``row_window_kernel`` (kWinTile
+# rows of 32 columns); rows a thread of ``column_kernel`` (R dividing
+# the rows, at most 1024 threads a column; rt_column), of
+# ``p2_select_kernel`` and ``p1_select_kernel`` (rt_p2_select,
+# rt_p1_select; the largest that leaves two warps for each of an SM's
+# four schedulers) and of ``pair_kernel`` (rt_pair, even); the most
+# elements a thread of ``strip_kernel`` and ``strip_cluster_kernel``
+# (kStripE, kClusterE: of 4 and 8, each kernel's faster on an H100) and
+# their most threads; the slot levels ``slot_regs_kernel`` holds in
+# registers (rt_slot_regs); and ``tf32x3_gemm_kernel``'s block tile (kGM,
+# kGN and kGK: M, N, K depth a stage).
 ROW_WIDTHS = (32, 64, 128, 256, 384)
+LANE_VALUES = (1, 2, 4, 8, 12, 16, 24, 32)
+WINDOW_TILE = 64
 COLUMN_ROWS, COLUMN_THREADS = (16, 8, 4, 2, 1), 1024
 SELECT_ROWS = (8, 4, 2, 1)
+PAIR_ROWS = (8, 4, 2)
+STRIP_ELEMS, CLUSTER_ELEMS, STRIP_THREADS = 4, 8, 1024
+SLOT_REG_LEVELS = (12, 24, 48)
 GEMM_TILE = (64, 96, 64)
 
-_PATTERNS = ("p1.add", "p1.roll_lanes", "p1.roll_rows", "p1.select",
-             "p1.dynroll", "p1.stride_roll", "p1.barrel", "p1.interleave",
-             "p1.repeat_tpu", "p1.repeat_flat", "p2.add", "p2.select",
-             "p2.roll1", "p2.dynroll", "p2.barrelbit", "p2.rollrow",
+# The patterns a launcher takes by code (rt_probe_code).
+_PATTERNS = ("p1.roll_lanes", "p1.stride_roll", "p1.barrel", "p1.interleave",
+             "p1.repeat_tpu", "p2.roll1", "p2.dynroll", "p2.barrelbit",
              "p3.slot")
 _CODES = {}
+# Launcher -> the CUDA kernel it launches (rt_mma_rate, a measurement of
+# the card, is not counted).
+_KERNELS = {"rt_p1_add": "p1_add_kernel", "rt_lane_row": "lane_row_kernel",
+            "rt_row_window": "row_window_kernel",
+            "rt_dynroll": "dynroll_kernel",
+            "rt_p1_select": "p1_select_kernel", "rt_pair": "pair_kernel",
+            "rt_strip": "strip_kernel",
+            "rt_strip_cluster": "strip_cluster_kernel",
+            "rt_slot_regs": "slot_regs_kernel",
+            "rt_p2_add": "p2_add_kernel", "rt_p2_select": "p2_select_kernel",
+            "rt_row_warp": "row_warp_kernel", "rt_column": "column_kernel",
+            "rt_tf32x3_gemm": "tf32x3_gemm_kernel"}
+KERNEL_LAUNCHES = {k: 0 for k in _KERNELS.values()}
+
+
+def reset_kernel_launches():
+    """Set every kernel's launch count to 0."""
+    for k in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[k] = 0
 
 
 def _bind(lib):
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rt_probe_code.argtypes = [ctypes.c_char_p]
-    lib.rt_p1_point.argtypes = [i32, vp, vp, vp, i32, i32, i32, vp]
+    lib.rt_p1_add.argtypes = [vp, vp, i32, i32, i32, vp]
+    lib.rt_lane_row.argtypes = [i32, vp, vp, i32, i32, i32, i32, vp]
+    lib.rt_row_window.argtypes = [vp, vp, i32, i32, i32, i32, vp]
+    lib.rt_dynroll.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.rt_p1_select.argtypes = [vp, vp, i32, i32, i32, i32, vp]
+    lib.rt_pair.argtypes = [vp, vp, i32, i32, i32, i32, vp]
+    lib.rt_strip.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                             vp]
+    lib.rt_strip_cluster.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32,
+                                     i32, vp]
+    lib.rt_slot_regs.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.rt_p2_add.argtypes = [vp, vp, i32, i32, i32, vp]
     lib.rt_p2_select.argtypes = [vp, vp, i32, i32, i32, i32, vp]
     lib.rt_row_warp.argtypes = [i32, vp, vp, i32, i32, i32, vp]
     lib.rt_column.argtypes = [vp, vp, i32, i32, i32, i32, vp]
-    lib.rt_lane_loop.argtypes = [vp, vp, i32, i32, i32, i32, vp]
-    lib.rt_strip_loop.argtypes = [i32, vp, vp, vp, i32, i32, i32, i32, i32,
-                                  vp]
     lib.rt_tf32x3_gemm.argtypes = [vp, vp, vp, i32, i32, i32, f32, f32, vp]
     lib.rt_mma_rate.argtypes = [vp, i32, i32, i32, vp]
-    for fn in (lib.rt_probe_code, lib.rt_p1_point, lib.rt_p2_add,
-               lib.rt_p2_select, lib.rt_row_warp, lib.rt_column,
-               lib.rt_lane_loop, lib.rt_strip_loop, lib.rt_tf32x3_gemm,
-               lib.rt_mma_rate):
-        fn.restype = i32
+    lib.rt_empty.argtypes = [i32, i32, vp]
+    for fn in ("rt_probe_code", "rt_mma_rate", "rt_empty", *_KERNELS):
+        getattr(lib, fn).restype = i32
     for name in _PATTERNS:
         code = lib.rt_probe_code(name.encode())
         if code < 0:
@@ -88,6 +128,8 @@ BUILD_INFO = LIB.info
 def _launch(fn, dev, *args):
     lib = LIB.load()
     cuda_build.check(lib, fn, getattr(lib, fn)(*args, cuda_build.stream(dev)))
+    if fn in _KERNELS:
+        count(KERNEL_LAUNCHES, _KERNELS[fn])
 
 
 # ---------------------------------------------------------------------------
@@ -111,38 +153,66 @@ def check_count(n, name):
     return int(n)
 
 
-def lane_rows(rows, cols):
-    """Rows per block of ``lane_loop_kernel``: up to 8 whole rows (two
-    float32 buffers of them in shared memory), fewer while that leaves
-    under two blocks per SM. Raises ValueError when one row's two buffers
-    exceed the shared memory a block may have."""
-    if 2 * cols * 4 > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"{cols} columns: two rows of them need "
-                         f"{2 * cols * 4} bytes of shared memory, at most "
-                         f"{MAX_DYNAMIC_SMEM}")
-    tr = 8
-    while tr > 1 and (2 * tr * cols * 4 > MAX_DYNAMIC_SMEM
-                      or -(-rows // tr) < 2 * SM_COUNT):
-        tr //= 2
-    return tr
+def lane_values(cols):
+    """Values a lane of ``lane_row_kernel`` (one row a warp in shared
+    memory, lane l holding columns l + 32 j): the least of
+    :data:`LANE_VALUES` with 32 V >= cols. Raises ValueError for a row
+    wider than 32 * 32 columns."""
+    if not 1 <= cols <= 32 * LANE_VALUES[-1]:
+        raise ValueError(f"{cols} columns: one row a warp in shared memory "
+                         f"takes 1 to {32 * LANE_VALUES[-1]}")
+    return next(v for v in LANE_VALUES if 32 * v >= cols)
 
 
-def strip_log2(rows, cols, S, cell_bytes=8):
-    """log2 of the columns per block of ``strip_loop_kernel`` for groups
-    of S rows with ``cell_bytes`` of shared memory per element: up to 32
-    columns, fewer while the strip exceeds shared memory or the grid has
-    under two blocks per SM. Raises ValueError when one column of a group
-    exceeds the shared memory a block may have."""
-    if S * cell_bytes > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"a group of {S} rows needs {S * cell_bytes} bytes "
-                         f"of shared memory per column, at most "
-                         f"{MAX_DYNAMIC_SMEM}")
-    groups = -(-rows // S)
+def window_shift(rows, reps):
+    """The largest row shift (5 i + 1) mod rows, i < reps, of P1's
+    roll_rows (0 for none): ``row_window_kernel``'s window holds
+    :data:`WINDOW_TILE` + that many rows of 32 columns. Raises ValueError
+    when the window exceeds the shared memory a block may have."""
+    smax = max(((5 * i + 1) % rows for i in range(reps)), default=0)
+    if (WINDOW_TILE + smax) * 32 * 4 > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{rows} rows at {reps} repetitions: a window of "
+                         f"{WINDOW_TILE + smax} rows needs "
+                         f"{(WINDOW_TILE + smax) * 128} bytes of shared "
+                         f"memory, at most {MAX_DYNAMIC_SMEM}")
+    return smax
+
+
+def pair_rows(rows, cols):
+    """Rows per thread of ``pair_kernel`` (even, so a thread holds whole
+    row pairs): the largest of :data:`PAIR_ROWS` whose grid still has two
+    warps for each of the SMs' four schedulers (2 when none has)."""
+    for k in PAIR_ROWS:
+        if -(-rows // k) * cols >= 2 * 4 * 32 * SM_COUNT:
+            return k
+    return PAIR_ROWS[-1]
+
+
+def strip_tile(rows, cols, S):
+    """(log2 of the columns a block, threads a block, cluster) of the
+    row-group kernels for groups of S rows: up to 32 columns a block,
+    fewer while the grid has under two blocks per SM or the strip's S *
+    2**lg elements exceed :data:`STRIP_ELEMS` a thread of
+    :data:`STRIP_THREADS`. A strip of one column (lg 0) runs in
+    ``strip_cluster_kernel`` (cluster True, :data:`CLUSTER_ELEMS` a
+    thread), whose clusters of 8 blocks load and store 8 columns
+    together, a whole 32-byte sector of a row; wider strips in
+    ``strip_kernel``. The threads are a whole number of warps. Raises
+    ValueError for an odd S, an S that does not divide the rows, or one
+    column of a group past :data:`CLUSTER_ELEMS` elements a thread of
+    :data:`STRIP_THREADS`."""
+    if S < 2 or S % 2 or rows % S:
+        raise ValueError(f"groups of S = {S} rows: want an even S that "
+                         f"divides the {rows} rows")
+    if S > CLUSTER_ELEMS * STRIP_THREADS:
+        raise ValueError(f"a group of {S} rows: a block holds at most "
+                         f"{CLUSTER_ELEMS * STRIP_THREADS} elements")
     lg = 5
-    while lg > 0 and ((S * cell_bytes << lg) > MAX_DYNAMIC_SMEM
-                      or -(-cols >> lg) * groups < 2 * SM_COUNT):
+    while lg > 0 and ((S << lg) > STRIP_ELEMS * STRIP_THREADS
+                      or -(-cols >> lg) * (rows // S) < 2 * SM_COUNT):
         lg -= 1
-    return lg
+    per = CLUSTER_ELEMS if lg == 0 else STRIP_ELEMS
+    return lg, -(-(S << lg) // (32 * per)) * 32, lg == 0
 
 
 def select_rows(rows, cols):
@@ -187,16 +257,115 @@ def gemm_grid(M, N):
 # Launchers (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-def p1_point(pattern, x, reps, shifts=None):
-    """``p1_point_kernel``: one thread per element, ``reps`` terms."""
+def p1_add(x, reps):
+    """``p1_add_kernel``: one thread per element, ``reps`` terms."""
     rows, cols = check_matrix(x)
     reps = check_count(reps, "reps")
-    if shifts is not None:
-        cuda_build.require(shifts, "shifts", torch.int32, x.device, (8,))
     out = torch.empty_like(x)
-    _launch("rt_p1_point", x.device, _code(pattern), x.data_ptr(),
-            None if shifts is None else shifts.data_ptr(), out.data_ptr(),
-            rows, cols, reps)
+    _launch("rt_p1_add", x.device, x.data_ptr(), out.data_ptr(), rows, cols,
+            reps)
+    return out
+
+
+def lane_row(pattern, x, passes):
+    """``lane_row_kernel``: one row a warp in shared memory, ``passes``
+    terms (``p1.roll_lanes``, ``p1.stride_roll``) or steps (``p1.barrel``,
+    at most 31); see :func:`lane_values`."""
+    rows, cols = check_matrix(x)
+    passes = check_count(passes, "passes")
+    V = lane_values(cols)
+    if pattern == "p1.barrel" and passes > 31:
+        raise ValueError(f"{passes} barrel steps: at most 31")
+    out = torch.empty_like(x)
+    _launch("rt_lane_row", x.device, _code(pattern), x.data_ptr(),
+            out.data_ptr(), rows, cols, V, passes)
+    return out
+
+
+def row_window(x, reps):
+    """``row_window_kernel``: P1's roll_rows, ``reps`` terms from a window
+    of each column strip in shared memory (:func:`window_shift`)."""
+    rows, cols = check_matrix(x)
+    reps = check_count(reps, "reps")
+    smax = window_shift(rows, reps)
+    out = torch.empty_like(x)
+    _launch("rt_row_window", x.device, x.data_ptr(), out.data_ptr(), rows,
+            cols, reps, smax)
+    return out
+
+
+def dynroll(x, shifts, reps):
+    """``dynroll_kernel``: P1's dynroll, ``shifts`` (8,) int32 on x's
+    device; an element's eight sources in registers."""
+    rows, cols = check_matrix(x)
+    reps = check_count(reps, "reps")
+    cuda_build.require(shifts, "shifts", torch.int32, x.device, (8,))
+    out = torch.empty_like(x)
+    _launch("rt_dynroll", x.device, x.data_ptr(), shifts.data_ptr(),
+            out.data_ptr(), rows, cols, reps)
+    return out
+
+
+def p1_select(x, reps):
+    """``p1_select_kernel``: :func:`select_rows` rows of one column a
+    thread, ``reps`` repetitions of P1's select."""
+    rows, cols = check_matrix(x)
+    reps = check_count(reps, "reps")
+    out = torch.empty_like(x)
+    _launch("rt_p1_select", x.device, x.data_ptr(), out.data_ptr(), rows,
+            cols, select_rows(rows, cols), reps)
+    return out
+
+
+def pair(x, passes):
+    """``pair_kernel``: :func:`pair_rows` rows (whole row pairs) of one
+    column a thread, ``passes`` passes of P1's parity select."""
+    rows, cols = check_matrix(x)
+    passes = check_count(passes, "passes")
+    out = torch.empty_like(x)
+    _launch("rt_pair", x.device, x.data_ptr(), out.data_ptr(), rows, cols,
+            pair_rows(rows, cols), passes)
+    return out
+
+
+def strip(pattern, x, S, passes, w=None):
+    """``strip_kernel`` or ``strip_cluster_kernel``: groups of S rows
+    (even, dividing the rows) in column strips in shared memory
+    (:func:`strip_tile`), ``passes``
+    passes of ``p1.interleave``, ``p1.repeat_tpu`` or ``p3.slot`` (with
+    ``w`` (rows, cols) int32)."""
+    rows, cols = check_matrix(x)
+    passes = check_count(passes, "passes")
+    if int(S) != S:
+        raise ValueError(f"groups of S = {S!r} rows: want an integer")
+    if (w is None) != (pattern != "p3.slot"):
+        raise ValueError(f"{pattern}: w is taken by p3.slot alone")
+    if w is not None:
+        cuda_build.require(w, "w", torch.int32, x.device, (rows, cols))
+    lg, threads, cluster = strip_tile(rows, cols, int(S))
+    out = torch.empty_like(x)
+    ptrs = (_code(pattern), x.data_ptr(), None if w is None else w.data_ptr(),
+            out.data_ptr(), rows, cols, int(S))
+    if cluster:
+        _launch("rt_strip_cluster", x.device, *ptrs, threads, passes)
+    else:
+        _launch("rt_strip", x.device, *ptrs, lg, threads, passes)
+    return out
+
+
+def slot_regs(x, w, S, passes):
+    """``slot_regs_kernel``: a slot level of S rows (one of
+    :data:`SLOT_REG_LEVELS`, dividing the rows) held in registers, one
+    thread a group column, ``passes`` passes."""
+    rows, cols = check_matrix(x)
+    passes = check_count(passes, "passes")
+    cuda_build.require(w, "w", torch.int32, x.device, (rows, cols))
+    if S not in SLOT_REG_LEVELS or rows % S:
+        raise ValueError(f"slot level S_d = {S}: registers take "
+                         f"{SLOT_REG_LEVELS}, dividing the {rows} rows")
+    out = torch.empty_like(x)
+    _launch("rt_slot_regs", x.device, x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), rows, cols, S, passes)
     return out
 
 
@@ -246,38 +415,6 @@ def column(x, niter):
     return out
 
 
-def lane_loop(x, passes):
-    """``lane_loop_kernel``: whole rows in shared memory, ``passes``
-    steps of P1's barrel."""
-    rows, cols = check_matrix(x)
-    passes = check_count(passes, "passes")
-    tr = lane_rows(rows, cols)
-    out = torch.empty_like(x)
-    _launch("rt_lane_loop", x.device, x.data_ptr(), out.data_ptr(), rows,
-            cols, tr, passes)
-    return out
-
-
-def strip_loop(pattern, x, S, passes, w=None):
-    """``strip_loop_kernel``: groups of S rows (the last may be short) in
-    column strips in shared memory, ``passes`` passes. ``w`` (rows, cols)
-    int32 for ``p3.slot``. The caller sees to the grouping its pattern
-    needs (S even and dividing the rows for the interleaves and
-    ``p3.slot``)."""
-    rows, cols = check_matrix(x)
-    passes = check_count(passes, "passes")
-    if int(S) != S or S < 1:
-        raise ValueError(f"groups of S = {S!r} rows: want an integer >= 1")
-    if w is not None:
-        cuda_build.require(w, "w", torch.int32, x.device, (rows, cols))
-    lg = strip_log2(rows, cols, S, 9 if w is not None else 8)
-    out = torch.empty_like(x)
-    _launch("rt_strip_loop", x.device, _code(pattern), x.data_ptr(),
-            None if w is None else w.data_ptr(), out.data_ptr(), rows, cols,
-            S, lg, passes)
-    return out
-
-
 def tf32x3_gemm(a, b, alpha, beta):
     """``tf32x3_gemm_kernel``: (a @ b) * alpha + beta for float32 a (M, K)
     and b (K, N), any sizes, on the tensor cores in 3xTF32."""
@@ -307,6 +444,15 @@ def mma_tf32_tflops(dev, iters=4096, warps=8):
     run(16)
     _, ms = measure.timed(lambda: run(iters), dev)
     return blocks * warps * iters * 12 * 2 * 16 * 8 * 8 / (ms * 1e-3) / 1e12
+
+
+def launch_floor_ms(dev, blocks=1, threads=32):
+    """Device ms of one launch of an empty kernel (``empty_kernel``, on
+    ``blocks`` x ``threads`` threads), timed as the patterns are
+    (:func:`time_call`: calls replayed in a CUDA graph): the floor under
+    a pattern's time."""
+    return time_call(lambda: _launch("rt_empty", dev, blocks, threads),
+                     dev)[1]
 
 
 def _code(pattern):

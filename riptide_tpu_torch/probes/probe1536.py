@@ -13,12 +13,15 @@ halves of S_c = S_d / 2 rows. One pass of a level is::
 with delta = da - 2 for da = (w >> 22) & 3 in {0, 1, 3} and delta = 0
 for da = 2: the interleave of the two halves, the delta select of the
 head and the add. :func:`slot_level` runs NITER = 32 passes in one
-launch of ``strip_loop_kernel`` (``csrc/probes.cu``): every pass is
-column-local, so column strips of a whole group stay in shared memory
-for all passes, at every level up to S_d = 1536. The pass is one
-gather and one add, so the card's result is exact, and each level is
-held bit for bit against :func:`numpy_ref`, the tool's own numpy
-sequence (copied here), as the tool does::
+launch (``csrc/probes.cu``): every pass is column-local and its gather
+map is the same in every pass, so each source row is computed once.
+The levels of :data:`~.common.SLOT_REG_LEVELS` (S_d = 12, 24, 48) run
+in ``slot_regs_kernel``, one thread a group column with all S_d rows in
+registers; the others in ``strip_kernel``, column strips of a whole
+group in shared memory for all passes, up to S_d = 1536 (8192). The
+pass is one gather and one add, so the card's result is exact, and each
+level is held bit for bit against :func:`numpy_ref`, the tool's own
+numpy sequence (copied here), as the tool does::
 
     python -m riptide_tpu_torch.probes.probe1536
 
@@ -93,11 +96,16 @@ def slot_level_plain(x, w, S_d, niter=NITER):
 
 def slot_level(x, w, S_d, niter=NITER):
     """``niter`` passes of the slot level of S_d rows on x (R, P) float32
-    with w (R, P) int32, in one launch."""
+    with w (R, P) int32, in one launch: ``slot_regs_kernel`` for the
+    levels of :data:`~.common.SLOT_REG_LEVELS`, ``strip_kernel`` for the
+    others."""
     if x.device.type == "cpu":
         return slot_level_plain(x, w, S_d, niter)
     _check_level(x.shape[0], S_d)
-    out = common.strip_loop("p3.slot", x, S_d, niter, w)
+    if S_d in common.SLOT_REG_LEVELS:
+        out = common.slot_regs(x, w, S_d, niter)
+    else:
+        out = common.strip("p3.slot", x, S_d, niter, w)
     common.count(LAUNCHES, "slot_level")
     return out
 

@@ -4,29 +4,38 @@ P1: the card's time for the primitive patterns of the fused FFA kernel.
 The port of ``tools/ptime.py`` (Pallas program built at :82,
 ``pallas_call`` :86). Each pattern repeats one primitive REPS = 32 times
 over a (ROWS, P) = (2048, 384) float32 buffer, as the JAX tool's kernel
-bodies do, in one hand-written CUDA kernel of ``csrc/probes.cu``:
+bodies do, in one launch of a hand-written CUDA kernel of
+``csrc/probes.cu`` (named beside each wrapper below):
 
 ==============  =========================  ================================
-wrapper         JAX body (tools/ptime.py)  one repetition i
+wrapper         JAX body (tools/ptime.py)  one repetition i; kernel
 ==============  =========================  ================================
-add             kern_add :137,             acc = acc * 1.0001 + x
-                make_tile_add :97
-roll_lanes      kern_roll :27,             acc += roll(x, (7i + 1) % P, 1)
-                make_tile_roll :107
-roll_rows       kern_roll_rows :35         acc += roll(x, (5i + 1) % ROWS, 0)
+add             kern_add :137,             acc = acc * 1.0001 + x;
+                make_tile_add :97          p1_add_kernel
+roll_lanes      kern_roll :27,             acc += roll(x, (7i + 1) % P, 1);
+                make_tile_roll :107        lane_row_kernel
+roll_rows       kern_roll_rows :35         acc += roll(x, (5i + 1) % ROWS,
+                                           0); row_window_kernel
 select          kern_select :43            acc = where(col < 11i % P,
-                                           acc + 1, acc * 0.5)
+                                           acc + 1, acc * 0.5);
+                                           p1_select_kernel
 barrel          kern_barrel :52            step k < min(REPS, 9): rows with
-                                           bit k set take roll(acc, 2^k, 1)
+                                           bit k set take roll(acc, 2^k,
+                                           1); lane_row_kernel
 interleave      kern_interleave :62        8 row groups: row s of a group =
-                                           half0[s // 2] + half1[s // 2] + i
+                                           half0[s // 2] + half1[s // 2] +
+                                           i; strip_kernel
 repeat_tpu      kern_repeat_tpu :145       the same with pltpu.repeat, a
-                                           tile: half0[s % S_c] + ... + i
-repeat_flat     kern_repeat_flat :157      odd rows take the row above, + i
-dynroll         kern_dynroll :74           acc += roll(x, shifts[i % 8], 0)
+                                           tile: half0[s % S_c] + ... + i;
+                                           strip_kernel
+repeat_flat     kern_repeat_flat :157      odd rows take the row above, +
+                                           i; pair_kernel
+dynroll         kern_dynroll :74           acc += roll(x, shifts[i % 8],
+                                           0); dynroll_kernel
 stride_roll     kern_stride_roll :170      acc += x with row r rolled by
-                                           i % P + r
-matmul          kern_matmul :178           acc = (a @ acc) * 0.001 + i
+                                           i % P + r; lane_row_kernel
+matmul          kern_matmul :178           acc = (a @ acc) * 0.001 + i;
+                                           tf32x3_gemm_kernel
 ==============  =========================  ================================
 
 ``interleave`` and ``repeat_tpu`` make max(REPS // 8, 1) passes,
@@ -200,91 +209,95 @@ def matmul_plain(a, x, reps=REPS):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _point(kind, x, reps, shifts=None):
-    out = common.p1_point(f"p1.{kind}", x, reps, shifts)
+def _counted(kind, out):
     common.count(LAUNCHES, kind)
     return out
 
 
 def add(x, reps=REPS):
-    """``kern_add`` / ``make_tile_add`` on a (rows, cols) float32 tensor."""
+    """``kern_add`` / ``make_tile_add`` on a (rows, cols) float32 tensor:
+    one thread per element."""
     if x.device.type == "cpu":
         return add_plain(x, reps)
-    return _point("add", x, reps)
+    return _counted("add", common.p1_add(x, reps))
 
 
 def roll_lanes(x, reps=REPS):
-    """``kern_roll`` / ``make_tile_roll``."""
+    """``kern_roll`` / ``make_tile_roll``: one row a warp in shared
+    memory, every term read from there."""
     if x.device.type == "cpu":
         return roll_lanes_plain(x, reps)
-    return _point("roll_lanes", x, reps)
+    return _counted("roll_lanes", common.lane_row("p1.roll_lanes", x, reps))
 
 
 def roll_rows(x, reps=REPS):
-    """``kern_roll_rows``."""
+    """``kern_roll_rows``: every term from a window of the column strip
+    in shared memory."""
     if x.device.type == "cpu":
         return roll_rows_plain(x, reps)
-    return _point("roll_rows", x, reps)
+    return _counted("roll_rows", common.row_window(x, reps))
 
 
 def select(x, reps=REPS):
-    """``kern_select``."""
+    """``kern_select``: a few rows of one column a thread, one compare
+    against a running threshold a repetition."""
     if x.device.type == "cpu":
         return select_plain(x, reps)
-    return _point("select", x, reps)
+    return _counted("select", common.p1_select(x, reps))
 
 
 def dynroll(shifts, x, reps=REPS):
-    """``kern_dynroll``: ``shifts`` (8,) int32 on x's device."""
+    """``kern_dynroll``: ``shifts`` (8,) int32 on x's device; each
+    element's eight source values in registers."""
     if x.device.type == "cpu":
         return dynroll_plain(shifts, x, reps)
-    return _point("dynroll", x, reps, shifts)
+    return _counted("dynroll", common.dynroll(x, shifts, reps))
 
 
 def stride_roll(x, reps=REPS):
-    """``kern_stride_roll``."""
+    """``kern_stride_roll``: one row a warp in shared memory."""
     if x.device.type == "cpu":
         return stride_roll_plain(x, reps)
-    return _point("stride_roll", x, reps)
+    return _counted("stride_roll", common.lane_row("p1.stride_roll", x, reps))
 
 
 def barrel(x, reps=REPS):
-    """``kern_barrel``: min(reps, 9) masked roll steps, rows in shared
-    memory."""
+    """``kern_barrel``: min(reps, 9) masked roll steps, one row a warp in
+    shared memory."""
     if x.device.type == "cpu":
         return barrel_plain(x, reps)
-    out = common.lane_loop(x, _passes("barrel", reps))
-    common.count(LAUNCHES, "barrel")
-    return out
+    return _counted("barrel", common.lane_row("p1.barrel", x,
+                                              _passes("barrel", reps)))
 
 
-def _strip(kind, x, reps, S):
-    out = common.strip_loop(f"p1.{kind}", x, S, _passes(kind, reps))
-    common.count(LAUNCHES, kind)
-    return out
+def _strip(kind, x, reps):
+    return _counted(kind, common.strip(f"p1.{kind}", x,
+                                       _group_rows(x.shape[0]),
+                                       _passes(kind, reps)))
 
 
 def interleave(x, reps=REPS):
     """``kern_interleave``: each group's column strips in shared memory for
-    all passes."""
+    all passes, the gather map computed once."""
     if x.device.type == "cpu":
         return interleave_plain(x, reps)
-    return _strip("interleave", x, reps, _group_rows(x.shape[0]))
+    return _strip("interleave", x, reps)
 
 
 def repeat_tpu(x, reps=REPS):
     """``kern_repeat_tpu``."""
     if x.device.type == "cpu":
         return repeat_tpu_plain(x, reps)
-    return _strip("repeat_tpu", x, reps, _group_rows(x.shape[0]))
+    return _strip("repeat_tpu", x, reps)
 
 
 def repeat_flat(x, reps=REPS):
-    """``kern_repeat_flat``: row pairs never mix with other pairs, so any
-    even group of rows is a tile."""
+    """``kern_repeat_flat``: row pairs never mix with other pairs, so a
+    thread holds whole pairs of one column in registers."""
     if x.device.type == "cpu":
         return repeat_flat_plain(x, reps)
-    return _strip("repeat_flat", x, reps, 64)
+    return _counted("repeat_flat", common.pair(x, _passes("repeat_flat",
+                                                          reps)))
 
 
 def matmul(a, x, reps=REPS):

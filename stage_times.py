@@ -42,15 +42,22 @@ JSON object:
 
 ``--probes`` times the tree's chip probes instead of the search: P2's
 six bodies (``ptime2.BODIES``) at the JAX tool's four shapes and NITER
-(:data:`P2_SHAPES`, :data:`P2_NITER`), and P1's ``matmul`` (the four
+(:data:`P2_SHAPES`, :data:`P2_NITER`), P1's ``matmul`` (the four
 (2048, 2048) @ (2048, 384) products of ``tools/ptime.py``) beside four
-``torch.matmul`` calls in full float32, on inputs drawn here as the
-tools draw them. Each entry of ``probes`` ("p2.<body> RxC", "p1.matmul
-2048x384", "torch.matmul x4 2048x384") holds ``graph_ms`` and
-``wrapper_ms`` as above and ``sha256``, a digest of the output's bits
-(equal digests: the trees give the same bits); "mma.sync TF32 TFLOP/s",
-where the tree has it, is the tensor cores' rate for ``mma.sync`` TF32
-alone (``probes.common.mma_tf32_tflops``).
+``torch.matmul`` calls in full float32, P1's ten other patterns at
+(2048, 384) and REPS 32 (:data:`P1_PATTERNS`) and P3's eight slot levels
+of ``tools/probe1536.py`` (R 1536, P 384, NITER 32), on inputs drawn
+here as the tools draw them. Each entry of ``probes`` ("p2.<body> RxC",
+"p1.matmul 2048x384", "torch.matmul x4 2048x384", "p1.<pattern>
+2048x384", "p3.S_d=<S> 1536x384") holds ``graph_ms`` and ``sha256``, a
+digest of the output's bits (equal digests: the trees give the same
+bits); the P2 and matmul entries ``graph_ms`` and ``wrapper_ms`` as
+above, the P1 and P3 patterns ``graph_ms`` as the probes time them
+(:data:`GRAPH_CALLS` calls captured into one CUDA graph, the median of
+REPS replays over the calls: a launch of a few microseconds is not
+paced by one replay's overhead). "mma.sync TF32 TFLOP/s", where the tree
+has it, is the tensor cores' rate for ``mma.sync`` TF32 alone
+(``probes.common.mma_tf32_tflops``).
 
 Imports nothing of jax and nothing of the JAX package.
 """
@@ -73,6 +80,13 @@ LOOPS = 101
 P2_SHAPES = ((2048, 384), (1024, 384), (2048, 128), (256, 384))
 P2_NITER = 20000
 P1_ROWS, P1_COLS, P1_REPS = 2048, 384, 32
+# P1's patterns at (P1_ROWS, P1_COLS) other than the matmul (ptime.py
+# wrappers), and P3's shape and passes (tools/probe1536.py).
+P1_PATTERNS = ("add", "roll_lanes", "roll_rows", "select", "barrel",
+               "interleave", "repeat_tpu", "repeat_flat", "dynroll",
+               "stride_roll")
+P3_ROWS, P3_COLS, P3_DEPTH, P3_NITER = 1536, 384, 11, 32
+GRAPH_CALLS = 8
 
 
 def _load_smoke():
@@ -122,6 +136,24 @@ def _times(fn):
     return {"graph_ms": dev_ms, "wrapper_ms": wrapper}
 
 
+def _graph_ms(fn, calls=GRAPH_CALLS):
+    """Device ms of one ``fn()``: ``calls`` calls captured into one CUDA
+    graph, replayed once to warm up, then the median of REPS replays
+    between CUDA events, over ``calls``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    ms = statistics.median(_event_ms(graph.replay) for _ in range(REPS))
+    del graph
+    return ms / calls
+
+
 def _profile(fn):
     """Device time of ``fn()``'s kernels under torch.profiler: by kernel
     name (launches, ms) and the 8 slowest launches (position in launch
@@ -161,8 +193,9 @@ def main(argv=None):
                     help="also profile one D = 1 stage loop (and the K3 "
                          "calls) with torch.profiler")
     ap.add_argument("--probes", action="store_true",
-                    help="time the tree's P1 matmul and P2 bodies at the "
-                         "tools' shapes instead of the search")
+                    help="time the tree's P1 patterns, P2 bodies and P3 "
+                         "levels at the tools' shapes instead of the "
+                         "search")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -255,9 +288,11 @@ def main(argv=None):
 
 def _probes(dev):
     """Device and wrapper ms (:func:`_times`) and output digests of the
-    tree's P2 bodies and P1 matmul, and of four torch.matmul calls."""
+    tree's P2 bodies and P1 matmul, and of four torch.matmul calls; device
+    ms (:func:`_graph_ms`) and output digests of P1's other patterns and
+    P3's levels."""
     import torch
-    from riptide_tpu_torch.probes import ptime, ptime2
+    from riptide_tpu_torch.probes import probe1536, ptime, ptime2
 
     def digest(t):
         return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
@@ -288,6 +323,27 @@ def _probes(dev):
     from riptide_tpu_torch.probes import common
     if hasattr(common, "mma_tf32_tflops"):
         out["mma.sync TF32 TFLOP/s"] = common.mma_tf32_tflops(dev)
+    shifts = torch.from_numpy(np.arange(8, dtype=np.int32) * 37 + 5).to(dev)
+    for name in P1_PATTERNS:
+        fn = getattr(ptime, name)
+        args = (shifts, x) if name == "dynroll" else (x,)
+        key = f"p1.{name} {shape}"
+        out[key] = dict(sha256=digest(fn(*args, P1_REPS)),
+                        graph_ms=_graph_ms(lambda: fn(*args, P1_REPS)))
+        print(f"  {key}: {out[key]}", flush=True)
+    rng = np.random.default_rng(0)
+    x3 = torch.from_numpy(rng.standard_normal((P3_ROWS, P3_COLS)).astype(
+        np.float32)).to(dev)
+    w3 = torch.from_numpy(rng.integers(0, 4, (P3_ROWS, P3_COLS),
+                                       dtype=np.int32) << 22).to(dev)
+    for _, S_d in probe1536.levels(P3_ROWS, P3_DEPTH):
+        key = f"p3.S_d={S_d} {P3_ROWS}x{P3_COLS}"
+
+        def level(S_d=S_d):
+            return probe1536.slot_level(x3, w3, S_d, P3_NITER)
+
+        out[key] = dict(sha256=digest(level()), graph_ms=_graph_ms(level))
+        print(f"  {key}: {out[key]}", flush=True)
     return out
 
 

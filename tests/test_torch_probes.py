@@ -299,6 +299,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     assert counted == {(m.__name__, n) for m, n, _ in calls}
     assert all(v == 0 for m in (ptime, ptime2, probe1536)
                for v in m.LAUNCHES.values())
+    assert not any(common.KERNEL_LAUNCHES.values())
 
 
 def test_entry_points_run_on_cpu(capsys):
@@ -327,17 +328,35 @@ def test_entry_points_run_on_cpu(capsys):
 
 def test_tile_choices_and_refusals():
     """The tiles the launchers choose at the tools' shapes, and the shapes
-    that no tile fits (ValueError before any launch)."""
-    assert common.lane_rows(2048, 384) == 4
-    assert common.lane_rows(256, 384) == 1
-    assert common.strip_log2(2048, 384, 256) == 3        # interleave
-    lg = common.strip_log2(1536, 384, 1536, 9)           # P3, S_d = 1536
-    assert 1536 * 9 << lg <= common.MAX_DYNAMIC_SMEM
-    assert common.strip_log2(2048, 384, 2048) == 0       # one 2048-row group
+    that no tile fits (ValueError before any launch): ``lane_row_kernel``
+    one row a warp in shared memory, cols / 32 values a lane rounded up
+    to a built width; ``row_window_kernel`` a window of 64 + smax rows (the
+    largest roll_rows shift: 156 at 2048 rows and 32 repetitions);
+    ``strip_kernel`` strips narrowed to two blocks an SM, at most 4
+    elements a thread (P1's interleave 8 columns of a 256-row group, P3's
+    S_d = 96 16 columns); a strip of one column runs in
+    ``strip_cluster_kernel`` (P3's S_d = 1536), 8 columns a cluster, at
+    most 8 elements a thread."""
+    assert [common.lane_values(c) for c in (8, 33, 128, 384, 1000)] == [
+        1, 2, 4, 12, 32]
+    assert common.window_shift(2048, 32) == 156
+    assert common.window_shift(64, 32) == 62       # the shifts wrap
+    assert common.window_shift(2048, 0) == 0
+    assert common.strip_tile(2048, 384, 256) == (3, 512, False)  # interleave
+    assert common.strip_tile(1536, 384, 96) == (4, 384, False)   # P3
+    assert common.strip_tile(1536, 384, 192) == (3, 384, False)
+    assert common.strip_tile(1536, 384, 384) == (2, 384, False)
+    assert common.strip_tile(1536, 384, 768) == (1, 384, False)
+    assert common.strip_tile(1536, 384, 1536) == (0, 192, True)
+    assert common.strip_tile(4096, 384, 4096) == (0, 512, True)
+    assert common.strip_tile(32, 128, 4) == (1, 32, False)
+    assert common.strip_tile(32, 128, 32) == (0, 32, True)
     with pytest.raises(ValueError, match="shared memory"):
-        common.lane_rows(8, 40000)
+        common.lane_values(1025)
     with pytest.raises(ValueError, match="shared memory"):
-        common.strip_log2(40000, 8, 40000)
+        common.window_shift(40000, 400)
+    with pytest.raises(ValueError, match="at most 8192"):
+        common.strip_tile(40000, 8, 10000)
     with pytest.raises(ValueError):
         common.check_matrix(torch.zeros((4, 4), dtype=torch.float64))
     with pytest.raises(ValueError):
@@ -347,21 +366,30 @@ def test_tile_choices_and_refusals():
     with pytest.raises(ValueError, match="even S_d"):
         probe1536.slot_level_plain(torch.zeros((24, 8)),
                                    torch.zeros((24, 8), dtype=torch.int32), 9)
-    with pytest.raises(ValueError, match="S = 0"):
-        common.strip_loop("p1.repeat_flat", torch.zeros((4, 4)), 0, 1)
+    for S in (0, 3, 5):
+        with pytest.raises(ValueError, match="even S"):
+            common.strip("p1.interleave", torch.zeros((30, 4)), S, 1)
 
 
 def test_register_layouts_and_refusals():
-    """The register layouts of P2's kernels and the GEMM's grid at the
-    tools' shapes, and the shapes they refuse (ValueError before any
-    launch): ``select`` K rows of one column a thread, two warps per
-    scheduler where the shape allows; ``roll1``/``dynroll``/``barrelbit``
-    one row a warp, cols / 32 values a lane; ``rollrow`` R rows a thread
-    of one column a block; the GEMM 64 x 96 output tiles, one launch a
-    product, 128 blocks at (2048, 384): one for each of 128 of the H100's
-    132 SMs."""
+    """The register layouts of P2's kernels, P1's select and parity select
+    and P3's small slot levels, and the GEMM's grid at the tools' shapes,
+    and the shapes they refuse (ValueError before any launch): ``select``
+    (P1 and P2) K rows of one column a thread, two warps per scheduler
+    where the shape allows; P1's parity select whole row pairs (K even);
+    P3's levels of 12, 24 and 48 rows one group column a thread;
+    ``roll1``/``dynroll``/``barrelbit`` one row a warp, cols / 32 values a
+    lane; ``rollrow`` R rows a thread of one column a block; the GEMM 64
+    x 96 output tiles, one launch a product, 128 blocks at (2048, 384):
+    one for each of 128 of the H100's 132 SMs."""
     assert [common.select_rows(*s) for s in ptime2.SHAPES] == [8, 8, 4, 2]
     assert common.select_rows(15, 32) == 1
+    assert common.select_rows(ptime.ROWS, ptime.P) == 8
+    assert [common.pair_rows(r, c) for r, c in ((2048, 384), (256, 384),
+                                                (15, 32))] == [8, 2, 2]
+    assert common.SLOT_REG_LEVELS == (12, 24, 48)
+    assert [S in common.SLOT_REG_LEVELS
+            for _, S in probe1536.levels()] == [True] * 3 + [False] * 5
     assert [common.row_values(c) for c in (32, 128, 384)] == [1, 4, 12]
     for cols in (40, 96, 512, 40000):
         with pytest.raises(ValueError, match="one row a warp"):
