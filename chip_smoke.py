@@ -126,6 +126,25 @@ process each, started together, then:
    of its search, and peak device memory. Then ``rseek`` on the
    headline series as a PRESTO file with ``--device cuda``: its table
    must list the pulsar.
+8. the checkpointed survey path on phase 7's trials and config, through
+   ``Pipeline(config, device, journal=..., resume=..., trace=...)``,
+   each run's launch counts set to 0 just before and read just after:
+   (a) journaled with integrity off and with ``RIPTIDE_INTEGRITY=probe``
+   every chunk (each chunk dispatched twice; its two result digests
+   must agree, K1 must run twice ``queued_launches`` a chunk, and the
+   products must be phase 7's bytes); (b) ``abort:1``, the journal
+   holding chunk 0 only, then ``resume=True``: chunk 0 replayed (K1 on
+   chunks 1-2 only), the products phase 7's bytes; (c) ``bitflip:1``
+   under ``probe``: exactly one ``result_mismatch``, the three-way vote
+   keeps the majority, the same bytes; (d) the integrity canary twice
+   on the card, the same digest, and the package's pin for this card
+   (``survey/integrity_canary.json``) where it has one; (e) a real
+   ``torch.cuda.OutOfMemoryError`` is an OOM and not a device error;
+   (f) the probe run's ``trace.json`` holds one ``chunk`` span per chunk
+   with its stage, ship, queue and collect spans. Prints each run's
+   wall and DM-trials/s beside phase 7's, the resume's wall, the
+   journal's bytes and fsyncs by file, and the card; K1's launches over
+   phase 8 go into its ``kernels`` entry as ``journal_launches``.
 
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
@@ -183,6 +202,9 @@ PROBE_MM_RTOL, PROBE_MM_ATOL = 1e-5, 1e-5
 PIPE_FILES, PIPE_CHUNK, PIPE_DM_STEP, PIPE_SPREAD = 48, 16, 2.0, 4.0
 PIPE_RANGE = dict(fpmin=8, wtsp=1.5, ducy_max=0.2)
 PIPE_FIND_PEAKS = dict(smin=7.0)
+PRODUCTS = ("peaks.csv", "clusters.csv", "candidates.csv")
+# Phase 8: the journaled runs' integrity flags (every chunk probed).
+PROBE_ENV = {"RIPTIDE_INTEGRITY": "probe", "RIPTIDE_INTEGRITY_PROBE_EVERY": "1"}
 
 
 # Phase 5w: searches across the kernels' wide-phase limits: (the limit
@@ -1237,11 +1259,14 @@ def span_table(tracer):
     return stages, chunks
 
 
-def phase_pipeline(dev, cfg=HEADLINE, nfiles=PIPE_FILES, chunk=PIPE_CHUNK,
-                   period=PULSAR["period"]):
+def phase_pipeline(dev, tmp, cfg=HEADLINE, nfiles=PIPE_FILES,
+                   chunk=PIPE_CHUNK, period=PULSAR["period"]):
     """Phase 7: ``Pipeline(config, device).process`` on ``nfiles``
-    PRESTO DM trials of the headline series, ``chunk`` trials a chunk,
-    then rseek on the headline series as a PRESTO file. Checks that
+    PRESTO DM trials of the headline series (written under ``tmp``),
+    ``chunk`` trials a chunk, then rseek on the headline series as a
+    PRESTO file. Returns what phase 8 reuses: the trial files, the
+    config, the products' bytes, the wall, the chunk count and K1's
+    launches a chunk. Checks that
     DMIterator keeps every trial, that each trial's peaks are
     series (the same S/N bits), that each K1 launch of those reruns
     agrees with its plain version, that the top candidate is the pulsar at
@@ -1252,8 +1277,6 @@ def phase_pipeline(dev, cfg=HEADLINE, nfiles=PIPE_FILES, chunk=PIPE_CHUNK,
     import glob
     import importlib.util
     import logging
-    import shutil
-    import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     from riptide_tpu_torch import load_json
@@ -1262,7 +1285,6 @@ def phase_pipeline(dev, cfg=HEADLINE, nfiles=PIPE_FILES, chunk=PIPE_CHUNK,
     from riptide_tpu_torch.ops import ffa_kernel as fk
     from riptide_tpu_torch.pipeline import Pipeline
     from riptide_tpu_torch.search import engine
-    from riptide_tpu_torch.utils.cuda_build import BUILD_DIR
 
     logging.basicConfig(level="WARNING")
     print("  importable here: " + ", ".join(
@@ -1270,129 +1292,366 @@ def phase_pipeline(dev, cfg=HEADLINE, nfiles=PIPE_FILES, chunk=PIPE_CHUNK,
         for m in ("pandas", "yaml", "matplotlib")), flush=True)
     tobs = cfg["nsamp"] * cfg["tsamp"]
     conf = pipeline_config(cfg, chunk)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    t0 = time.perf_counter()
+    files, bright_dm = write_dm_trials(tmp, nfiles, cfg, period)
+    print(f"  wrote {nfiles} PRESTO DM trials of {cfg['nsamp']} samples "
+          f"({nfiles * cfg['nsamp'] * 4 / 2 ** 30:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    outdir = os.path.join(tmp, "products")
+    os.makedirs(outdir)
+    pipe = Pipeline(conf, device=dev)
+    tracer = trace.enable()
+    fk.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with dq_steps() as steps:
+        pipe.process(files, outdir)
+    wall = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    trace.disable()
+    stages, spans = span_table(tracer)
+
+    ntrials = len(pipe.dmiter.selected_dms)
+    check(ntrials == nfiles, f"pipeline: DMIterator kept {ntrials} of "
+          f"{nfiles} trials")
+    nchunks = -(-nfiles // chunk)
+    searcher = pipe.searcher
+    plan = searcher._plan_for(conf["ranges"][0], cfg["nsamp"],
+                              cfg["tsamp"])
+    per_chunk = engine.queued_launches(plan)["fused_stage"]
+    print(f"  Pipeline.process: {nfiles} trials in {nchunks} chunks of "
+          f"{chunk}, {wall:.3f} s wall, {nfiles / wall:.3f} DM-trials/s; "
+          f"search stage {stages['search']:.3f} s, "
+          f"{nfiles / stages['search']:.3f} DM-trials/s; peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB; launches {launches}",
+          flush=True)
+    print("  stage walls: " + ", ".join(
+        f"{k} {stages[k]:.3f} s" for k in (
+            "prepare", "search", "cluster_peaks", "flag_harmonics",
+            "apply_candidate_filters", "build_candidates",
+            "save_products")), flush=True)
+    for c in range(nchunks):
+        print(f"  search chunk {c}: " + ", ".join(
+            f"{k} {spans.get((k, c), 0.0):.3f} s"
+            for k in ("stage", "ship", "queue", "collect"))
+            + f"; inside stage: wire prep {spans.get(('prep', c), 0.0):.3f}"
+            " s, and summed over the loader threads load "
+            f"{spans.get(('load', c), 0.0):.3f} s, data-quality steps "
+            f"{spans.get(('dq', c), 0.0):.3f} s", flush=True)
+    print("  data-quality steps summed over all threads: " +
+          ", ".join(f"{k} {v[1]:.3f} s ({v[0]} calls)"
+                    for k, v in sorted(steps.items())), flush=True)
+    if dev.type == "cuda":
+        check(launches["fused_stage"] == nchunks * per_chunk > 0,
+              f"pipeline: {launches['fused_stage']} K1 launches, want "
+              f"{nchunks} chunks x {per_chunk}")
+
+    # Each chunk again through run_search_batch, on the same loaded
+    # and prepared series, recorded: its K1 launches, at the
+    # pipeline's shapes, are held against their plain version.
+    want = []
+    chunks = list(pipe.dmiter.iterate_filenames(chunksize=chunk))
+    with ThreadPoolExecutor(chunk) as ex:
+        for c, names in enumerate(chunks):
+            series = list(ex.map(
+                lambda f: searcher.load_prepared(f, search=False), names))
+            batch = np.stack([ts.data for ts in series])
+            with engine.recording() as rec:
+                ppt, _ = engine.run_search_batch(
+                    plan, batch, tobs,
+                    dms=[ts.metadata["dm"] for ts in series], device=dev,
+                    **PIPE_FIND_PEAKS)
+            want += [p for trial in ppt for p in trial]
+            compare_stages(
+                f"K1 fused_stage, pipeline chunk {c} (D = {len(names)})",
+                kernel_outs(rec, "fused_stage"),
+                plain_launches(rec, "fused_stage"))
+            del rec
+    check(sorted(pipe.peaks) == sorted(want),
+          f"pipeline: {len(pipe.peaks)} peaks differ from "
+          f"run_search_batch's {len(want)} on the same series")
+    print(f"  peaks: {len(want)} over {nfiles} trials, each trial's the "
+          "same (S/N bits included) as run_search_batch on its chunk",
+          flush=True)
+
+    names = sorted(os.listdir(outdir))
+    for product in ("peaks.csv", "clusters.csv", "candidates.csv"):
+        check(product in names, f"pipeline: {product} not written")
+    cands = [load_json(f) for f in
+             sorted(glob.glob(os.path.join(outdir, "candidate_*.json")))]
+    check(len(cands) == len(pipe.candidates) > 0,
+          f"pipeline: {len(cands)} candidate files for "
+          f"{len(pipe.candidates)} candidates")
+    top = cands[0].params
+    dfreq = abs(1.0 / top["period"] - 1.0 / period)
+    print(f"  products: {names[:3]}... {len(cands)} candidates; top "
+          f"P = {top['period']:.6f} s (|df| = {dfreq:.3e} Hz), DM "
+          f"{top['dm']}, S/N {top['snr']:.3f}", flush=True)
+    check(dfreq < 1.0 / tobs and top["dm"] == bright_dm,
+          f"pipeline: the top candidate {top} is not the pulsar at DM "
+          f"{bright_dm}")
+
+    ts = headline_series(cfg, period)
+    inf = write_presto(os.path.join(tmp, "headline"), ts.data, ts.tsamp)
+    args = rseek.get_parser().parse_args(
+        ["-f", "presto", "--Pmin", str(cfg["period_min"]), "--Pmax",
+         str(cfg["period_max"]), "--bmin", str(cfg["bins_min"]),
+         "--bmax", str(cfg["bins_max"]), "--device", dev.type, inf])
+    t0 = time.perf_counter()
+    table = rseek.run_program(args)
+    rs = time.perf_counter() - t0
+    check(table is not None, "rseek: no peaks")
+    hit = [i for i in range(len(table))
+           if abs(table["freq"][i] - 1.0 / period) < 1.0 / tobs]
+    check(hit and table["snr"][hit[0]] > 10.0,
+          "rseek: the table does not list the pulsar")
+    print(f"  rseek: {len(table)} rows in {rs:.3f} s, the pulsar at row "
+          f"{hit[0]} (S/N {table['snr'][hit[0]]:.3f})", flush=True)
+    return {"files": files, "conf": conf, "wall": wall, "nchunks": nchunks,
+            "per_chunk": per_chunk, "root": tmp,
+            "products": {name: open(os.path.join(outdir, name), "rb").read()
+                         for name in PRODUCTS}}
+
+
+@contextlib.contextmanager
+def env_flags(flags):
+    """Set environment flags for a block, restoring them after."""
+    saved = {k: os.environ.get(k) for k in flags}
+    os.environ.update(flags)
     try:
-        t0 = time.perf_counter()
-        files, bright_dm = write_dm_trials(tmp, nfiles, cfg, period)
-        print(f"  wrote {nfiles} PRESTO DM trials of {cfg['nsamp']} samples "
-              f"({nfiles * cfg['nsamp'] * 4 / 2 ** 30:.2f} GiB) in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        outdir = os.path.join(tmp, "products")
-        os.makedirs(outdir)
-        pipe = Pipeline(conf, device=dev)
-        tracer = trace.enable()
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def fsync_counts():
+    """{file name: fsync calls} of the block, by the name the fd is open
+    on (the journal's appends and the sidecars' atomic writes all fsync
+    through ``os.fsync``)."""
+    counts = {}
+    real = os.fsync
+
+    def counting(fd):
+        try:
+            path = os.readlink(f"/proc/self/fd/{fd}")
+        except OSError:
+            path = "?"
+        name = os.path.basename(path)
+        if os.path.isdir(path):
+            name = "(directory)"
+        elif name.endswith(".tmp"):          # an atomic write's temp file
+            name = name.split(".json.")[0] + ".json (atomic)"
+        counts[name] = counts.get(name, 0) + 1
+        return real(fd)
+
+    os.fsync = counting
+    try:
+        yield counts
+    finally:
+        os.fsync = real
+
+
+def journaled_run(dev, p7, name, flags=None, spec="", resume=False,
+                  trace=False, jdir=None):
+    """One journaled ``Pipeline.process`` over phase 7's trials and
+    config: the launch counts set to 0 just before and read just after.
+    Returns the run's wall, launches, metrics, journal, fsyncs, products
+    (None when the run stopped on an injected abort) and the abort."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.pipeline import Pipeline
+    from riptide_tpu_torch.survey.faults import FaultAbort
+    from riptide_tpu_torch.survey.journal import SurveyJournal
+    from riptide_tpu_torch.survey.metrics import get_metrics
+
+    jdir = jdir or os.path.join(p7["root"], f"journal_{name}")
+    out = os.path.join(p7["root"], f"products_{name}")
+    os.makedirs(out, exist_ok=True)
+    err = None
+    with env_flags(flags or {}), fsync_counts() as fsyncs:
+        pipe = Pipeline(p7["conf"], device=dev, journal=jdir, resume=resume,
+                        fault_spec=spec, trace=trace)
+        get_metrics().reset()
         fk.reset_launches()
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        with dq_steps() as steps:
-            pipe.process(files, outdir)
+        try:
+            pipe.process(p7["files"], out)
+        except FaultAbort as exc:
+            err = exc
         wall = time.perf_counter() - t0
         launches = dict(fk.LAUNCHES)
-        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                else 0)
-        trace.disable()
-        stages, spans = span_table(tracer)
+        if trace:
+            from riptide_tpu_torch.obs import trace as tracer
 
-        ntrials = len(pipe.dmiter.selected_dms)
-        check(ntrials == nfiles, f"pipeline: DMIterator kept {ntrials} of "
-              f"{nfiles} trials")
-        nchunks = -(-nfiles // chunk)
-        searcher = pipe.searcher
-        plan = searcher._plan_for(conf["ranges"][0], cfg["nsamp"],
-                                  cfg["tsamp"])
-        per_chunk = engine.queued_launches(plan)["fused_stage"]
-        print(f"  Pipeline.process: {nfiles} trials in {nchunks} chunks of "
-              f"{chunk}, {wall:.3f} s wall, {nfiles / wall:.3f} DM-trials/s; "
-              f"search stage {stages['search']:.3f} s, "
-              f"{nfiles / stages['search']:.3f} DM-trials/s; peak device "
-              f"memory {peak / 2 ** 30:.3f} GiB; launches {launches}",
-              flush=True)
-        print("  stage walls: " + ", ".join(
-            f"{k} {stages[k]:.3f} s" for k in (
-                "prepare", "search", "cluster_peaks", "flag_harmonics",
-                "apply_candidate_filters", "build_candidates",
-                "save_products")), flush=True)
-        for c in range(nchunks):
-            print(f"  search chunk {c}: " + ", ".join(
-                f"{k} {spans.get((k, c), 0.0):.3f} s"
-                for k in ("stage", "ship", "queue", "collect"))
-                + f"; inside stage: wire prep {spans.get(('prep', c), 0.0):.3f}"
-                " s, and summed over the loader threads load "
-                f"{spans.get(('load', c), 0.0):.3f} s, data-quality steps "
-                f"{spans.get(('dq', c), 0.0):.3f} s", flush=True)
-        print("  data-quality steps summed over all threads: " +
-              ", ".join(f"{k} {v[1]:.3f} s ({v[0]} calls)"
-                        for k, v in sorted(steps.items())), flush=True)
-        if dev.type == "cuda":
-            check(launches["fused_stage"] == nchunks * per_chunk > 0,
-                  f"pipeline: {launches['fused_stage']} K1 launches, want "
-                  f"{nchunks} chunks x {per_chunk}")
+            tracer.disable()
+    products = None if err else {
+        n: open(os.path.join(out, n), "rb").read() for n in PRODUCTS}
+    return {"wall": wall, "launches": launches,
+            "metrics": get_metrics().summary(), "jdir": jdir,
+            "journal": SurveyJournal(jdir), "fsyncs": fsyncs,
+            "products": products, "abort": err}
 
-        # Each chunk again through run_search_batch, on the same loaded
-        # and prepared series, recorded: its K1 launches, at the
-        # pipeline's shapes, are held against their plain version.
-        want = []
-        chunks = list(pipe.dmiter.iterate_filenames(chunksize=chunk))
-        with ThreadPoolExecutor(chunk) as ex:
-            for c, names in enumerate(chunks):
-                series = list(ex.map(
-                    lambda f: searcher.load_prepared(f, search=False), names))
-                batch = np.stack([ts.data for ts in series])
-                with engine.recording() as rec:
-                    ppt, _ = engine.run_search_batch(
-                        plan, batch, tobs,
-                        dms=[ts.metadata["dm"] for ts in series], device=dev,
-                        **PIPE_FIND_PEAKS)
-                want += [p for trial in ppt for p in trial]
-                compare_stages(
-                    f"K1 fused_stage, pipeline chunk {c} (D = {len(names)})",
-                    kernel_outs(rec, "fused_stage"),
-                    plain_launches(rec, "fused_stage"))
-                del rec
-        check(sorted(pipe.peaks) == sorted(want),
-              f"pipeline: {len(pipe.peaks)} peaks differ from "
-              f"run_search_batch's {len(want)} on the same series")
-        print(f"  peaks: {len(want)} over {nfiles} trials, each trial's the "
-              "same (S/N bits included) as run_search_batch on its chunk",
-              flush=True)
 
-        names = sorted(os.listdir(outdir))
-        for product in ("peaks.csv", "clusters.csv", "candidates.csv"):
-            check(product in names, f"pipeline: {product} not written")
-        cands = [load_json(f) for f in
-                 sorted(glob.glob(os.path.join(outdir, "candidate_*.json")))]
-        check(len(cands) == len(pipe.candidates) > 0,
-              f"pipeline: {len(cands)} candidate files for "
-              f"{len(pipe.candidates)} candidates")
-        top = cands[0].params
-        dfreq = abs(1.0 / top["period"] - 1.0 / period)
-        print(f"  products: {names[:3]}... {len(cands)} candidates; top "
-              f"P = {top['period']:.6f} s (|df| = {dfreq:.3e} Hz), DM "
-              f"{top['dm']}, S/N {top['snr']:.3f}", flush=True)
-        check(dfreq < 1.0 / tobs and top["dm"] == bright_dm,
-              f"pipeline: the top candidate {top} is not the pulsar at DM "
-              f"{bright_dm}")
+def check_chunk_spans(doc, nchunks):
+    """Phase 8f: the Chrome trace holds one ``chunk`` span per chunk,
+    and that chunk's ``stage`` span and its ``ship``, ``queue`` and
+    ``collect`` spans inside the chunk span's interval (the dispatch may
+    run on a watchdog thread, so nesting is checked in time)."""
+    spans = [ev for ev in doc["traceEvents"] if ev["ph"] == "X"]
+    for cid in range(nchunks):
+        mine = [ev for ev in spans if ev["args"].get("chunk") == cid]
+        parents = [ev for ev in mine if ev["name"] == "chunk"]
+        check(len(parents) == 1, f"trace: chunk {cid} has {len(parents)} "
+              "chunk spans")
+        top = parents[0]
+        names = {ev["name"] for ev in mine}
+        check({"stage", "ship", "queue", "collect"} <= names,
+              f"trace: chunk {cid} lacks {names}")
+        for ev in mine:
+            if ev["name"] in ("ship", "queue", "collect"):
+                check(top["ts"] <= ev["ts"] and ev["ts"] + ev["dur"]
+                      <= top["ts"] + top["dur"] + 1.0,
+                      f"trace: chunk {cid}'s {ev['name']} span lies outside "
+                      "its chunk span")
+    return len(spans)
 
-        ts = headline_series(cfg, period)
-        inf = write_presto(os.path.join(tmp, "headline"), ts.data, ts.tsamp)
-        args = rseek.get_parser().parse_args(
-            ["-f", "presto", "--Pmin", str(cfg["period_min"]), "--Pmax",
-             str(cfg["period_max"]), "--bmin", str(cfg["bins_min"]),
-             "--bmax", str(cfg["bins_max"]), "--device", dev.type, inf])
-        t0 = time.perf_counter()
-        table = rseek.run_program(args)
-        rs = time.perf_counter() - t0
-        check(table is not None, "rseek: no peaks")
-        hit = [i for i in range(len(table))
-               if abs(table["freq"][i] - 1.0 / period) < 1.0 / tobs]
-        check(hit and table["snr"][hit[0]] > 10.0,
-              "rseek: the table does not list the pulsar")
-        print(f"  rseek: {len(table)} rows in {rs:.3f} s, the pulsar at row "
-              f"{hit[0]} (S/N {table['snr'][hit[0]]:.3f})", flush=True)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+
+def phase_journal(dev, p7, card):
+    """Phase 8: the checkpointed survey path on phase 7's trials and
+    config. (a) journaled runs with integrity off and under ``probe``
+    (every chunk dispatched twice, both result digests equal; K1 on
+    every dispatch; the products phase 7's bytes; the probe run traced,
+    (f)); (b) ``abort:1`` then ``resume=True``: chunk 0 replayed, not
+    searched again, the same bytes; (c) ``bitflip:1`` under ``probe``:
+    one ``result_mismatch``, the vote keeps the majority, the same
+    bytes; (d) the integrity canary twice on the card, the same digest,
+    the card's pin where the package has one; (e) a real ``torch.cuda.OutOfMemoryError`` classified as OOM, not as
+    a device error. Returns K1's launches over the phase."""
+    from riptide_tpu_torch.search.engine import is_oom_error
+    from riptide_tpu_torch.survey import integrity
+    from riptide_tpu_torch.survey.liveness import is_device_error
+
+    n, nchunks, per_chunk = len(p7["files"]), p7["nchunks"], p7["per_chunk"]
+    k1 = 0
+
+    def same_products(run, what):
+        for name in PRODUCTS:
+            check(run["products"][name] == p7["products"][name],
+                  f"{what}: {name} differs from phase 7's")
+
+    # (a) integrity off, then every chunk probed (and traced).
+    off = journaled_run(dev, p7, "off")
+    same_products(off, "journaled run")
+    check(off["launches"]["fused_stage"] == nchunks * per_chunk,
+          f"journaled run: {off['launches']['fused_stage']} K1 launches, "
+          f"want {nchunks} x {per_chunk}")
+    probe = journaled_run(dev, p7, "probe", PROBE_ENV, trace=True)
+    same_products(probe, "probe run")
+    m = probe["metrics"]
+    check(probe["launches"]["fused_stage"] == 2 * nchunks * per_chunk,
+          f"probe run: {probe['launches']['fused_stage']} K1 launches, "
+          f"want 2 x {nchunks} x {per_chunk}")
+    check(m.get("shadow_probes") == nchunks
+          and m.get("integrity_mismatches") == 0,
+          f"probe run: {m.get('shadow_probes')} probes, "
+          f"{m.get('integrity_mismatches')} mismatches")
+    recs = probe["journal"].completed_chunks()
+    check(sorted(recs) == list(range(nchunks)) and all(
+        rec["integrity"].get("probe") and "votes" not in rec["integrity"]
+        for rec, _ in recs.values()),
+        "probe run: a chunk's two dispatches gave different result digests")
+    k1 += off["launches"]["fused_stage"] + probe["launches"]["fused_stage"]
+    for run, what in ((off, "integrity off"), (probe, "integrity probe")):
+        print(f"  (a) journaled, {what}: {run['wall']:.3f} s, "
+              f"{n / run['wall']:.3f} DM-trials/s (phase 7 unjournaled "
+              f"{p7['wall']:.3f} s, {n / p7['wall']:.3f}); K1 launches "
+              f"{run['launches']['fused_stage']}", flush=True)
+    digests = [rec["integrity"]["result"][:12] for _, (rec, _)
+               in sorted(recs.items())]
+    print(f"  (a) every chunk's primary and shadow result digests agree: "
+          f"{digests}", flush=True)
+    sizes = {f: os.path.getsize(os.path.join(off["jdir"], f))
+             for f in sorted(os.listdir(off["jdir"]))}
+    print(f"  (a) journal files {sizes} ({sum(sizes.values())} bytes); "
+          f"fsyncs by file {off['fsyncs']} "
+          f"({sum(off['fsyncs'].values())} in all)", flush=True)
+
+    # (f) the probe run's Chrome trace.
+    with open(os.path.join(probe["jdir"], "trace.json")) as fobj:
+        nspans = check_chunk_spans(json.load(fobj), nchunks)
+    print(f"  (f) trace.json: {nspans} spans, one chunk span per chunk "
+          "with its stage, ship, queue and collect spans", flush=True)
+
+    # (b) abort after chunk 0, then resume.
+    jdir = os.path.join(p7["root"], "journal_abort")
+    aborted = journaled_run(dev, p7, "abort", spec="abort:1", jdir=jdir)
+    check(aborted["abort"] is not None, "abort:1 did not stop the run")
+    check(sorted(aborted["journal"].completed_chunks()) == [0],
+          "abort:1: the journal does not hold exactly chunk 0")
+    resumed = journaled_run(dev, p7, "resume", resume=True, jdir=jdir)
+    same_products(resumed, "resumed run")
+    check(resumed["metrics"].get("chunks_skipped") == 1
+          and resumed["launches"]["fused_stage"]
+          == (nchunks - 1) * per_chunk,
+          f"resume: {resumed['metrics'].get('chunks_skipped')} chunks "
+          f"replayed, {resumed['launches']['fused_stage']} K1 launches")
+    k1 += aborted["launches"]["fused_stage"] + \
+        resumed["launches"]["fused_stage"]
+    print(f"  (b) abort:1 after {aborted['wall']:.3f} s; resume "
+          f"{resumed['wall']:.3f} s, chunk 0 replayed, "
+          f"{resumed['launches']['fused_stage']} K1 launches, the products "
+          "phase 7's bytes", flush=True)
+
+    # (c) one flipped result byte, out-voted.
+    flip = journaled_run(dev, p7, "bitflip", PROBE_ENV, spec="bitflip:1")
+    same_products(flip, "bitflip run")
+    kinds = [r["incident"] for r in flip["journal"].incidents()]
+    votes = flip["journal"].completed_chunks()[1][0]["integrity"]
+    check(kinds.count("result_mismatch") == 1 and len(votes["votes"]) == 3,
+          f"bitflip: incidents {kinds}, integrity block {votes}")
+    k1 += flip["launches"]["fused_stage"]
+    print(f"  (c) bitflip:1: one result_mismatch, votes {votes['votes']}, "
+          f"{flip['wall']:.3f} s, the products phase 7's bytes", flush=True)
+
+    # (d) the canary, twice.
+    t0 = time.perf_counter()
+    d1 = integrity.compute_canary_digest(dev)
+    d2 = integrity.compute_canary_digest(dev)
+    check(d1 == d2, f"canary: two digests on the card differ ({d1}, {d2})")
+    platform = integrity.canary_platform(dev)
+    pinned = integrity._read_canary_pin(integrity.canary_pin_path()).get(
+        platform)
+    check(pinned in (None, d1), f"canary: {d1} on {platform}, but the "
+          f"package pins {pinned} (a kernel whose bits changed needs "
+          "`python -m riptide_tpu_torch.survey.integrity --repin`)")
+    print(f"  (d) canary {platform}: {d1} twice "
+          f"({time.perf_counter() - t0:.3f} s); "
+          f"{'the pin matches' if pinned else 'no pin for this card'}",
+          flush=True)
+
+    # (e) a real out-of-memory error.
+    free, total = torch.cuda.mem_get_info(dev)
+    try:
+        torch.empty(total + 2 ** 30, dtype=torch.uint8, device=dev)
+        oom = None
+    except Exception as exc:          # the classification under test
+        oom = exc
+    check(isinstance(oom, torch.cuda.OutOfMemoryError) and is_oom_error(oom)
+          and not is_device_error(oom),
+          f"OOM: {type(oom).__name__} classified oom={is_oom_error(oom)}, "
+          f"device error={is_device_error(oom)}")
+    torch.cuda.synchronize(dev)
+    print(f"  (e) {type(oom).__name__} on {total / 2 ** 30:.1f} GiB + 1 GiB: "
+          "an OOM, not a device error; the context still works", flush=True)
+    print(f"  phase 8 card: {card}; K1 launches {k1}", flush=True)
+    return k1
 
 
 # Phase 6: P1's gathering patterns (the tool's names), and the grids
@@ -1613,9 +1872,24 @@ def main(argv=None):
     print(f"  phase 6: {time.perf_counter() - t6:.1f} s wall", flush=True)
     print(f"phase 7: the pipeline (rffa) on {PIPE_FILES} DM-trial files, "
           "then rseek", flush=True)
-    t7 = time.perf_counter()
-    phase_pipeline(dev)
-    print(f"  phase 7: {time.perf_counter() - t7:.1f} s wall", flush=True)
+    import shutil
+    import tempfile
+
+    from riptide_tpu_torch.utils.cuda_build import BUILD_DIR
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        t7 = time.perf_counter()
+        p7 = phase_pipeline(dev, tmp)
+        print(f"  phase 7: {time.perf_counter() - t7:.1f} s wall", flush=True)
+        print("phase 8: the journaled survey (journal, resume, integrity, "
+              "faults, trace) on phase 7's trials", flush=True)
+        t8 = time.perf_counter()
+        k1_journal = phase_journal(dev, p7, card)
+        print(f"  phase 8: {time.perf_counter() - t8:.1f} s wall", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     if args.profile:
         print("profile: headline run_periodogram", flush=True)
         profile_search(plan, data, dev, args.profile)
@@ -1639,6 +1913,9 @@ def main(argv=None):
             "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
         })
+    # K1's launches over phase 8's journaled runs, beside its main-path
+    # count.
+    entries[0]["journal_launches"] = k1_journal
     entries += probe_entries
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

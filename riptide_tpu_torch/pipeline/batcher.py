@@ -37,12 +37,16 @@ out-of-memory error on a batch bisects it (:meth:`_collect_bisected`):
 the failed batch's tensors are dropped, and the halves prepare and
 search their own wire, recursively down to ``oom_floor`` trials.
 
-Not ported yet: the JAX package's device-mesh path, the peak-HBM model
-that splits a batch before it is queued, and the journal's per-chunk
-summaries.
+The survey scheduler (:mod:`riptide_tpu_torch.survey.scheduler`) drives
+the same chunk stages one at a time, with a journal record after each
+(:meth:`chunk_dq_summary` and :meth:`restore_dq_reports` carry the
+data-quality provenance through it). Not ported yet: the JAX package's
+device-mesh path and the peak-HBM model that splits a batch before it
+is queued.
 """
 import logging
 import os
+import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
@@ -94,6 +98,11 @@ class BatchSearcher:
     device : str, torch.device or None
         Where the de-reddening and the search run: None means the card
         (``"cuda"``); pass ``"cpu"`` for the plain PyTorch versions.
+    watchdog : ChunkWatchdog or None
+        Liveness watchdog shared with the survey scheduler: the stream
+        path feeds each chunk's queue-to-collect wall time into its
+        duration EWMA, so deadline budgets are primed even before (or
+        without) a journaled scheduler run.
     """
 
     TIMESERIES_LOADERS = {
@@ -103,7 +112,7 @@ class BatchSearcher:
 
     def __init__(self, deredden_params, range_confs, fmt="presto",
                  io_threads=4, batch_size=None, dq=None, faults=None,
-                 oom_floor=1, device=None):
+                 oom_floor=1, device=None, watchdog=None):
         self.deredden_params = deredden_params
         self.range_confs = range_confs
         self.loader = self.TIMESERIES_LOADERS[fmt]
@@ -113,9 +122,11 @@ class BatchSearcher:
         self.faults = faults
         self.oom_floor = max(1, int(oom_floor))
         self.device = resolve_device(device)
+        self.watchdog = watchdog
         # basename -> QualityReport of every file this searcher loaded
         # (quarantined ones included); read by the pipeline for the
-        # peaks.csv/candidates provenance columns. dict assignment is
+        # peaks.csv/candidates provenance columns and by the scheduler
+        # for the journal's per-chunk DQ summary. dict assignment is
         # atomic under the GIL, so loader threads may write concurrently.
         self.dq_reports = {}
         # Wire-prep output buffers recycle across chunks through this
@@ -165,6 +176,36 @@ class BatchSearcher:
             out[key] = max(out.get(key, 0.0), r.masked_frac)
         return out
 
+    def chunk_dq_summary(self, fnames):
+        """JSON-able DQ summary of one chunk's files (for the survey
+        journal's chunk records). The per-file reports ride along so a
+        resumed survey can restore them (:meth:`restore_dq_reports`) and
+        reproduce the provenance columns byte-identically."""
+        reports = [self.dq_reports.get(os.path.basename(f)) for f in fnames]
+        reports = [r for r in reports if r is not None]
+        if not reports:
+            return {}
+        out = {
+            "masked_samples": int(sum(r.n_masked for r in reports)),
+            "masked_frac_max": round(max(r.masked_frac for r in reports), 6),
+            "files": [r.to_dict() for r in reports],
+        }
+        quarantined = [r.fname for r in reports if r.quarantined]
+        if quarantined:
+            out["quarantined"] = quarantined
+        return out
+
+    def restore_dq_reports(self, dq_record):
+        """Re-register per-file QualityReports from a journal chunk
+        record's ``dq`` block (resume path: replayed chunks never
+        re-load their files, so their provenance must come from the
+        journal)."""
+        for d in (dq_record or {}).get("files", []):
+            if d.get("fname"):
+                self.dq_reports.setdefault(
+                    d["fname"], quality.QualityReport.from_dict(d)
+                )
+
     # -- chunk processing ---------------------------------------------------
 
     def process_stream(self, fname_chunks):
@@ -194,17 +235,23 @@ class BatchSearcher:
                     items = self._prepare_chunk(tslist)
                 return items, shipper.submit(self._ship_spanned, items, cid)
 
-            def drain(queued, cid, prep_items):
+            def drain(queued, t_queued, cid, prep_items):
                 with span("collect", chunk=cid):
                     peaks.extend(self._collect_chunk(queued))
                 # Collected: this chunk's staging buffers may be reused
                 # by the stager once their copies have completed.
                 self.release_chunk(prep_items)
                 metrics.add("chunks_done")
+                if self.watchdog is not None:
+                    # Prime the liveness EWMA with this chunk's queue->
+                    # collect wall time, so a later journaled run starts
+                    # with a calibrated deadline budget.
+                    self.watchdog.observe(time.perf_counter() - t_queued)
 
             pending = (stager.submit(stage_chunk, chunks[0], 0)
                        if chunks else None)
             queued = q_items = None
+            t_queued = 0.0
             for i, chunk in enumerate(chunks):
                 metrics.set_gauge("queue_depth", len(chunks) - i)
                 prep_items, ship_fut = pending.result()  # prep done
@@ -217,18 +264,19 @@ class BatchSearcher:
                 # Queue chunk i's device work BEFORE collecting chunk
                 # i-1: the card stays busy while the host pays the
                 # previous chunk's result round trip.
+                t_nxt = time.perf_counter()
                 with span("queue", chunk=i):
                     nxt = self._queue_chunk(items)
                 del items
                 if queued is not None:
-                    drain(queued, i - 1, q_items)
-                queued, q_items = nxt, prep_items
+                    drain(queued, t_queued, i - 1, q_items)
+                queued, t_queued, q_items = nxt, t_nxt, prep_items
                 log.debug(
                     f"Chunk {i + 1}/{len(chunks)} ({len(chunk)} files) "
                     f"queued, total peaks: {len(peaks)}"
                 )
             if queued is not None:
-                drain(queued, len(chunks) - 1, q_items)
+                drain(queued, t_queued, len(chunks) - 1, q_items)
             metrics.set_gauge("queue_depth", 0)
         return peaks
 
@@ -272,9 +320,8 @@ class BatchSearcher:
                 )
             for conf in self.range_confs:
                 plan = self._plan_for(conf, batch.shape[1], members[0].tsamp)
-                with span("prep"):
-                    prepared = prepare_stage_data(plan, batch,
-                                                  pool=self._staging_pool)
+                prepared = prepare_stage_data(plan, batch,
+                                              pool=self._staging_pool)
                 items.append((members, batch, conf, plan, prepared))
         return items
 

@@ -11,9 +11,12 @@ workers, DM trials are batched onto the card through
 :class:`riptide_tpu_torch.pipeline.batcher.BatchSearcher`; everything
 downstream of the periodogram — peak clustering, harmonic flagging,
 candidate building — operates on small host-side peak lists exactly as
-in the reference. The port of the JAX package's pipeline, without its
-survey journal, scheduler and trace exports, and without the device
-mesh.
+in the reference. With a journal directory the search stage runs
+through the checkpointed survey scheduler
+(:class:`riptide_tpu_torch.survey.scheduler.SurveyScheduler`: resume,
+retries, the watchdog and circuit breaker, result integrity), and
+``trace=True`` exports a Chrome trace of the run's host spans. The port
+of the JAX package's pipeline, without its device mesh.
 
 The products (peaks.csv, clusters.csv, candidates.csv and one
 candidate_NNNN.json each) are written without pandas: the tables are
@@ -35,11 +38,15 @@ import numpy as np
 from .. import __version__
 from ..candidate import Candidate
 from ..clustering import cluster1d
+from ..obs import chrome, prom
+from ..obs.trace import enable as trace_enable
+from ..obs.trace import enabled as trace_enabled
 from ..obs.trace import span
 from ..serialization import save_json
 from ..survey.faults import FaultPlan
 from ..table import Table
 from ..timing import maybe_trace, timing
+from ..utils import envflags
 from ..utils.device import resolve_device
 from .batcher import BatchSearcher
 from .config_validation import validate_pipeline_config, validate_ranges
@@ -113,8 +120,8 @@ class Pipeline:
         Configuration dictionary (see
         riptide_tpu_torch/pipeline/config/example.yaml). Format is
         validated immediately; value checks against the data happen in
-        prepare(). The ``liveness`` section is validated; it acts on
-        journaled runs only, which this package does not run yet.
+        prepare(). The ``liveness`` section configures the watchdog,
+        the circuit breaker and the retry budget of journaled runs.
     device : str, torch.device or None
         Where the de-reddening and the search run: None means the card
         (``"cuda"``), and a host without one raises; ``"cpu"`` runs the
@@ -122,23 +129,77 @@ class Pipeline:
     trace_dir : str or None
         Capture a ``torch.profiler`` trace of the search stage into
         this directory.
+    journal : str or None
+        Directory for the survey journal. When set, the search stage
+        runs through the checkpointed
+        :class:`riptide_tpu_torch.survey.scheduler.SurveyScheduler`:
+        completed chunks are journaled (fsync'd) as they finish, device
+        dispatch retries with exponential backoff, and ``resume=True``
+        replays journaled chunks instead of re-searching them. The JAX
+        package reads (and resumes) the same journal.
+    resume : bool
+        Resume from the journal (requires ``journal``).
     fault_spec : str or None
-        Fault-injection spec (see :mod:`riptide_tpu_torch.survey.faults`).
+        Fault-injection spec (see :mod:`riptide_tpu_torch.survey.faults`);
+        defaults to the ``RIPTIDE_FAULT_INJECT`` environment variable.
+    trace : bool
+        Record host-side phase spans (:mod:`riptide_tpu_torch.obs`) for
+        the whole run and export a Perfetto-loadable Chrome trace next
+        to the journal (or into the output directory). Equivalent to
+        ``RIPTIDE_TRACE=1``; ``trace_dir`` remains the card's
+        ``torch.profiler`` capture.
     """
 
-    def __init__(self, config, device=None, trace_dir=None,
-                 fault_spec=None):
+    def __init__(self, config, device=None, trace_dir=None, journal=None,
+                 resume=False, fault_spec=None, trace=False):
         self.config = validate_pipeline_config(config)
         self.device = resolve_device(device)
         self.trace_dir = trace_dir
-        # Parsing here also fails fast on a bad spec.
-        self.faults = FaultPlan.parse(fault_spec)
+        self.trace = bool(trace)
+        self.journal_dir = journal
+        self.resume = bool(resume)
+        self.fault_spec = (fault_spec if fault_spec is not None
+                           else envflags.get("RIPTIDE_FAULT_INJECT"))
+        # ONE fault plan shared by the scheduler (raise/stall/abort/
+        # corrupt/hang/straggle kinds) and the batch searcher
+        # (nan_inject/oom kinds), so directive budgets are consumed
+        # consistently. Parsing here also fails fast on a bad spec.
+        self.faults = FaultPlan.parse(self.fault_spec)
+        if self.resume and not self.journal_dir:
+            raise ValueError("resume=True requires a journal directory")
+        self.watchdog, self.breaker, self.retry = self._build_liveness()
         self.dmiter = None
         self.searcher = None
         self.peaks = []
         self.clusters = []
         self.clusters_filtered = []
         self.candidates = []
+
+    def _build_liveness(self):
+        """(watchdog, breaker, retry) from the optional ``liveness``
+        config section. The layer is ON by default — an absent section
+        gets the documented defaults, matching example.yaml — and ``liveness: {enabled: false}``
+        returns (None, None, None), reverting the scheduler to its
+        legacy retry-only behaviour."""
+        liv = self.config.get("liveness") or {}
+        if not liv.get("enabled", True):
+            return None, None, None
+        from ..survey.liveness import ChunkWatchdog
+        from ..survey.scheduler import CircuitBreaker, RetryPolicy
+
+        watchdog = ChunkWatchdog(
+            k=liv.get("watchdog_k", 4.0),
+            floor_s=liv.get("watchdog_floor_s", 5.0),
+            cap_s=liv.get("watchdog_cap_s", 900.0),
+            initial_s=liv.get("watchdog_initial_s"),
+        )
+        breaker = CircuitBreaker(
+            failure_threshold=liv.get("breaker_threshold", 3),
+            cooldown_s=liv.get("breaker_cooldown_s", 60.0),
+        )
+        retry = (RetryPolicy(deadline_s=liv["retry_deadline_s"])
+                 if liv.get("retry_deadline_s") is not None else None)
+        return watchdog, breaker, retry
 
     # -- config helpers -----------------------------------------------------
 
@@ -215,23 +276,52 @@ class Pipeline:
             faults=self.faults,
             oom_floor=oom_floor,
             device=self.device,
+            watchdog=self.watchdog,
         )
         log.info("Pipeline ready")
 
     @timing
     def search(self):
-        """Search all selected DM trials in device-sized batches through
-        the batcher's overlapped stream. The config's 'processes' value
-        sets the DM batch size per device search (and the host loader
-        thread count), not a worker process count."""
+        """Search all selected DM trials in device-sized batches. The
+        config's 'processes' value sets the DM batch size per device
+        search (and the host loader thread count), not a worker process
+        count. With a journal configured the chunk queue runs through
+        the checkpointed survey scheduler (resume / retry / fault
+        injection); otherwise through the batcher's overlapped
+        stream."""
         log.info("Running search")
         batch = max(self.config["processes"], 1)
         chunks = [list(c) for c in
                   self.dmiter.iterate_filenames(chunksize=batch)]
         with maybe_trace(self.trace_dir):
-            peaks = self.searcher.process_stream(chunks)
+            if self.journal_dir:
+                peaks = self._search_journaled(chunks)
+            else:
+                peaks = self.searcher.process_stream(chunks)
         self.peaks = sorted(peaks, key=lambda p: p.period)
         log.info(f"Total peaks found: {len(peaks)}")
+
+    def _search_journaled(self, chunks):
+        """Checkpointed search through the survey scheduler."""
+        from ..survey.journal import SurveyJournal
+        from ..survey.scheduler import SurveyScheduler, survey_identity
+
+        survey_id = survey_identity(
+            [f for c in chunks for f in c],
+            {"ranges": self.config["ranges"],
+             "dereddening": self.config["dereddening"]},
+        )
+        scheduler = SurveyScheduler(
+            self.searcher, chunks,
+            journal=SurveyJournal(self.journal_dir),
+            resume=self.resume,
+            retry=self.retry,
+            faults=self.faults,
+            survey_id=survey_id,
+            watchdog=self.watchdog,
+            breaker=self.breaker,
+        )
+        return scheduler.run()
 
     @timing
     def cluster_peaks(self):
@@ -446,7 +536,13 @@ class Pipeline:
         """Run all stages. Candidate filters apply *after* harmonic
         flagging so e.g. a bright zero-DM signal still claims its
         harmonics before any DM cut removes it. Each stage runs in a
-        span of its name (:mod:`riptide_tpu_torch.obs.trace`)."""
+        span of its name (:mod:`riptide_tpu_torch.obs.trace`); with
+        tracing on (``trace=True`` or ``RIPTIDE_TRACE=1``) the run's
+        spans are exported as a Chrome trace next to the journal, or
+        into ``outdir`` when not journaling."""
+        if self.trace and not trace_enabled():
+            trace_enable()
+        prom.maybe_serve()
         with span("prepare"):
             self.prepare(files)
         with span("search"):
@@ -461,6 +557,12 @@ class Pipeline:
             self.build_candidates()
         with span("save_products"):
             self.save_products(outdir=outdir)
+        # The scheduler exported a search-stage trace next to the
+        # journal; re-export after the post-search stages so the
+        # host-tail spans land in the same file. Both are no-ops while
+        # tracing is disabled.
+        chrome.export_run_trace(self.journal_dir or outdir or os.getcwd())
+        prom.maybe_write_textfile()
 
     @classmethod
     def from_yaml_config(cls, fname, **kwargs):
@@ -509,8 +611,20 @@ def get_parser():
                              "viewable in Perfetto)")
     parser.add_argument("--fault-inject", type=str, default=None,
                         help="Fault-injection spec for robustness testing, "
-                             "e.g. 'nan_inject:0,oom:0' (see "
+                             "e.g. 'raise:2,stall:1:0.5' (see "
                              "riptide_tpu_torch.survey.faults)")
+    parser.add_argument("--trace", action="store_true",
+                        help="Record host-side phase spans (prep/wire/"
+                             "dispatch/collect per chunk) and write a "
+                             "Perfetto-loadable Chrome trace-event JSON "
+                             "next to the journal (or into --outdir)")
+    parser.add_argument("--journal", type=str, default=None,
+                        help="Survey journal directory: checkpoint each "
+                             "completed DM chunk (with retry/backoff around "
+                             "device dispatch) so a killed run can resume")
+    parser.add_argument("--resume", action="store_true",
+                        help="Resume from the --journal directory, skipping "
+                             "chunks it already records")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Device of the de-reddening and the search: "
                              "'cuda' (the card) or 'cpu' (the plain "
@@ -539,7 +653,10 @@ def run_program(args):
         args.config,
         device=args.device,
         trace_dir=args.trace_dir,
+        journal=args.journal,
+        resume=args.resume,
         fault_spec=args.fault_inject,
+        trace=args.trace,
     )
     if pipeline.config["plot_candidates"]:
         # Non-interactive matplotlib backend; switched here rather than

@@ -158,6 +158,36 @@ class QualityReport:
             f"({100.0 * self.masked_frac:.2f}%): {'; '.join(self.reasons) or 'clean'}"
         )
 
+    def to_dict(self):
+        """JSON-able form (the journal's per-file ``dq`` entries; the
+        JAX package's keys)."""
+        return {
+            "fname": self.fname,
+            "dm": self.dm,
+            "nsamp": self.nsamp,
+            "n_nonfinite": self.n_nonfinite,
+            "n_clipped": self.n_clipped,
+            "n_dead": self.n_dead,
+            "n_dc": self.n_dc,
+            "n_masked": self.n_masked,
+            "masked_frac": round(self.masked_frac, 6),
+            "quarantined": self.quarantined,
+            "reasons": list(self.reasons),
+        }
+
+    @classmethod
+    def from_dict(cls, d):
+        """Inverse of :meth:`to_dict` (journal replay: a resumed survey
+        restores per-file reports so provenance columns stay
+        byte-identical to an uninterrupted run)."""
+        rep = cls(d.get("nsamp", 0), fname=d.get("fname"), dm=d.get("dm"))
+        for field in ("n_nonfinite", "n_clipped", "n_dead", "n_dc",
+                      "n_masked"):
+            setattr(rep, field, int(d.get(field, 0)))
+        rep.quarantined = bool(d.get("quarantined", False))
+        rep.reasons = list(d.get("reasons", []))
+        return rep
+
     def __repr__(self):
         return f"QualityReport({self.describe()})"
 

@@ -57,6 +57,8 @@ import torch
 from ..ops.ffa_kernel import (MAX_DYNAMIC_SMEM, SNR_WARPS, WIRE_MODES, Coefs,
                               StageGeom, Tables, cascade_stage, fused_stage,
                               paired_stage)
+from ..obs.trace import span
+from ..survey.metrics import get_metrics
 from ..utils import envflags
 from ..utils.device import resolve_device
 
@@ -434,6 +436,14 @@ def prepare_stage_data(plan, batch, mode=None, pool=None):
     per-stage element offsets ``offs``. ``meta["prep"]`` is ``"native"``
     or ``"numpy"``, and ``meta["staging"]`` the pool's tensors.
     """
+    t0 = time.perf_counter()
+    with span("prep", mode=mode or _wire_mode()):
+        out = _prepare_stage_data(plan, batch, mode, pool)
+    get_metrics().observe("prep_s", time.perf_counter() - t0)
+    return out
+
+
+def _prepare_stage_data(plan, batch, mode, pool):
     batch = np.asarray(batch, dtype=np.float32)
     if batch.ndim != 2 or batch.shape[1] != plan.size:
         raise ValueError("batch must be (D, N) with N matching the plan")
@@ -489,7 +499,19 @@ def ship_stage_data(prepared, device):
     on their event before the first stage. The event is also kept as
     ``prepared[1]["copy_event"]`` for :func:`release_prepared`."""
     flat, meta = prepared
-    dev = torch.device(device)
+    t0 = time.perf_counter()
+    with span("wire", bytes=int(flat.nbytes)):
+        out = _ship(flat, meta, torch.device(device))
+    elapsed = time.perf_counter() - t0
+    reg = get_metrics()
+    reg.observe("wire_s", elapsed)
+    reg.add("wire_bytes", int(flat.nbytes))
+    if elapsed > 0:
+        reg.observe_hist("wire_MBps", flat.nbytes / 1e6 / elapsed)
+    return out
+
+
+def _ship(flat, meta, dev):
     host = [torch.from_numpy(flat)]
     if meta["scales"] is not None:
         host.append(torch.from_numpy(meta["scales"]))
@@ -1133,11 +1155,16 @@ def collect_search_batch(handle, dms):
     then the chunk's staging buffers go back to its pool (their copy
     has completed by then). Returns (peaks_per_trial,
     polycos_per_trial)."""
+    from ..survey.integrity import set_collect_path
     from .peaks_device import collect_peaks
 
     pp, peaks_handle, staged = handle
+    set_collect_path("batch")
     t0 = time.perf_counter()
-    out = collect_peaks(pp, peaks_handle, dms)
+    # The device_s timer covers the blocking wait on the queued work and
+    # the one result pull (inside collect_peaks) and the host tail.
+    with get_metrics().timer("device_s"), span("device"):
+        out = collect_peaks(pp, peaks_handle, dms)
     if _RECORD is not None:
         _RECORD["collect_s"] = time.perf_counter() - t0
     release_prepared(*staged)

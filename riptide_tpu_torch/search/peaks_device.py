@@ -28,24 +28,35 @@ column's block data itself. Peaks are identical to the host path's
 either way. Columns with more than CAP non-empty blocks fetch their
 other blocks with one more gather.
 
-Left out against the JAX package: the integrity digest of the pulled
-buffer (``fold_result``), which waits for the integrity layer; its
-metrics registry is the module-level dict :data:`METRICS`.
+The pulled buffer (and the overflow gather's block values) is folded
+into the dispatch attempt's integrity digest at the collect point
+(:func:`riptide_tpu_torch.survey.integrity.fold_result`, a no-op while
+integrity is off), and the program's counters land in the metrics
+registry (:func:`riptide_tpu_torch.survey.metrics.get_metrics`):
+``dispatch_cluster`` (peak programs queued with device clustering),
+``cluster_cols_device`` / ``cluster_cols_host`` (columns whose peaks
+came from the device representatives or the host tail) and
+``harmonic_suspects`` (advisory harmonic-screen hits).
 """
+import contextlib
 import logging
+import time
 
 import numpy as np
 import torch
 
 from ..clustering import cluster1d
+from ..obs.trace import span
 from ..peak_detection import Peak, fit_threshold
+from ..survey.integrity import fold_result
+from ..survey.metrics import get_metrics
 from ..utils import envflags
 
 log = logging.getLogger("riptide_tpu_torch.peaks_device")
 
 __all__ = ["PeakPlan", "device_find_peaks", "queue_find_peaks",
-           "collect_peaks", "device_cluster_enabled", "METRICS",
-           "reset_metrics"]
+           "collect_peaks", "device_cluster_enabled",
+           "force_device_cluster"]
 
 # Margin (in S/N units) by which the device-side threshold is lowered;
 # marginal points are re-judged on host in float64. Device f32 rounding
@@ -63,25 +74,34 @@ _H_QMAX = 100
 _H_PHASE_MAX = 1.0
 _H_SNR_MAX = 3.0
 
-# Counters of the peak program: peak programs queued with device
-# clustering, columns whose peaks came from the device representatives
-# or from the host tail, and advisory harmonic suspects.
-METRICS = {"dispatch_cluster": 0, "cluster_cols_device": 0,
-           "cluster_cols_host": 0, "harmonic_suspects": 0}
-
-
-def reset_metrics():
-    """Set every counter of :data:`METRICS` to 0."""
-    for k in METRICS:
-        METRICS[k] = 0
+# Pinned override of the flag (see force_device_cluster); None defers
+# to the environment.
+_DC_OVERRIDE = None
 
 
 def device_cluster_enabled():
     """``RIPTIDE_DEVICE_CLUSTER``: run the clustering and the harmonic
     screen in the device program (the host still verifies and falls
     back per column, so the flag changes where the tail runs, never what
-    comes out)."""
+    comes out), unless :func:`force_device_cluster` pins it."""
+    if _DC_OVERRIDE is not None:
+        return _DC_OVERRIDE
     return bool(envflags.get("RIPTIDE_DEVICE_CLUSTER"))
+
+
+@contextlib.contextmanager
+def force_device_cluster(value):
+    """Pin :func:`device_cluster_enabled` to ``value`` for the block,
+    overriding the environment. Used by the integrity canary, whose
+    pinned digest covers the pulled buffer's LAYOUT and must therefore
+    not follow a run's flag override."""
+    global _DC_OVERRIDE
+    prev = _DC_OVERRIDE
+    _DC_OVERRIDE = bool(value)
+    try:
+        yield
+    finally:
+        _DC_OVERRIDE = prev
 
 
 def _percentiles(seg, qs):
@@ -573,7 +593,7 @@ def queue_find_peaks(peak_plan, snr_dev):
     :func:`collect_peaks` without syncing."""
     snr_dev = torch.as_tensor(snr_dev)
     if peak_plan.device_cluster:
-        METRICS["dispatch_cluster"] += 1
+        get_metrics().add("dispatch_cluster", 1)
     # A mutable handle: collect_peaks drops the entries to release the
     # device buffers while the caller still holds the handle.
     return [peak_plan._fused(snr_dev), snr_dev]
@@ -591,7 +611,13 @@ def collect_peaks(peak_plan, handle, dms):
     buf_dev, snr_dev = handle
     D = snr_dev.shape[0]
     buf = buf_dev.cpu().numpy()                            # the one pull
+    # Integrity Ring 1: fold the raw pulled bytes into the dispatch
+    # attempt's digest, host-side after the pull (a no-op returning
+    # ``buf`` untouched when no fold context is active).
+    buf = fold_result(buf)
     handle[0] = buf_dev = None
+    t_host = time.perf_counter()   # the host tail starts after the pull
+    reg = get_metrics()
     stats, cnt, ids, vals, extra = peak_plan._unpack(buf, D)
     NW, nb, BLK, CAP = (cnt.shape[1], peak_plan._nb, peak_plan.BLK,
                         peak_plan.CAP)
@@ -618,8 +644,8 @@ def collect_peaks(peak_plan, handle, dms):
                 (int(rep_idx[d, iw, c]), float(rep_val[d, iw, c]))
                 for c in reversed(range(k))
             ]
-        METRICS["cluster_cols_device"] += int((trusted & (ncl > 0)).sum())
-        METRICS["harmonic_suspects"] += int(extra["harm"].sum())
+        reg.add("cluster_cols_device", int((trusted & (ncl > 0)).sum()))
+        reg.add("harmonic_suspects", int(extra["harm"].sum()))
 
     # The S/N cube is only needed again for the (pathological) overflow
     # gather below; release it as soon as the counts show no UNTRUSTED
@@ -656,7 +682,7 @@ def collect_peaks(peak_plan, handle, dms):
                 break
             add(d, iw, b, vals[d, iw, c])
     if trusted is not None:
-        METRICS["cluster_cols_host"] += len(cols)
+        reg.add("cluster_cols_host", len(cols))
 
     # Overflow: an untrusted column with more than CAP non-empty blocks
     # (threshold pathologically low) falls back to the round-trip
@@ -682,14 +708,23 @@ def collect_peaks(peak_plan, handle, dms):
         gvals = peak_plan._gather_blocks(
             snr_dev, torch.from_numpy(padded).to(snr_dev.device)
         ).cpu().numpy()[: len(flat_ids)]
+        gvals = fold_result(gvals)
         handle[1] = snr_dev = None
         for row, (d, iw, b) in zip(gvals, sel):
             add(d, iw, b, row)
 
-    return peak_plan._finalize(
-        cols, polyco, plan.widths, plan.all_foldbins, dms, D, NW,
-        device_reps=device_reps,
-    )
+    # Host tail: the exact float64 re-check and clustering of the
+    # untrusted columns, Peak assembly from the trusted ones. cluster_s
+    # times this tail, postsearch_s all the host work after the pull.
+    with span("cluster", trials=int(D)):
+        t_cl = time.perf_counter()
+        out = peak_plan._finalize(
+            cols, polyco, plan.widths, plan.all_foldbins, dms, D, NW,
+            device_reps=device_reps,
+        )
+        reg.observe("cluster_s", time.perf_counter() - t_cl)
+    reg.observe("postsearch_s", time.perf_counter() - t_host)
+    return out
 
 
 def device_find_peaks(peak_plan, snr_dev, dms):

@@ -17,8 +17,8 @@ _FALSE_WORDS = ("0", "false", "off", "no")
 
 
 class EnvFlag(NamedTuple):
-    """One flag: ``type`` is ``bool``, ``int`` or ``choice`` (one of
-    ``choices``)."""
+    """One flag: ``type`` is ``bool``, ``int``, ``float``, ``str`` or
+    ``choice`` (one of ``choices``)."""
     name: str
     type: str
     default: object
@@ -68,6 +68,86 @@ _ALL = [
         "device result only when it proves it equal to its own float64 "
         "tail. Peaks are identical either way.",
     ),
+    EnvFlag(
+        "RIPTIDE_FAULT_INJECT", "str", None,
+        "Fault-injection spec for the survey scheduler and the batch "
+        "searcher, e.g. `stall:0:0.1,raise:2x2,oom:0`, including the "
+        "storage kinds (`kill_at:journal_append:3`); see "
+        "riptide_tpu_torch/survey/faults.py for the grammar. The CLIs' "
+        "`--fault-inject` takes precedence.",
+    ),
+    EnvFlag(
+        "RIPTIDE_TRACE", "bool", False,
+        "Enable the span tracer for the whole process at import time; "
+        "journaled runs export it as a Chrome trace (`trace.json` next "
+        "to the journal).",
+    ),
+    EnvFlag(
+        "RIPTIDE_TRACE_RING", "int", 65536,
+        "Span-ring capacity of the tracer: a long survey drops the "
+        "oldest spans and the export records how many.",
+    ),
+    EnvFlag(
+        "RIPTIDE_PROM_PORT", "int", 0,
+        "Serve Prometheus text-format metrics at "
+        "http://127.0.0.1:<port>/metrics (and /status, /healthz) on a "
+        "daemon thread during survey runs; 0 disables the endpoint.",
+    ),
+    EnvFlag(
+        "RIPTIDE_PROM_PORT_OFFSET", "bool", True,
+        "Offset the Prometheus endpoint port by this process's "
+        "torch.distributed rank, so that processes on one host get "
+        "their own endpoints; `0` binds the literal port.",
+    ),
+    EnvFlag(
+        "RIPTIDE_PROM_TEXTFILE", "str", None,
+        "Path of a Prometheus textfile the survey layers write the "
+        "metrics registry to at the end of each run; unset disables.",
+    ),
+    EnvFlag(
+        "RIPTIDE_LEDGER", "str", None,
+        "Path of the append-only JSONL performance ledger: every "
+        "journaled survey appends one run record. Unset disables.",
+    ),
+    EnvFlag(
+        "RIPTIDE_STATUS", "bool", True,
+        "Register journaled survey runs as the /status + /healthz "
+        "source of the Prometheus endpoint; `0` leaves it metrics-only.",
+    ),
+    EnvFlag(
+        "RIPTIDE_STATUS_STALE_S", "float", 120.0,
+        "Heartbeat age (seconds) beyond which /healthz reports 503.",
+    ),
+    EnvFlag(
+        "RIPTIDE_FLEET", "bool", True,
+        "Write the per-process fleet status sidecar (`fleet_<p>.json`) "
+        "next to the journal after every chunk; `0` disables it.",
+    ),
+    EnvFlag(
+        "RIPTIDE_ALERTS", "bool", False,
+        "Evaluate the alert rules (riptide_tpu_torch/obs/alerts.py) "
+        "over a journaled survey after every chunk.",
+    ),
+    EnvFlag(
+        "RIPTIDE_ALERT_RULES", "str", None,
+        "Alert rule spec: comma-separated `name[:limit[:for_count]]` "
+        "builtin rules, or `default`; unset means the full catalog.",
+    ),
+    EnvFlag(
+        "RIPTIDE_INTEGRITY", "choice", "off",
+        "Result-integrity mode of the survey scheduler "
+        "(riptide_tpu_torch/survey/integrity.py): `off`, `digest` "
+        "(per-chunk result digests, re-verified on resume), `probe` "
+        "(plus shadow dispatches per RIPTIDE_INTEGRITY_PROBE_EVERY) or "
+        "`strict` (every chunk probed, the golden canary at start).",
+        choices=("off", "digest", "probe", "strict"),
+    ),
+    EnvFlag(
+        "RIPTIDE_INTEGRITY_PROBE_EVERY", "int", 0,
+        "Shadow-probe cadence of `RIPTIDE_INTEGRITY=probe`: dispatch "
+        "every Nth chunk twice and compare the result digests; `0` "
+        "disables probing.",
+    ),
 ]
 
 FLAGS = {f.name: f for f in _ALL}
@@ -76,12 +156,14 @@ FLAGS = {f.name: f for f in _ALL}
 def _parse(flag, raw):
     if flag.type == "bool":
         return raw.strip().lower() not in _FALSE_WORDS
-    if flag.type == "int":
+    if flag.type in ("int", "float"):
         try:
-            return int(raw)
+            return int(raw) if flag.type == "int" else float(raw)
         except ValueError:
-            raise ValueError(f"unsupported {flag.name}={raw!r}: expected an "
-                             "integer") from None
+            raise ValueError(f"unsupported {flag.name}={raw!r}: expected "
+                             f"a number ({flag.type})") from None
+    if flag.type == "str":
+        return raw
     if raw not in flag.choices:
         raise ValueError(f"unsupported {flag.name}={raw!r}: expected one "
                          f"of {flag.choices}")

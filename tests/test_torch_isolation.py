@@ -72,7 +72,12 @@ def test_survey_modules_are_covered():
     for name in ("search.peaks_device", "peak_detection", "clustering",
                  "utils.envflags", "ops.slottables", "utils.cuda_build",
                  "utils.measure", "probes.common", "probes.ptime", "probes.ptime2",
-                 "probes.probe1536"):
+                 "probes.probe1536", "utils.runctx", "utils.fsio",
+                 "survey.metrics", "survey.incidents", "survey.journal",
+                 "survey.faults", "survey.liveness", "survey.integrity",
+                 "survey.scheduler", "obs.trace", "obs.schema", "obs.chrome",
+                 "obs.prom", "obs.alerts", "obs.fleet", "obs.ledger",
+                 "obs.report"):
         assert f"riptide_tpu_torch.{name}" in mods
 
 
@@ -99,6 +104,7 @@ def test_entry_points_default_to_the_card():
     raises instead of carrying on quietly on the CPU."""
     from riptide_tpu_torch import TimeSeries, ffa_search
     from riptide_tpu_torch.probes import probe1536, ptime, ptime2
+    from riptide_tpu_torch.survey import integrity
     from riptide_tpu_torch.search import (periodogram_plan, queue_search_batch,
                                           run_periodogram,
                                           run_periodogram_batch,
@@ -123,6 +129,8 @@ def test_entry_points_default_to_the_card():
         lambda: ptime.main([]),
         lambda: ptime2.main([]),
         lambda: probe1536.main([]),
+        lambda: integrity.compute_canary_digest(),
+        lambda: integrity.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -25,6 +25,8 @@ from riptide_tpu.libffa import generate_signal
 from riptide_tpu.search import peaks_device as ref_peaks
 from riptide_tpu.search.plan import periodogram_plan as ref_plan
 from riptide_tpu.survey.metrics import MetricsRegistry, set_metrics
+from riptide_tpu_torch.survey.metrics import MetricsRegistry as PortRegistry
+from riptide_tpu_torch.survey.metrics import set_metrics as port_set_metrics
 from riptide_tpu_torch.search import engine, peaks_device, run_search_batch
 from riptide_tpu_torch.search.plan import periodogram_plan
 
@@ -79,8 +81,13 @@ def test_peaks_match_reference_on_same_cube(monkeypatch, cube, dc, smin):
                                                       np.zeros(2))
     finally:
         set_metrics(prev)
-    peaks_device.reset_metrics()
-    got, got_poly = peaks_device.device_find_peaks(pp, cube, np.zeros(2))
+    port_reg = PortRegistry()
+    prev = port_set_metrics(port_reg)
+    try:
+        got, got_poly = peaks_device.device_find_peaks(pp, cube,
+                                                       np.zeros(2))
+    finally:
+        port_set_metrics(prev)
     assert got == want
     assert any(got)
     for gp, wp in zip(got_poly, want_poly):
@@ -90,7 +97,7 @@ def test_peaks_match_reference_on_same_cube(monkeypatch, cube, dc, smin):
     ref_counts = reg.summary()
     for key in ("harmonic_suspects", "cluster_cols_device",
                 "cluster_cols_host"):
-        assert peaks_device.METRICS[key] == ref_counts.get(key, 0), key
+        assert port_reg.counter(key) == ref_counts.get(key, 0), key
 
 
 def test_run_search_batch_matches_reference(monkeypatch, batch):

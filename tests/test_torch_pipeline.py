@@ -542,7 +542,7 @@ def test_nan_inject_masks_and_records(small_files):
 
 def test_fault_plan_refuses_unported_kinds():
     with pytest.raises(ValueError, match="bad fault directive"):
-        FaultPlan.parse("raise:2")
+        FaultPlan.parse("peer_loss:2")
     assert FaultPlan.parse("nan_inject:0:0.1x3,oom:4")._directives == [
         {"kind": "nan_inject", "chunk": 0, "arg": 0.1, "remaining": 3},
         {"kind": "oom", "chunk": 4, "arg": None, "remaining": 1}]
