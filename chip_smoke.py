@@ -8,7 +8,9 @@ Builds the cascade-stage kernels (``riptide_tpu_torch/csrc/ffa_stage.cu``)
 and the chip probes' kernels (``riptide_tpu_torch/csrc/probes.cu``) from
 this checkout with nvcc, and the native host runtime
 (``riptide_tpu_torch/native/src/riptide_native.cpp``) with g++, one
-process each, started together, then:
+process each, started together, into the build cache
+(``riptide_tpu_torch/utils/exec_cache.py``; ``.riptide_cache/torch_build/``
+of the checkout by default), then:
 
 0. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, the kernel build time, the native build's g++ seconds,
@@ -145,6 +147,27 @@ process each, started together, then:
    wall and DM-trials/s beside phase 7's, the resume's wall, the
    journal's bytes and fsyncs by file, and the card; K1's launches over
    phase 8 go into its ``kernels`` entry as ``journal_launches``.
+9. the report and watch CLIs, the chaos campaign and the build cache:
+   (a) ``obs.report.build_report`` over phase 8's probed journal (no
+   phase-sum violation, every chunk done, the integrity verdict ``ok``),
+   then ``apps/rreport.py``, ``rtop.py --once`` and ``rwatch.py --once``
+   run by path in fresh processes, each exiting 0; (b) the chaos
+   campaign's 11 builtin schedules (``survey.chaos.run_campaign(...,
+   device="cuda")``, 17 legs, each a fresh process on the card: kills
+   mid-write and resumes, ENOSPC and fsync faults, a corrupted cache
+   library, flipped result bytes), every schedule's ``peaks.csv`` the
+   control run's bytes, every leg on ``cuda`` and every leg that
+   searched a chunk launching K1; each schedule's legs, wall and K1
+   launches printed, then ``rreport --compare`` of the control journal
+   over the campaign's ledger rows, its platform scope the card's;
+   (c) ``csrc/ffa_stage.cu`` built under a throwaway
+   ``RIPTIDE_CACHE_ROOT`` in three fresh processes: with
+   ``cache_corrupt:exec_cache_store:1`` armed (the stored copy's last
+   byte flipped), then again (the digest check journals one
+   ``cache_corrupt`` incident, counts one eviction and nvcc rebuilds;
+   a headline search's K1 launches held against ``fused_stage_plain``),
+   then once more (``loaded``, the same bytes). K1's campaign launches
+   go into its ``kernels`` entry as ``chaos_launches``.
 
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
@@ -984,31 +1007,10 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
 
 def write_presto(path, data, tsamp, dm=0.0):
     """Write a float32 series as a PRESTO .inf/.dat pair (``path`` +
-    ".inf"/".dat"): PRESTO's header lines with their '=' at column 40,
-    ``tsamp`` and ``dm`` written exactly (repr). Returns the .inf path."""
-    lines = (
-        ("Data file name without suffix", os.path.basename(path)),
-        ("Telescope used", "Parkes"), ("Instrument used", "Multibeam"),
-        ("Object being observed", "Pulsar"),
-        ("J2000 Right Ascension (hh:mm:ss.ssss)", "00:00:01.0000"),
-        ("J2000 Declination     (dd:mm:ss.ssss)", "-00:00:01.0000"),
-        ("Data observed by", "chip_smoke"),
-        ("Epoch of observation (MJD)", "59000.000000"),
-        ("Barycentered?           (1=yes, 0=no)", "1"),
-        ("Number of bins in the time series", str(data.size)),
-        ("Width of each time series bin (sec)", repr(float(tsamp))),
-        ("Any breaks in the data? (1=yes, 0=no)", "0"),
-        ("Type of observation (EM band)", "Radio"),
-        ("Beam diameter (arcsec)", "981"),
-        ("Dispersion measure (cm-3 pc)", repr(float(dm))),
-        ("Central freq of low channel (Mhz)", "1182.1953125"),
-        ("Total bandwidth (Mhz)", "400"), ("Number of channels", "1024"),
-        ("Channel bandwidth (Mhz)", "0.390625"),
-        ("Data analyzed by", "chip_smoke"))
-    with open(path + ".inf", "w") as fobj:
-        fobj.write("".join(f" {k}".ljust(40) + f"=  {v}\n" for k, v in lines))
-    np.asarray(data, np.float32).tofile(path + ".dat")
-    return path + ".inf"
+    ".inf"/".dat") with the port's writer. Returns the .inf path."""
+    from riptide_tpu_torch.reading.presto import write_presto as write
+
+    return write(path, data, tsamp, dm=dm, observer="chip_smoke")
 
 
 def write_sigproc(path, data, tsamp, nbits):
@@ -1533,7 +1535,8 @@ def phase_journal(dev, p7, card):
     one ``result_mismatch``, the vote keeps the majority, the same
     bytes; (d) the integrity canary twice on the card, the same digest,
     the card's pin where the package has one; (e) a real ``torch.cuda.OutOfMemoryError`` classified as OOM, not as
-    a device error. Returns K1's launches over the phase."""
+    a device error. Returns K1's launches over the phase and the probe
+    run's journal directory (phase 9 reads it)."""
     from riptide_tpu_torch.search.engine import is_oom_error
     from riptide_tpu_torch.survey import integrity
     from riptide_tpu_torch.survey.liveness import is_device_error
@@ -1651,6 +1654,224 @@ def phase_journal(dev, p7, card):
     print(f"  (e) {type(oom).__name__} on {total / 2 ** 30:.1f} GiB + 1 GiB: "
           "an OOM, not a device error; the context still works", flush=True)
     print(f"  phase 8 card: {card}; K1 launches {k1}", flush=True)
+    return k1, probe["jdir"]
+
+
+def run_app(app, args):
+    """One of the port's report/watch CLIs run by path in a fresh
+    process, as on a login node: (exit code, stdout, stderr)."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "riptide_tpu_torch", "apps", f"{app}.py")
+    proc = subprocess.run([sys.executable, script, *args],
+                          capture_output=True, text=True, timeout=120)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def phase_readers(jdir, nchunks):
+    """Phase 9a: the readers over phase 8's probed journal:
+    ``build_report`` (no phase-sum violation, every chunk done, the
+    integrity verdict ``ok``), then ``rreport``, ``rtop --once`` and
+    ``rwatch --once`` by path, each exiting 0."""
+    from riptide_tpu_torch.obs import report
+
+    rep = report.build_report(jdir)
+    check(not rep["phase_sum_violations"] and rep["chunks_done"] == nchunks
+          and rep["integrity"]["device_verdict"] == "ok",
+          f"report of phase 8's journal: {rep['chunks_done']} chunks, "
+          f"violations {rep['phase_sum_violations']}, integrity "
+          f"{rep['integrity']}")
+    print(f"  (a) build_report: {rep['chunks_done']} chunks done, no "
+          f"phase-sum violation, integrity {rep['integrity']['chunks_probed']}"
+          f" chunks probed, device verdict "
+          f"{rep['integrity']['device_verdict']}; mean chunk_s "
+          f"{rep['run']['chunk_s']:.3f} s, device_s {rep['run']['device_s']:.3f}"
+          f" s", flush=True)
+    for app, args in (("rreport", [jdir]), ("rtop", [jdir, "--once"]),
+                      ("rwatch", [jdir, "--once"])):
+        t0 = time.perf_counter()
+        rc, out, err = run_app(app, args)
+        check(rc == 0, f"{app} on phase 8's journal exited {rc}:\n{out}\n"
+              f"{err[-2000:]}")
+        lines = out.strip().splitlines()
+        print(f"  (a) {app} by path: exit 0 in "
+              f"{time.perf_counter() - t0:.2f} s, {len(lines)} lines; "
+              f"{lines[-1 if app == 'rwatch' else 1].strip()}", flush=True)
+
+
+def phase_campaign(root, card):
+    """Phase 9b: the chaos campaign's builtin schedules, every leg a
+    fresh process on the card. Returns the summary."""
+    from riptide_tpu_torch.survey import chaos
+
+    files = chaos.write_trials(os.path.join(root, "data"))
+    t0 = time.perf_counter()
+    summary = chaos.run_campaign(files, os.path.join(root, "w"),
+                                 schedules=chaos.builtin_schedules(),
+                                 device="cuda")
+    wall = time.perf_counter() - t0
+    for s in summary["per_schedule"]:
+        check(all(r["device"] == "cuda" for r in s["reports"]),
+              f"chaos {s['name']}: a leg ran off the card")
+        print(f"  (b) {s['name']:<26} {s['legs']} leg(s) {s['wall_s']:6.2f} s,"
+              " K1 launches by leg "
+              + ", ".join(f"{r['k1_launches']}"
+                          + (" (killed)" if r["killed"] else "")
+                          + ("" if r["chunks_done"] else " (replayed all)")
+                          for r in s["reports"]), flush=True)
+    k1 = sum(s["k1_launches"] for s in summary["per_schedule"])
+    legs = [r for s in summary["per_schedule"] for r in s["reports"]]
+    ran = [r for r in legs if r["run_s"] is not None]
+    print("  (b) a leg's wall: interpreter, imports and exit "
+          f"{np.mean([r['wall_s'] - r['leg_s'] for r in legs]):.2f} s, "
+          "fault plan, journal and searcher "
+          f"{np.mean([r['leg_s'] - (r['run_s'] or 0.0) for r in legs]):.2f} s,"
+          " the scheduler's run (CUDA context and library loads included) "
+          f"{np.mean([r['run_s'] for r in ran]):.2f} s, on average over "
+          f"{len(legs)} legs", flush=True)
+    print(f"  (b) campaign on {card}: {summary['schedules']} schedules, "
+          f"{summary['legs']} legs in {wall:.1f} s "
+          f"({wall / summary['legs']:.2f} s a leg), every schedule's "
+          f"peaks.csv the control run's {summary['peaks_csv_bytes']} bytes; "
+          f"K1 launches {k1}", flush=True)
+    return summary, k1
+
+
+def phase_compare(root, summary):
+    """Phase 9a's comparison: ``rreport --compare`` of the control
+    schedule's journal over a ledger of every schedule's rows; its
+    platform scope must be the card's."""
+    ledger = os.path.join(root, "ledger.jsonl")
+    with open(ledger, "wb") as out:
+        for s in summary["per_schedule"]:
+            with open(os.path.join(root, "w", s["name"], "ledger.jsonl"),
+                      "rb") as fobj:
+                out.write(fobj.read())
+    doc = os.path.join(root, "compare.json")
+    rc, out, err = run_app("rreport", [
+        os.path.join(root, "w", "control", "j"), "--compare", ledger,
+        "--quiet", "--json", doc])
+    check(rc in (0, 1), f"rreport --compare exited {rc}:\n{err[-2000:]}")
+    with open(doc) as fobj:
+        verdict = json.load(fobj)["compare"]
+    want = {"backend": "cuda", "device_kind": torch.cuda.get_device_name(0)}
+    check(verdict.get("platform") == want,
+          f"rreport --compare scoped to {verdict.get('platform')}, want {want}")
+    print(f"  (a) rreport --compare (control journal, {verdict['baseline_n']}"
+          f" baseline rows of the campaign's ledger): exit {rc}, verdict "
+          f"{verdict['verdict']}, device {verdict['current']} s/chunk against "
+          f"median {verdict.get('baseline_median')} (threshold "
+          f"{verdict.get('threshold')}); platform scope {verdict['platform']}",
+          flush=True)
+
+
+def cache_step(step, jdir):
+    """Phase 9c's fresh process ``step``: 1 builds and loads
+    ``ffa_stage.cu`` with ``cache_corrupt:exec_cache_store:1`` armed; 2
+    loads it again (the digest check must evict and rebuild) and runs a
+    headline search, every K1 launch held against ``fused_stage_plain``;
+    3 loads it once more. Incidents go to the journal at ``jdir``.
+    Prints one JSON line."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.search import engine, run_periodogram
+    from riptide_tpu_torch.survey import incidents
+    from riptide_tpu_torch.survey.faults import FaultPlan
+    from riptide_tpu_torch.survey.journal import SurveyJournal
+    from riptide_tpu_torch.survey.metrics import get_metrics
+    from riptide_tpu_torch.utils import fsio
+    from riptide_tpu_torch.utils.exec_cache import file_digest
+
+    journal = SurveyJournal(jdir)
+    incidents.set_sink(journal.record_incident)
+    if step == 1:
+        fsio.set_storage_faults(
+            FaultPlan.parse("cache_corrupt:exec_cache_store:1").storage_op)
+    t0 = time.perf_counter()
+    fk._LIB.load()
+    info = fk._LIB.info
+    out = {"action": info["action"], "load_s": time.perf_counter() - t0,
+           "nvcc_s": info["seconds"], "verify_s": info["verify_s"],
+           "digest": info["digest"], "path": info["path"],
+           "stored": file_digest(info["path"]),
+           "evictions": get_metrics().counter("cache_evictions"),
+           "incidents": [r["incident"] for r in journal.incidents()]}
+    if step == 2:
+        dev = torch.device("cuda")
+        plan = headline_plan()
+        fk.reset_launches()
+        with engine.recording() as rec:
+            run_periodogram(plan, headline_series().data, device=dev)
+        out["k1_launches"] = fk.LAUNCHES["fused_stage"]
+        out["max_abs_err"] = compare_stages(
+            "K1 on the rebuilt library", kernel_outs(rec, "fused_stage"),
+            plain_launches(rec, "fused_stage"))
+    print(json.dumps(out), flush=True)
+
+
+def phase_cache(root):
+    """Phase 9c: the real kernel library corrupted and rebuilt, under a
+    throwaway ``RIPTIDE_CACHE_ROOT``, in three fresh processes
+    (``ctypes`` hands back a library already loaded from a path, so
+    recovery is shown across processes, as the chaos legs show it)."""
+    env = dict(os.environ, RIPTIDE_CACHE_ROOT=os.path.join(root, "cache"))
+    jdir = os.path.join(root, "journal")
+    here = os.path.dirname(os.path.abspath(__file__))
+    steps = []
+    for step in (1, 2, 3):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.cache_step({step}, {jdir!r})"],
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"cache step {step} exited "
+              f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        doc = json.loads(proc.stdout.strip().splitlines()[-1])
+        doc["wall"] = time.perf_counter() - t0
+        steps.append(doc)
+    one, two, three = steps
+    check(one["action"] == "compiled" and one["stored"] != one["digest"]
+          and not one["incidents"],
+          f"cache step 1: {one} (want a build whose stored copy is "
+          "corrupted)")
+    check(two["action"] == "compiled" and two["evictions"] == 1
+          and two["incidents"] == ["cache_corrupt"]
+          and two["stored"] == two["digest"] and two["k1_launches"] > 0,
+          f"cache step 2: {two} (want one cache_corrupt incident, one "
+          "eviction, an nvcc rebuild, K1 launches)")
+    check(three["action"] == "loaded" and three["digest"] == two["digest"]
+          and three["evictions"] == 0
+          and three["incidents"] == ["cache_corrupt"],
+          f"cache step 3: {three} (want a clean load of step 2's bytes)")
+    print(f"  (c) step 1: nvcc {one['nvcc_s']:.2f} s, compiled and loaded; "
+          f"the stored copy's last byte flipped (digest {one['stored'][:12]}"
+          f" != {one['digest'][:12]}); {one['wall']:.1f} s", flush=True)
+    print(f"  (c) step 2: digest mismatch -> one cache_corrupt incident, "
+          f"cache_evictions {two['evictions']}, nvcc rebuild "
+          f"{two['nvcc_s']:.2f} s; {two['k1_launches']} K1 launches of a "
+          f"headline search within tolerance (max |kernel - plain| "
+          f"{two['max_abs_err']:.3e}); {two['wall']:.1f} s", flush=True)
+    print(f"  (c) step 3: loaded, the same bytes ({three['digest'][:12]}), "
+          f"digest check {1e3 * three['verify_s']:.2f} ms, load "
+          f"{three['load_s']:.3f} s; {three['wall']:.1f} s", flush=True)
+
+
+def phase_chaos(jdir, nchunks, card):
+    """Phase 9: the readers over phase 8's probed journal (a), the chaos
+    campaign on the card with ``rreport --compare`` over its ledger (b),
+    the kernel library corrupted and rebuilt (c). Returns K1's launches
+    over the campaign's legs."""
+    import shutil
+    import tempfile
+
+    from riptide_tpu_torch.utils.cuda_build import BUILD_DIR
+
+    phase_readers(jdir, nchunks)
+    root = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        summary, k1 = phase_campaign(root, card)
+        phase_compare(root, summary)
+        phase_cache(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return k1
 
 
@@ -1886,8 +2107,14 @@ def main(argv=None):
         print("phase 8: the journaled survey (journal, resume, integrity, "
               "faults, trace) on phase 7's trials", flush=True)
         t8 = time.perf_counter()
-        k1_journal = phase_journal(dev, p7, card)
+        k1_journal, probed = phase_journal(dev, p7, card)
         print(f"  phase 8: {time.perf_counter() - t8:.1f} s wall", flush=True)
+        print("phase 9: the report and watch CLIs on phase 8's journal, the "
+              "chaos campaign on the card, the kernel library corrupted and "
+              "rebuilt", flush=True)
+        t9 = time.perf_counter()
+        k1_chaos = phase_chaos(probed, p7["nchunks"], card)
+        print(f"  phase 9: {time.perf_counter() - t9:.1f} s wall", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if args.profile:
@@ -1914,8 +2141,10 @@ def main(argv=None):
             "library_ms": None,
         })
     # K1's launches over phase 8's journaled runs, beside its main-path
-    # count.
+    # count ...
     entries[0]["journal_launches"] = k1_journal
+    # ... and over phase 9's chaos legs (each a fresh process).
+    entries[0]["chaos_launches"] = k1_chaos
     entries += probe_entries
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -2,38 +2,36 @@
 ctypes binding of the port's native host runtime (``src/riptide_native.cpp``,
 the port's own copy of the JAX package's).
 
-The shared library is built at first use with ``g++`` into
-``riptide_tpu_torch/_build/``, under a name keyed by a hash of the source
-and the flags, and loaded with ctypes. :func:`available` reports whether
-the build and load worked; when they did not, a warning is logged and
-every consumer takes its numpy path (the wire preparation records which
-path made a wire as ``meta["prep"]``).
+The shared library is built at first use with ``g++`` into the build
+cache (:mod:`riptide_tpu_torch.utils.exec_cache`), under a name keyed by
+the source, the flags and g++'s version, stored with its digest, checked
+before it is loaded and loaded with ctypes. :func:`available` reports
+whether the build and load worked; when they did not, a warning is
+logged and every consumer takes its numpy path (the wire preparation
+records which path made a wire as ``meta["prep"]``).
 
 Bound here: the threaded wire preparation (:func:`prepare_wire_view`,
 :func:`downsample_stages`) and the loaders' :func:`read_f32` and
 :func:`decode8`.
 """
 import ctypes
-import hashlib
 import logging
 import os
 import subprocess
-import tempfile
 import threading
-import time
 from pathlib import Path
 
 import numpy as np
 from numpy.ctypeslib import ndpointer
+
+from ..utils import exec_cache
 
 log = logging.getLogger("riptide_tpu_torch.native")
 
 __all__ = ["available", "build", "BUILD_INFO", "read_f32", "decode8",
            "downsample_stages", "prepare_wire_view", "default_threads"]
 
-_PKG = Path(__file__).resolve().parent.parent
 SOURCE = Path(__file__).resolve().parent / "src" / "riptide_native.cpp"
-BUILD_DIR = _PKG / "_build"
 # -ffp-contract=off: the uint6/8/12 quantisers round to nearest even
 # through the 1.5 * 2^23 magic constant, which gives the numpy path's
 # bytes only if `v * inv + magic` is not contracted to an FMA (GCC
@@ -46,43 +44,28 @@ FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
 _lock = threading.Lock()
 _lib = None
 _tried = False
-# The build this process made or found: the library's path and the
-# seconds g++ took (0 when it was built already).
+# The build this process made or found: the library's path, the cache's
+# action and the seconds g++ took (0 when it was built already).
 BUILD_INFO = {"path": None, "seconds": 0.0}
 
 
-def _lib_path():
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libriptide_native_{key}.so"
+def _compile(out):
+    proc = subprocess.run(["g++", *FLAGS, str(SOURCE), "-o", out],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed to build {SOURCE.name} (exit "
+                           f"{proc.returncode}): {proc.stderr.strip()}")
+    return proc.stdout + proc.stderr
 
 
-def build():
-    """Path of the built library, compiling it with g++ first if this
-    source and flag set have not been built yet. Builds to a unique
-    temporary name and renames it into place, so that concurrent first
-    uses (test workers, survey processes) never truncate a library
-    another process has mapped. Raises RuntimeError when g++ fails."""
-    out = _lib_path()
-    BUILD_INFO["path"] = str(out)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(["g++", *FLAGS, str(SOURCE), "-o", tmp],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {SOURCE.name} (exit "
-                               f"{proc.returncode}): {proc.stderr.strip()}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    return out
+def build(load=False):
+    """Path of the built library (with ``load``, the loaded
+    ``ctypes.CDLL``), compiling it with g++ first if the build cache
+    holds no library of this source, flag set and g++ whose digest
+    checks. Concurrent first uses (test workers, survey processes) build
+    once under the cache's lock. Raises RuntimeError when g++ fails."""
+    return exec_cache.obtain(SOURCE, FLAGS, ("g++", "-dumpfullversion"),
+                             _compile, load=load, info=BUILD_INFO)
 
 
 def _f32():
@@ -131,7 +114,7 @@ def _get():
             return _lib
         _tried = True
         try:
-            _lib = _bind(ctypes.CDLL(str(build())))
+            _lib = _bind(build(load=True))
         except (OSError, RuntimeError) as err:
             log.warning("native library unavailable (%s); using the numpy "
                         "paths", err)

@@ -19,8 +19,11 @@ package's ``obs/`` modules):
   :mod:`~riptide_tpu_torch.obs.ledger` — the alert rules, the
   per-process fleet sidecars and the perf ledger (``RIPTIDE_ALERTS``,
   ``RIPTIDE_FLEET``, ``RIPTIDE_LEDGER``);
-* :mod:`~riptide_tpu_torch.obs.report` — the readers the scheduler uses
-  (journal follower, fleet merge, the alert signal vector).
+* :mod:`~riptide_tpu_torch.obs.report` — the readers: the ones the
+  scheduler uses (journal follower, fleet merge, the alert signal
+  vector) and the post-run report with its ledger comparison, behind
+  the ``rreport``, ``rtop`` and ``rwatch`` CLIs
+  (``riptide_tpu_torch/apps/``).
 
 The card's own timeline is ``torch.profiler``'s
 (:func:`riptide_tpu_torch.timing.maybe_trace`); spans cover the host.

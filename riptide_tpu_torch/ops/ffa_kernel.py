@@ -20,8 +20,9 @@ wrapper                replaces (riptide_tpu/ops/ffa_kernel.py)
 The kernels live in ``riptide_tpu_torch/csrc/ffa_stage.cu`` (its header
 says how each part maps to the Pallas code and what bounds it). They are
 built with ``nvcc`` for ``sm_90a`` (``NVCC_FLAGS``) at first use, into
-``riptide_tpu_torch/_build/`` keyed by a hash of the source and flags,
-and loaded with ctypes, by ``utils/cuda_build.py``.
+the build cache (``utils/exec_cache.py``) keyed by the source, the flags
+and nvcc's version, checked against its digest and loaded with ctypes,
+by ``utils/cuda_build.py``.
 
 Each stage is three kinds of CUDA launch: the segment kernel
 (``segment_cascade_kernel``) fills shared-memory row tiles (from the
@@ -229,8 +230,8 @@ BUILD_INFO = _LIB.info
 
 def build():
     """Path of the built kernel library, compiling it with nvcc first if
-    this source and flag set have not been built yet. Raises
-    RuntimeError when nvcc is missing or fails."""
+    the build cache holds no library of this source, flag set and nvcc.
+    Raises RuntimeError when nvcc is missing or fails."""
     return _LIB.build()
 
 

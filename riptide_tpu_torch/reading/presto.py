@@ -1,5 +1,6 @@
 """
-PRESTO .inf / .dat reading.
+PRESTO .inf / .dat reading, and a writer of the same format
+(:func:`write_presto`) for the package's own synthetic trials.
 
 The .inf format is a fixed-column text file: every standard line has an
 '=' at column 40 and the value after it (reference semantics:
@@ -11,7 +12,7 @@ import numpy as np
 
 from ..utils.coords import SkyCoord
 
-__all__ = ["PrestoInf"]
+__all__ = ["PrestoInf", "write_presto"]
 
 _SEP_COLUMN = 40
 _FAKE_TELESCOPE = "None (Artificial Data Set)"
@@ -132,3 +133,35 @@ class PrestoInf(dict):
             self.data_fname, dtype=np.float32, policy=policy,
             expect=self.get("nsamp"),
         )
+
+
+def write_presto(path, data, tsamp, dm=0.0, observer="riptide_tpu_torch"):
+    """Write a float32 series as a PRESTO .inf/.dat pair (``path`` +
+    ".inf"/".dat"): PRESTO's radio header lines with their '=' at column
+    40, ``tsamp`` and ``dm`` written exactly (repr), ``observer`` as the
+    observer and analyst. Returns the .inf path."""
+    data = np.asarray(data, np.float32)
+    lines = (
+        ("Data file name without suffix", os.path.basename(path)),
+        ("Telescope used", "Parkes"), ("Instrument used", "Multibeam"),
+        ("Object being observed", "Pulsar"),
+        ("J2000 Right Ascension (hh:mm:ss.ssss)", "00:00:01.0000"),
+        ("J2000 Declination     (dd:mm:ss.ssss)", "-00:00:01.0000"),
+        ("Data observed by", observer),
+        ("Epoch of observation (MJD)", "59000.000000"),
+        ("Barycentered?           (1=yes, 0=no)", "1"),
+        ("Number of bins in the time series", str(data.size)),
+        ("Width of each time series bin (sec)", repr(float(tsamp))),
+        ("Any breaks in the data? (1=yes, 0=no)", "0"),
+        ("Type of observation (EM band)", "Radio"),
+        ("Beam diameter (arcsec)", "981"),
+        ("Dispersion measure (cm-3 pc)", repr(float(dm))),
+        ("Central freq of low channel (Mhz)", "1182.1953125"),
+        ("Total bandwidth (Mhz)", "400"), ("Number of channels", "1024"),
+        ("Channel bandwidth (Mhz)", "0.390625"),
+        ("Data analyzed by", observer))
+    with open(path + ".inf", "w") as fobj:
+        fobj.write("".join(f" {k}".ljust(_SEP_COLUMN) + f"=  {v}\n"
+                           for k, v in lines))
+    data.tofile(path + ".dat")
+    return path + ".inf"

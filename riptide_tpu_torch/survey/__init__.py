@@ -7,5 +7,7 @@ classification of the card's errors
 (:mod:`~riptide_tpu_torch.survey.liveness`), result integrity
 (:mod:`~riptide_tpu_torch.survey.integrity`), fault injection
 (:mod:`~riptide_tpu_torch.survey.faults`), incident records and the
-metrics registry. The chaos campaign waits for a later slice.
+metrics registry, and the storage-chaos campaign
+(:mod:`~riptide_tpu_torch.survey.chaos`: kill-anywhere resume proved
+with subprocess legs on one device).
 """

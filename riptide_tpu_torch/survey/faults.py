@@ -75,12 +75,14 @@ there —
   observability paths must degrade to an incident, not die;
 * ``enospc:trace_export``       raise ``ENOSPC`` before writing;
 * ``fsync_fail:heartbeat_append``  the write lands but its fsync
-  raises ``EIO``.
+  raises ``EIO``;
+* ``cache_corrupt:exec_cache_store``  flip the last byte of the library
+  just placed in the build cache (detected by the loader's digest check
+  in the next process that loads it: incident, evict, rebuild).
 
-Two kinds of the JAX package are refused with an error that names the
-slice they wait for: ``peer_loss`` (a dead peer behind a collective;
-the multi-GPU slice) and ``cache_corrupt`` (bit rot in the executable
-cache; the exec-cache slice).
+One kind of the JAX package is refused with an error that names the
+slice it waits for: ``peer_loss`` (a dead peer behind a collective;
+the multi-GPU slice).
 
 Example: ``RIPTIDE_FAULT_INJECT="stall:0:0.1,raise:2x2,oom:0"``.
 """
@@ -102,20 +104,20 @@ log = logging.getLogger("riptide_tpu_torch.survey.faults")
 
 _KINDS = ("raise", "stall", "corrupt", "abort", "nan_inject", "oom",
           "hang", "straggle", "device_error", "bitflip",
-          "torn_write", "enospc", "fsync_fail", "kill_at")
+          "torn_write", "enospc", "fsync_fail", "kill_at",
+          "cache_corrupt")
 
 # The JAX package's kinds that wait for a later slice of the port, with
 # the slice named in the refusal.
 _REFUSED = {
     "peer_loss": "the multi-GPU slice (a dead peer behind a collective "
                  "needs more than one process)",
-    "cache_corrupt": "the executable-cache slice (the port keeps no "
-                     "executable cache yet)",
 }
 
 # Directive kinds whose second field is a persistence SITE (string from
 # fsio.SITES) rather than a chunk id, consumed via storage_op().
-_STORAGE_KINDS = ("torn_write", "enospc", "fsync_fail", "kill_at")
+_STORAGE_KINDS = ("torn_write", "enospc", "fsync_fail", "kill_at",
+                  "cache_corrupt")
 
 # Which fsio operation each storage kind fires on.
 _STORAGE_TRIGGER_OP = {
@@ -123,6 +125,7 @@ _STORAGE_TRIGGER_OP = {
     "enospc": "write",
     "kill_at": "write",
     "fsync_fail": "fsync",
+    "cache_corrupt": "placed",
 }
 
 _TIMES_RE = re.compile(r"x(\d+)$")
@@ -411,4 +414,23 @@ class FaultPlan:
                 log.warning("fault injection: arming torn write at %s "
                             "(%s)", site, path)
                 cmd = {"torn_frac": 0.5, "exit": None}
+            if kind == "cache_corrupt" and path is not None:
+                self._corrupt_file(site, path)
         return cmd
+
+    @staticmethod
+    def _corrupt_file(site, path):
+        """Flip the last byte of a just-placed file (simulated bit rot;
+        the build cache's digest check detects it on the next load)."""
+        try:
+            with open(path, "r+b") as fobj:
+                fobj.seek(-1, os.SEEK_END)
+                byte = fobj.read(1)
+                fobj.seek(-1, os.SEEK_END)
+                fobj.write(bytes([byte[0] ^ 0xFF]))
+        except OSError as err:  # pragma: no cover - injection plumbing
+            log.warning("fault injection: could not corrupt %s: %s",
+                        path, err)
+            return
+        log.warning("fault injection: corrupted placed file at %s (%s)",
+                    site, path)

@@ -3,27 +3,29 @@ Build and load the port's CUDA sources.
 
 Each source under ``riptide_tpu_torch/csrc/`` is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, at first
-use, into ``riptide_tpu_torch/_build/`` under a name keyed by a hash of
-the source and the flags, and loaded with ctypes. A :class:`Library`
-builds and loads one source once per process; several can be built at
-the same time (one ``nvcc`` each). A missing or failing ``nvcc`` raises;
-nothing falls back.
+use, into the build cache (:mod:`riptide_tpu_torch.utils.exec_cache`,
+``<cache root>/torch_build/`` by default) under a name keyed by the
+source, the flags and nvcc's version, stored with its digest, checked
+before every load and loaded with ctypes. A :class:`Library` builds and
+loads one source once per process; several can be built at the same
+time (one ``nvcc`` each). A missing or failing ``nvcc`` raises; nothing
+falls back. :data:`BUILD_DIR` (``riptide_tpu_torch/_build/``) holds no
+library: it is scratch space for scripts that write large files.
 
 The helpers below are what every kernel wrapper does before and after a
 launch: :func:`require` checks an operand, :func:`stream` is the current
 stream's handle, :func:`check` raises on a launcher's CUDA error code.
 """
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
 
+from . import exec_cache
 from .limits import MAX_DYNAMIC_SMEM
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "MAX_DYNAMIC_SMEM", "Library",
@@ -48,33 +50,32 @@ def _nvcc():
                        "CUDA sources")
 
 
-def build(source, flags=NVCC_FLAGS, info=None):
-    """Path of the library built from ``source`` with ``flags``, compiling
-    it with nvcc first if this source and flag set have not been built
-    yet. ``info`` (a dict) receives the library's path and, when this
-    call compiled it, nvcc's output (with ``-Xptxas -v``: registers,
-    shared memory, spills) and the seconds it took. Raises RuntimeError
-    when nvcc is missing or fails."""
+def _compile(source, flags):
+    def run(out):
+        proc = subprocess.run([_nvcc(), *flags, "-o", out, str(source)],
+                              capture_output=True, text=True)
+        text = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {source.name} "
+                               f"(exit {proc.returncode}):\n{text}")
+        return text
+    return run
+
+
+def build(source, flags=NVCC_FLAGS, info=None, load=False):
+    """Path of the library built from ``source`` with ``flags`` (with
+    ``load``, the loaded ``ctypes.CDLL``), compiling it with nvcc first
+    if the build cache holds no library of this source, flag set and
+    nvcc whose digest checks. ``info`` (a dict) receives the library's
+    path, the cache's ``action`` (``compiled``, ``loaded``, ``cached``)
+    and, when a call with this ``info`` compiled it, nvcc's output (with
+    ``-Xptxas -v``: registers, shared memory, spills) and the seconds it
+    took. Raises RuntimeError when nvcc is missing or fails."""
     source = Path(source)
-    info = {} if info is None else info
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{source.stem}_{key}.so"
-    info["path"] = str(out)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
-    info["seconds"] = time.perf_counter() - t0
-    info["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {source.name} "
-                           f"(exit {proc.returncode}):\n{info['log']}")
-    os.replace(tmp, out)
-    return out
+    flags = tuple(flags)
+    return exec_cache.obtain(source, flags, (_nvcc(), "--version"),
+                             _compile(source, flags), load=load,
+                             info=info)
 
 
 class Library:
@@ -82,8 +83,8 @@ class Library:
     process, its C functions declared by ``bind(lib)``; a source that
     exports ``int rt_init()`` (kernel attributes such as the opt-in
     shared memory, set once rather than at every launch) has it called
-    at load. ``info`` holds the build's path, nvcc output and seconds (0
-    when it was built already)."""
+    at load. ``info`` holds the build's path, the cache's action, nvcc
+    output and seconds (0 when it was built already)."""
 
     def __init__(self, source, bind, flags=NVCC_FLAGS):
         self.source = Path(source)
@@ -98,10 +99,11 @@ class Library:
         return build(self.source, self.flags, self.info)
 
     def load(self):
-        """The loaded, bound library."""
+        """The loaded, bound library (its digest checked first, see
+        :func:`build`)."""
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
+                lib = build(self.source, self.flags, self.info, load=True)
                 lib.rt_error_string.argtypes = [ctypes.c_int]
                 lib.rt_error_string.restype = ctypes.c_char_p
                 self._bind(lib)

@@ -148,6 +148,48 @@ _ALL = [
         "every Nth chunk twice and compare the result digests; `0` "
         "disables probing.",
     ),
+    EnvFlag(
+        "RIPTIDE_CACHE_ROOT", "str", None,
+        "Root directory of the on-disk caches (explicit operator "
+        "intent, used as given). Default: a trusted `.riptide_cache/` "
+        "at the checkout root, else a per-user 0700 tempdir. The port's "
+        "built libraries live under `<root>/torch_build/`.",
+    ),
+    EnvFlag(
+        "RIPTIDE_EXEC_CACHE", "str", None,
+        "Directory of the port's built-library cache (default "
+        "`<cache_root>/torch_build`). Unlike the JAX package's executable "
+        "cache it cannot be turned off: a library is built somewhere.",
+    ),
+    EnvFlag(
+        "RIPTIDE_EXEC_CACHE_MAX_BYTES", "int", 2 << 30,
+        "Byte cap of the built-library cache directory: a store evicts "
+        "the least recently used libraries above it; <= 0 disables "
+        "eviction.",
+    ),
+    EnvFlag(
+        "RIPTIDE_CHAOS_DIR", "str", None,
+        "Working directory of the storage-chaos campaign "
+        "(`python -m riptide_tpu_torch.apps.rchaos`); default: a fixed "
+        "per-system tempdir. Kept on failure for post-mortems.",
+    ),
+    EnvFlag(
+        "RIPTIDE_CHAOS_SEED", "int", 1234,
+        "Seed of the chaos campaign's generated schedule sweep: the "
+        "same seed reproduces the same kill-point/degradation "
+        "combinations (`rchaos --seed` overrides).",
+    ),
+    EnvFlag(
+        "RIPTIDE_CHAOS_SWEEP", "int", 0,
+        "How many seeded schedules the chaos campaign appends to the "
+        "fixed builtin set (0 = builtin only; `rchaos --sweep` and the "
+        "slow test tier run more).",
+    ),
+    EnvFlag(
+        "RIPTIDE_CHAOS_KEEP", "bool", False,
+        "Keep the chaos campaign's working directory after a PASSING "
+        "run too (failures always keep it).",
+    ),
 ]
 
 FLAGS = {f.name: f for f in _ALL}

@@ -33,8 +33,8 @@ helpers here, which hold the crash-consistency discipline in one spot:
   path: :data:`SITES`) to the hook, which may raise ``OSError``
   (``enospc`` / ``fsync_fail``), request a torn partial write
   (``torn_write``), hard-exit the process mid-write (``kill_at``), or
-  corrupt the placed file (``cache_corrupt``, which waits for the
-  executable cache: the port's fault parser refuses it). With no hook
+  corrupt the placed file (``cache_corrupt``: a stored library of the
+  build cache, :mod:`riptide_tpu_torch.utils.exec_cache`). With no hook
   installed every announcement is a single ``None`` check.
 
 This module is deliberately stdlib-only (no torch, no package imports
@@ -62,8 +62,8 @@ __all__ = [
 KILL_EXIT = 137
 
 # The named persistence paths storage faults can target (the JAX
-# package's names; its executable cache and service job registry are
-# not ported yet). Fault specs validate against this tuple so a typo'd
+# package's names; its service job registry, `job_append`, waits for
+# the serve slice). Fault specs validate against this tuple so a typo'd
 # site fails at parse time instead of silently never firing.
 SITES = (
     "journal_append",     # journal.jsonl records
@@ -72,6 +72,7 @@ SITES = (
     "ledger_append",      # perf-ledger rows (RIPTIDE_LEDGER)
     "trace_export",       # Chrome trace-event JSON exports
     "prom_textfile",      # Prometheus textfile page
+    "exec_cache_store",   # built libraries placed in the build cache
     "fleet_snapshot",     # fleet_<p>.json per-process status sidecars
 )
 

@@ -172,12 +172,13 @@ def test_stage_checks_refuse_bad_operands(stage_case):
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
-    """A kernel build that fails raises; nothing falls back."""
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    """A kernel build that fails raises; nothing falls back, and the
+    build cache holds no library."""
+    monkeypatch.setenv("RIPTIDE_CACHE_ROOT", str(tmp_path))
     monkeypatch.setattr(cuda_build, "_nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fk.build()
-    assert not list(tmp_path.glob("*.so"))
+    assert not list(tmp_path.rglob("*.so")) + list(tmp_path.rglob("*.sha256"))
 
 
 def test_cpu_wrappers_launch_nothing(stage_case):

@@ -77,8 +77,38 @@ def test_survey_modules_are_covered():
                  "survey.faults", "survey.liveness", "survey.integrity",
                  "survey.scheduler", "obs.trace", "obs.schema", "obs.chrome",
                  "obs.prom", "obs.alerts", "obs.fleet", "obs.ledger",
-                 "obs.report"):
+                 "obs.report", "utils.exec_cache", "survey.chaos",
+                 "apps.rreport", "apps.rtop", "apps.rwatch", "apps.rchaos"):
         assert f"riptide_tpu_torch.{name}" in mods
+
+
+@pytest.mark.parametrize("app,blocked,args", [
+    ("rreport", ("torch", "numpy", "jax", "jaxlib"), ["--help"]),
+    ("rtop", ("torch", "numpy", "jax", "jaxlib"), ["--help"]),
+    ("rwatch", ("torch", "numpy", "jax", "jaxlib"), ["--help"]),
+    ("rchaos", ("jax", "jaxlib"), ["--list"]),
+])
+def test_apps_run_by_path(app, blocked, args, tmp_path):
+    """The apps run by path from any directory; the readers with neither
+    torch nor numpy importable (a login node holding only the journal),
+    and none of them imports jax or the JAX package."""
+    script = os.path.join(PKG, "apps", f"{app}.py")
+    code = ("import runpy, sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"sys.argv = [{script!r}] + {args!r}\n"
+            "try:\n"
+            f"    runpy.run_path({script!r}, run_name='__main__')\n"
+            "finally:\n"
+            "    print(sorted(m for m in sys.modules\n"
+            "                 if m.split('.')[0] == 'riptide_tpu'))\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert ("usage:" in out.stdout) == (args == ["--help"])
 
 
 def test_kernel_source_ships_with_the_package():

@@ -189,7 +189,7 @@ def test_numpy_path_serves_when_the_build_fails(plans, batch, monkeypatch,
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", False)
 
-    def fail():
+    def fail(load=False):
         raise RuntimeError("g++ failed")
 
     monkeypatch.setattr(native, "build", fail)
