@@ -152,10 +152,12 @@ of the checkout by default), then:
    phase-sum violation, every chunk done, the integrity verdict ``ok``),
    then ``apps/rreport.py``, ``rtop.py --once`` and ``rwatch.py --once``
    run by path in fresh processes, each exiting 0; (b) the chaos
-   campaign's 11 builtin schedules (``survey.chaos.run_campaign(...,
-   device="cuda")``, 17 legs, each a fresh process on the card: kills
+   campaign's 14 builtin schedules (``survey.chaos.run_campaign(...,
+   device="cuda")``, 22 legs, each a fresh process on the card: kills
    mid-write and resumes, ENOSPC and fsync faults, a corrupted cache
-   library, flipped result bytes), every schedule's ``peaks.csv`` the
+   library, flipped result bytes, and the survey service's daemon
+   killed, drained and fed an injected device error mid-job), every
+   schedule's ``peaks.csv`` the
    control run's bytes, every leg on ``cuda`` and every leg that
    searched a chunk launching K1; each schedule's legs, wall and K1
    launches printed, then ``rreport --compare`` of the control journal
@@ -168,6 +170,30 @@ of the checkout by default), then:
    a headline search's K1 launches held against ``fused_stage_plain``),
    then once more (``loaded``, the same bytes). K1's campaign launches
    go into its ``kernels`` entry as ``chaos_launches``.
+10. the survey service (``riptide_tpu_torch.serve``) on phase 7's
+   trials, the job specs phase 7's range in 8-trial chunks with 16
+   loader threads, each served part's launch counts set to 0 just
+   before it and read just after, every fair-share turn logged with the
+   K1 launches inside it (``TurnLog``): (a) ``ServeDaemon(device=
+   "cuda", workers=2)`` takes two tenants' jobs over HTTP (trials 0-23
+   and 24-47), held at their first gate until both wait; both must end
+   ``done`` with interleaved turns, each ``peaks.csv`` the bytes of a
+   direct ``SurveyScheduler`` run of the same chunks in this process,
+   K1 launched in each job's turns and nowhere else, and the pair's
+   peak device memory under twice the direct runs'; each job's wall,
+   queue wait, device seconds and DM-trials/s are printed beside phase
+   7's; (b) a warm repeat of j0001's geometry (trials 0-7):
+   ``warm_start`` true, ``exec_cold_builds`` flat, K1 launched, its
+   first chunk's ``queue`` beside j0001's; (c) a job (trials 24-47)
+   drained after its first chunk (a priority -1 blocker gate parks it
+   at its next gate): ``/status`` shows ``draining``, a submit gets 503
+   with ``Retry-After``, the job has a ``job_drained`` incident and no
+   terminal record; a new daemon on the same root resumes it to
+   j0002's bytes; (d) ``rseek --submit`` of trial 0 from a process with
+   ``CUDA_VISIBLE_DEVICES`` empty exits 0 with a direct run's peaks
+   (the same bytes), and ``rreport`` and ``rtop --once`` by path print
+   the serve root's job table. K1's served launches go into its
+   ``kernels`` entry as ``serve_launches``.
 
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
@@ -1875,6 +1901,371 @@ def phase_chaos(jdir, nchunks, card):
     return k1
 
 
+# Phase 10: the served survey's job specs take phase 7's range and
+# de-reddening with SERVE_CHUNK trials a chunk and SERVE_IO_THREADS
+# loader threads (one thread would take ~45 s a chunk at full width).
+SERVE_CHUNK, SERVE_IO_THREADS = 8, 16
+# rseek --submit searches trial 0, where the pulsar is all but absent:
+# a lower threshold than rseek's 7 keeps some noise peaks to compare.
+SERVE_RSEEK_SMIN = 5.0
+
+
+def http_json(base, path, method="GET", body=None, headers=None):
+    """One loopback request: (status, parsed JSON or raw bytes,
+    response headers)."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    hdrs = {"Content-Type": "application/json"} if data else {}
+    hdrs.update(headers or {})
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers=hdrs)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            code, raw, got = resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as err:
+        code, raw, got = err.code, err.read(), dict(err.headers)
+    try:
+        return code, json.loads(raw), got
+    except ValueError:
+        return code, raw, got
+
+
+def wait_for(pred, what, timeout=600.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    raise RuntimeError(f"timed out waiting for {what}")
+
+
+class TurnLog:
+    """The fair-share queue's turns, instrumented: each turn's job, chunk
+    and K1 launches (``ffa_kernel.LAUNCHES["fused_stage"]`` read as the
+    turn begins and ends; turns never overlap, so the difference is that
+    job's)."""
+
+    def __init__(self, queue):
+        from riptide_tpu_torch.ops import ffa_kernel as fk
+
+        self.turns = []
+        self._open = {}
+        begin, end = queue.begin, queue.end
+
+        def logged_begin(job_id, chunk_id):
+            begin(job_id, chunk_id)
+            self._open[job_id] = (chunk_id, fk.LAUNCHES["fused_stage"],
+                                  time.perf_counter())
+
+        def logged_end(job_id, chunk_id):
+            opened = self._open.pop(job_id, None)
+            if opened is not None:
+                cid, k0, t0 = opened
+                self.turns.append((job_id, cid,
+                                   fk.LAUNCHES["fused_stage"] - k0,
+                                   time.perf_counter() - t0))
+            end(job_id, chunk_id)
+
+        queue.begin, queue.end = logged_begin, logged_end
+
+    def k1(self, job_id):
+        return sum(k for j, _, k, _ in self.turns if j == job_id)
+
+
+def serve_spec(p7, files, tenant, **extra):
+    """A phase 10 job spec over ``files``: phase 7's range and
+    de-reddening."""
+    return dict({"files": list(files), "fmt": "presto", "tenant": tenant,
+                 "chunk_files": SERVE_CHUNK, "io_threads": SERVE_IO_THREADS,
+                 "deredden": p7["conf"]["dereddening"],
+                 "search": p7["conf"]["ranges"]}, **extra)
+
+
+def direct_csv(dev, spec, path):
+    """``spec``'s chunks through a ``SurveyScheduler`` in this process,
+    as the daemon builds them but with no journal and no gate; writes
+    ``peaks.csv`` to ``path`` and returns its bytes and the peaks."""
+    from riptide_tpu_torch.pipeline.batcher import BatchSearcher
+    from riptide_tpu_torch.serve.daemon import write_peaks_csv
+    from riptide_tpu_torch.survey.scheduler import SurveyScheduler
+
+    files, per = spec["files"], spec.get("chunk_files") or 1
+    searcher = BatchSearcher(spec["deredden"], spec["search"],
+                             fmt=spec["fmt"],
+                             io_threads=spec.get("io_threads") or 1,
+                             device=dev)
+    peaks = SurveyScheduler(searcher, [files[i:i + per] for i in
+                                       range(0, len(files), per)]).run()
+    write_peaks_csv(peaks, path)
+    with open(path, "rb") as fobj:
+        return fobj.read(), peaks
+
+
+def job_wall(doc):
+    from riptide_tpu_torch.serve.daemon import parse_utc
+
+    return parse_utc(doc["finished_utc"]) - parse_utc(doc["started_utc"])
+
+
+def chunk0_queue_s(doc):
+    from riptide_tpu_torch.survey.journal import SurveyJournal
+
+    recs = SurveyJournal(doc["directory"]).completed_chunks()
+    return recs[0][0]["timings"]["queue_s"]
+
+
+def read_bytes(doc, name="peaks.csv"):
+    with open(os.path.join(doc["directory"], name), "rb") as fobj:
+        return fobj.read()
+
+
+def phase_serve(dev, p7, card):
+    """Phase 10: the survey service on phase 7's trials, its jobs on
+    ``dev``. (a) two tenants' jobs at once over HTTP (the two halves of
+    the trials): both done, their turns interleaved, each ``peaks.csv``
+    the bytes of a direct ``SurveyScheduler`` run of the same chunks, K1
+    launched in each job's turns, the pair's peak device memory under
+    twice the direct runs'; (b) a warm repeat of the first job's
+    geometry: ``warm_start`` and ``exec_cold_builds`` flat; (c) a job
+    drained after its first chunk (a priority -1 blocker parks it at its
+    next gate), a new daemon on the same root resuming it to the second
+    job's bytes; (d) ``rreport`` and ``rtop --once`` by path on the
+    serve root print its job table, and ``rseek --submit`` (a process
+    that sees no card) gets a direct run's peak count. The launch counts
+    are set to 0 just before each served part and read just after.
+    Returns K1's launches in the served jobs' turns."""
+    import threading
+
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.serve import JobDrained, ServeDaemon
+    from riptide_tpu_torch.survey.journal import SurveyJournal
+    from riptide_tpu_torch.survey.metrics import get_metrics
+
+    files, n7 = p7["files"], len(p7["files"])
+    half = n7 // 2
+    root = os.path.join(p7["root"], "serve")
+    cuda = dev.type == "cuda"
+    specs = {"j0001": serve_spec(p7, files[:half], "a"),
+             "j0002": serve_spec(p7, files[half:], "b")}
+
+    def peak_mem():
+        return torch.cuda.max_memory_allocated(dev) if cuda else 0
+
+    # The direct runs: the bytes each served job must give.
+    want, direct_mem = {}, 0
+    for jid, spec in specs.items():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        want[jid], _ = direct_csv(dev, spec, os.path.join(
+            p7["root"], f"direct_{jid}.csv"))
+        direct_mem = max(direct_mem, peak_mem())
+        print(f"  direct run of {jid}'s {len(spec['files'])} trials: "
+              f"{time.perf_counter() - t0:.3f} s, {len(want[jid])} bytes of "
+              f"peaks.csv", flush=True)
+
+    # (a) two tenants at once.
+    d = ServeDaemon(root, port=0, workers=2, device=dev).start()
+    base = f"http://127.0.0.1:{d.port}"
+    log = TurnLog(d.queue)
+    blocker = d.queue.register("blocker", priority=-1)
+    blocker.begin(0)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    fk.reset_launches()
+    cold0 = get_metrics().counter("exec_cold_builds")
+    for jid, spec in specs.items():
+        code, doc, _ = http_json(base, "/jobs", "POST", spec)
+        check(code == 202 and doc["job_id"] == jid,
+              f"(a) submit of {jid}: {code} {doc}")
+    # Both jobs wait at their first gate before either takes a turn.
+    wait_for(lambda: all(d.queue.snapshot()["jobs"].get(j, {})
+                         .get("waiting") for j in specs), "both jobs' gates")
+    blocker.end(0)
+    d.queue.unregister("blocker")
+    wait_for(lambda: all(d.get(j)[1]["status"] in ("done", "failed")
+                         for j in specs), "j0001 and j0002")
+    launches_a = dict(fk.LAUNCHES)
+    served_mem = peak_mem()
+    docs = {j: d.get(j)[1] for j in specs}
+    for jid, doc in docs.items():
+        check(doc["status"] == "done", f"{jid}: {doc.get('status')} "
+              f"({doc.get('error')})")
+        check(read_bytes(doc) == want[jid],
+              f"{jid}: peaks.csv differs from the direct run's")
+    order = [j for j, _, _, _ in log.turns if j in specs]
+    switches = sum(1 for a, b in zip(order, order[1:]) if a != b)
+    check(switches >= 2, f"(a) the jobs' turns do not interleave: {order}")
+    k1 = {j: log.k1(j) for j in specs}
+    if cuda:
+        check(all(k1.values()) and sum(k1.values())
+              == launches_a["fused_stage"],
+              f"(a) K1 launches in the jobs' turns {k1}, in all "
+              f"{launches_a['fused_stage']}")
+        check(served_mem < 2 * direct_mem,
+              f"(a) the served pair peaked at {served_mem} bytes, over "
+              f"twice the direct runs' {direct_mem}")
+    print(f"  (a) turns in order: {' '.join(order)} ({switches} switches)",
+          flush=True)
+    for jid, doc in docs.items():
+        wall = job_wall(doc)
+        print(f"  (a) {jid} (tenant {doc['tenant']}, "
+              f"{len(specs[jid]['files'])} trials, {doc['chunks_total']} "
+              f"chunks): wall {wall:.3f} s, "
+              f"{len(specs[jid]['files']) / wall:.3f} DM-trials/s, "
+              f"queue_wait_s {doc['queue_wait_s']}, device_s "
+              f"{doc['device_s']}, K1 launches in its turns {k1[jid]}, "
+              "peaks.csv the direct run's bytes", flush=True)
+    print(f"  (a) phase 7 (unserved, {n7} trials): {p7['wall']:.3f} s, "
+          f"{n7 / p7['wall']:.3f} DM-trials/s; exec_cold_builds over the "
+          f"pair {get_metrics().counter('exec_cold_builds') - cold0}",
+          flush=True)
+    print(f"  (a) peak device memory: served pair "
+          f"{served_mem / 2 ** 30:.3f} GiB, direct run "
+          f"{direct_mem / 2 ** 30:.3f} GiB", flush=True)
+    serve_k1 = launches_a["fused_stage"]
+
+    # (b) a warm repeat of j0001's geometry.
+    spec3 = serve_spec(p7, files[:SERVE_CHUNK], "a")
+    fk.reset_launches()
+    cold0 = get_metrics().counter("exec_cold_builds")
+    warm0 = get_metrics().counter("exec_warm_hits")
+    code, doc, _ = http_json(base, "/jobs", "POST", spec3)
+    check(code == 202, f"(b) submit: {code} {doc}")
+    j3 = doc["job_id"]
+    wait_for(lambda: d.get(j3)[1]["status"] in ("done", "failed"), j3)
+    doc3 = d.get(j3)[1]
+    cold = get_metrics().counter("exec_cold_builds") - cold0
+    warm = get_metrics().counter("exec_warm_hits") - warm0
+    check(doc3["status"] == "done" and doc3["warm_start"] is True
+          and cold == 0 and warm > 0,
+          f"(b) {j3}: {doc3.get('status')}, warm_start "
+          f"{doc3.get('warm_start')}, exec_cold_builds +{cold}, "
+          f"exec_warm_hits +{warm}")
+    if cuda:
+        check(log.k1(j3) > 0 and log.k1(j3) == fk.LAUNCHES["fused_stage"],
+              f"(b) {j3}: K1 launches {log.k1(j3)} in its turns, "
+              f"{fk.LAUNCHES['fused_stage']} in all")
+    serve_k1 += fk.LAUNCHES["fused_stage"]
+    print(f"  (b) {j3} ({len(spec3['files'])} trials, j0001's geometry): "
+          f"warm_start True, exec_cold_builds +0, exec_warm_hits +{warm}, "
+          f"wall {job_wall(doc3):.3f} s, K1 launches {log.k1(j3)}; first "
+          f"chunk's queue {chunk0_queue_s(doc3):.3f} s against j0001's "
+          f"{chunk0_queue_s(docs['j0001']):.3f} s (the daemon's first job)",
+          flush=True)
+
+    # (c) drained after one chunk, then resumed by a new daemon.
+    fk.reset_launches()
+    blocker = d.queue.register("blocker", priority=-1)
+    blocker.begin(0)
+    code, doc, _ = http_json(base, "/jobs", "POST",
+                             serve_spec(p7, files[half:], "b"))
+    check(code == 202, f"(c) submit: {code} {doc}")
+    j4 = doc["job_id"]
+    jdir4 = os.path.join(root, "jobs", j4)
+
+    def parked():
+        return d.queue.snapshot()["jobs"].get(j4, {}).get("waiting")
+
+    def reblock():
+        try:
+            blocker.begin(1)
+        except JobDrained:
+            pass
+
+    wait_for(parked, f"{j4} at its first gate")
+    blocker.end(0)
+    # The blocker queues for the next turn only once the job holds this
+    # one (else it could win this one back by its priority).
+    wait_for(lambda: d.queue.snapshot()["active"] == j4, f"{j4}'s turn")
+    threading.Thread(target=reblock, daemon=True).start()
+    wait_for(lambda: len(SurveyJournal(jdir4).completed_chunks()) >= 1
+             and parked(), f"{j4}'s first chunk and its next gate")
+    code, doc, _ = http_json(base, "/drain", "POST", {})
+    check(code == 202 and doc.get("draining"), f"(c) drain: {code} {doc}")
+    _, status, _ = http_json(base, "/status")
+    code, refused, hdrs = http_json(base, "/jobs", "POST", spec3)
+    check(status.get("draining") is True and code == 503
+          and hdrs.get("Retry-After"),
+          f"(c) while draining: /status {status}, submit {code} {refused}")
+    check(d.wait_drained(timeout=120), "(c) the workers did not park")
+    doc4 = d.get(j4)[1]
+    parks = [r["incident"] for r in SurveyJournal(jdir4).incidents()]
+    done4 = sorted(SurveyJournal(jdir4).completed_chunks())
+    check(doc4["status"] in ("pending", "running") and "job_drained" in parks
+          and done4 == [0],
+          f"(c) {j4} after the drain: {doc4['status']}, incidents {parks}, "
+          f"chunks journaled {done4}")
+    d.stop()
+    k1_first = fk.LAUNCHES["fused_stage"]
+    d = ServeDaemon(root, port=0, workers=2, device=dev).start()
+    base = f"http://127.0.0.1:{d.port}"
+    log = TurnLog(d.queue)
+    fk.reset_launches()
+    wait_for(lambda: d.get(j4)[1]["status"] in ("done", "failed"), j4)
+    doc4 = d.get(j4)[1]
+    check(doc4["status"] == "done" and doc4.get("resumed") is True
+          and read_bytes(doc4) == want["j0002"],
+          f"(c) {j4} after the restart: {doc4.get('status')}, resumed "
+          f"{doc4.get('resumed')}, peaks.csv the uninterrupted job's bytes "
+          f"{read_bytes(doc4) == want['j0002']}")
+    if cuda:
+        check(log.k1(j4) > 0, f"(c) {j4}: no K1 launch after the restart")
+    serve_k1 += k1_first + fk.LAUNCHES["fused_stage"]
+    print(f"  (c) {j4}: drained after chunk 0 (/status draining, a submit "
+          f"answered 503 with Retry-After {hdrs.get('Retry-After')}, a "
+          "job_drained incident, no terminal record); a new daemon resumed "
+          f"it in {job_wall(doc4):.3f} s (resumed True, {k1_first} + "
+          f"{log.k1(j4)} K1 launches), peaks.csv j0002's bytes", flush=True)
+
+    # (d) the clients.
+    fk.reset_launches()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    cfg = p7["conf"]["ranges"][0]["ffa_search"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "riptide_tpu_torch.apps.rseek", "-f",
+         "presto", "--Pmin", str(cfg["period_min"]), "--Pmax",
+         str(cfg["period_max"]), "--bmin", str(cfg["bins_min"]), "--bmax",
+         str(cfg["bins_max"]), "--smin", str(SERVE_RSEEK_SMIN), "--submit",
+         base, files[0]],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"(d) rseek --submit exited "
+          f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+    head = proc.stdout.splitlines()[0]
+    j5 = head.split()[2]
+    doc5 = d.get(j5)[1]
+    want5, direct = direct_csv(dev, doc5["spec"], os.path.join(
+        p7["root"], "direct_rseek.csv"))
+    check(doc5["status"] == "done" and doc5["npeaks"] == len(direct)
+          and read_bytes(doc5) == want5,
+          f"(d) rseek --submit: {head}; a direct run gives {len(direct)} "
+          "peaks")
+    if cuda:
+        check(log.k1(j5) > 0, f"(d) {j5}: no K1 launch in its turns")
+    serve_k1 += log.k1(j5)
+    print(f"  (d) rseek --submit (CUDA_VISIBLE_DEVICES empty) exit 0 in "
+          f"{time.perf_counter() - t0:.2f} s: {head}; a direct run gives "
+          f"{len(direct)} peaks, the same peaks.csv bytes", flush=True)
+    for app, args in (("rreport", [root]), ("rtop", [root, "--once"])):
+        rc, out, err = run_app(app, args)
+        check(rc == 0 and "service jobs:" in out and all(
+            j in out for j in ("j0001", "j0002", j3, j4, j5)),
+            f"(d) {app} on the serve root exited {rc}:\n{out}\n"
+            f"{err[-2000:]}")
+        print(f"  (d) {app} by path on the serve root: exit 0, "
+              f"{len(out.strip().splitlines())} lines", flush=True)
+    print("\n".join("      " + line
+                    for line in out.strip().splitlines()), flush=True)
+    d.stop()
+    print(f"  phase 10 card: {card}; K1 launches in served turns "
+          f"{serve_k1}", flush=True)
+    return serve_k1
+
+
 # Phase 6: P1's gathering patterns (the tool's names), and the grids
 # (blocks, threads) of the empty kernel timed as the launch floor: one
 # block, and the grid of an element kernel at (2048, 384).
@@ -2115,6 +2506,13 @@ def main(argv=None):
         t9 = time.perf_counter()
         k1_chaos = phase_chaos(probed, p7["nchunks"], card)
         print(f"  phase 9: {time.perf_counter() - t9:.1f} s wall", flush=True)
+        print("phase 10: the survey service on phase 7's trials (two "
+              "tenants, a warm repeat, drain and restart, the clients)",
+              flush=True)
+        t10 = time.perf_counter()
+        k1_serve = phase_serve(dev, p7, card)
+        print(f"  phase 10: {time.perf_counter() - t10:.1f} s wall",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if args.profile:
@@ -2143,8 +2541,10 @@ def main(argv=None):
     # K1's launches over phase 8's journaled runs, beside its main-path
     # count ...
     entries[0]["journal_launches"] = k1_journal
-    # ... and over phase 9's chaos legs (each a fresh process).
+    # ... over phase 9's chaos legs (each a fresh process) ...
     entries[0]["chaos_launches"] = k1_chaos
+    # ... and in the turns of phase 10's served jobs.
+    entries[0]["serve_launches"] = k1_serve
     entries += probe_entries
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

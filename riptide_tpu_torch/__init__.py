@@ -18,6 +18,8 @@ products round-trip through JSON (:func:`save_json`,
 :class:`Candidate` products, and ``rseek``
 (:mod:`riptide_tpu_torch.apps.rseek`) searches one series; neither needs
 pandas, PyYAML or matplotlib unless asked to read a YAML file or plot.
+The survey service (:mod:`riptide_tpu_torch.serve`, ``rserve``) runs
+jobs submitted over HTTP in fair-share turns on the card.
 The package imports neither jax nor ``riptide_tpu``.
 """
 from .candidate import Candidate

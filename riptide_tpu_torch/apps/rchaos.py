@@ -9,8 +9,9 @@ schedule from :mod:`riptide_tpu_torch.survey.chaos` — subprocess legs
 on one device that are killed mid-write at journal/ledger/peak-store
 boundaries, restarted with resume, and degraded with
 ENOSPC/fsync/torn-write faults on the observability paths, a corrupted
-build-cache library and flipped result bytes — asserting after each
-schedule:
+build-cache library and flipped result bytes, and the survey service's
+daemon killed, drained and fed a device error mid-job — asserting after
+each schedule:
 
 * byte-identical ``peaks.csv`` vs the fault-free control run;
 * a consistent resumed journal (one record per chunk, no torn/corrupt

@@ -33,8 +33,9 @@ Exit codes: 0 clean / comparison ok / nothing to compare against;
 
 Loads ``riptide_tpu_torch/obs/report.py`` standalone by file path, so
 run by path it needs no torch: it works on a login node holding only
-the journal files. A survey-service directory is refused (its job
-table waits for the serve slice).
+the journal files. Pointed at a survey-service directory (one holding
+a ``jobs.jsonl`` registry) it prints the per-job table and exits 0;
+each job's own journal stays rreport-able at ``jobs/<id>/``.
 """
 import argparse
 import importlib.util
@@ -68,15 +69,10 @@ def load_report_module():
                             ("obs", "report.py"))
 
 
-def refuse_serve_dir(prog, directory):
-    """Exit code 2 and a message for a survey-service directory (one
-    holding a ``jobs.jsonl`` registry); None for any other."""
-    if os.path.exists(os.path.join(directory, "jobs.jsonl")):
-        print(f"{prog}: {directory!r} is a survey-service directory; the "
-              "port's service job table waits for the serve slice (point "
-              f"{prog} at one job's journal directory)", file=sys.stderr)
-        return 2
-    return None
+def is_serve_dir(directory):
+    """Whether ``directory`` is a survey-service root (it holds the
+    ``jobs.jsonl`` job registry)."""
+    return os.path.exists(os.path.join(directory, "jobs.jsonl"))
 
 
 def main(argv=None):
@@ -125,9 +121,11 @@ def main(argv=None):
 
     rep = load_report_module()
     if not os.path.exists(os.path.join(args.journal, "journal.jsonl")):
-        refused = refuse_serve_dir("rreport", args.journal)
-        if refused is not None:
-            return refused
+        if is_serve_dir(args.journal):
+            # A survey-service directory: group its artifacts per job.
+            print("\n".join(rep.render_jobs_text(
+                rep.job_table(args.journal))))
+            return 0
         print(f"rreport: no journal.jsonl under {args.journal!r}",
               file=sys.stderr)
         return 2

@@ -10,8 +10,10 @@ the whole search as a single work unit.
 
 The table is printed without pandas (a
 :class:`~riptide_tpu_torch.table.Table`, whose text is pandas'
-``to_string`` of the same rows). Not ported yet: the JAX package's
-service client (``--submit``, ``--tenant``, ``--priority``).
+``to_string`` of the same rows). With ``--submit URL`` (``--tenant``,
+``--priority``) the search runs as a job of a running ``rserve``
+daemon instead, and this process never touches CUDA, so a login node
+without a card can submit.
 """
 import argparse
 import logging
@@ -128,6 +130,22 @@ def get_parser():
         "--device", type=str, default="cuda",
         help="Device of the de-reddening and the search: 'cuda' (the "
         "card) or 'cpu' (the plain PyTorch versions)",
+    )
+    parser.add_argument(
+        "--submit", type=str, default=None, metavar="URL",
+        help="Submit the search as a job to a running rserve daemon "
+        "(e.g. http://127.0.0.1:9117) instead of searching locally; "
+        "polls until the job finishes and prints its peaks CSV. The "
+        "daemon keeps its libraries and plans warm, so repeat "
+        "geometries build nothing",
+    )
+    parser.add_argument(
+        "--tenant", type=str, default="default",
+        help="Tenant name for --submit (fair-share + quota accounting)",
+    )
+    parser.add_argument(
+        "--priority", type=int, default=0,
+        help="Job priority for --submit (lower runs first)",
     )
     parser.add_argument("fname", type=str,
                         help="Path of the time series file to search")
@@ -277,12 +295,123 @@ def _search_with_survey_hooks(args, ts):
             incidents.set_sink(prev_sink)
 
 
+def _http_json(url, method="GET", body=None, timeout=10.0,
+               headers=None):
+    """One loopback request to the service; returns (code, parsed doc or
+    raw text). Stdlib-only: the submit client needs no card."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    hdrs = {"Content-Type": "application/json"} if data else {}
+    hdrs.update(headers or {})
+    req = urllib.request.Request(
+        url, data=data, method=method, headers=hdrs)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw = resp.read()
+            code = resp.status
+    except urllib.error.HTTPError as err:
+        raw = err.read()
+        code = err.code
+    text = raw.decode("utf-8", "replace")
+    try:
+        return code, json.loads(text)
+    except ValueError:
+        return code, text
+
+
+def run_submit(args, poll_s=0.25, timeout_s=600.0):
+    """The --submit client: POST the search as a service job, poll it
+    to completion, print (and return) its peaks CSV text. Raises
+    RuntimeError when the service rejects or fails the job."""
+    import os
+    import urllib.error
+    import uuid
+
+    base = args.submit.rstrip("/")
+    spec = {
+        "files": [os.path.abspath(args.fname)],
+        "fmt": args.format,
+        "tenant": args.tenant,
+        "priority": args.priority,
+        "deredden": {"rmed_width": args.rmed_width,
+                     "rmed_minpts": args.rmed_minpts},
+        "search": [{
+            "ffa_search": {
+                "period_min": args.Pmin, "period_max": args.Pmax,
+                "bins_min": args.bmin, "bins_max": args.bmax,
+                "wtsp": args.wtsp,
+            },
+            "find_peaks": {"smin": args.smin, "clrad": args.clrad},
+        }],
+    }
+    if args.fault_inject:
+        spec["fault_inject"] = args.fault_inject
+    # One Idempotency-Key for the WHOLE retry loop: if a submit times
+    # out after the daemon accepted it, the retry replays the existing
+    # job instead of double-enqueueing the survey.
+    idem_key = uuid.uuid4().hex
+    last_err = None
+    for attempt in range(3):
+        try:
+            code, doc = _http_json(
+                base + "/jobs", method="POST", body=spec,
+                headers={"Idempotency-Key": idem_key})
+        except (urllib.error.URLError, OSError, TimeoutError) as err:
+            last_err = err
+            log.warning("submit attempt %d failed (%s); retrying with "
+                        "the same Idempotency-Key", attempt + 1, err)
+            time.sleep(0.5 * (attempt + 1))
+            continue
+        break
+    else:
+        raise RuntimeError(f"submit failed after retries: {last_err}")
+    if code != 202:
+        raise RuntimeError(f"submit rejected ({code}): {doc}")
+    jid = doc["job_id"]
+    log.info("submitted %s to %s", jid, base)
+    deadline = time.monotonic() + timeout_s
+    while True:
+        code, doc = _http_json(f"{base}/jobs/{jid}")
+        status = doc.get("status") if code == 200 else None
+        if status in ("done", "failed", "cancelled"):
+            break
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{jid}: still {status!r} after "
+                               f"{timeout_s:.0f}s")
+        time.sleep(poll_s)
+    if status != "done":
+        raise RuntimeError(
+            f"{jid}: {status} ({doc.get('error', 'no error detail')})")
+    code, csv_text = _http_json(f"{base}/jobs/{jid}/peaks")
+    if code != 200:
+        raise RuntimeError(f"{jid}: peaks fetch failed ({code}): "
+                           f"{csv_text}")
+    print(f"# job {jid} done: {doc.get('npeaks', 0)} peak(s), "
+          f"device {doc.get('device_s', 0)}s, "
+          f"queue wait {doc.get('queue_wait_s', 0)}s, "
+          f"warm_start={doc.get('warm_start')}")
+    if isinstance(csv_text, str) and csv_text:
+        print(csv_text, end="" if csv_text.endswith("\n") else "\n")
+    return csv_text
+
+
 def run_program(args):
     """
     Run rseek; returns a :class:`~riptide_tpu_torch.table.Table` of
     detected peak parameters (columns period/freq/width/ducy/snr/dm), or
-    None if nothing significant was found.
+    None if nothing significant was found (or with ``--submit``, whose
+    job's CSV is printed).
     """
+    if getattr(args, "submit", None):
+        # Client mode: the search runs inside the rserve daemon; this
+        # process never touches CUDA.
+        logging.basicConfig(level="INFO")
+        run_submit(args)
+        return None
+
     from riptide_tpu_torch import TimeSeries
     from riptide_tpu_torch.clustering import cluster1d
     from riptide_tpu_torch.obs import prom, trace

@@ -25,8 +25,9 @@ Usage::
 the frame redraws every ``--interval`` seconds until Ctrl-C. Run by
 path it loads the torch-free reader standalone, so it runs anywhere the
 journal files are visible (e.g. over a shared filesystem while the
-survey runs on the card's host). A survey-service directory is refused
-with exit 2: its job table waits for the serve slice.
+survey runs on the card's host). Pointed at a survey-service
+directory it shows the per-job table instead (point it at a
+``jobs/<id>/`` subdirectory to watch one job's survey the ordinary way).
 """
 import argparse
 import os
@@ -34,10 +35,10 @@ import sys
 import time
 
 if __package__:
-    from .rreport import load_report_module, refuse_serve_dir
+    from .rreport import is_serve_dir, load_report_module
 else:   # run by path: the sibling module, not the package
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from rreport import load_report_module, refuse_serve_dir
+    from rreport import is_serve_dir, load_report_module
 
 # Recent chunks the rate estimate averages over.
 RATE_WINDOW = 8
@@ -143,6 +144,20 @@ def render_frame(rep, journal_dir, now=None, follower=None,
     return "\n".join(lines) + "\n"
 
 
+def render_serve_frame(rep, serve_dir):
+    """One frame of the SERVICE view: the per-job table of a serve
+    directory — tenant, status, chunk progress, queue wait, device
+    seconds — instead of a single survey's chunk view."""
+    rows = rep.job_table(serve_dir)
+    running = sum(1 for r in rows if r.get("status") == "running")
+    pending = sum(1 for r in rows if r.get("status") == "pending")
+    lines = [f"rtop — survey service ({os.path.abspath(serve_dir)})",
+             f"jobs: {len(rows)} total, {running} running, "
+             f"{pending} pending"]
+    lines.extend(rep.render_jobs_text(rows))
+    return "\n".join(lines) + "\n"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="rtop",
@@ -165,18 +180,20 @@ def main(argv=None):
         print(f"rtop: {args.journal!r} is not a directory",
               file=sys.stderr)
         return 2
-    refused = refuse_serve_dir("rtop", args.journal)
-    if refused is not None:
-        return refused
+    serve_mode = is_serve_dir(args.journal)
     if args.once:
-        sys.stdout.write(render_frame(rep, args.journal,
-                                      show_fleet=args.fleet))
+        sys.stdout.write(render_serve_frame(rep, args.journal)
+                         if serve_mode
+                         else render_frame(rep, args.journal,
+                                           show_fleet=args.fleet))
         return 0
-    follower = rep.JournalFollower(args.journal)
+    follower = None if serve_mode else rep.JournalFollower(args.journal)
     try:
         while True:
-            frame = render_frame(rep, args.journal, follower=follower,
-                                 show_fleet=args.fleet)
+            frame = (render_serve_frame(rep, args.journal) if serve_mode
+                     else render_frame(rep, args.journal,
+                                       follower=follower,
+                                       show_fleet=args.fleet))
             # Clear + home, then the frame: a flicker-free-enough
             # redraw without a curses dependency.
             sys.stdout.write("\x1b[2J\x1b[H" + frame)

@@ -13,7 +13,8 @@ package's ``obs/`` modules):
 * :mod:`~riptide_tpu_torch.obs.prom` — Prometheus text exposition of
   the metrics registry (``RIPTIDE_PROM_TEXTFILE``) and the localhost
   ``/metrics`` / ``/status`` / ``/healthz`` endpoint
-  (``RIPTIDE_PROM_PORT``);
+  (``RIPTIDE_PROM_PORT``), which also carries the survey service's
+  ``/jobs`` and ``/drain`` (:mod:`riptide_tpu_torch.serve`);
 * :mod:`~riptide_tpu_torch.obs.alerts`,
   :mod:`~riptide_tpu_torch.obs.fleet` and
   :mod:`~riptide_tpu_torch.obs.ledger` — the alert rules, the
@@ -23,7 +24,7 @@ package's ``obs/`` modules):
   scheduler uses (journal follower, fleet merge, the alert signal
   vector) and the post-run report with its ledger comparison, behind
   the ``rreport``, ``rtop`` and ``rwatch`` CLIs
-  (``riptide_tpu_torch/apps/``).
+  (``riptide_tpu_torch/apps/``), and a service directory's job table.
 
 The card's own timeline is ``torch.profiler``'s
 (:func:`riptide_tpu_torch.timing.maybe_trace`); spans cover the host.

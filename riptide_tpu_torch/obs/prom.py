@@ -1,7 +1,7 @@
 """
 Prometheus text-format exposition of the metrics registry (the port's
-copy of the JAX package's ``obs/prom.py``, with its metric names; the
-service's ``/jobs`` surface waits for the serve plane).
+copy of the JAX package's ``obs/prom.py``, with its metric names and
+the survey service's ``/jobs`` and ``/drain`` surface).
 
 Grown out of :mod:`riptide_tpu_torch.survey.metrics` rather than bolted on:
 the registry already records counters, gauges, timers and fixed-log-
@@ -19,14 +19,18 @@ only *renders* a snapshot:
 * :func:`serve` / :func:`maybe_serve` — an OPTIONAL stdlib-only
   localhost HTTP endpoint on a daemon thread, enabled by
   ``RIPTIDE_PROM_PORT`` (a scraper polls a *running* survey instead
-  of waiting for its end-of-run snapshot). It serves four paths: ``/metrics`` (and ``/``, the text-format page), ``/status``
+  of waiting for its end-of-run snapshot). It serves four paths:
+  ``/metrics`` (and ``/``, the text-format page), ``/status``
   (live survey JSON from the installed *status provider* — chunks
   done/parked/in-flight, EWMA rate, ETA, heartbeat ages, breaker
   state, last incident; see :func:`set_status_provider`) and
   ``/healthz`` (200 while healthy, **503** when the breaker is open or
   the newest heartbeat is older than ``RIPTIDE_STATUS_STALE_S`` — the
-  liveness probe a supervisor or k8s readiness check points at). Any
-  other path is a 404 whose body names the valid endpoints;
+  liveness probe a supervisor or k8s readiness check points at). A
+  survey service registered with :func:`set_jobs_api` adds ``/jobs``
+  (submit, list, inspect, cancel, fetch peaks) and ``POST /drain``;
+  without one they answer 503. Any other path is a 404 whose body
+  names the valid endpoints;
 * :func:`maybe_write_textfile` — end-of-run textfile write when
   ``RIPTIDE_PROM_TEXTFILE`` is set (survey scheduler / rseek hook).
 
@@ -46,12 +50,12 @@ log = logging.getLogger("riptide_tpu_torch.obs.prom")
 
 __all__ = ["render", "write_prom", "serve", "maybe_serve",
            "maybe_write_textfile", "set_status_provider",
-           "set_fleet_source", "status_snapshot",
+           "set_fleet_source", "set_jobs_api", "status_snapshot",
            "health_check", "PROM_PREFIX", "ENDPOINTS"]
 
 # Every path the daemon answers; the 404 body enumerates them so a
 # mistyped scrape target is self-diagnosing.
-ENDPOINTS = ("/", "/metrics", "/status", "/healthz")
+ENDPOINTS = ("/", "/metrics", "/status", "/healthz", "/jobs", "/drain")
 
 PROM_PREFIX = "riptide"
 
@@ -285,7 +289,11 @@ def set_status_provider(provider):
 def status_snapshot():
     """The current ``/status`` document: the provider's dict plus
     ``"active": True``, or ``{"active": False}`` when no survey has
-    registered one (the endpoint may outlive — or predate — a run)."""
+    registered one (the endpoint may outlive — or predate — a run).
+    With a survey service registered, ``"draining": True`` is merged in
+    while it drains, and ``"device_lost": True`` once a sticky CUDA
+    error left its context unusable, so a supervisor sees both from the
+    same page it scrapes."""
     with _status_lock:
         provider = _status_provider
     if provider is None:
@@ -293,6 +301,11 @@ def status_snapshot():
     else:
         status = dict(provider())
         status.setdefault("active", True)
+    api = _current_jobs_api()
+    if api is not None and getattr(api, "draining", False):
+        status["draining"] = True
+    if api is not None and getattr(api, "device_lost", False):
+        status["device_lost"] = True
     return status
 
 
@@ -306,9 +319,14 @@ def health_check(status=None, stale_s=None):
     ``running: false`` (the survey finished; its provider stays
     registered so the final state remains queryable, but heartbeats
     have legitimately stopped), is healthy — a supervisor must never
-    kill an idle process over a completed run's aging heartbeats."""
+    kill an idle process over a completed run's aging heartbeats. A
+    survey service whose CUDA context was lost (``device_lost``) is
+    unhealthy whatever its runs say: it must be restarted."""
     if status is None:
         status = status_snapshot()
+    if status.get("device_lost"):
+        return False, ["CUDA context lost to a sticky device error; "
+                       "restart the service"]
     if not status.get("running", True):
         return True, []
     if stale_s is None:
@@ -325,6 +343,39 @@ def health_check(status=None, stale_s=None):
                 f"(> {float(stale_s):.1f}s)"
             )
     return (not problems), problems
+
+
+# Process-wide jobs API: the survey service daemon
+# (riptide_tpu_torch.serve.daemon) registers itself here so the SAME
+# stdlib endpoint that already serves /metrics /status /healthz also
+# carries the /jobs surface (submit / list / inspect / cancel / fetch
+# peaks). With none registered — every non-service process — /jobs
+# answers 503, and the GET-only endpoints behave exactly as before.
+_jobs_api = None
+_jobs_lock = threading.Lock()
+
+_NO_SERVICE = {"error": "no survey service running here (start one with "
+                        "python -m riptide_tpu_torch.apps.rserve)"}
+
+
+def set_jobs_api(api):
+    """Install the survey service's job API (None uninstalls); returns
+    the previous one. The api object answers
+    ``submit(payload, idempotency_key=None)``, ``list()``,
+    ``get(job_id)``, ``cancel(job_id)`` and ``peaks_csv(job_id)`` —
+    all but ``list`` returning ``(http_code, document)`` — plus
+    ``drain()`` (the POST /drain admin verb) and the ``draining`` and
+    ``device_lost`` properties merged into /status (see
+    riptide_tpu_torch.serve.daemon)."""
+    global _jobs_api
+    with _jobs_lock:
+        prev, _jobs_api = _jobs_api, api
+    return prev
+
+
+def _current_jobs_api():
+    with _jobs_lock:
+        return _jobs_api
 
 
 class _PromServer:
@@ -369,6 +420,8 @@ class _PromServer:
                                     "status": status}),
                         "application/json",
                     )
+                elif path == "/jobs" or path.startswith("/jobs/"):
+                    self._jobs(path, "GET")
                 else:
                     self._reply(
                         404,
@@ -376,6 +429,107 @@ class _PromServer:
                         + ", ".join(ENDPOINTS) + "\n",
                         "text/plain",
                     )
+
+            def do_POST(self):  # noqa: N802 (http.server API)
+                path = self.path.split("?")[0]
+                if path == "/drain":
+                    self._drain()
+                    return
+                if path != "/jobs":
+                    self._reply(404, json.dumps(
+                        {"error": f"POST {path!r} unsupported; "
+                                  "submit to /jobs or drain via "
+                                  "/drain"}),
+                        "application/json")
+                    return
+                length = int(self.headers.get("Content-Length") or 0)
+                raw = self.rfile.read(length) if length else b""
+                try:
+                    body = json.loads(raw.decode() or "{}")
+                except (ValueError, UnicodeDecodeError) as err:
+                    self._reply(400, json.dumps(
+                        {"error": f"bad JSON body: {err}"}),
+                        "application/json")
+                    return
+                self._jobs(path, "POST", body,
+                           idempotency_key=self.headers.get(
+                               "Idempotency-Key"))
+
+            def _drain(self):
+                """POST /drain: the admin verb of the survey service's
+                graceful drain (same path the SIGTERM handler takes).
+                202 + ``{"draining": true}`` once initiated; idempotent."""
+                api = _current_jobs_api()
+                if api is None or not hasattr(api, "drain"):
+                    self._reply(503, json.dumps(_NO_SERVICE),
+                                "application/json")
+                    return
+                try:
+                    api.drain()
+                except Exception as err:
+                    self._reply(500, json.dumps({"error": str(err)}),
+                                "application/json")
+                    return
+                self._reply(202, json.dumps({"draining": True}),
+                            "application/json")
+
+            def do_DELETE(self):  # noqa: N802 (http.server API)
+                path = self.path.split("?")[0]
+                if not path.startswith("/jobs/"):
+                    self._reply(404, json.dumps(
+                        {"error": f"DELETE {path!r} unsupported; "
+                                  "cancel via /jobs/<id>"}),
+                        "application/json")
+                    return
+                self._jobs(path, "DELETE")
+
+            def _jobs(self, path, method, body=None,
+                      idempotency_key=None):
+                """One /jobs request against the installed jobs API
+                (503 when no service daemon has registered one)."""
+                api = _current_jobs_api()
+                if api is None:
+                    self._reply(503, json.dumps(_NO_SERVICE),
+                                "application/json")
+                    return
+                try:
+                    if method == "POST":
+                        code, doc = api.submit(
+                            body or {}, idempotency_key=idempotency_key)
+                    elif method == "GET" and path == "/jobs":
+                        code, doc = 200, api.list()
+                    elif method == "GET" and path.endswith("/peaks"):
+                        job_id = path[len("/jobs/"):-len("/peaks")]
+                        code, doc = api.peaks_csv(job_id)
+                        if code == 200:
+                            # Raw CSV bytes, exactly as written to the
+                            # job directory (byte-identity is part of
+                            # the service contract).
+                            self.send_response(200)
+                            self.send_header("Content-Type", "text/csv")
+                            self.send_header("Content-Length",
+                                             str(len(doc)))
+                            self.end_headers()
+                            self.wfile.write(doc)
+                            return
+                    elif method == "GET":
+                        code, doc = api.get(path[len("/jobs/"):])
+                    elif method == "DELETE":
+                        code, doc = api.cancel(path[len("/jobs/"):])
+                    else:
+                        code, doc = 405, {"error": f"{method} {path}"}
+                except Exception as err:
+                    log.warning("jobs api failed for %s %s: %s",
+                                method, path, err)
+                    code, doc = 500, {"error": str(err)}
+                headers = None
+                if isinstance(doc, dict) and doc.get("retry_after_s"):
+                    # Back-pressure responses (429 admission-full, 503
+                    # draining or device lost) advise the client when
+                    # to retry.
+                    headers = {"Retry-After": str(doc["retry_after_s"])}
+                self._reply(code, json.dumps(doc), "application/json",
+                            headers=headers)
 
             def log_message(self, fmt, *args):
                 log.debug("prom endpoint: " + fmt, *args)

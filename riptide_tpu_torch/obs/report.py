@@ -22,8 +22,8 @@ into one report dict with
 The scheduler uses the incremental journal follower, the fleet sidecar
 readers and merge, the live signal vector the alert rules evaluate and
 the run decomposition of a ledger row; the report and watch CLIs
-(``apps/rreport.py``, ``apps/rtop.py``, ``apps/rwatch.py``) the rest.
-The service job tables wait for the serve slice.
+(``apps/rreport.py``, ``apps/rtop.py``, ``apps/rwatch.py``) the rest,
+including the survey service's job tables (:func:`job_table`).
 
 Stdlib-only and self-contained: importable as
 ``riptide_tpu_torch.obs.report`` and loadable standalone by file path
@@ -44,7 +44,8 @@ __all__ = [
     "load_trace_summary", "run_decomposition_from_chunks",
     "phase_attribution", "host_tail_stats", "stragglers",
     "tunnel_stats", "hbm_stats", "integrity_stats",
-    "read_fleet", "merge_fleet", "watch_snapshot", "build_report",
+    "read_fleet", "merge_fleet", "read_jobs", "job_table",
+    "render_jobs_text", "watch_snapshot", "build_report",
     "render_text", "render_fleet_text", "compare_to_ledger",
     "latest_platform", "drop_own_row", "strip_checksum",
     "parse_record_line",
@@ -333,6 +334,145 @@ def merge_fleet(snapshots, now=None, stale_s=FLEET_STALE_S):
         out["stragglers"] = sorted(
             p for p, r in rates.items()
             if med and r < FLEET_STRAGGLER_FRAC * med)
+    return out
+
+
+# ----------------------------------------------------------- service jobs
+#
+# The survey service (riptide_tpu_torch/serve) event-sources every
+# job's lifecycle into `jobs.jsonl` under its serve directory and runs
+# each job's survey in its own `jobs/<id>/` journal directory. The
+# readers here fold that registry (same lenient-line discipline as
+# every input above) and join each job to its OWN journal, so rreport
+# and rtop group a service directory's artifacts per job — tenant,
+# queue wait, device seconds, chunk progress — with no daemon running.
+
+# Terminal folded statuses (mirrors serve.daemon.TERMINAL — this module
+# must stay standalone-loadable, so the tuple lives twice).
+JOB_TERMINAL = ("done", "failed", "cancelled")
+
+_JOB_STATUS = {"submitted": "pending", "started": "running",
+               "done": "done", "failed": "failed",
+               "cancelled": "cancelled"}
+
+
+def _parse_job_utc(stamp):
+    """Unix seconds of a journal-format UTC stamp, or None."""
+    import calendar
+
+    if not stamp:
+        return None
+    try:
+        base, frac = stamp.rstrip("Z").split(".")
+        parsed = time.strptime(base, "%Y-%m-%dT%H:%M:%S")
+        return calendar.timegm(parsed) + float("0." + frac)
+    except (ValueError, AttributeError):
+        return None
+
+
+def read_jobs(serve_dir):
+    """``{job_id: folded state}`` from a serve directory's
+    ``jobs.jsonl`` registry, oldest event first. Each state carries the
+    submit-time identity (``tenant``/``priority``/``spec``), the latest
+    lifecycle ``status`` and — for finished jobs — the terminal summary
+    (``npeaks``/``device_s``/``queue_wait_s``/``chunks_total``/
+    ``error``). A directory without a registry reads as no jobs."""
+    jobs = {}
+    for rec in _read_jsonl(os.path.join(serve_dir, "jobs.jsonl")):
+        if not isinstance(rec, dict) or rec.get("kind") != "job":
+            continue
+        jid = rec.get("job_id")
+        event = rec.get("event")
+        if not jid or event not in _JOB_STATUS:
+            continue
+        st = jobs.setdefault(jid, {"job_id": jid})
+        st["status"] = _JOB_STATUS[event]
+        if event == "submitted":
+            st["tenant"] = rec.get("tenant") or "default"
+            st["priority"] = int(rec.get("priority") or 0)
+            st["spec"] = rec.get("spec") or {}
+            st["submitted_utc"] = rec.get("utc")
+        elif event == "started":
+            st["started_utc"] = rec.get("utc")
+            st["resumed"] = bool(rec.get("resumed"))
+        else:
+            st["finished_utc"] = rec.get("utc")
+            for key in ("error", "npeaks", "device_s", "queue_wait_s",
+                        "chunks_total"):
+                if rec.get(key) is not None:
+                    st[key] = rec[key]
+    return jobs
+
+
+def job_table(serve_dir):
+    """Per-job rows for a serve directory, id order: the folded
+    registry state joined with each job's OWN journal (chunk progress,
+    incident count) — the grouping that makes ``rreport``/``rtop`` on a
+    service directory read per job instead of as one undifferentiated
+    pile of journals. Queue wait falls back to submitted→started stamp
+    arithmetic when the terminal record never captured it (running
+    jobs)."""
+    rows = []
+    for jid, st in sorted(read_jobs(serve_dir).items()):
+        jdir = os.path.join(serve_dir, "jobs", jid)
+        state = read_journal(jdir)
+        wait = st.get("queue_wait_s")
+        if wait is None:
+            sub = _parse_job_utc(st.get("submitted_utc"))
+            beg = _parse_job_utc(st.get("started_utc"))
+            if sub is not None and beg is not None:
+                wait = round(max(0.0, beg - sub), 3)
+        header = state.get("header") or {}
+        rows.append({
+            "job_id": jid,
+            "tenant": st.get("tenant", "default"),
+            "priority": st.get("priority", 0),
+            "status": st.get("status", "?"),
+            "queue_wait_s": wait,
+            "device_s": st.get("device_s"),
+            "npeaks": st.get("npeaks"),
+            "error": st.get("error"),
+            "resumed": bool(st.get("resumed")),
+            "chunks_done": len(state.get("chunks") or {}),
+            "chunks_parked": len(state.get("parked") or {}),
+            "chunks_total": st.get("chunks_total",
+                                   header.get("chunks_total")),
+            "incidents": len(state.get("incidents") or []),
+            "directory": jdir,
+        })
+    return rows
+
+
+def render_jobs_text(rows):
+    """The service job table as text lines (rtop's serve view and
+    ``rreport`` on a serve directory)."""
+    out = ["service jobs:"]
+    if not rows:
+        out.append("  (no jobs in registry)")
+        return out
+    out.append(f"  {'job':<7} {'tenant':<10} {'status':<10} "
+               f"{'chunks':>8} {'wait_s':>8} {'dev_s':>8} "
+               f"{'peaks':>6}  flags")
+    for row in rows:
+        total = row.get("chunks_total")
+        chunks = f"{row.get('chunks_done', 0)}/{total or '?'}"
+        wait = row.get("queue_wait_s")
+        dev = row.get("device_s")
+        flags = []
+        if row.get("resumed"):
+            flags.append("resumed")
+        if row.get("chunks_parked"):
+            flags.append(f"parked={row['chunks_parked']}")
+        if row.get("error"):
+            flags.append(f"error={row['error'][:40]}")
+        out.append(
+            f"  {row.get('job_id', '?'):<7} "
+            f"{row.get('tenant', '?'):<10} "
+            f"{row.get('status', '?'):<10} {chunks:>8} "
+            f"{'-' if wait is None else format(wait, '.2f'):>8} "
+            f"{'-' if dev is None else format(dev, '.2f'):>8} "
+            f"{'-' if row.get('npeaks') is None else row['npeaks']:>6}"
+            f"  {' '.join(flags)}".rstrip())
     return out
 
 

@@ -36,10 +36,12 @@ those levels in shared memory, one block per tile, and the level kernel
 runs the rest.
 """
 from functools import lru_cache
+import threading
 from typing import NamedTuple
 
 import numpy as np
 
+from ..utils.exec_cache import count_warmth
 from ..utils.limits import MAX_DYNAMIC_SMEM
 from .reference import _merge_mapping
 
@@ -245,11 +247,19 @@ class FFABatchPlan:
     @property
     def segments(self):
         """This container's :class:`SegmentPlan` (:func:`segment_plan`),
-        built at first use and kept."""
-        seg = getattr(self, "_segments", None)
-        if seg is None:
-            seg = self._segments = segment_plan(self)
+        built once at first use (under concurrent job threads too) and
+        kept; a build counts ``exec_cold_builds``, a reuse
+        ``exec_warm_hits``."""
+        with _SEGMENTS_LOCK:
+            seg = getattr(self, "_segments", None)
+            fresh = seg is None
+            if fresh:
+                seg = self._segments = segment_plan(self)
+        count_warmth(fresh)
         return seg
+
+
+_SEGMENTS_LOCK = threading.Lock()
 
 
 class SegmentPlan(NamedTuple):

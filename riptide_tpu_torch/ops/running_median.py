@@ -81,13 +81,21 @@ def _interp(x, xp, fp):
     return torch.where(x > xp[-1], fp[-1], f)
 
 
+# Samples interpolated at once by fast_running_median_torch: each is
+# computed on its own, so blocks bound the scratch memory (a dozen
+# temporaries of the block's length, some float64) without changing a
+# bit; several loader threads de-redden at once.
+INTERP_BLOCK = 1 << 20
+
+
 def fast_running_median_torch(x, width, min_points=101):
     """
     Approximate running median over large windows: scrunch so that the
     window is ~min_points samples, take the exact running median at low
     resolution, and linearly interpolate back
-    (riptide/running_medians.py:49-83). Sample k of the scrunched series
-    sits at original coordinate k*factor + (factor-1)/2.
+    (riptide/running_medians.py:49-83), :data:`INTERP_BLOCK` samples at
+    a time. Sample k of the scrunched series sits at original coordinate
+    k*factor + (factor-1)/2.
     """
     factor = int(max(1, width / float(min_points)))
     if factor == 1:
@@ -96,5 +104,9 @@ def fast_running_median_torch(x, width, min_points=101):
     rmed_lo = running_median_torch(lo, min_points)
     x_lo = (torch.arange(lo.shape[0], dtype=torch.int32, device=x.device)
             * factor + 0.5 * (factor - 1))
-    return _interp(torch.arange(x.shape[0], dtype=torch.float32,
-                                device=x.device), x_lo, rmed_lo)
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    for s in range(0, x.shape[0], INTERP_BLOCK):
+        e = min(x.shape[0], s + INTERP_BLOCK)
+        out[s:e] = _interp(torch.arange(s, e, dtype=torch.float32,
+                                        device=x.device), x_lo, rmed_lo)
+    return out

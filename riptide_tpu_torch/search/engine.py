@@ -61,6 +61,7 @@ from ..obs.trace import span
 from ..survey.metrics import get_metrics
 from ..utils import envflags
 from ..utils.device import resolve_device
+from ..utils.exec_cache import count_warmth
 
 __all__ = ["run_periodogram", "run_periodogram_batch", "run_search_batch",
            "queue_search_batch", "collect_search_batch", "search_snr_dev",
@@ -477,15 +478,18 @@ def _prepare_stage_data(plan, batch, mode, pool):
                   "staging": () if t_flat is None else (t_flat,)}
 
 
-# One copy stream per CUDA device, made at its first copy.
+# One copy stream per CUDA device, made at its first copy (once, under
+# concurrent job threads too).
 _COPY_STREAMS = {}
+_COPY_STREAMS_LOCK = threading.Lock()
 
 
 def _copy_stream(dev):
     key = dev.index if dev.index is not None else torch.cuda.current_device()
-    st = _COPY_STREAMS.get(key)
-    if st is None:
-        st = _COPY_STREAMS[key] = torch.cuda.Stream(device=key)
+    with _COPY_STREAMS_LOCK:
+        st = _COPY_STREAMS.get(key)
+        if st is None:
+            st = _COPY_STREAMS[key] = torch.cuda.Stream(device=key)
     return st
 
 
@@ -1109,6 +1113,9 @@ def run_periodogram_batch(plan, batch, device=None):
 # The survey batch: periodogram and peaks on the device
 # ---------------------------------------------------------------------------
 
+_PEAK_PLANS_LOCK = threading.Lock()
+
+
 def _peak_plan(plan, tobs, **peak_kwargs):
     """The plan's cached :class:`~.peaks_device.PeakPlan` for ``tobs``
     and the peak arguments; the live ``RIPTIDE_DEVICE_CLUSTER`` value is
@@ -1117,13 +1124,16 @@ def _peak_plan(plan, tobs, **peak_kwargs):
 
     dc = device_cluster_enabled()
     key = (float(tobs), dc, tuple(sorted(peak_kwargs.items())))
-    cache = getattr(plan, "_peak_plans", None)
-    if cache is None:
-        cache = plan._peak_plans = {}
-    pp = cache.get(key)
-    if pp is None:
-        pp = cache[key] = PeakPlan(plan, tobs, device_cluster=dc,
-                                   **peak_kwargs)
+    with _PEAK_PLANS_LOCK:
+        cache = getattr(plan, "_peak_plans", None)
+        if cache is None:
+            cache = plan._peak_plans = {}
+        pp = cache.get(key)
+        fresh = pp is None
+        if fresh:
+            pp = cache[key] = PeakPlan(plan, tobs, device_cluster=dc,
+                                       **peak_kwargs)
+    count_warmth(fresh)
     return pp
 
 

@@ -25,8 +25,9 @@ may ride an earlier stage's dead container rows
 :func:`plan_arrays` exports it as numpy arrays and :func:`plan_from_arrays`
 rebuilds a plan from them.
 """
-from functools import lru_cache
+from collections import OrderedDict
 import math
+import threading
 
 import numpy as np
 
@@ -34,6 +35,7 @@ from ..ops.downsample import downsample_plan_padded
 from ..ops.plan import FFABatchPlan, num_levels
 from ..ops.reference import downsampled_size, downsampled_variance
 from ..ops.snr import boxcar_coeffs
+from ..utils.exec_cache import count_warmth
 
 __all__ = ["PeriodogramPlan", "CycleStage", "periodogram_plan",
            "check_arguments", "ceilshift", "plan_arrays", "plan_from_arrays",
@@ -325,10 +327,28 @@ class PeriodogramPlan:
         ) if self.length else np.empty(0, np.uint32)
 
 
-@lru_cache(maxsize=64)
+_PLANS = OrderedDict()
+_PLANS_MAX = 64
+_PLANS_LOCK = threading.Lock()
+
+
 def periodogram_plan(size, tsamp, widths, period_min, period_max, bins_min, bins_max):
-    """Cached :class:`PeriodogramPlan`; ``widths`` must be a tuple."""
-    return PeriodogramPlan(size, tsamp, widths, period_min, period_max, bins_min, bins_max)
+    """Cached :class:`PeriodogramPlan` (the 64 most recently used);
+    ``widths`` must be a tuple. Built once per key under concurrent job
+    threads; a build counts ``exec_cold_builds``, a reuse
+    ``exec_warm_hits``."""
+    key = (size, tsamp, widths, period_min, period_max, bins_min, bins_max)
+    with _PLANS_LOCK:
+        plan = _PLANS.get(key)
+        fresh = plan is None
+        if fresh:
+            plan = _PLANS[key] = PeriodogramPlan(*key)
+            if len(_PLANS) > _PLANS_MAX:
+                _PLANS.popitem(last=False)
+        else:
+            _PLANS.move_to_end(key)
+    count_warmth(fresh)
+    return plan
 
 
 # ---------------------------------------------------------------------------

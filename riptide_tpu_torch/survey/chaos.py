@@ -33,8 +33,9 @@ byte-transparent for healthy runs: re-running recovery and the report
 readers over its artifacts leaves journal, peak store and ledger
 byte-for-byte unchanged, and ledger rows remain plain JSON lines.
 
-:func:`builtin_schedules` is the fixed set (the JAX package's, without
-its service schedules, which wait for the serve slice);
+:func:`builtin_schedules` is the fixed set (the JAX package's, its
+three service schedules included: there the survey runs as an HTTP job
+of the service daemon inside the leg process, on the leg's device);
 :func:`seeded_schedules` derives arbitrarily many extra
 (``rchaos --sweep N``, or the slow-marked test). Legs re-enter this
 module via ``python -m riptide_tpu_torch.survey.chaos --leg cfg.json``.
@@ -156,6 +157,32 @@ def builtin_schedules():
                   {"faults": "", "resume": True, "cache_probe": True,
                    "cache_expect": "compiled", "cache_reload": True}],
          "incidents": ["cache_corrupt"]},
+        # The survey service: the daemon runs in the leg process with
+        # the same survey submitted as an HTTP job; the armed kill drops
+        # the whole daemon mid-job, and the restart leg must replay
+        # jobs.jsonl, resume the job from its own journal and serve a
+        # byte-identical peaks.csv.
+        {"name": "serve-kill-mid-job", "serve": True,
+         "legs": [{"faults": "kill_at:journal_append:3", "expect": "kill"},
+                  {"faults": "", "resume": True}],
+         "incidents": ["storage_recovered"]},
+        # Graceful drain: leg 0 drains the daemon mid-job (after exactly
+        # one chunk — a low-priority blocker steps the queue
+        # deterministically) and must exit 0 with the job parked
+        # non-terminally; the restart leg re-queues it and serves a
+        # byte-identical peaks.csv.
+        {"name": "serve-drain-mid-job", "serve": True,
+         "legs": [{"faults": "", "serve_drain": True},
+                  {"faults": "", "resume": True}],
+         "incidents": []},
+        # Device-error containment: two jobs share the daemon; the
+        # second carries a spec-level device_error fault that outlasts
+        # the retry budget (the CUDA context stays usable) and must fail
+        # ALONE while the clean sibling (j0001, the directory the
+        # campaign checks) completes normally.
+        {"name": "serve-device-error", "serve": True,
+         "legs": [{"faults": "", "serve_device_error": True}],
+         "incidents": []},
         # A TRANSIENT in-flight bitflip on chunk 1's primary dispatch:
         # the shadow probe detects the digest divergence and the third
         # dispatch out-votes the corrupted primary 2:1 — one leg, no
@@ -254,6 +281,10 @@ def _run_leg(schedule, i, leg, paths, python, timeout_s, device):
         "cache_reload": bool(leg.get("cache_reload", False)),
         "integrity": leg.get("integrity"),
         "probe_every": leg.get("probe_every"),
+        "serve": bool(schedule.get("serve", False)),
+        "serve_root": paths.get("serve_root"),
+        "serve_drain": bool(leg.get("serve_drain", False)),
+        "serve_device_error": bool(leg.get("serve_device_error", False)),
     }
     cfg_path = os.path.join(paths["sdir"], f"leg{i}.json")
     with open(cfg_path, "w") as fobj:
@@ -273,6 +304,13 @@ def _run_leg(schedule, i, leg, paths, python, timeout_s, device):
         env["RIPTIDE_INTEGRITY"] = str(cfg["integrity"])
         if cfg["probe_every"]:
             env["RIPTIDE_INTEGRITY_PROBE_EVERY"] = str(cfg["probe_every"])
+    if cfg["serve"] and cfg["faults"]:
+        # Serve legs inject through the daemon's environment (the
+        # scheduler installs its own storage-fault hook per run, so a
+        # process-level hook can't reach it; and a fault spec in the
+        # job SPEC would persist in the registry and re-arm on the
+        # restart leg).
+        env["RIPTIDE_FAULT_INJECT"] = cfg["faults"]
     t0 = time.perf_counter()
     proc = subprocess.run(
         [python, "-m", "riptide_tpu_torch.survey.chaos", "--leg", cfg_path],
@@ -423,6 +461,13 @@ def run_campaign(files, workdir, schedules=None, python=None,
             "cache_dir": os.path.join(sdir, "cache"),
             "files": [os.path.abspath(f) for f in files],
         }
+        if schedule.get("serve"):
+            paths["serve_root"] = os.path.join(sdir, "serve")
+            # A fresh registry's first job is deterministically j0001;
+            # its per-job journal directory is what the campaign's
+            # journal/ledger/incident invariants check.
+            paths["jdir"] = os.path.join(paths["serve_root"], "jobs",
+                                         "j0001")
         t0 = time.perf_counter()
         reports = []
         for i, leg in enumerate(schedule["legs"]):
@@ -452,21 +497,6 @@ def run_campaign(files, workdir, schedules=None, python=None,
 
 
 # ------------------------------------------------------------ the leg side
-
-def _write_peaks_csv(peaks, path):
-    """The campaign's data product: the pipeline's peaks.csv
-    serialization (one row per peak, 9-decimal floats, through
-    ``table.Table.to_csv``) so byte-identity here means byte-identity in
-    the real product too."""
-    from ..table import Table
-
-    if not peaks:
-        with open(path, "w") as fobj:
-            fobj.write("")
-        return
-    Table.from_records([p.summary_dict() for p in peaks]).to_csv(
-        path, sep=",", float_format="%.9f")
-
 
 def _cache_probe(cache_dir, expect=None, reload_check=False):
     """Exercise the build cache's corruption recovery inside a leg: a
@@ -523,51 +553,281 @@ def _cache_probe(cache_dir, expect=None, reload_check=False):
                                f"{action!r}")
 
 
-def _leg_main(cfg_path):
-    """One subprocess leg: install the leg's fault plan into fsio and
-    the journal as the incident sink, optionally probe the build cache,
-    run the tiny survey through the checkpointed scheduler on the leg's
-    device, write peaks.csv and the leg's report. Exits by returning 0
-    — unless an armed ``kill_at`` hard-exits mid-write first, which is
-    the point (the plan's exit hook writes the report before it)."""
-    with open(cfg_path) as fobj:
-        cfg = json.load(fobj)
+class _LegReport:
+    """A leg's report (``leg<i>.out.json``): the device it ran on, K1
+    launches, chunks searched and replayed, whether an injected kill
+    ended it, and its seconds."""
 
-    from ..obs import trace
-    from ..ops import ffa_kernel
-    from ..pipeline.batcher import BatchSearcher
-    from . import incidents
-    from .faults import FaultPlan
-    from .journal import SurveyJournal
-    from .metrics import get_metrics
-    from .scheduler import RetryPolicy, SurveyScheduler
+    def __init__(self, path):
+        self.path = path
+        self.device = None
+        self.t0 = time.perf_counter()
+        self.run_t0 = None
 
-    logging.basicConfig(level="INFO")
-    state = {"device": None, "t0": time.perf_counter(), "run_t0": None}
+    def write(self, killed):
+        from ..ops import ffa_kernel
+        from .metrics import get_metrics
 
-    def report(killed):
         m = get_metrics()
         now = time.perf_counter()
-        doc = {"device": state["device"],
+        doc = {"device": self.device,
                "k1_launches": int(ffa_kernel.LAUNCHES["fused_stage"]),
                "chunks_done": int(m.counter("chunks_done")),
                "chunks_skipped": int(m.counter("chunks_skipped")),
                "killed": killed,
-               # Seconds from this function's entry (the package already
-               # imported), and of the scheduler's run (CUDA context
-               # and library loads included).
-               "leg_s": now - state["t0"],
-               "run_s": (None if state["run_t0"] is None
-                         else now - state["run_t0"])}
-        fsio.atomic_write_text(cfg["out"], json.dumps(doc) + "\n")
+               # Seconds from the leg's entry (the package already
+               # imported), and of the survey's run (CUDA context and
+               # library loads included).
+               "leg_s": now - self.t0,
+               "run_s": (None if self.run_t0 is None
+                         else now - self.run_t0)}
+        fsio.atomic_write_text(self.path, json.dumps(doc) + "\n")
 
-    def die(code):
-        report(killed=True)
+    def die(self, code):
+        """The fault plan's hard exit: write the report first."""
+        self.write(killed=True)
         os._exit(code)
+
+
+def _serve_job_spec(cfg, **extra):
+    """The standard serve-leg job spec (same survey as the batch legs)."""
+    return dict({"files": cfg["files"], "fmt": "presto",
+                 "deredden": dict(DERED), "search": SEARCH_CONF}, **extra)
+
+
+def _serve_post_job(base, spec):
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + "/jobs", data=json.dumps(spec).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=10.0) as resp:
+        return json.loads(resp.read())["job_id"]
+
+
+def _journal_incidents(serve_root, jid):
+    """Incident kinds journaled in one job's own journal.jsonl."""
+    path = os.path.join(serve_root, "jobs", jid, "journal.jsonl")
+    if not os.path.exists(path):
+        return set()
+    entries, _ = fsio.scan_jsonl(path)
+    return {obj.get("incident") for obj, _status, _off in entries
+            if obj and obj.get("kind") == "incident"}
+
+
+def _serve_daemon(cfg, rep, workers):
+    """The leg's service daemon on the leg's device, its injected kills
+    writing the leg's report first."""
+    from ..ops import ffa_kernel
+    from ..serve import ServeDaemon
+
+    daemon = ServeDaemon(cfg["serve_root"], port=0, workers=workers,
+                         device=cfg["device"], fault_exit=rep.die)
+    rep.device = daemon.device.type
+    ffa_kernel.reset_launches()
+    rep.run_t0 = time.perf_counter()
+    return daemon.start(), f"http://127.0.0.1:{daemon.port}"
+
+
+def _serve_fetch_peaks(base, jid, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{base}/jobs/{jid}/peaks",
+                                timeout=10.0) as resp:
+        payload = resp.read()
+    with open(path, "wb") as fobj:
+        fobj.write(payload)
+
+
+def _serve_leg_main(cfg, rep):
+    """One SERVE-mode leg: the survey service daemon runs in this leg
+    process and the survey goes through it as a real HTTP job. The
+    leg's faults are armed through ``RIPTIDE_FAULT_INJECT``, set in
+    this leg's environment by the parent's :func:`_run_leg` (the
+    daemon passes the flag into each job's scheduler), so a ``kill_at``
+    drops the WHOLE daemon mid-job; the next leg's restart replays
+    ``jobs.jsonl``, resumes the job from its own journal, and must
+    serve a peaks.csv byte-identical to the control run's."""
+    import urllib.request
+
+    daemon, base = _serve_daemon(cfg, rep, workers=1)
+    unfinished = [d for d in daemon.list()["jobs"]
+                  if d.get("status") in ("pending", "running")]
+    if unfinished:
+        # Restart leg: start() already re-queued the interrupted job.
+        jid = unfinished[0]["job_id"]
+    else:
+        jid = _serve_post_job(base, _serve_job_spec(cfg))
+    deadline = time.monotonic() + 240.0
+    status = None
+    while time.monotonic() < deadline:
+        with urllib.request.urlopen(f"{base}/jobs/{jid}",
+                                    timeout=10.0) as resp:
+            status = json.loads(resp.read()).get("status")
+        if status in ("done", "failed", "cancelled"):
+            break
+        time.sleep(0.1)
+    if status != "done":
+        raise ChaosFailure(f"serve leg: job {jid} ended {status!r}")
+    _serve_fetch_peaks(base, jid, cfg["peaks_csv"])
+    daemon.stop()
+    return 0
+
+
+def _serve_drain_leg_main(cfg, rep):
+    """Drain leg of ``serve-drain-mid-job``: submit the survey as a
+    job, let it finish EXACTLY one chunk (a priority ``-1`` blocker
+    gate steps the fair-share queue deterministically), then
+    :meth:`ServeDaemon.drain` mid-job. Admission must answer 503 with a
+    ``Retry-After`` hint, the workers must park within the drain
+    budget, and the job must end the leg WITHOUT a terminal registry
+    record — the restart leg re-queues it (``resumed``) and must serve
+    a peaks.csv byte-identical to the control run's."""
+    import threading
+    import urllib.error
+
+    from ..serve import JobDrained
+
+    daemon, base = _serve_daemon(cfg, rep, workers=1)
+    # The blocker holds the turn so the job parks at begin(0) while the
+    # leg lines up the stepping.
+    blocker = daemon.queue.register("blocker", priority=-1)
+    blocker.begin(0)
+    jid = _serve_post_job(base, _serve_job_spec(cfg))
+
+    def _wait(pred, what, timeout=180.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if pred():
+                return
+            time.sleep(0.05)
+        raise ChaosFailure(f"drain leg: timed out waiting for {what}")
+
+    def _parked():
+        return bool(daemon.queue.snapshot()["jobs"]
+                    .get(jid, {}).get("waiting"))
+
+    jpath = os.path.join(cfg["serve_root"], "jobs", jid, "journal.jsonl")
+
+    def _chunks_done():
+        if not os.path.exists(jpath):
+            return 0
+        entries, _ = fsio.scan_jsonl(jpath)
+        return sum(1 for obj, _status, _off in entries
+                   if obj and obj.get("kind") == "chunk")
+
+    _wait(_parked, f"{jid} to park at its chunk gate")
+
+    def _reblock():
+        # Re-queue for the turn AFTER chunk 0's: at priority -1 the
+        # blocker wins the next pick, so the job parks again at
+        # begin(1) instead of running to completion. The drain below
+        # unparks US too — swallow it.
+        try:
+            blocker.begin(1)
+        except JobDrained:
+            pass
+
+    blocker.end(0)  # job takes the turn: chunk 0 dispatches
+    # Queue the blocker again only once the job holds the turn (else
+    # its priority could win this turn back before the job wakes).
+    _wait(lambda: daemon.queue.snapshot()["active"] == jid,
+          f"{jid} to take its turn")
+    threading.Thread(target=_reblock, daemon=True,
+                     name="chaos-drain-blocker").start()
+    _wait(lambda: _chunks_done() >= 1, "chunk 0's journal record")
+    _wait(_parked, f"{jid} to park mid-job")
+    done = _chunks_done()
+    if not 1 <= done < len(cfg["files"]):
+        raise ChaosFailure(f"drain leg: {done} chunk(s) journaled "
+                           "before the drain; wanted a mid-job park")
+
+    daemon.drain()
+    # Admission is closed the moment drain() returns.
+    try:
+        _serve_post_job(base, _serve_job_spec(cfg))
+        raise ChaosFailure("drain leg: admission still open after drain")
+    except urllib.error.HTTPError as err:
+        if err.code != 503 or not err.headers.get("Retry-After"):
+            raise ChaosFailure(
+                f"drain leg: submit during drain answered {err.code} "
+                f"(Retry-After {err.headers.get('Retry-After')!r}); "
+                "expected 503 with a Retry-After hint")
+    if not daemon.wait_drained(timeout=60.0):
+        raise ChaosFailure("drain leg: workers did not park within the "
+                           "drain budget")
+    docs = {d["job_id"]: d for d in daemon.list()["jobs"]}
+    status = docs.get(jid, {}).get("status")
+    if status not in ("pending", "running"):
+        raise ChaosFailure(
+            f"drain leg: job {jid} ended the leg with terminal status "
+            f"{status!r}; a drained job must stay resumable")
+    daemon.stop()
+    return 0
+
+
+def _serve_device_error_leg_main(cfg, rep):
+    """``serve-device-error``: two jobs share the warm daemon; the
+    second carries a ``device_error:0x9`` spec fault — more firings
+    than the per-job retry budget, so its chunk 0 exhausts the retry
+    path (each retry finds the CUDA context usable) and the job fails.
+    The failure must be CONTAINED: a ``device_error`` incident in the
+    faulted job's own journal only, the clean sibling (j0001, the
+    directory the campaign's invariants check) done, and the daemon
+    still serving its peaks afterwards."""
+    daemon, base = _serve_daemon(cfg, rep, workers=2)
+    clean = _serve_post_job(base, _serve_job_spec(cfg))
+    faulted = _serve_post_job(
+        base, _serve_job_spec(cfg, fault_inject="device_error:0x9"))
+
+    deadline = time.monotonic() + 240.0
+    status = {}
+    while time.monotonic() < deadline:
+        docs = {d["job_id"]: d for d in daemon.list()["jobs"]}
+        status = {jid: docs.get(jid, {}).get("status")
+                  for jid in (clean, faulted)}
+        if all(s in ("done", "failed", "cancelled")
+               for s in status.values()):
+            break
+        time.sleep(0.1)
+    if status.get(clean) != "done" or status.get(faulted) != "failed":
+        raise ChaosFailure(
+            "serve-device-error: wanted the clean job done and the "
+            f"faulted job failed, got {status}")
+    if daemon.device_lost:
+        raise ChaosFailure("serve-device-error: an injected device error "
+                           "was taken for a lost CUDA context")
+    if "device_error" not in _journal_incidents(cfg["serve_root"],
+                                                faulted):
+        raise ChaosFailure(
+            "serve-device-error: no device_error incident in the "
+            "faulted job's journal")
+    if "device_error" in _journal_incidents(cfg["serve_root"], clean):
+        raise ChaosFailure(
+            "serve-device-error: a device_error incident leaked into "
+            "the clean job's journal")
+    _serve_fetch_peaks(base, clean, cfg["peaks_csv"])
+    daemon.stop()
+    return 0
+
+
+def _batch_leg_main(cfg, rep):
+    """One batch leg: install the leg's fault plan into fsio and the
+    journal as the incident sink, optionally probe the build cache, run
+    the tiny survey through the checkpointed scheduler on the leg's
+    device and write peaks.csv."""
+    from ..obs import trace
+    from ..ops import ffa_kernel
+    from ..pipeline.batcher import BatchSearcher
+    from ..serve.daemon import write_peaks_csv
+    from . import incidents
+    from .faults import FaultPlan
+    from .journal import SurveyJournal
+    from .scheduler import RetryPolicy, SurveyScheduler
 
     if cfg.get("trace"):
         trace.enable()
-    faults = FaultPlan.parse(cfg.get("faults") or "", exit=die)
+    faults = FaultPlan.parse(cfg.get("faults") or "", exit=rep.die)
     prev_hook = fsio.set_storage_faults(faults.storage_op)
     journal = SurveyJournal(cfg["journal"])
     prev_sink = incidents.set_sink(journal.record_incident)
@@ -578,21 +838,44 @@ def _leg_main(cfg_path):
                          reload_check=bool(cfg.get("cache_reload")))
         searcher = BatchSearcher(DERED, SEARCH_CONF, fmt="presto",
                                  io_threads=1, device=cfg["device"])
-        state["device"] = searcher.device.type
+        rep.device = searcher.device.type
         ffa_kernel.reset_launches()
         scheduler = SurveyScheduler(
             searcher, [[f] for f in cfg["files"]], journal=journal,
             resume=bool(cfg.get("resume")), faults=faults,
             retry=RetryPolicy(max_retries=2, base_s=0.01, cap_s=0.05),
         )
-        state["run_t0"] = time.perf_counter()
+        rep.run_t0 = time.perf_counter()
         peaks = scheduler.run()
-        _write_peaks_csv(peaks, cfg["peaks_csv"])
+        write_peaks_csv(peaks, cfg["peaks_csv"])
     finally:
         incidents.set_sink(prev_sink)
         fsio.set_storage_faults(prev_hook)
-    report(killed=False)
     return 0
+
+
+def _leg_main(cfg_path):
+    """One subprocess leg on the leg's device: a batch leg
+    (:func:`_batch_leg_main`) or, for a serve schedule, the survey as a
+    job of the service daemon (:func:`_serve_leg_main` and the drain
+    and device-error variants). Writes the leg's report and returns 0 —
+    unless an armed ``kill_at`` hard-exits mid-write first, which is
+    the point (the plan's exit hook writes the report before it)."""
+    with open(cfg_path) as fobj:
+        cfg = json.load(fobj)
+    logging.basicConfig(level="INFO")
+    rep = _LegReport(cfg["out"])
+    if not cfg.get("serve"):
+        leg = _batch_leg_main
+    elif cfg.get("serve_drain"):
+        leg = _serve_drain_leg_main
+    elif cfg.get("serve_device_error"):
+        leg = _serve_device_error_leg_main
+    else:
+        leg = _serve_leg_main
+    rc = leg(cfg, rep)
+    rep.write(killed=False)
+    return rc
 
 
 def main(argv=None):

@@ -184,6 +184,24 @@ class IntegrityConfig:
             policy=policy,
         )
 
+    @classmethod
+    def from_spec(cls, spec, policy="park"):
+        """A config from a serve job spec's ``integrity`` field: a mode
+        string (``"probe"``) or a dict (``{"mode": "probe",
+        "probe_every": 1}``). None falls back to the environment."""
+        if spec is None:
+            return cls.from_env(policy=policy)
+        if isinstance(spec, str):
+            return cls(mode=spec, probe_every=1 if spec in
+                       ("probe", "strict") else 0, policy=policy)
+        if isinstance(spec, dict):
+            return cls(mode=spec.get("mode", "digest"),
+                       probe_every=spec.get("probe_every", 0),
+                       policy=policy)
+        raise ValueError(
+            f"bad integrity spec {spec!r}: expected a mode string or "
+            "a {'mode': ..., 'probe_every': ...} object")
+
 
 # -- the thread-local fold accumulator --------------------------------------
 

@@ -467,13 +467,31 @@ class SurveyScheduler:
         EVERY``; the canary runs on the searcher's ``device``; an
         ``off``-mode config resolves to ``self.integrity =
         None`` so the fast path carries no integrity state at all.
+    chunk_gate : object or None
+        Serve-mode yield point (``riptide_tpu_torch.serve.queue``): an
+        object with ``begin(chunk_id)`` / ``end(chunk_id)``. ``begin``
+        is called once the chunk is staged in host memory and before
+        anything of it is copied to the card; it may BLOCK until this
+        survey's fair-share turn, or raise (``JobCancelled`` /
+        ``QuotaExceeded`` / ``JobDeadlineExceeded`` / ``JobDrained``)
+        to stop the run at the chunk boundary — the only interruption
+        point, so the journal is always left resumable, and only the
+        job holding the turn has chunk buffers on the card. ``end`` is
+        called in a ``finally`` once the chunk's results are on the
+        host and journaled (success, park, or failure alike), so the
+        turn's begin-to-end wall time covers the chunk's queued CUDA
+        work. A gate may also have ``device_lost(chunk_id)``, called
+        before ``end`` when the chunk raises :class:`StickyDeviceError`
+        (the serve queue then parks every other job rather than start
+        its turn on a dead context). None (the default) keeps batch
+        behaviour: no gating.
     """
 
     def __init__(self, searcher, chunks, journal=None, resume=False,
                  retry=None, faults=None, survey_id=None, metrics=None,
                  watchdog=None, breaker=None, monitor=None,
                  process_index=0, fleet_dir=None, alerts=None,
-                 integrity=None):
+                 chunk_gate=None, integrity=None):
         self.searcher = searcher
         self.chunks = [list(c) for c in chunks]
         self.journal = journal
@@ -489,6 +507,7 @@ class SurveyScheduler:
         self.process_index = int(process_index)
         self.fleet_dir = fleet_dir
         self.alerts = alerts
+        self.chunk_gate = chunk_gate
         if integrity is None:
             integrity = IntegrityConfig.from_env()
         if isinstance(integrity, IntegrityConfig):
@@ -953,6 +972,113 @@ class SurveyScheduler:
                 extra=extra or None,
             )
 
+    def _gated_chunk(self, cid, tslist, wire, prep_s, peaks_by_chunk):
+        """Dispatch, record and publish one staged chunk inside its
+        device turn (the chunk gate's ``end`` runs once its results are
+        on the host and journaled, however the chunk ends)."""
+        try:
+            if self.integrity is not None \
+                    and self.integrity.quarantined:
+                # The quarantine latch: once a device is marked
+                # suspect, no further chunk may trust it — park
+                # everything remaining (a later resume on a
+                # healthy process re-dispatches them).
+                self._park(cid, "integrity quarantine: device "
+                                "marked suspect")
+                self._fleet_safe()
+                self._alerts_safe()
+                return
+            if self.breaker is not None \
+                    and not self.breaker.allow():
+                self._park(cid, f"circuit {self.breaker.state}")
+                self._fleet_safe()
+                self._alerts_safe()
+                return
+            self._in_flight = cid
+            t0 = time.perf_counter()
+            de0 = self.metrics.counter("device_errors")
+            # The digest was taken at staging; the corrupt fault
+            # fires here, on the host wire, before any copy of
+            # it is queued.
+            self.faults.corrupt_wire(cid, wire.items)
+            try:
+                # One span per dispatched chunk: its ship, queue
+                # and collect spans (and any retries and shadow
+                # probes) nest under it on this thread.
+                with span("chunk", chunk=cid):
+                    peaks, parts, attempts, rinfo = \
+                        self._dispatch_with_retry(cid, tslist, wire)
+            except StickyDeviceError:
+                # The CUDA context is dead for every run in this
+                # process: a gate that can tell its siblings parks them
+                # before this turn ends, so none starts on it.
+                lost = getattr(self.chunk_gate, "device_lost", None)
+                if lost is not None:
+                    lost(cid)
+                raise
+            except (KeyboardInterrupt, SystemExit, FaultAbort):
+                raise
+            except IntegrityQuarantineError as err:
+                # Three dispatches, three answers: the device is
+                # suspect. The latch parks every remaining chunk
+                # ("park"); under "fail" the run raises.
+                verdict = self.integrity.quarantine(
+                    cid, err.digests)
+                log.error(
+                    "chunk %d: device quarantined (golden canary "
+                    "verdict: %s): %s", cid, verdict, err)
+                if self.integrity.config.policy == "fail":
+                    raise
+                self._park(cid, f"integrity quarantine: {err}")
+                self._fleet_safe()
+                self._alerts_safe()
+                return
+            except Exception as err:
+                if is_device_error(err):
+                    # The retries (each of which found the CUDA
+                    # context working) did not clear it:
+                    # attribute the failure as a device_error
+                    # incident.
+                    incidents.emit("device_error", chunk_id=cid,
+                                   error=str(err))
+                if self.breaker is None:
+                    raise
+                # Breaker configured: a chunk that exhausted its
+                # retries parks instead of aborting the survey.
+                self.breaker.record_failure()
+                self._park(cid,
+                           f"dispatch failed after retries: {err}")
+                self._fleet_safe()
+                self._alerts_safe()
+                return
+            finally:
+                self._in_flight = None
+            if self.breaker is not None:
+                self.breaker.record_success()
+            chunk_s = time.perf_counter() - t0
+            self.metrics.observe("chunk_s", chunk_s)
+            self.metrics.add("chunks_done")
+            peaks_by_chunk[cid] = peaks
+            timing = chunk_timing(chunk_s, prep_s=prep_s, **parts)
+            self._run_timings.append(timing)
+            if self.journal is not None:
+                self._record(cid, tslist, wire, peaks, timing,
+                             attempts, rinfo, de0)
+            # Per-chunk fleet publication + live alert evaluation
+            # (both no-ops while their flags are off, both
+            # never-fatal): the measure→detect half of the loop.
+            self._fleet_safe()
+            self._alerts_safe()
+            log.debug("chunk %d/%d done: %d peaks, %d attempt(s)",
+                      cid + 1, len(self.chunks), len(peaks),
+                      attempts)
+        finally:
+            # The turn is over whether the chunk completed, parked, or
+            # failed: the gate measures begin->end to charge the
+            # tenant's device-seconds budget.
+            if self.chunk_gate is not None:
+                self.chunk_gate.end(cid)
+
     # -- main loop ----------------------------------------------------------
 
     def run(self):
@@ -1110,94 +1236,16 @@ class SurveyScheduler:
                 self._heartbeat_safe()
                 wire = _ChunkWire(self.searcher, items, digest)
                 try:
-                    if self.integrity is not None \
-                            and self.integrity.quarantined:
-                        # The quarantine latch: once a device is marked
-                        # suspect, no further chunk may trust it — park
-                        # everything remaining (a later resume on a
-                        # healthy process re-dispatches them).
-                        self._park(cid, "integrity quarantine: device "
-                                        "marked suspect")
-                        self._fleet_safe()
-                        self._alerts_safe()
-                        continue
-                    if self.breaker is not None \
-                            and not self.breaker.allow():
-                        self._park(cid, f"circuit {self.breaker.state}")
-                        self._fleet_safe()
-                        self._alerts_safe()
-                        continue
-                    self._in_flight = cid
-                    t0 = time.perf_counter()
-                    de0 = self.metrics.counter("device_errors")
-                    # The digest was taken at staging; the corrupt fault
-                    # fires here, on the host wire, before any copy of
-                    # it is queued.
-                    self.faults.corrupt_wire(cid, items)
-                    try:
-                        # One span per dispatched chunk: its ship, queue
-                        # and collect spans (and any retries and shadow
-                        # probes) nest under it on this thread.
-                        with span("chunk", chunk=cid):
-                            peaks, parts, attempts, rinfo = \
-                                self._dispatch_with_retry(cid, tslist, wire)
-                    except (KeyboardInterrupt, SystemExit, FaultAbort,
-                            StickyDeviceError):
-                        raise
-                    except IntegrityQuarantineError as err:
-                        # Three dispatches, three answers: the device is
-                        # suspect. The latch parks every remaining chunk
-                        # ("park"); under "fail" the run raises.
-                        verdict = self.integrity.quarantine(
-                            cid, err.digests)
-                        log.error(
-                            "chunk %d: device quarantined (golden canary "
-                            "verdict: %s): %s", cid, verdict, err)
-                        if self.integrity.config.policy == "fail":
-                            raise
-                        self._park(cid, f"integrity quarantine: {err}")
-                        self._fleet_safe()
-                        self._alerts_safe()
-                        continue
-                    except Exception as err:
-                        if is_device_error(err):
-                            # The retries (each of which found the CUDA
-                            # context working) did not clear it:
-                            # attribute the failure as a device_error
-                            # incident.
-                            incidents.emit("device_error", chunk_id=cid,
-                                           error=str(err))
-                        if self.breaker is None:
-                            raise
-                        # Breaker configured: a chunk that exhausted its
-                        # retries parks instead of aborting the survey.
-                        self.breaker.record_failure()
-                        self._park(cid,
-                                   f"dispatch failed after retries: {err}")
-                        self._fleet_safe()
-                        self._alerts_safe()
-                        continue
-                    finally:
-                        self._in_flight = None
-                    if self.breaker is not None:
-                        self.breaker.record_success()
-                    chunk_s = time.perf_counter() - t0
-                    self.metrics.observe("chunk_s", chunk_s)
-                    self.metrics.add("chunks_done")
-                    peaks_by_chunk[cid] = peaks
-                    timing = chunk_timing(chunk_s, prep_s=prep_s, **parts)
-                    self._run_timings.append(timing)
-                    if self.journal is not None:
-                        self._record(cid, tslist, wire, peaks, timing,
-                                     attempts, rinfo, de0)
-                    # Per-chunk fleet publication + live alert evaluation
-                    # (both no-ops while their flags are off, both
-                    # never-fatal): the measure→detect half of the loop.
-                    self._fleet_safe()
-                    self._alerts_safe()
-                    log.debug("chunk %d/%d done: %d peaks, %d attempt(s)",
-                              cid + 1, len(self.chunks), len(peaks),
-                              attempts)
+                    if self.chunk_gate is not None:
+                        # Serve-mode yield point: block for this
+                        # survey's fair-share turn on the card. A
+                        # cancellation, quota, deadline or drain stop
+                        # raises HERE — between chunks, after the
+                        # previous chunk's journal write — so the
+                        # journal is always left resumable.
+                        self.chunk_gate.begin(cid)
+                    self._gated_chunk(cid, tslist, wire, prep_s,
+                                      peaks_by_chunk)
                 finally:
                     # Results recorded, the chunk parked or the run
                     # failing: the chunk's wire-prep buffers go back to

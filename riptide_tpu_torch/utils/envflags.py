@@ -190,6 +190,50 @@ _ALL = [
         "Keep the chaos campaign's working directory after a PASSING "
         "run too (failures always keep it).",
     ),
+    EnvFlag(
+        "RIPTIDE_SERVE", "bool", True,
+        "Serve the /jobs API from the survey service daemon "
+        "(`python -m riptide_tpu_torch.apps.rserve`): accept, queue and "
+        "run jobs submitted over HTTP. `0` starts the daemon "
+        "metrics/status-only (the /jobs surface answers 503).",
+    ),
+    EnvFlag(
+        "RIPTIDE_SERVE_MAX_JOBS", "int", 16,
+        "Max jobs the service daemon keeps resident (pending + "
+        "running) across ALL tenants; a submit over the cap is "
+        "rejected with HTTP 429 and a `job_rejected` incident. "
+        "Completed/failed/cancelled jobs do not count.",
+    ),
+    EnvFlag(
+        "RIPTIDE_SERVE_QUOTA_DEVICE_S", "float", 0.0,
+        "Default per-tenant device-seconds budget for service jobs "
+        "(riptide_tpu_torch/serve/tenants.py): every fair-share device "
+        "turn is charged against it, and an exhausted tenant's jobs "
+        "stop at their next chunk boundary with a `quota_exceeded` "
+        "incident (journals stay resumable). `0` = unlimited.",
+    ),
+    EnvFlag(
+        "RIPTIDE_SERVE_PORT", "int", 0,
+        "Port of the survey service daemon's HTTP endpoint (loopback "
+        "only, like RIPTIDE_PROM_PORT). `0` binds an ephemeral port, "
+        "published in the serve root's `serve.port` discovery file "
+        "either way.",
+    ),
+    EnvFlag(
+        "RIPTIDE_SERVE_DIR", "str", None,
+        "Default serve root for rserve (the directory holding "
+        "jobs.jsonl, per-job journal directories and the serve.port "
+        "discovery file). Unset = the rserve --root argument is "
+        "required.",
+    ),
+    EnvFlag(
+        "RIPTIDE_SERVE_DRAIN_TIMEOUT_S", "float", 60.0,
+        "Graceful-drain budget of the survey service daemon: on "
+        "SIGTERM/SIGINT or POST /drain, how long to wait for the "
+        "running chunk to finish and queued jobs to park at the chunk "
+        "gate before rserve exits anyway. Parked jobs keep no terminal "
+        "registry record, so a restart re-queues them (`resumed`).",
+    ),
 ]
 
 FLAGS = {f.name: f for f in _ALL}

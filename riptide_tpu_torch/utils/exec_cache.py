@@ -306,6 +306,17 @@ def _build(path, compile_fn, name, info):
     return tmp, digest
 
 
+def count_warmth(fresh):
+    """Count one reusable build of this process as cold (``fresh``: built
+    or loaded now, ``exec_cold_builds``) or warm (an earlier build reused,
+    ``exec_warm_hits``): the JAX package's two warmth counters, which the
+    serve daemon reads to show that a job of an already-served geometry
+    built nothing."""
+    from ..survey.metrics import get_metrics
+
+    get_metrics().add("exec_cold_builds" if fresh else "exec_warm_hits")
+
+
 def obtain(source, flags, compiler, compile_fn, load=False, directory=None,
            info=None):
     """The library built from ``source`` with ``flags`` by the compiler
@@ -356,6 +367,7 @@ def obtain(source, flags, compiler, compile_fn, load=False, directory=None,
         info["digest"] = digest
     if "store_error" not in info:
         _lru_note(path, inserted=info["action"] == "compiled")
+    count_warmth(True)
     return lib if load else path
 
 

@@ -62,8 +62,7 @@ __all__ = [
 KILL_EXIT = 137
 
 # The named persistence paths storage faults can target (the JAX
-# package's names; its service job registry, `job_append`, waits for
-# the serve slice). Fault specs validate against this tuple so a typo'd
+# package's names). Fault specs validate against this tuple so a typo'd
 # site fails at parse time instead of silently never firing.
 SITES = (
     "journal_append",     # journal.jsonl records
@@ -74,6 +73,7 @@ SITES = (
     "prom_textfile",      # Prometheus textfile page
     "exec_cache_store",   # built libraries placed in the build cache
     "fleet_snapshot",     # fleet_<p>.json per-process status sidecars
+    "job_append",         # jobs.jsonl service job-registry events
 )
 
 _HEX = frozenset(b"0123456789abcdef")

@@ -1,8 +1,8 @@
 """
 The port's chaos campaign (``riptide_tpu_torch/survey/chaos.py``,
 ``apps/rchaos.py``) on the CPU: the builtin schedules are the JAX
-package's without its service schedules, the seeded sweep the JAX
-package's; the ``kill-journal-append`` and ``cache-corrupt`` schedules
+package's, its three service schedules included, the seeded sweep the
+JAX package's; the ``kill-journal-append`` and ``cache-corrupt`` schedules
 run end to end after ``control`` (subprocess legs on ``cpu``), and the
 control run's peaks match the JAX package's scheduler on the same trials
 (equal periods and widths, S/N within rtol 1e-5 / atol 1e-4: the port
@@ -29,10 +29,13 @@ SNR_RTOL, SNR_ATOL = 1e-5, 1e-4
 
 
 def test_builtin_schedules_are_the_reference_without_serve():
-    ref = [s for s in ref_chaos.builtin_schedules()
-           if not s["name"].startswith("serve-")]
+    """The builtin schedules are the JAX package's, the three serve
+    schedules included since the port has the service daemon."""
+    ref = ref_chaos.builtin_schedules()
     assert chaos.builtin_schedules() == ref
-    assert len(ref) == 11 and sum(len(s["legs"]) for s in ref) == 17
+    assert len(ref) == 14 and sum(len(s["legs"]) for s in ref) == 22
+    assert [s["name"] for s in ref if s.get("serve")] == [
+        "serve-kill-mid-job", "serve-drain-mid-job", "serve-device-error"]
     assert chaos.builtin_schedules()[0]["name"] == "control"
 
 
@@ -172,4 +175,4 @@ def test_full_campaign_with_sweep(tmp_path):
          "cpu", "--outdir", str(tmp_path / "w"), "--sweep", "3", "--seed",
          "99"], cwd=REPO, capture_output=True, text=True, timeout=1800)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "chaos campaign OK on cpu: 14 schedule(s)" in proc.stdout
+    assert "chaos campaign OK on cpu: 17 schedule(s)" in proc.stdout

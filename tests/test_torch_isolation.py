@@ -78,7 +78,9 @@ def test_survey_modules_are_covered():
                  "survey.scheduler", "obs.trace", "obs.schema", "obs.chrome",
                  "obs.prom", "obs.alerts", "obs.fleet", "obs.ledger",
                  "obs.report", "utils.exec_cache", "survey.chaos",
-                 "apps.rreport", "apps.rtop", "apps.rwatch", "apps.rchaos"):
+                 "apps.rreport", "apps.rtop", "apps.rwatch", "apps.rchaos",
+                 "serve", "serve.tenants", "serve.queue", "serve.daemon",
+                 "apps.rserve", "apps.rseek"):
         assert f"riptide_tpu_torch.{name}" in mods
 
 
@@ -87,6 +89,7 @@ def test_survey_modules_are_covered():
     ("rtop", ("torch", "numpy", "jax", "jaxlib"), ["--help"]),
     ("rwatch", ("torch", "numpy", "jax", "jaxlib"), ["--help"]),
     ("rchaos", ("jax", "jaxlib"), ["--list"]),
+    ("rserve", ("jax", "jaxlib"), ["--help"]),
 ])
 def test_apps_run_by_path(app, blocked, args, tmp_path):
     """The apps run by path from any directory; the readers with neither
@@ -126,13 +129,16 @@ def test_kernel_source_ships_with_the_package():
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as fobj:
         tool = tomllib.load(fobj)["tool"]["setuptools"]
     assert "riptide_tpu_torch.probes" in tool["packages"]
+    assert "riptide_tpu_torch.serve" in tool["packages"]
     assert "csrc/*.cu" in tool["package-data"]["riptide_tpu_torch"]
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     """``device=None`` means CUDA. Without a usable card every entry point
     raises instead of carrying on quietly on the CPU."""
     from riptide_tpu_torch import TimeSeries, ffa_search
+    from riptide_tpu_torch.apps import rserve
+    from riptide_tpu_torch.serve import ServeDaemon
     from riptide_tpu_torch.probes import probe1536, ptime, ptime2
     from riptide_tpu_torch.survey import integrity
     from riptide_tpu_torch.search import (periodogram_plan, queue_search_batch,
@@ -161,6 +167,8 @@ def test_entry_points_default_to_the_card():
         lambda: probe1536.main([]),
         lambda: integrity.compute_canary_digest(),
         lambda: integrity.main([]),
+        lambda: ServeDaemon(str(tmp_path / "serve")),
+        lambda: rserve.main(["--root", str(tmp_path / "serve")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

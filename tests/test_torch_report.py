@@ -273,8 +273,8 @@ def test_cli_by_path_matches_the_tool(journals, tmp_path, tool, name, args):
 def test_cli_exit_codes(journals, tmp_path):
     """rreport: 1 on a phase-sum violation, 2 without a journal or
     ledger; rtop and rwatch: 2 without a directory; rwatch: 1 with an
-    alert firing, 2 on a bad rule spec; the port refuses a service
-    directory with 2 where the tools print its job table."""
+    alert firing, 2 on a bad rule spec; rreport and rtop print a service
+    directory's job table and exit 0, as the tools do."""
     broken = RefJournal(tmp_path / "broken")
     broken.write_header("sid", 1)
     broken.record_chunk(0, ["a.inf"], [0.0], [],
@@ -300,9 +300,49 @@ def test_cli_exit_codes(journals, tmp_path):
         assert port[0] == ref[0] == rc, (tool, args, port, ref)
     for tool, args in (("rreport", [str(serve)]),
                        ("rtop", [str(serve), "--once"])):
-        rc, _, err = _by_path(os.path.join(APPS, f"{tool}.py"), args,
-                              str(tmp_path))
-        assert rc == 2 and "serve slice" in err
+        port, ref = _both(tool, args, tmp_path)
+        assert port[0] == ref[0] == 0, (tool, port, ref)
+        assert "service jobs:" in port[1] and port[1] == ref[1]
+
+
+def _serve_dir(root, journals):
+    """A service directory: a JAX-written registry of four jobs (done,
+    failed, running and pending; one resumed), the first two with the
+    port's clean and faulted journals as their own."""
+    import shutil
+
+    from riptide_tpu.serve.daemon import JobRegistry, job_record
+
+    reg = JobRegistry(str(root))
+    for jid, tenant in (("j0001", "a"), ("j0002", "b"), ("j0003", "a"),
+                        ("j0004", "b")):
+        reg.append(job_record(jid, "submitted", tenant=tenant, priority=0,
+                              spec={"files": ["x.inf"]}))
+    for jid in ("j0001", "j0002", "j0003"):
+        reg.append(job_record(jid, "started", resumed=jid == "j0003"))
+    reg.append(job_record("j0001", "done", npeaks=3, device_s=1.25,
+                          queue_wait_s=0.5, chunks_total=3))
+    reg.append(job_record("j0002", "failed", error="device error x"))
+    for jid, name in (("j0001", "port"), ("j0002", "faulted")):
+        shutil.copytree(journals[name], os.path.join(root, "jobs", jid))
+    return str(root)
+
+
+def test_job_table_matches_the_reference(journals, tmp_path):
+    """On the same service directory the port's ``read_jobs``,
+    ``job_table`` and ``render_jobs_text`` equal the JAX package's, and
+    rreport and rtop by path print the tools' output."""
+    serve = _serve_dir(tmp_path / "serve", journals)
+    assert report.read_jobs(serve) == ref_report.read_jobs(serve)
+    rows = report.job_table(serve)
+    assert rows == ref_report.job_table(serve)
+    assert [r["status"] for r in rows] == ["done", "failed", "running",
+                                           "pending"]
+    assert report.render_jobs_text(rows) == \
+        ref_report.render_jobs_text(rows)
+    for tool, args in (("rreport", [serve]), ("rtop", [serve, "--once"])):
+        port, ref = _both(tool, args, tmp_path)
+        assert port[0] == ref[0] == 0 and port[1] == ref[1], (tool, port)
 
 
 def test_rtop_frame_and_rwatch_loop_in_process(journals):

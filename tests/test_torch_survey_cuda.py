@@ -3,7 +3,8 @@ The checkpointed survey path on a card: a two-chunk journaled search
 with every chunk shadow-probed (``RIPTIDE_INTEGRITY=probe``, probe
 every 1), K1 on every dispatch, each chunk's two result digests equal;
 an ``abort:1`` and a resume give the uninterrupted run's peaks, chunk 0
-replayed.
+replayed; two jobs through the survey service's daemon on ``cuda`` give
+``peaks.csv`` bytes equal to a direct run's, with K1 launched.
 
 Marked ``cuda``: skipped on a host without one (the default CPU suite);
 run on a card with ``python -m pytest --noconftest
@@ -104,3 +105,51 @@ def test_bitflip_is_out_voted_on_the_card(dev, chunks, tmp_path):
     got, metrics, _ = _run(dev, chunks, tmp_path / "j", spec="bitflip:1")
     assert metrics.counter("integrity_mismatches") == 1
     assert [tuple(p) for p in got] == [tuple(p) for p in want]
+
+
+def test_two_served_jobs_give_the_direct_run_bytes(dev, chunks, tmp_path):
+    """Two tenants' jobs at once through ``ServeDaemon(device="cuda")``:
+    both done, each ``peaks.csv`` the bytes of a direct scheduler run of
+    the same chunks."""
+    import json
+    import time
+    import urllib.request
+
+    from riptide_tpu_torch.serve import ServeDaemon
+    from riptide_tpu_torch.serve.daemon import write_peaks_csv
+
+    direct, _, _ = _run(dev, chunks, tmp_path / "direct", mode="off")
+    write_peaks_csv(direct, str(tmp_path / "direct.csv"))
+    want = (tmp_path / "direct.csv").read_bytes()
+    files = [f for c in chunks for f in c]
+    d = ServeDaemon(str(tmp_path / "serve"), port=0, workers=2,
+                    device="cuda").start()
+    try:
+        base = f"http://127.0.0.1:{d.port}"
+        fk.reset_launches()
+        jids = []
+        for tenant in ("a", "b"):
+            spec = {"files": files, "fmt": "presto", "tenant": tenant,
+                    "chunk_files": 2, "io_threads": 2,
+                    "deredden": {"rmed_width": 4.0, "rmed_minpts": 101},
+                    "search": SEARCH_CONF}
+            req = urllib.request.Request(
+                base + "/jobs", data=json.dumps(spec).encode(),
+                headers={"Content-Type": "application/json"},
+                method="POST")
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                jids.append(json.loads(resp.read())["job_id"])
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and not all(
+                doc["status"] in ("done", "failed")
+                for doc in d.list()["jobs"]):
+            time.sleep(0.1)
+        docs = {doc["job_id"]: doc for doc in d.list()["jobs"]}
+    finally:
+        d.stop()
+    assert fk.LAUNCHES["fused_stage"] > 0
+    for jid in jids:
+        assert docs[jid]["status"] == "done", docs[jid].get("error")
+        with open(os.path.join(docs[jid]["directory"], "peaks.csv"),
+                  "rb") as fobj:
+            assert fobj.read() == want
