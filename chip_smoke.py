@@ -194,6 +194,39 @@ of the checkout by default), then:
    (the same bytes), and ``rreport`` and ``rtop --once`` by path print
    the serve root's job table. K1's served launches go into its
    ``kernels`` entry as ``serve_launches``.
+11. the multi-GPU paths (``riptide_tpu_torch.parallel``) on the card,
+   every shard a device of a ``Mesh`` (``cuda:0`` repeated on a one-card
+   machine): (a) ``run_search_sharded`` of phase 5's D = 32 batch on
+   ``default_mesh()`` (one shard a card), on four virtual shards and with
+   30 trials over four shards (padded), and ``run_periodogram_sharded``
+   on a 2 x 3 (dm, bins) mesh (the bins axis divides the plan's 21
+   padded bins trials); each run timed after a warm-up (wall,
+   DM-trials/s and peak device memory beside phase 5 (a)'s, launch
+   counts set to 0 just before and read just after: one K2
+   ``cascade_stage`` per stage per shard, no K1, no plain version),
+   then recorded a third time and every K2 launch held against
+   ``cascade_stage_plain``; the peaks must be phase 5 (a)'s (period,
+   width, DM; the S/N within the bar, its largest difference and
+   whether the bits are equal printed), series 0 the pulsar, the 2-D
+   cube phase 5 (a)'s S/N; K2 is timed over the default mesh's
+   launches as in phase 3; (b) ``ffa2_seq`` of a (32768, 256) float32
+   container over 2 (all-gather) and 8 (windowed) virtual shards, the
+   same bits as ``ffa2`` on the card; (c) two fresh processes on the card
+   joined over ``torch.distributed`` (gloo, a free localhost port),
+   each making phase 5's batch from its seed and searching its half
+   (process 1 the pulsar's) through ``run_search_multihost`` with a
+   shared journal: both print the same gathered list, phase 5 (a)'s
+   peaks in process order sorted by S/N (the same bits), process 0
+   journals the chunk, and K1 runs ``queued_launches(plan)`` times in
+   each; (d) process 0 wedges before the gather; process 1's gather,
+   bounded at 5 s, times out, it degrades to local-only mode, takes the
+   journal writer's role and journals both chunks (``peer_losses`` 1,
+   one ``peer_loss`` incident), then process 0 is killed. K2's sharded
+   launches and times go into its ``kernels`` entry (``sharded_launches``,
+   ``sharded_ms``, ``sharded_plain_ms``, ``sharded_bound_ms`` and
+   ``sharded_bound_by``, ``sharded_max_abs_err``), K1's
+   launches in the two processes of (c) into its own as
+   ``multihost_launches``.
 
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
@@ -329,11 +362,13 @@ def wire_dtype(mode):
 
 def _trials(plan, r):
     """(m, p, evaluated rows) of every trial a recorded launch computes:
-    its lane bucket's (or whole stage's) trials and, for K3, the guest
-    trials it carries. Read under the flags the launch ran with."""
+    its lane bucket's (or whole stage's, or a sharded launch's bins
+    slice's) trials and, for K3, the guest trials it carries. Read under the flags the launch ran with."""
     st = plan.stages[r["stage"]]
-    idx = (range(len(st.ms_padded)) if r["bucket"] is None
-           else st.lane_buckets[r["bucket"]])
+    idx = r.get("bins")
+    if idx is None:
+        idx = (range(len(st.ms_padded)) if r["bucket"] is None
+               else st.lane_buckets[r["bucket"]])
 
     def one(s, g):
         return (s.ms_padded[g], s.ps_padded[g],
@@ -927,7 +962,8 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
     """Phase 5: run_search_batch from one prepared wire under the three
     layouts (``want_pairs`` pairs in run (b)). Returns run (b)'s K3
     launch count, largest difference from plain and (ms, plain ms, bound
-    ms, bound by) over its launches."""
+    ms, bound by) over its launches, and run (a) for phase 11: the
+    batch, its peaks, S/N cube, wall and peak device memory."""
     from riptide_tpu_torch.ops import ffa_kernel as fk
     from riptide_tpu_torch.search import engine
 
@@ -984,7 +1020,7 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
             D, plan.length, nw), f"run ({name}): S/N cube {tuple(snr.shape)}")
         runs[name] = dict(pairs=pairs, absorbed=absorbed, launches=launches,
                           snr=snr, peaks=peaks, rec=rec, k3=k3,
-                          k3_trials=k3_trials, wall=wall)
+                          k3_trials=k3_trials, wall=wall, peak=peak)
     a, b, c = runs["a"], runs["b"], runs["c"]
     check(a["pairs"] == c["pairs"] == 0 and b["pairs"] == want_pairs,
           f"pairs {a['pairs']}, {b['pairs']}, {c['pairs']}: want 0, "
@@ -1028,7 +1064,9 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
           f"{ms:.4f} ms device, from CUDA graph replays ({wms:.4f} ms "
           f"through the wrappers; plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
           f"by {bnd[1]})", flush=True)
-    return b["launches"]["paired_stage"], err, (ms, pms, *bnd)
+    p5 = dict(batch=batch, peaks=a["peaks"], snr=a["snr"], wall=a["wall"],
+              peak=a["peak"])
+    return b["launches"]["paired_stage"], err, (ms, pms, *bnd), p5
 
 
 def write_presto(path, data, tsamp, dm=0.0):
@@ -2271,6 +2309,397 @@ def phase_serve(dev, p7, card):
 # block, and the grid of an element kernel at (2048, 384).
 P1_GATHERING = ("roll lanes", "roll rows", "select", "dynroll",
                 "stride_roll")
+# Phase 11: the multi-GPU paths on one card. (a) the sharded survey on
+# phase 5's batch over these meshes (name, dm shards, bins shards, trials):
+# the cards present, four virtual shards, 30 trials over four (padded),
+# and a 2-D mesh whose bins axis must divide the plan's 21 padded bins
+# trials; (b) ffa2_seq of a SEQ_SHAPE container over SEQ_SHARDS shards;
+# (c, d) two processes on the card over gloo, each searching half of the
+# batch, the survivor's bounded gather PEER_TIMEOUT_S.
+SHARDED_RUNS = (("default_mesh", None, 1, 32), ("4 virtual shards", 4, 1, 32),
+                ("30 trials over 4 shards", 4, 1, 30))
+BINS_MESH = (2, 3)
+SEQ_SHAPE = (32768, 256)
+SEQ_SHARDS = (2, 8)
+PEER_TIMEOUT_S = 5.0
+PEER_MAX_AGE_S = 1.0
+
+# The worker of phases 11c and 11d: ``python worker.py REPO PID PORT JDIR
+# MODE CFG DEVICE``; MODE ``search`` (both processes gather) or
+# ``peerloss`` (process 0 wedges before the gather, process 1 survives
+# it); CFG the headline configuration as JSON; DEVICE ``cuda`` for this
+# process's card (``local_device``), else the device named.
+MULTI_WORKER = r'''
+import json, os, sys, time
+repo, pid, port, jdir, mode = sys.argv[1], int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4], sys.argv[5]
+cfg, device = json.loads(sys.argv[6]), sys.argv[7]
+sys.path.insert(0, repo)
+import numpy as np
+import torch
+import chip_smoke as cs
+from riptide_tpu_torch.ops import ffa_kernel as fk
+from riptide_tpu_torch.parallel import run_search_multihost
+from riptide_tpu_torch.parallel import multihost as mh
+from riptide_tpu_torch.parallel.distributed import (init_distributed,
+                                                    local_device)
+from riptide_tpu_torch.search import engine
+from riptide_tpu_torch.survey import incidents
+from riptide_tpu_torch.survey.journal import SurveyJournal
+from riptide_tpu_torch.survey.liveness import PeerLivenessMonitor
+from riptide_tpu_torch.survey.metrics import get_metrics
+
+assert init_distributed(f"localhost:{port}", num_processes=2,
+                        process_id=pid, initialization_timeout=120) == 2
+plan = cs.headline_plan(cfg)
+batch = cs.survey_batch(plan, 32, cfg=cfg)
+half = 16
+# Process 1 holds the pulsar series (trials 0-15), process 0 trials 16-31.
+mine = batch[half:] if pid == 0 else batch[:half]
+tobs = cfg["nsamp"] * cfg["tsamp"]
+journal = SurveyJournal(jdir)
+incidents.set_sink(journal.record_incident)
+dev = local_device() if device == "cuda" else torch.device(device)
+if dev.type == "cuda":
+    fk._LIB.load()
+out = {"pid": pid, "device": str(dev)}
+if mode == "search":
+    if pid == 0:
+        journal.write_header("phase11c", 1)
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    peaks, _ = run_search_multihost(plan, mine, tobs, dms_local=np.zeros(half),
+                                    journal=journal, gather_timeout_s=120,
+                                    device=dev)
+    out.update(wall=time.perf_counter() - t0, launches=dict(fk.LAUNCHES),
+               want=engine.queued_launches(plan),
+               peaks=[list(p) for p in peaks])
+    print("RESULT " + json.dumps(out), flush=True)
+    sys.exit(0)
+monitor = PeerLivenessMonitor(journal, process_index=pid, process_count=2,
+                              max_age_s=cs.PEER_MAX_AGE_S)
+if pid == 0:
+    # The lost process: one heartbeat, then wedged before the gather
+    # (never searches, never beats again) until it is killed.
+    monitor.beat()
+    print("RESULT " + json.dumps(out), flush=True)
+    time.sleep(600)
+    os._exit(3)
+monitor.start_beating(interval_s=cs.PEER_MAX_AGE_S / 10)
+time.sleep(1.5 * cs.PEER_MAX_AGE_S)
+journal.write_header("phase11d", 2)
+t0 = time.perf_counter()
+fk.reset_launches()
+peaks, _ = run_search_multihost(plan, mine, tobs, dms_local=np.zeros(half),
+                                journal=journal, chunk_id=1,
+                                gather_timeout_s=cs.PEER_TIMEOUT_S,
+                                monitor=monitor, device=dev)
+t_loss = time.perf_counter() - t0
+assert mh.is_degraded() and monitor.lost() == [0], monitor.lost()
+assert monitor.journal_writer() == 1
+lost = monitor.unfinished_chunks(2)
+for cid in lost:
+    run_search_multihost(plan, batch[half:], tobs, dms_local=np.zeros(half),
+                         journal=journal, chunk_id=cid, monitor=monitor,
+                         device=dev)
+out.update(wall=time.perf_counter() - t0, degraded_s=t_loss, lost=lost,
+           launches=dict(fk.LAUNCHES), want=engine.queued_launches(plan),
+           peer_losses=get_metrics().counter("peer_losses"),
+           done=sorted(journal.completed_chunks()))
+print("RESULT " + json.dumps(out), flush=True)
+os._exit(0)
+'''
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_workers(tmp, jdir, mode, cfg, dev):
+    """Start the two processes of phase 11c or 11d (fresh interpreters,
+    ``MULTI_WORKER`` written under ``tmp``) at the configuration ``cfg``
+    on ``dev`` (on a card, each process's ``local_device``)."""
+    script = os.path.join(tmp, "multi_worker.py")
+    with open(script, "w") as fobj:
+        fobj.write(MULTI_WORKER)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = str(_free_port())
+    return [subprocess.Popen([sys.executable, script, repo, str(pid), port,
+                              jdir, mode, json.dumps(cfg), dev.type],
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for pid in range(2)]
+
+
+def worker_result(proc, timeout=300):
+    """Wait for a worker; its RESULT line as a dict (raises on a failed
+    worker, with the end of its output)."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise RuntimeError(f"worker timed out:\n{out[-3000:]}")
+    lines = [x for x in out.splitlines() if x.startswith("RESULT ")]
+    check(proc.returncode == 0 and lines,
+          f"worker exited {proc.returncode}:\n{out[-3000:]}")
+    return json.loads(lines[-1][7:])
+
+
+def _peak_key(peaks):
+    return [(p.period, p.width, p.dm) for p in peaks]
+
+
+def phase_sharded(dev, plan, p5, cfg=HEADLINE):
+    """Phase 11a: ``run_search_sharded`` of phase 5's batch on each mesh
+    of ``SHARDED_RUNS`` and ``run_periodogram_sharded`` on the 2-D mesh
+    ``BINS_MESH``, each timed (wall, peak device memory, launch counts
+    set to 0 just before and read just after) after a warm-up run, then
+    run a third time, recorded. Every K2 launch of that run is held
+    against ``cascade_stage_plain``; the peaks must be phase 5
+    (a)'s (period, width, DM; S/N within the bar, the largest difference
+    printed), series 0 the pulsar, the 2-D cube phase 5 (a)'s S/N.
+    Returns (K2 launches over the phase, its largest difference from
+    plain, (device ms, plain ms, bound ms, bound by) over the default
+    mesh's launches)."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.parallel import (Mesh, default_mesh, mesh_2d,
+                                            run_periodogram_sharded,
+                                            run_search_sharded)
+    from riptide_tpu_torch.search import engine
+
+    tobs = cfg["nsamp"] * cfg["tsamp"]
+    S = len(plan.stages)
+    B = len(plan.stages[0].ps_padded)
+    check(B == cfg["bins_max"] - cfg["bins_min"] + 1 and B % BINS_MESH[1] == 0,
+          f"padded bins trials {B}: the 2-D mesh's bins axis "
+          f"{BINS_MESH[1]} must divide it")
+    total, err, timing = 0, 0.0, None
+    runs = [(name, default_mesh() if n is None else Mesh([dev] * n), D)
+            for name, n, _, D in SHARDED_RUNS]
+    runs.append((f"2-D mesh {BINS_MESH[0]} dm x {BINS_MESH[1]} bins",
+                 mesh_2d([dev] * (BINS_MESH[0] * BINS_MESH[1]),
+                         bins_shards=BINS_MESH[1]), 32))
+    for k, (name, mesh, D) in enumerate(runs):
+        batch = p5["batch"][:D]
+        two_d = "bins" in mesh.axis_names
+        shards = mesh.size
+
+        def run():
+            if two_d:
+                return run_periodogram_sharded(plan, batch, mesh=mesh)[2]
+            return run_search_sharded(plan, batch, tobs, dms=np.zeros(D),
+                                      mesh=mesh)[0]
+
+        run()
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        got = run()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(fk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        # A third run, recorded (each K2 input kept as a copy), for the
+        # plain versions' operands.
+        with engine.recording() as rec:
+            run()
+        k2 = [r for r in rec["launches"] if r["kind"] == "cascade_stage"]
+        per = {}
+        for r in k2:
+            per[r["shard"]] = per.get(r["shard"], 0) + 1
+        check(launches == {"fused_stage": 0, "cascade_stage": S * shards,
+                           "paired_stage": 0} and len(k2) == S * shards
+              and set(per.values()) == {S},
+              f"{name}: launches {launches}, per shard {per}: want one K2 "
+              f"per stage ({S}) per shard ({shards}) and nothing else")
+        total += launches["cascade_stage"]
+        err = max(err, compare_stages(
+            f"K2 cascade_stage on the sharded path, {name}",
+            [r["out"] for r in k2], plain_launches(rec, "cascade_stage")))
+        print(f"  {name}: {shards} shard(s), K2 {S} launches per shard "
+              f"({launches['cascade_stage']} in all); {wall:.3f} s wall, "
+              f"{D / wall:.3f} DM-trials/s, peak device memory "
+              f"{peak / 2 ** 30:.3f} GiB (phase 5 (a): {p5['wall']:.3f} s, "
+              f"{32 / p5['wall']:.3f} DM-trials/s, {p5['peak'] / 2 ** 30:.3f} "
+              "GiB)", flush=True)
+        if two_d:
+            want = p5["snr"].cpu().numpy()
+            check(got.shape == want.shape and np.isfinite(got).all(),
+                  f"{name}: S/N cube {got.shape}")
+            d = np.abs(got - want)
+            check(bool((d <= ATOL + RTOL * np.abs(want)).all()),
+                  f"{name}: S/N differs from phase 5 (a) (max {d.max():.3e})")
+            print(f"  {name}: S/N cube against phase 5 (a)'s: max |diff| "
+                  f"{d.max():.3e}, bitwise equal {np.array_equal(got, want)}",
+                  flush=True)
+            continue
+        want = p5["peaks"][:D]
+        check(len(got) == D and [_peak_key(g) for g in got]
+              == [_peak_key(w) for w in want],
+              f"{name}: peaks (period, width, DM) differ from phase 5 (a)")
+        gs = np.array([p.snr for g in got for p in g])
+        ws = np.array([p.snr for w in want for p in w])
+        d = np.abs(gs - ws)
+        check(bool((d <= ATOL + RTOL * np.abs(ws)).all()),
+              f"{name}: peak S/N differs from phase 5 (a) (max {d.max():.3e})")
+        best = got[0][0]
+        check(abs(best.freq - 1.0 / PULSAR["period"]) < 1.0 / tobs,
+              f"{name}: series 0 lost the pulsar")
+        print(f"  {name}: {len(gs)} peaks, phase 5 (a)'s (period, width, DM); "
+              f"S/N max |diff| {d.max():.3e}, same bits {np.array_equal(gs, ws)}"
+              f"; series 0: S/N {best.snr:.3f} at P = {best.period:.6f} s",
+              flush=True)
+        if k == 0:
+            timing = k2_timing(dev, plan, rec, k2)
+        del rec, k2
+    return total, err, timing
+
+
+def k2_timing(dev, plan, rec, k2):
+    """Device time of one pass of K2 over a sharded run's launches, from
+    CUDA graph replays (and through the wrappers), beside its plain
+    version and its bound."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+
+    args = [r["args"] for r in k2]
+    scratch = [(a[0].clone(),) + tuple(a[1:]) for a in args]
+
+    def calls():
+        return [fk.cascade_stage(*a) for a in scratch]
+
+    ms = measure.graph_ms(calls, dev, REPS)
+    wms = measure.median_ms(calls, dev, REPS)
+    pms = measure.median_ms(
+        lambda: [fk.cascade_stage_plain(*a) for a in args], dev, reps=5)
+    b = measure.bound_ms(*k2_work(k2, plan, [a[0] for a in args]))
+    print(f"  K2 over the default mesh's {len(k2)} sharded launches, D = "
+          f"{args[0][0].shape[0]}: {ms:.4f} ms device, from CUDA graph "
+          f"replays ({wms:.4f} ms through the wrappers; plain {pms:.4f} ms, "
+          f"bound {b[0]:.4f} ms by {b[1]})", flush=True)
+    return ms, pms, *b
+
+
+def phase_seq(dev):
+    """Phase 11b: ffa2_seq of a SEQ_SHAPE float32 container on
+    ``SEQ_SHARDS`` virtual shards of the card (all-gather and windowed
+    exchanges): the same bits as ``ffa2`` on the card. Each wall is a
+    second call's."""
+    from riptide_tpu_torch.ops.ffa import ffa2
+    from riptide_tpu_torch.parallel import ffa2_seq, seq_mesh
+    from riptide_tpu_torch.parallel.seqffa import _window_plan
+
+    data = np.random.default_rng(11).standard_normal(SEQ_SHAPE,
+                                                     dtype=np.float32)
+    ffa2(data, device=dev)
+    t0 = time.perf_counter()
+    want = ffa2(data, device=dev)
+    print(f"  ffa2 on {dev}: {time.perf_counter() - t0:.3f} s", flush=True)
+    for S in SEQ_SHARDS:
+        form = ("windowed" if S >= 8 and _window_plan(SEQ_SHAPE[0], S)
+                is not None else "all-gather")
+        mesh = seq_mesh([dev] * S)
+        ffa2_seq(data, mesh=mesh)
+        t0 = time.perf_counter()
+        got = ffa2_seq(data, mesh=mesh)
+        wall = time.perf_counter() - t0
+        check(np.array_equal(got, want) and np.array_equal(
+            np.signbit(got), np.signbit(want)),
+            f"ffa2_seq over {S} shards is not ffa2's bits")
+        print(f"  ffa2_seq {SEQ_SHAPE} over {S} shards ({form}): "
+              f"{wall:.3f} s, ffa2's bits", flush=True)
+
+
+def phase_processes(dev, tmp, p5, cfg=HEADLINE):
+    """Phases 11c-d: two fresh processes on the card over gloo. (c) each
+    searches half of phase 5's batch through ``run_search_multihost``:
+    both print the same gathered list, phase 5 (a)'s peaks in process
+    order sorted by S/N (the same bits), process 0 journals it, K1 runs
+    ``queued_launches(plan)`` times in each. (d) process 0 wedges before
+    the gather; process 1's bounded gather times out, it degrades, takes
+    the writer role and journals both chunks (``peer_losses`` 1, one
+    ``peer_loss`` incident); then process 0 is killed. Returns K1's
+    launches over both processes of (c)."""
+    from riptide_tpu_torch.peak_detection import Peak
+    from riptide_tpu_torch.survey.journal import SurveyJournal
+
+    jdir = os.path.join(tmp, "multi_journal")
+    t0 = time.perf_counter()
+    procs = start_workers(tmp, jdir, "search", cfg, dev)
+    res = [worker_result(p) for p in procs]
+    wall = time.perf_counter() - t0
+    half = [p5["peaks"][16:], p5["peaks"][:16]]  # process 0, process 1
+    want = sorted([p for h in half for t in h for p in t],
+                  key=lambda p: p.snr, reverse=True)
+    for r in res:
+        got = [Peak(*row) for row in r["peaks"]]
+        check(got == want, f"process {r['pid']}: the gathered peaks are not "
+              "phase 5 (a)'s sorted by S/N")
+    done = SurveyJournal(jdir).completed_chunks()
+    check(list(done) == [0] and done[0][1] == want,
+          "process 0 did not journal the gathered chunk")
+    k1 = 0
+    for r in res:
+        check(r["device"] == f"{dev.type}:0" or r["device"] == str(dev),
+              f"process {r['pid']} on {r['device']}")
+        check(r["launches"]["fused_stage"] == r["want"]["fused_stage"]
+              and r["launches"]["cascade_stage"] == 0,
+              f"process {r['pid']}: launches {r['launches']}, want "
+              f"{r['want']}")
+        k1 += r["launches"]["fused_stage"]
+    print(f"  two processes on {res[0]['device']} (gloo): both gathered "
+          f"{len(want)} "
+          f"peaks, phase 5 (a)'s bits; searches {res[0]['wall']:.3f} / "
+          f"{res[1]['wall']:.3f} s in fresh processes, {wall:.1f} s wall "
+          f"with start-up; K1 {res[0]['launches']['fused_stage']} + "
+          f"{res[1]['launches']['fused_stage']}", flush=True)
+
+    jdir = os.path.join(tmp, "peer_journal")
+    t0 = time.perf_counter()
+    procs = start_workers(tmp, jdir, "peerloss", cfg, dev)
+    try:
+        surv = worker_result(procs[1])
+        wall = time.perf_counter() - t0
+        check(procs[0].poll() is None, "the wedged process 0 exited early")
+    finally:
+        procs[0].kill()
+        procs[0].communicate()
+    journal = SurveyJournal(jdir)
+    kinds = [r.get("incident") for r in journal.incidents()]
+    check(surv["done"] == [0, 1] and sorted(journal.completed_chunks())
+          == [0, 1] and surv["peer_losses"] == 1
+          and kinds.count("peer_loss") == 1 and surv["lost"] == [0],
+          f"peer loss: chunks {surv['done']}, peer_losses "
+          f"{surv['peer_losses']}, incidents {kinds}")
+    check(surv["launches"]["fused_stage"] == 2 * surv["want"]["fused_stage"],
+          f"survivor launches {surv['launches']}")
+    check(surv["degraded_s"] >= PEER_TIMEOUT_S,
+          "the survivor's gather did not wait out its timeout")
+    print(f"  peer loss: the survivor degraded after its {PEER_TIMEOUT_S} s "
+          f"bounded gather ({surv['degraded_s']:.3f} s for chunk 1), "
+          f"journaled chunks {surv['done']} as writer in {surv['wall']:.3f} "
+          f"s ({wall:.1f} s with start-up); peer_losses 1, one peer_loss "
+          "incident; process 0 killed", flush=True)
+    return k1
+
+
+def phase_multi(dev, plan, p5, tmp, cfg=HEADLINE):
+    """Phase 11: the multi-GPU paths on the card (a)-(d). Returns K2's
+    launches on the sharded path, its largest difference from plain and
+    its times there, and K1's launches in phase 11c's two processes."""
+    out = phase_sharded(dev, plan, p5, cfg)
+    phase_seq(dev)
+    return (*out, phase_processes(dev, tmp, p5, cfg))
+
+
 PROBE_FLOOR_GRIDS = ((1, 32), (3072, 256))
 
 
@@ -2471,7 +2900,7 @@ def main(argv=None):
     phase_batch(dev, plan)
     print("phase 5: run_search_batch, D = 32, three container layouts",
           flush=True)
-    n3, err3, times["K3"] = phase_survey(dev, plan)
+    n3, err3, times["K3"], p5 = phase_survey(dev, plan)
     print("phase 5f: file entry points (PRESTO, SIGPROC 32- and 8-bit)",
           flush=True)
     phase_files(dev, plan, headline_series())
@@ -2513,6 +2942,14 @@ def main(argv=None):
         k1_serve = phase_serve(dev, p7, card)
         print(f"  phase 10: {time.perf_counter() - t10:.1f} s wall",
               flush=True)
+        print("phase 11: the multi-GPU paths on the card (the sharded "
+              "survey through K2, ffa2_seq, two processes over gloo, a "
+              "peer loss)", flush=True)
+        t11 = time.perf_counter()
+        k2_sharded, err_sh, sh_times, k1_multi = phase_multi(dev, plan, p5,
+                                                             tmp)
+        print(f"  phase 11: {time.perf_counter() - t11:.1f} s wall",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if args.profile:
@@ -2543,8 +2980,15 @@ def main(argv=None):
     entries[0]["journal_launches"] = k1_journal
     # ... over phase 9's chaos legs (each a fresh process) ...
     entries[0]["chaos_launches"] = k1_chaos
-    # ... and in the turns of phase 10's served jobs.
+    # ... in the turns of phase 10's served jobs ...
     entries[0]["serve_launches"] = k1_serve
+    # ... and in phase 11's two processes; K2 on phase 11's sharded path,
+    # its time over the default mesh's launches.
+    entries[0]["multihost_launches"] = k1_multi
+    ms, pms, bms, by = sh_times
+    entries[1].update(sharded_launches=k2_sharded, sharded_ms=ms,
+                      sharded_plain_ms=pms, sharded_bound_ms=bms,
+                      sharded_bound_by=by, sharded_max_abs_err=err_sh)
     entries += probe_entries
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -570,18 +570,14 @@ _server_lock = threading.Lock()
 
 
 def _detect_process_index():
-    """This process's rank, WITHOUT importing torch: only a process
-    that already initialized ``torch.distributed`` can have a nonzero
-    rank, so an absent (or uninitialized) torch means 0."""
-    mod = sys.modules.get("torch")
-    dist = getattr(mod, "distributed", None) if mod is not None else None
-    try:
-        if dist is not None and dist.is_available() \
-                and dist.is_initialized():
-            return int(dist.get_rank())
-    except Exception:
-        pass
-    return 0
+    """This process's rank (``parallel.distributed.process_index``),
+    WITHOUT importing torch: only a process that already imported torch
+    can have joined a process group, so an absent torch means 0."""
+    if sys.modules.get("torch") is None:
+        return 0
+    from ..parallel.distributed import process_index
+
+    return process_index()
 
 
 def maybe_serve(registry=None, process_index=None):

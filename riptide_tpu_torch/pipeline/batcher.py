@@ -18,7 +18,10 @@ series with single-threaded C++ on its own CPU core, this stage:
    stream) and queues every configured period range's search of the
    batch through :func:`~riptide_tpu_torch.search.engine.queue_search_batch`:
    the FFA stages (K1, and K3 where buckets pair) and the device peak
-   program;
+   program; with a device mesh, the batch is dm-sharded over it instead
+   (:mod:`riptide_tpu_torch.parallel.sharded`: each shard's slice of the
+   wire to its device, K2 per stage and shard, the peak program per
+   shard);
 4. collects chunk i - 1's peaks after chunk i is queued, so the card
    stays busy while the host pays the previous chunk's round trip.
 
@@ -41,8 +44,7 @@ The survey scheduler (:mod:`riptide_tpu_torch.survey.scheduler`) drives
 the same chunk stages one at a time, with a journal record after each
 (:meth:`chunk_dq_summary` and :meth:`restore_dq_reports` carry the
 data-quality provenance through it). Not ported yet: the JAX package's
-device-mesh path and the peak-HBM model that splits a batch before it
-is queued.
+peak-HBM model that splits a batch before it is queued.
 """
 import logging
 import os
@@ -81,6 +83,10 @@ class BatchSearcher:
         Input file format ('presto' or 'sigproc').
     io_threads : int
         Host threads used to load + detrend input files.
+    mesh : riptide_tpu_torch.parallel.Mesh or None
+        When given, the DM batch is sharded over the mesh's 'dm' axis;
+        otherwise one device runs it. The mesh's devices run the search;
+        ``device`` runs the de-reddening.
     batch_size : int or None
         When set, device batches are zero-padded up to this many trials
         (the padded trials are discarded).
@@ -111,12 +117,13 @@ class BatchSearcher:
     }
 
     def __init__(self, deredden_params, range_confs, fmt="presto",
-                 io_threads=4, batch_size=None, dq=None, faults=None,
-                 oom_floor=1, device=None, watchdog=None):
+                 io_threads=4, mesh=None, batch_size=None, dq=None,
+                 faults=None, oom_floor=1, device=None, watchdog=None):
         self.deredden_params = deredden_params
         self.range_confs = range_confs
         self.loader = self.TIMESERIES_LOADERS[fmt]
         self.io_threads = int(io_threads)
+        self.mesh = mesh
         self.batch_size = batch_size
         self.dq = quality.DQConfig.from_any(dq)
         self.faults = faults
@@ -296,7 +303,8 @@ class BatchSearcher:
     def _prepare_chunk(self, tslist):
         """Host half of one chunk: group by shape, build the (D, N)
         batches (padded to ``batch_size``) and prepare their wire into
-        the staging pool. Returns a list of (members, batch, conf, plan,
+        the staging pool (with a mesh, padded to its dm axis and
+        prepared unpooled). Returns a list of (members, batch, conf, plan,
         prepared) work items. Entries of ``tslist`` that are None (files
         skipped by the ingest policy or series quarantined by the DQ
         scan) are dropped here."""
@@ -320,8 +328,15 @@ class BatchSearcher:
                 )
             for conf in self.range_confs:
                 plan = self._plan_for(conf, batch.shape[1], members[0].tsamp)
-                prepared = prepare_stage_data(plan, batch,
-                                              pool=self._staging_pool)
+                if self.mesh is not None:
+                    from ..parallel import prepare_stage_data_sharded
+
+                    prepared, _ = prepare_stage_data_sharded(
+                        plan, batch, self.mesh
+                    )
+                else:
+                    prepared = prepare_stage_data(plan, batch,
+                                                  pool=self._staging_pool)
                 items.append((members, batch, conf, plan, prepared))
         return items
 
@@ -333,7 +348,16 @@ class BatchSearcher:
 
     def _ship_chunk(self, items):
         """Start every prepared work item's copy to the card (on the
-        engine's copy stream)."""
+        engine's copy stream), dm-sharded over the mesh when one is
+        configured."""
+        if self.mesh is not None:
+            from ..parallel import ship_stage_data_sharded
+
+            return [
+                (members, batch, conf, plan,
+                 ship_stage_data_sharded(plan, prepared, self.mesh))
+                for members, batch, conf, plan, prepared in items
+            ]
         return [
             (members, batch, conf, plan, ship_stage_data(prepared,
                                                          self.device))
@@ -367,6 +391,23 @@ class BatchSearcher:
         tobs = batch.shape[1] * members[0].tsamp
         fp_kwargs = conf.get("find_peaks", {})
         nreal = len(members)
+        if self.mesh is not None:
+            from ..parallel import (collect_search_sharded,
+                                    queue_search_sharded)
+
+            # Queue-ahead like the unsharded path: the whole sharded
+            # device side (decode, stages, peak programs) is queued
+            # without syncing; the collector pays the one round trip.
+            handle = queue_search_sharded(
+                plan, batch, tobs=tobs, mesh=self.mesh, shipped=shipped,
+                **fp_kwargs
+            )
+
+            def collect_mesh():
+                peaks_per_trial, _ = collect_search_sharded(handle, dms)
+                return [p for d in range(nreal) for p in peaks_per_trial[d]]
+
+            return collect_mesh
         args = (plan, batch, dms, tobs, fp_kwargs, nreal)
         try:
             self._maybe_oom(batch.shape[0])

@@ -16,7 +16,9 @@ through the checkpointed survey scheduler
 (:class:`riptide_tpu_torch.survey.scheduler.SurveyScheduler`: resume,
 retries, the watchdog and circuit breaker, result integrity), and
 ``trace=True`` exports a Chrome trace of the run's host spans. The port
-of the JAX package's pipeline, without its device mesh.
+of the JAX package's pipeline; with a device mesh
+(:class:`riptide_tpu_torch.parallel.Mesh`) each chunk's DM batch is
+sharded over it.
 
 The products (peaks.csv, clusters.csv, candidates.csv and one
 candidate_NNNN.json each) are written without pandas: the tables are
@@ -122,10 +124,13 @@ class Pipeline:
         validated immediately; value checks against the data happen in
         prepare(). The ``liveness`` section configures the watchdog,
         the circuit breaker and the retry budget of journaled runs.
+    mesh : riptide_tpu_torch.parallel.Mesh or None
+        Optional device mesh; when given, the DM batch of each search
+        chunk is sharded over its 'dm' axis.
     device : str, torch.device or None
         Where the de-reddening and the search run: None means the card
         (``"cuda"``), and a host without one raises; ``"cpu"`` runs the
-        plain PyTorch versions.
+        plain PyTorch versions. With a mesh, its devices run the search.
     trace_dir : str or None
         Capture a ``torch.profiler`` trace of the search stage into
         this directory.
@@ -150,9 +155,10 @@ class Pipeline:
         ``torch.profiler`` capture.
     """
 
-    def __init__(self, config, device=None, trace_dir=None, journal=None,
-                 resume=False, fault_spec=None, trace=False):
+    def __init__(self, config, mesh=None, device=None, trace_dir=None,
+                 journal=None, resume=False, fault_spec=None, trace=False):
         self.config = validate_pipeline_config(config)
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.trace_dir = trace_dir
         self.trace = bool(trace)
@@ -271,6 +277,7 @@ class Pipeline:
             conf["ranges"],
             fmt=conf["data"]["format"],
             io_threads=conf["processes"],
+            mesh=self.mesh,
             batch_size=conf["processes"],
             dq=dq_conf,
             faults=self.faults,

@@ -41,6 +41,10 @@ Spec grammar: comma-separated directives, each
   the guarded region — a *straggler* that must NOT be killed while it
   stays within the deadline (and whose duration feeds the EWMA, so
   budgets adapt to genuinely slower chunks);
+* ``peer_loss:3``   raise :class:`InjectedPeerLoss` at chunk 3's peak
+  gather, simulating a bounded collective timing out on a dead peer —
+  the multi-process layer degrades to local-only mode (see
+  riptide_tpu_torch/parallel/multihost.py);
 * ``device_error:2``  raise :class:`InjectedDeviceError` dispatching
   chunk 2: a non-OOM, non-timeout runtime error shaped like CUDA's
   (the message reads ``CUDA error: ...``). The scheduler classifies it
@@ -80,10 +84,6 @@ there —
   just placed in the build cache (detected by the loader's digest check
   in the next process that loads it: incident, evict, rebuild).
 
-One kind of the JAX package is refused with an error that names the
-slice it waits for: ``peer_loss`` (a dead peer behind a collective;
-the multi-GPU slice).
-
 Example: ``RIPTIDE_FAULT_INJECT="stall:0:0.1,raise:2x2,oom:0"``.
 """
 import errno
@@ -96,23 +96,17 @@ import time
 import numpy as np
 
 from ..utils import fsio
+from .liveness import PeerTimeout
 
 __all__ = ["FaultPlan", "FaultAbort", "InjectedDeviceError",
-           "InjectedFault", "InjectedOOM"]
+           "InjectedFault", "InjectedOOM", "InjectedPeerLoss"]
 
 log = logging.getLogger("riptide_tpu_torch.survey.faults")
 
 _KINDS = ("raise", "stall", "corrupt", "abort", "nan_inject", "oom",
-          "hang", "straggle", "device_error", "bitflip",
+          "hang", "straggle", "peer_loss", "device_error", "bitflip",
           "torn_write", "enospc", "fsync_fail", "kill_at",
           "cache_corrupt")
-
-# The JAX package's kinds that wait for a later slice of the port, with
-# the slice named in the refusal.
-_REFUSED = {
-    "peer_loss": "the multi-GPU slice (a dead peer behind a collective "
-                 "needs more than one process)",
-}
 
 # Directive kinds whose second field is a persistence SITE (string from
 # fsio.SITES) rather than a chunk id, consumed via storage_op().
@@ -137,6 +131,19 @@ class InjectedFault(RuntimeError):
 
 class FaultAbort(RuntimeError):
     """Injected fatal fault (not retryable): simulates a kill."""
+
+
+class InjectedPeerLoss(PeerTimeout):
+    """Simulated dead-peer collective timeout: subclasses
+    :class:`~riptide_tpu_torch.survey.liveness.PeerTimeout` so the
+    multi-process layer's peer-loss handling routes injected and real
+    losses identically."""
+
+    def __init__(self, chunk_id):
+        super().__init__(
+            f"injected peer loss at chunk {chunk_id}'s gather "
+            "(simulated bounded-collective timeout)"
+        )
 
 
 class InjectedDeviceError(RuntimeError):
@@ -204,11 +211,6 @@ class FaultPlan:
                 part = part[: -len(m.group(0))]
                 times = int(m.group(1))
             bits = part.split(":")
-            if bits[0] in _REFUSED:
-                raise ValueError(
-                    f"bad fault directive {part!r}: kind {bits[0]!r} is "
-                    f"not ported yet; it waits for {_REFUSED[bits[0]]}"
-                )
             if len(bits) < 2 or bits[0] not in _KINDS:
                 raise ValueError(
                     f"bad fault directive {part!r}: expected "
@@ -286,6 +288,17 @@ class FaultPlan:
                 log.warning("fault injection: %s %.3fs inside chunk %d's "
                             "dispatch", kind, secs, chunk_id)
                 self._sleep(secs)
+
+    def before_gather(self, chunk_id):
+        """Called before a chunk's multi-process peak gather touches any
+        collective: a ``peer_loss`` directive raises
+        :class:`InjectedPeerLoss`, standing in for a bounded collective
+        timing out on a dead peer (the real collective must NOT run —
+        with the peer gone it would deadlock)."""
+        if self._take("peer_loss", chunk_id) is not None:
+            log.warning("fault injection: peer loss at chunk %d's gather",
+                        chunk_id)
+            raise InjectedPeerLoss(chunk_id)
 
     def bitflip_arm(self, chunk_id):
         """Called once per dispatch attempt: consume one ``bitflip``

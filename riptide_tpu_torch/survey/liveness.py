@@ -20,11 +20,15 @@ builds on:
   chunks, which pay one-off kernel builds);
 * :func:`bounded_wait` — run any blocking callable with a timeout,
   raising :class:`PeerTimeout`;
-* :class:`PeerLivenessMonitor` — heartbeats in the journal's
-  per-process sidecars (one process a survey in the port so far: peer
-  loss, journal-writer failover and the JAX package's bounded
-  collectives, ``bounded_allgather`` and ``barrier_with_timeout``, wait
-  for the multi-GPU slice);
+* :func:`bounded_allgather` and :func:`barrier_with_timeout` — the
+  process group's collectives (``torch.distributed`` on gloo, host
+  tensors) under :func:`bounded_wait`, the only call sites of them in
+  the port, so a dead or wedged peer raises :class:`PeerTimeout`
+  instead of hanging every process;
+* :class:`PeerLivenessMonitor` — peer-loss detection over the journal's
+  per-process heartbeat sidecars, with journal-writer failover to the
+  lowest alive process and re-enqueue of a lost shard's unfinished
+  chunks;
 * :func:`is_device_error` / :func:`is_timeout_error` — which failures
   are the card's runtime errors and which are hangs (a
   ``torch.cuda.OutOfMemoryError`` is neither: it is
@@ -46,7 +50,8 @@ log = logging.getLogger("riptide_tpu_torch.survey.liveness")
 
 __all__ = [
     "ChunkTimeout", "PeerTimeout", "Deadline", "DurationEWMA",
-    "ChunkWatchdog", "bounded_wait", "PeerLivenessMonitor", "is_device_error",
+    "ChunkWatchdog", "bounded_wait", "bounded_allgather",
+    "barrier_with_timeout", "PeerLivenessMonitor", "is_device_error",
     "is_timeout_error",
 ]
 
@@ -368,12 +373,56 @@ def bounded_wait(fn, timeout_s, what="blocking call"):
     return box.get("result")
 
 
+def bounded_allgather(arr, timeout_s=None, what="allgather"):
+    """All-gather a numpy array across the process group under
+    :func:`bounded_wait`: returns the (process_count, *arr.shape) stack
+    of every process's array, in rank order. The arrays travel as host
+    tensors over the group's backend (gloo); every process must pass
+    the same shape and dtype. Without a process group, the array alone
+    (a stack of one).
+
+    This function (with :func:`barrier_with_timeout`) is the only place
+    in the port that enters a ``torch.distributed`` collective, so every
+    cross-process wait on the survey path is bounded by construction.
+    """
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    arr = np.ascontiguousarray(arr)
+    if not (dist.is_available() and dist.is_initialized()):
+        return arr[None].copy()
+
+    def gather():
+        src = torch.from_numpy(arr)
+        outs = [torch.empty_like(src) for _ in range(dist.get_world_size())]
+        dist.all_gather(outs, src)
+        return np.stack([o.numpy() for o in outs])
+
+    return bounded_wait(gather, timeout_s, what=what)
+
+
+def barrier_with_timeout(tag, timeout_s=None):
+    """A process-group barrier under :func:`bounded_wait`: raises
+    :class:`PeerTimeout` instead of hanging forever on a dead peer. No-op
+    without a process group."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return bounded_wait(dist.barrier, timeout_s, what=f"barrier:{tag}")
+
+
 class PeerLivenessMonitor:
-    """This process's heartbeats in the journal's sidecars
-    (:meth:`SurveyJournal.heartbeat`), and the ages of every process's
-    newest beat. The port runs one process a survey; deciding from the
-    ages which peers are lost, and failing the journal writer over to a
-    survivor, waits for the multi-GPU slice.
+    """Peer-loss detection over the journal's heartbeat sidecars.
+
+    Every process appends heartbeat records to its own sidecar file in
+    the shared journal directory (:meth:`SurveyJournal.heartbeat`); a
+    peer whose newest heartbeat is older than ``max_age_s`` is treated
+    as lost. The monitor answers the three survivor-side questions:
+    who is alive, who writes the journal (the lowest alive process —
+    failover from process 0), and which chunks of a lost shard must be
+    re-enqueued (journaled-complete chunks are never redone).
 
     Parameters
     ----------
@@ -382,8 +431,8 @@ class PeerLivenessMonitor:
     process_index, process_count : int
         This process's identity in the run.
     max_age_s : float
-        Heartbeat age beyond which a peer counts as stale; the
-        background beater beats every third of it.
+        Heartbeat age beyond which a peer counts as lost; the background
+        beater beats every third of it.
     """
 
     def __init__(self, journal, process_index, process_count,
@@ -393,6 +442,7 @@ class PeerLivenessMonitor:
         self.process_count = int(process_count)
         self.max_age_s = float(max_age_s)
         self._clock = clock
+        self._t0 = clock()  # start of the never-beat grace window
         self.metrics = metrics or get_metrics()
         self._beater_stop = None
 
@@ -489,3 +539,51 @@ class PeerLivenessMonitor:
         self.metrics.set_gauge("heartbeat_age_s",
                                round(max(others), 3) if others else 0.0)
         return ages
+
+    def alive(self):
+        """Sorted process indices currently considered alive. This
+        process always counts; a peer counts while its newest heartbeat
+        is younger than ``max_age_s``. A peer that never heartbeat is
+        presumed initialising — but only within a ``max_age_s`` grace
+        window from this monitor's construction: past that, no beat IS
+        the loss signal (a process that crashed during startup must not
+        hold the journal-writer role forever)."""
+        ages = self.peer_ages()
+        in_grace = self._clock() - self._t0 <= self.max_age_s
+        live = {self.process_index}
+        for p in range(self.process_count):
+            if p == self.process_index:
+                continue
+            age = ages.get(p)
+            if (age is None and in_grace) or \
+                    (age is not None and age <= self.max_age_s):
+                live.add(p)
+        return sorted(live)
+
+    def lost(self):
+        """Sorted process indices whose heartbeats have gone stale."""
+        return sorted(set(range(self.process_count)) - set(self.alive()))
+
+    def journal_writer(self):
+        """The process that writes shared journal records: the lowest
+        alive process (process 0 until it dies, then failover)."""
+        return self.alive()[0]
+
+    def unfinished_chunks(self, chunks_total):
+        """Chunk ids (of ``chunks_total``) with no completed journal
+        record — a lost shard's work, for survivors to re-enqueue."""
+        done = set(self.journal.completed_chunks())
+        return [c for c in range(int(chunks_total)) if c not in done]
+
+    def partial_chunks(self):
+        """Chunk ids whose newest journal record is degraded
+        (``scope: local`` — it holds only the writer's shard). These
+        count as *completed* for resume purposes, but in layouts where
+        one chunk id spans several processes' shards, the other
+        shards' peaks are absent: the survey driver decides whether to
+        re-search them (shard-per-process layouts with distinct chunk
+        ids per shard — the scheduler's layout — never need to)."""
+        return sorted(
+            cid for cid, (rec, _) in self.journal.completed_chunks().items()
+            if rec.get("scope") == "local"
+        )

@@ -19,7 +19,7 @@ contains whatever was recorded):
 ``wire_bytes``            counter: bytes shipped over the wire
 ``device_s``              timer: blocking waits on queued device work
 ``chunk_s``               timer: whole-chunk wall time in the scheduler/bench
-``gather_s``              timer: multihost peak all-gathers (not yet ported)
+``gather_s``              timer: multi-process peak all-gathers
 ``chunks_done``           counter: chunks searched to completion
 ``chunks_retried``        counter: chunk dispatch attempts beyond the first
 ``chunks_skipped``        counter: chunks satisfied from the journal on resume
@@ -35,7 +35,7 @@ contains whatever was recorded):
 ``chunks_timed_out``      counter: dispatch attempts abandoned by the watchdog
 ``breaker_opens``         counter: circuit-breaker closed/half-open -> open
 ``chunks_parked``         counter: chunks set aside by the open breaker
-``peer_losses``           counter: collectives degraded (not yet ported)
+``peer_losses``           counter: collectives degraded
 ``device_errors``         counter: non-OOM CUDA runtime errors hit in dispatch
 ``integrity_checks``      counter: result-integrity digest comparisons run
 ``integrity_mismatches``  counter: digest comparisons that DISAGREED

@@ -80,7 +80,9 @@ def test_survey_modules_are_covered():
                  "obs.report", "utils.exec_cache", "survey.chaos",
                  "apps.rreport", "apps.rtop", "apps.rwatch", "apps.rchaos",
                  "serve", "serve.tenants", "serve.queue", "serve.daemon",
-                 "apps.rserve", "apps.rseek"):
+                 "apps.rserve", "apps.rseek", "parallel", "parallel.mesh",
+                 "parallel.sharded", "parallel.seqffa",
+                 "parallel.distributed", "parallel.multihost"):
         assert f"riptide_tpu_torch.{name}" in mods
 
 
@@ -130,6 +132,7 @@ def test_kernel_source_ships_with_the_package():
         tool = tomllib.load(fobj)["tool"]["setuptools"]
     assert "riptide_tpu_torch.probes" in tool["packages"]
     assert "riptide_tpu_torch.serve" in tool["packages"]
+    assert "riptide_tpu_torch.parallel" in tool["packages"]
     assert "csrc/*.cu" in tool["package-data"]["riptide_tpu_torch"]
 
 

@@ -193,8 +193,70 @@ def test_bounded_wait():
 
 
 def test_multi_gpu_collectives_are_not_in_this_slice():
-    assert not hasattr(liveness, "bounded_allgather")
-    assert not hasattr(liveness, "barrier_with_timeout")
+    """The bounded collectives came with the multi-GPU slice: without a
+    process group the all-gather is a stack of one and the barrier a
+    no-op, as a one-process run of the JAX package's gives; with one,
+    they run under bounded_wait (tests/test_torch_multihost.py)."""
+    import numpy as np
+
+    arr = np.arange(6, dtype=np.float64).reshape(2, 3)
+    got = liveness.bounded_allgather(arr, timeout_s=1.0, what="x")
+    assert got.shape == (1, 2, 3) and np.array_equal(got[0], arr)
+    assert liveness.barrier_with_timeout("t", timeout_s=1.0) is None
+    assert {"bounded_allgather", "barrier_with_timeout"} <= \
+        set(liveness.__all__) & set(ref_liveness.__all__)
+
+
+def test_liveness_fault_kinds_parse_as_the_reference():
+    from riptide_tpu.survey.faults import FaultPlan as RefPlan
+
+    spec = "hang:2:5,straggle:1:0.5,peer_loss:3"
+    assert FaultPlan.parse(spec)._directives == RefPlan.parse(spec)._directives
+
+
+def _failover(pkg, tmp_path, events):
+    """A three-process monitor (this process 1) over heartbeats and
+    journal records written at fake times: each event's alive, lost,
+    journal writer, unfinished and partial chunks."""
+    from riptide_tpu.survey.journal import SurveyJournal as RefJournal
+
+    mod, Journal = ((liveness, SurveyJournal) if pkg == "port"
+                    else (ref_liveness, RefJournal))
+    journal = Journal(tmp_path / pkg)
+    journal.write_header("failover", 4)
+    clock = FakeClock()
+    mon = mod.PeerLivenessMonitor(journal, 1, 3, max_age_s=5.0, clock=clock)
+    out = []
+    for kind, arg in events:
+        if kind == "beat":
+            journal.heartbeat(arg, ts=clock.t)
+        elif kind == "chunk":
+            cid, scope = arg
+            journal.record_chunk(cid, files=[], dms=[0.0], peaks=[],
+                                 extra=None if scope is None
+                                 else {"scope": scope, "process": 1})
+        else:
+            clock.t += arg
+        out.append((mon.alive(), mon.lost(), mon.journal_writer(),
+                    mon.unfinished_chunks(4), mon.partial_chunks()))
+    return out
+
+
+def test_monitor_failover_matches_reference(tmp_path):
+    """alive, lost, journal_writer, unfinished_chunks and partial_chunks
+    equal the JAX package's on the same heartbeat files and journal
+    records, under a fake clock: the never-beat grace window, process 0
+    going stale and the writer failing over to process 1, a degraded
+    (``scope: local``) record."""
+    events = [("tick", 1.0), ("beat", 1), ("beat", 2), ("tick", 3.0),
+              ("beat", 0), ("chunk", (0, None)), ("tick", 4.0),
+              ("beat", 1), ("beat", 2), ("tick", 2.5),
+              ("chunk", (2, "local")), ("tick", 9.0), ("beat", 1)]
+    got = _failover("port", tmp_path, events)
+    assert got == _failover("ref", tmp_path, events)
+    assert got[0][0] == [0, 1, 2]          # in the grace window
+    assert got[-1][:3] == ([1], [0, 2], 1)  # the writer failed over
+    assert got[-1][3:] == ([1, 3], [2])
 
 
 def test_monitor_single_process_heartbeat(tmp_path):

@@ -541,8 +541,12 @@ def test_nan_inject_masks_and_records(small_files):
 
 
 def test_fault_plan_refuses_unported_kinds():
+    """An unknown kind is refused; ``peer_loss`` is a kind of the port's
+    since the multi-GPU slice."""
     with pytest.raises(ValueError, match="bad fault directive"):
-        FaultPlan.parse("peer_loss:2")
+        FaultPlan.parse("no_such_kind:2")
+    assert FaultPlan.parse("peer_loss:2")._directives == [
+        {"kind": "peer_loss", "chunk": 2, "arg": None, "remaining": 1}]
     assert FaultPlan.parse("nan_inject:0:0.1x3,oom:4")._directives == [
         {"kind": "nan_inject", "chunk": 0, "arg": 0.1, "remaining": 3},
         {"kind": "oom", "chunk": 4, "arg": None, "remaining": 1}]

@@ -396,20 +396,14 @@ def test_storage_faults_on_observability_writes_are_not_fatal(
 @pytest.mark.parametrize("spec", ["peer_loss:3",
                                   "cache_corrupt:exec_cache_store"])
 def test_unported_kinds_are_refused(spec):
-    """The kinds still waiting for a slice (``peer_loss``) are refused,
-    naming it; ``cache_corrupt`` came with the build cache and now
-    parses to the JAX package's directive."""
-    kind = spec.split(":")[0]
-    if kind not in faults._REFUSED:
-        assert kind == "cache_corrupt"
-        assert faults.FaultPlan.parse(spec)._directives == \
-            ref_faults.FaultPlan.parse(spec)._directives
-        port_pipeline.Pipeline(_config("A"), device="cpu", fault_spec=spec)
-        return
-    with pytest.raises(ValueError, match="waits for"):
-        faults.FaultPlan.parse(spec)
-    with pytest.raises(ValueError, match=kind):
-        port_pipeline.Pipeline(_config("A"), device="cpu", fault_spec=spec)
+    """No kind of the JAX package is refused any more: ``cache_corrupt``
+    came with the build cache and ``peer_loss`` with the multi-GPU
+    slice; each parses to the JAX package's directive and a pipeline
+    takes it."""
+    assert not hasattr(faults, "_REFUSED")
+    assert faults.FaultPlan.parse(spec)._directives == \
+        ref_faults.FaultPlan.parse(spec)._directives
+    port_pipeline.Pipeline(_config("A"), device="cpu", fault_spec=spec)
 
 
 def test_fault_grammar_matches_reference():
@@ -417,7 +411,7 @@ def test_fault_grammar_matches_reference():
             "oom:4,hang:2:5,straggle:1:0.2,device_error:2x9,bitflip:1x3,"
             "kill_at:journal_append:3,torn_write:ledger_append,"
             "enospc:trace_export,fsync_fail:heartbeat_append,"
-            "cache_corrupt:exec_cache_store:2")
+            "cache_corrupt:exec_cache_store:2,peer_loss:3")
     assert faults.FaultPlan.parse(spec)._directives == \
         ref_faults.FaultPlan.parse(spec)._directives
     for bad in ("raise", "nope:1", "kill_at:nowhere",
