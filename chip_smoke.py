@@ -227,6 +227,29 @@ of the checkout by default), then:
    ``sharded_bound_by``, ``sharded_max_abs_err``), K1's
    launches in the two processes of (c) into its own as
    ``multihost_launches``.
+12. the launch contracts and the peak-memory model
+   (``riptide_tpu_torch/analysis/launch_contract.py``): (a) for each
+   fast contract plan, and for the headline plan at D = 1, one real
+   search's ``LAUNCHES`` and ``KERNEL_LAUNCHES`` (counts set to 0 just
+   before, read just after) equal the contract the CPU walk extracted
+   (the pinned file; for the headline, ``engine.walk_search``), and the
+   pointers its launches received (a proxy of the built library) honour
+   every declared reuse; ``python -m riptide_tpu_torch.apps.rprove``
+   runs on the card's machine and exits 0; (b) the model against
+   ``torch.cuda.max_memory_allocated`` (above what was allocated
+   before, the stage operands uploaded anew): one survey search at
+   D = 1 and D = 3 of the headline plan, and at D = 32 phases 4 and
+   5 (a)'s peaks (phase 4's against the walk without the peak
+   program), each |ratio - 1| <= 0.5 (the ``hbm_drift`` margin), with
+   ``max_memory_reserved``; (c) phase 5's D = 32 survey batch through
+   ``BatchSearcher._queue_range`` with and without
+   ``RIPTIDE_HBM_BUDGET`` = the model's ``predict(8)``: four slices of
+   8, ``oom_predicted`` 1, no bisection, the unbudgeted peaks and a lower
+   measured peak, both peaks and walls printed; (d) phase 8's journaled
+   pipeline under that budget: phase 7's products, an ``hbm`` block in
+   every chunk record (``actual_bytes`` and ``ratio`` only where the
+   high-water mark rose), ``oom_predicted`` one a chunk, ``rreport``'s
+   hbm line with the median ratio, ``rwatch --once`` quiet.
 
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
@@ -889,12 +912,16 @@ def profile_search(plan, data, dev, trace_dir):
 
 def phase_batch(dev, plan, D=32, seed=2):
     """Phase 4: run_periodogram_batch with D DM trials; the second run is
-    recorded and its K1 outputs held against plain."""
+    recorded and its K1 outputs held against plain. Returns the peak
+    device memory and what was allocated when the peak was reset, for
+    phase 12."""
     from riptide_tpu_torch.ops import ffa_kernel as fk
     from riptide_tpu_torch.search import engine, run_periodogram_batch
 
     batch = noise_batch(plan, D, seed)
+    base = 0
     if dev.type == "cuda":
+        base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     run_periodogram_batch(plan, batch, device=dev)
@@ -921,6 +948,7 @@ def phase_batch(dev, plan, D=32, seed=2):
                    plain_launches(rec, "fused_stage"))
     del rec
     prep_both(plan, batch, f"D = {D} batch", reps=2)
+    return dict(peak=peak, base=base)
 
 
 @contextlib.contextmanager
@@ -987,7 +1015,9 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
             dms = np.zeros(D)
             engine.run_search_batch(plan, None, tobs, dms=dms,
                                     prepared=prepared, device=dev)
+            base = 0
             if dev.type == "cuda":
+                base = torch.cuda.memory_allocated(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
             fk.reset_launches()
             with engine.recording() as rec:
@@ -1020,7 +1050,8 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
             D, plan.length, nw), f"run ({name}): S/N cube {tuple(snr.shape)}")
         runs[name] = dict(pairs=pairs, absorbed=absorbed, launches=launches,
                           snr=snr, peaks=peaks, rec=rec, k3=k3,
-                          k3_trials=k3_trials, wall=wall, peak=peak)
+                          k3_trials=k3_trials, wall=wall, peak=peak,
+                          base=base)
     a, b, c = runs["a"], runs["b"], runs["c"]
     check(a["pairs"] == c["pairs"] == 0 and b["pairs"] == want_pairs,
           f"pairs {a['pairs']}, {b['pairs']}, {c['pairs']}: want 0, "
@@ -1065,7 +1096,7 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
           f"through the wrappers; plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
           f"by {bnd[1]})", flush=True)
     p5 = dict(batch=batch, peaks=a["peaks"], snr=a["snr"], wall=a["wall"],
-              peak=a["peak"])
+              peak=a["peak"], base=a["base"])
     return b["launches"]["paired_stage"], err, (ms, pms, *bnd), p5
 
 
@@ -2838,6 +2869,307 @@ def _same_layout(x, y):
     return x.keys() == y.keys() and all(
         np.array_equal(np.asarray(x[k]), np.asarray(y[k])) for k in x)
 
+HBM_MARGIN = 0.5       # |ratio - 1| of the hbm_drift alert rule
+SEEDED_SLICE = 8       # phase 12 (c): the budget's batch
+
+
+@contextlib.contextmanager
+def card_calls():
+    """The card's kernel library calls of the block, as (name, args)
+    with ``rt_`` stripped (the shape-only library's record on the meta
+    device), through a proxy of the built library: the pointers the
+    launches really received."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+
+    real = fk._library
+    calls = []
+
+    class Proxy:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self._lib, name)
+            if not name.startswith("rt_"):
+                return fn
+
+            def call(*args):
+                calls.append((name[3:], args))
+                return fn(*args)
+            return call
+
+    fk._library = lambda: Proxy(real())
+    try:
+        yield calls
+    finally:
+        fk._library = real
+
+
+def _nonzero(d):
+    return {k: int(v) for k, v in sorted(d.items()) if v}
+
+
+def counted_search(dev, plan, batch, mode="uint6"):
+    """One survey search of ``batch`` on the card with the launch counts
+    set to 0 just before and read just after, and its library calls."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.search import engine
+
+    prepared = engine.prepare_stage_data(plan, batch, mode=mode)
+    tobs = plan.size * plan.tsamp
+    fk.reset_launches()
+    with card_calls() as calls:
+        engine.run_search_batch(plan, None, tobs, prepared=prepared,
+                                device=dev)
+    return _nonzero(fk.LAUNCHES), _nonzero(fk.KERNEL_LAUNCHES), calls
+
+
+def operand_bytes(plan, dev):
+    """Bytes of the stage operands cached on ``plan`` for ``dev``."""
+    from riptide_tpu_torch.search import engine
+
+    key = engine._device_key(dev)
+    total = 0
+    for st in plan.stages:
+        for k, ops in (getattr(st, "_device_operands", None) or {}).items():
+            if k[0] != key:
+                continue
+            for part in ops:
+                for t in part:
+                    if isinstance(t, torch.Tensor):
+                        total += t.nbytes
+    return total
+
+
+def measured_search(dev, plan, fn):
+    """Peak device bytes of ``fn()`` above what was allocated before it,
+    with the plan's stage operands uploaded anew (as the model counts
+    them), and the caching allocator's reserved peak."""
+    from riptide_tpu_torch.search import engine
+
+    engine.drop_device_operands(plan, dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return (out, torch.cuda.max_memory_allocated(dev) - base,
+            torch.cuda.max_memory_reserved(dev), wall)
+
+
+def _ratio_line(name, predicted, measured, reserved=None):
+    ratio = measured / predicted
+    extra = (f", reserved {reserved / 2 ** 30:.4f} GiB" if reserved
+             is not None else "")
+    print(f"  (b) {name}: predicted {predicted} B ({predicted / 2 ** 30:.4f}"
+          f" GiB), measured {measured} B ({measured / 2 ** 30:.4f} GiB), "
+          f"ratio {ratio:.4f}{extra}", flush=True)
+    check(abs(ratio - 1.0) <= HBM_MARGIN,
+          f"{name}: the model's ratio {ratio:.4f} is outside 1 +- "
+          f"{HBM_MARGIN}")
+    return ratio
+
+
+def phase_prove(dev, plan, p4, p5, p7, cfg=HEADLINE):
+    """Phase 12: the launch contracts and the peak-memory model on the
+    card. (a) for each fast contract plan, and for the headline plan at
+    D = 1, one real search's LAUNCHES and KERNEL_LAUNCHES equal what the
+    CPU walk extracted (the pinned contract), and the pointers its
+    launches received honour every declared reuse; then ``apps.rprove``
+    runs here and exits 0. (b) the model against the allocator: at
+    D = 1 and 3 on the headline plan (max_memory_allocated above what
+    was allocated before, the stage operands uploaded anew), and at
+    D = 32 from phase 4's (periodogram path: the walk without the peak
+    program) and phase 5 (a)'s peaks. (c) the D = 32 survey batch under
+    RIPTIDE_HBM_BUDGET = predict(8): four slices, oom_predicted 1, no
+    bisection, the unbudgeted peaks, a lower measured peak. (d) a
+    journaled pipeline run at phase 8's shape under that budget: hbm
+    blocks in the chunk records (actual and ratio only where the mark
+    rose), rreport's hbm line, rwatch quiet. Returns the readings."""
+    import types
+
+    from riptide_tpu_torch.analysis import launch_contract as lc
+    from riptide_tpu_torch.ops.plan import contract_plan_params
+    from riptide_tpu_torch.pipeline.batcher import BatchSearcher
+    from riptide_tpu_torch.search import engine
+    from riptide_tpu_torch.survey.metrics import get_metrics
+
+    out = {}
+    tobs = cfg["nsamp"] * cfg["tsamp"]
+    pinned = lc.load_contracts()
+    check(pinned is not None, "no pinned launch contracts")
+    dropped = {k: os.environ.pop(k) for k in lc.CONTRACT_FLAGS
+               if k in os.environ}
+    try:
+        # (a) the contracts, counted on the card.
+        for spec in contract_plan_params():
+            cplan = lc.build_contract_plan(spec)
+            pin = pinned["plans"][spec["name"]]
+            got, kern, calls = counted_search(
+                dev, cplan, noise_batch(cplan, lc.PROBE_D, 5), spec["wire"])
+            reuse = lc.reuse_report(calls)
+            declared = sum(len(r["declared"]) for r in reuse)
+            lost = sum(len(r["dropped"]) for r in reuse)
+            print(f"  (a) {spec['name']} at D = {lc.PROBE_D}: launches {got},"
+                  f" kernels {kern}; pinned {pin['dispatch_total']}, "
+                  f"{pin['kernel_total']}; reuses declared {declared}, "
+                  f"dropped {lost}", flush=True)
+            check(got == pin["dispatch_total"] and kern == pin["kernel_total"],
+                  f"{spec['name']}: the card's launches differ from the "
+                  "pinned contract")
+            check(lost == 0 and declared == pin["reuse"]["declared"],
+                  f"{spec['name']}: reuses {reuse}")
+        walk = engine.walk_search(plan, 1)
+        got, kern, calls = counted_search(dev, plan, noise_batch(plan, 1, 6))
+        reuse = lc.reuse_report(calls)
+        declared = sum(len(r["declared"]) for r in reuse)
+        lost = sum(len(r["dropped"]) for r in reuse)
+        wreuse = lc.reuse_report([c for ln in walk["launches"]
+                                  for c in ln["calls"]])
+        print(f"  (a) headline at D = 1: launches {got}, kernels {kern}; the "
+              f"walk's {_nonzero(walk['launch_counts'])}, "
+              f"{_nonzero(walk['kernel_counts'])}; reuses declared "
+              f"{declared} (walk {sum(len(r['declared']) for r in wreuse)}),"
+              f" dropped {lost}", flush=True)
+        check(got == _nonzero(walk["launch_counts"])
+              and kern == _nonzero(walk["kernel_counts"]),
+              "headline: the card's launches differ from the walk's")
+        check(lost == 0 and declared == sum(len(r["declared"])
+                                            for r in wreuse) > 0,
+              f"headline: reuses {declared} declared, {lost} dropped")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "riptide_tpu_torch.apps.rprove"],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        print(f"  (a) python -m riptide_tpu_torch.apps.rprove: exit "
+              f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+              f"{proc.stderr.strip().splitlines()[-1:]}", flush=True)
+        check(proc.returncode == 0, f"rprove exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+
+        # (b) the model against the allocator.
+        model = lc.hbm_model(plan)
+        out["model"] = model.to_dict()
+        print(f"  (b) headline model: {model.to_dict()}", flush=True)
+        for D in (1, 3):
+            prepared = engine.prepare_stage_data(plan, noise_batch(plan, D, 7))
+            _, meas, res, _ = measured_search(
+                dev, plan, lambda: engine.run_search_batch(
+                    plan, None, tobs, prepared=prepared, device=dev))
+            out[f"D{D}"] = dict(predicted=model.predict(D), measured=meas,
+                                reserved=res, ratio=_ratio_line(
+                                    f"D = {D} survey search",
+                                    model.predict(D), meas, res))
+        ops = operand_bytes(plan, dev)
+        want4 = engine.walk_search(plan, 32, survey=False)["peak_bytes"]
+        meas4 = p4["peak"] - p4["base"] + ops
+        meas5 = p5["peak"] - p5["base"] + ops
+        print(f"  (b) D = 32: phases 4 and 5 (a) measured above "
+              f"{p4['base']} / {p5['base']} B allocated at their reset, "
+              f"plus the {ops} B of stage operands cached then", flush=True)
+        out["D32"] = dict(
+            periodogram=dict(predicted=want4, measured=meas4, ratio=_ratio_line(
+                "D = 32 periodogram batch (phase 4; the walk without the "
+                "peak program)", want4, meas4)),
+            survey=dict(predicted=model.predict(32), measured=meas5,
+                        ratio=_ratio_line("D = 32 survey batch (phase 5 (a))",
+                                          model.predict(32), meas5)))
+
+        # (c) a seeded split of the D = 32 survey batch.
+        budget = model.predict(SEEDED_SLICE)
+        check(model.max_batch(budget) == SEEDED_SLICE,
+              f"max_batch({budget}) = {model.max_batch(budget)}")
+        batch = p5["batch"]
+        D = batch.shape[0]
+        conf = {"name": "headline", "ffa_search": {}, "find_peaks": {}}
+        members = [types.SimpleNamespace(metadata={"dm": float(i)},
+                                         tsamp=cfg["tsamp"])
+                   for i in range(D)]
+        runs = {}
+        for name, flags in (("unbudgeted", {}),
+                            ("budgeted", {"RIPTIDE_HBM_BUDGET": str(budget)})):
+            searcher = BatchSearcher({"rmed_width": 4.0, "rmed_minpts": 101},
+                                     [conf], device=dev)
+            slices = []
+            inner = searcher._search_slice
+
+            def counting(*a, inner=inner, slices=slices):
+                slices.append(a[-1] - a[-2])
+                return inner(*a)
+
+            searcher._search_slice = counting
+            get_metrics().reset()
+            with env_flags(flags):
+                peaks, meas, res, wall = measured_search(
+                    dev, plan, lambda: searcher._queue_range(
+                        conf, members, batch, plan, None)())
+            m = get_metrics()
+            runs[name] = dict(peaks=peaks, peak=meas, reserved=res, wall=wall,
+                              slices=slices,
+                              oom_predicted=m.counter("oom_predicted"),
+                              oom_bisections=m.counter("oom_bisections"))
+            print(f"  (c) {name}: {len(slices)} slice(s) {slices}, "
+                  f"oom_predicted {runs[name]['oom_predicted']}, "
+                  f"oom_bisections {runs[name]['oom_bisections']}, peak "
+                  f"{meas / 2 ** 30:.4f} GiB (reserved {res / 2 ** 30:.4f} "
+                  f"GiB), {wall:.3f} s wall with the host prep, "
+                  f"{len(peaks)} peaks", flush=True)
+        u, b = runs["unbudgeted"], runs["budgeted"]
+        check(b["slices"] == [SEEDED_SLICE] * (D // SEEDED_SLICE)
+              and b["oom_predicted"] == 1 and b["oom_bisections"] == 0
+              and u["oom_predicted"] == 0 and not u["slices"],
+              f"seeded split: {b['slices']}, oom_predicted "
+              f"{b['oom_predicted']}, oom_bisections {b['oom_bisections']}")
+        check(b["peaks"] == u["peaks"],
+              "the seeded split's peaks differ from the unbudgeted batch's")
+        check(b["peak"] < u["peak"], "the seeded split's measured peak is "
+              "not below the unbudgeted run's")
+        out["seeded"] = {k: {f: v[f] for f in ("peak", "reserved", "wall",
+                                                "slices")}
+                         for k, v in runs.items()}
+
+        # (d) a journaled pipeline run under that budget.
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = journaled_run(dev, p7, "hbm",
+                          flags={"RIPTIDE_HBM_BUDGET": str(budget)})
+        check(r["products"] == p7["products"],
+              "the budgeted journaled run's products differ from phase 7's")
+        recs = [rec for _, (rec, _) in sorted(
+            r["journal"].completed_chunks().items())]
+        blocks = [rec.get("hbm") or {} for rec in recs]
+        marks = [h["actual_bytes"] for h in blocks if "actual_bytes" in h]
+        for cid, h in enumerate(blocks):
+            print(f"  (d) chunk {cid}: hbm {h}", flush=True)
+        check(len(blocks) == p7["nchunks"] and all(
+            h.get("predicted_bytes", 0) > 0 and h.get("budget_bytes") == budget
+            and ("actual_bytes" in h) == ("ratio" in h) for h in blocks)
+            and marks and marks == sorted(set(marks)),
+            "the chunk records' hbm blocks")
+        check(r["metrics"].get("oom_predicted", 0) == p7["nchunks"]
+              and not r["metrics"].get("oom_bisections"),
+              f"journaled run: oom_predicted "
+              f"{r['metrics'].get('oom_predicted')}, oom_bisections "
+              f"{r['metrics'].get('oom_bisections')}")
+        rc, text, err = run_app("rreport", [r["jdir"]])
+        line = [ln for ln in text.splitlines() if "hbm model:" in ln]
+        check(rc == 0 and line and "actual/predicted median" in line[0],
+              f"rreport: exit {rc}, hbm line {line}\n{err[-2000:]}")
+        print(f"  (d) rreport: {line[0].strip()}", flush=True)
+        rc, text, err = run_app("rwatch", [r["jdir"], "--once"])
+        check(rc == 0 and "hbm_drift" not in text,
+              f"rwatch: exit {rc}\n{text[-2000:]}\n{err[-2000:]}")
+        print(f"  (d) rwatch --once: exit 0, hbm_drift quiet; "
+              f"{text.strip().splitlines()[-1].strip()}", flush=True)
+        ratios = sorted(h["ratio"] for h in blocks if "ratio" in h)
+        out["pipeline"] = dict(ratios=ratios, wall=r["wall"], blocks=blocks)
+    finally:
+        os.environ.update(dropped)
+    return out
+
 
 def main(argv=None):
     import argparse
@@ -2897,7 +3229,7 @@ def main(argv=None):
     err2, times = phase_kernels(dev, plan, rec, oracle)
     del rec, oracle
     print("phase 4: run_periodogram_batch, D = 32", flush=True)
-    phase_batch(dev, plan)
+    p4 = phase_batch(dev, plan)
     print("phase 5: run_search_batch, D = 32, three container layouts",
           flush=True)
     n3, err3, times["K3"], p5 = phase_survey(dev, plan)
@@ -2949,6 +3281,16 @@ def main(argv=None):
         k2_sharded, err_sh, sh_times, k1_multi = phase_multi(dev, plan, p5,
                                                              tmp)
         print(f"  phase 11: {time.perf_counter() - t11:.1f} s wall",
+              flush=True)
+        # Phase 11 was the last to read phase 5's cube on the card.
+        p5["snr"] = None
+        print("phase 12: the launch contracts and the peak-memory model "
+              "(the card's launches against the CPU walk, the model against "
+              "the allocator, a seeded split, a journaled run under the "
+              "budget)", flush=True)
+        t12 = time.perf_counter()
+        phase_prove(dev, plan, p4, p5, p7)
+        print(f"  phase 12: {time.perf_counter() - t12:.1f} s wall",
               flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

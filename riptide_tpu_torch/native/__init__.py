@@ -10,6 +10,17 @@ whether the build and load worked; when they did not, a warning is
 logged and every consumer takes its numpy path (the wire preparation
 records which path made a wire as ``meta["prep"]``).
 
+``RIPTIDE_NATIVE_SANITIZE`` (read at first use) builds the sanitized
+flavour instead: :data:`SAN_FLAGS` (ASan + UBSan, no recovery, so any
+report aborts the process) on top of :data:`FLAGS`, ``-ffp-contract=off``
+kept so the wire's bytes stay the production library's. The flags are
+part of the build cache's key, so it builds to its own library and
+never stands in for the production one. It loads only with the
+sanitizer runtimes preloaded (``LD_PRELOAD`` of ``g++
+-print-file-name=libasan.so`` and ``libubsan.so``); a sanitized library
+that does not build or load raises, rather than sending a path that
+asked for native to numpy.
+
 Bound here: the threaded wire preparation (:func:`prepare_wire_view`,
 :func:`downsample_stages`) and the loaders' :func:`read_f32` and
 :func:`decode8`.
@@ -24,12 +35,13 @@ from pathlib import Path
 import numpy as np
 from numpy.ctypeslib import ndpointer
 
-from ..utils import exec_cache
+from ..utils import envflags, exec_cache
 
 log = logging.getLogger("riptide_tpu_torch.native")
 
-__all__ = ["available", "build", "BUILD_INFO", "read_f32", "decode8",
-           "downsample_stages", "prepare_wire_view", "default_threads"]
+__all__ = ["available", "build", "flags", "BUILD_INFO", "FLAGS",
+           "SAN_FLAGS", "read_f32", "decode8", "downsample_stages",
+           "prepare_wire_view", "default_threads"]
 
 SOURCE = Path(__file__).resolve().parent / "src" / "riptide_native.cpp"
 # -ffp-contract=off: the uint6/8/12 quantisers round to nearest even
@@ -40,17 +52,41 @@ SOURCE = Path(__file__).resolve().parent / "src" / "riptide_native.cpp"
 # shares the checkout; the AVX2/F16C paths are chosen at run time.
 FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
          "-ffp-contract=off")
+# The sanitized flavour's additions (RIPTIDE_NATIVE_SANITIZE): any ASan
+# or UBSan report aborts, so "the tests pass sanitized" means zero
+# reports.
+SAN_FLAGS = ("-fsanitize=address,undefined", "-fno-sanitize-recover=all",
+             "-g", "-fno-omit-frame-pointer")
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_error = None
 # The build this process made or found: the library's path, the cache's
 # action and the seconds g++ took (0 when it was built already).
 BUILD_INFO = {"path": None, "seconds": 0.0}
 
 
-def _compile(out):
-    proc = subprocess.run(["g++", *FLAGS, str(SOURCE), "-o", out],
+def flags():
+    """The g++ flags of this process's build: :data:`FLAGS`, plus
+    :data:`SAN_FLAGS` under ``RIPTIDE_NATIVE_SANITIZE``."""
+    if envflags.get("RIPTIDE_NATIVE_SANITIZE"):
+        return FLAGS + SAN_FLAGS
+    return FLAGS
+
+
+def _sanitizer_loaded():
+    """Whether the ASan runtime is mapped into this process (preloaded):
+    an instrumented library dlopen'ed without it aborts the process."""
+    try:
+        with open("/proc/self/maps") as fobj:
+            return "libasan" in fobj.read()
+    except OSError:
+        return False
+
+
+def _compile(out, flag_set):
+    proc = subprocess.run(["g++", *flag_set, str(SOURCE), "-o", out],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed to build {SOURCE.name} (exit "
@@ -64,8 +100,10 @@ def build(load=False):
     holds no library of this source, flag set and g++ whose digest
     checks. Concurrent first uses (test workers, survey processes) build
     once under the cache's lock. Raises RuntimeError when g++ fails."""
-    return exec_cache.obtain(SOURCE, FLAGS, ("g++", "-dumpfullversion"),
-                             _compile, load=load, info=BUILD_INFO)
+    flag_set = flags()
+    return exec_cache.obtain(SOURCE, flag_set, ("g++", "-dumpfullversion"),
+                             lambda out: _compile(out, flag_set), load=load,
+                             info=BUILD_INFO)
 
 
 def _f32():
@@ -105,20 +143,31 @@ def _bind(lib):
 
 def _get():
     """The bound library, building it at first call; None if the build
-    or the load failed (logged once)."""
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        try:
-            _lib = _bind(build(load=True))
-        except (OSError, RuntimeError) as err:
-            log.warning("native library unavailable (%s); using the numpy "
-                        "paths", err)
-            _lib = None
+    or the load failed (logged once). The sanitized flavour raises
+    instead, every time."""
+    global _lib, _tried, _error
+    if _lib is None and not _tried:
+        with _lock:
+            if _lib is None and not _tried:
+                _tried = True
+                try:
+                    if envflags.get("RIPTIDE_NATIVE_SANITIZE") \
+                            and not _sanitizer_loaded():
+                        raise RuntimeError("the ASan runtime is not "
+                                           "preloaded")
+                    _lib = _bind(build(load=True))
+                except (OSError, RuntimeError) as err:
+                    if envflags.get("RIPTIDE_NATIVE_SANITIZE"):
+                        _error = err
+                    else:
+                        log.warning("native library unavailable (%s); "
+                                    "using the numpy paths", err)
+    if _error is not None:
+        raise RuntimeError(
+            "the sanitized native library (RIPTIDE_NATIVE_SANITIZE) did "
+            "not build or load; preload the sanitizer runtimes "
+            "(LD_PRELOAD of `g++ -print-file-name=libasan.so` and "
+            f"libubsan.so): {_error}") from _error
     return _lib
 
 

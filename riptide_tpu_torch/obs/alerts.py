@@ -142,8 +142,8 @@ def default_rules():
             "hbm_drift", "hbm_ratio_median", 0.5, op=">",
             transform=lambda v: abs(v - 1.0),
             help="the peak-memory model's predicted-vs-actual ratio "
-                 "drifted beyond the margin (no model in the port "
-                 "yet, so the signal is absent)"),
+                 "(journal hbm blocks, written while RIPTIDE_HBM_BUDGET "
+                 "seeds the DM batch) drifted beyond the margin"),
         AlertRule(
             "integrity", "integrity_mismatches", 1, op=">=",
             help="result-integrity mismatch(es) detected: a device "

@@ -749,11 +749,11 @@ def tunnel_stats(chunks):
 
 
 def hbm_stats(chunks):
-    """Predicted-vs-actual peak-HBM calibration over the journaled
-    chunks' ``hbm`` blocks (written by the JAX package while its
-    memory model seeds the DM batch; the port has no such model, so
-    its journals carry none). ``ratio_median`` is actual/predicted.
-    Empty blocks contribute nothing."""
+    """Predicted-vs-actual peak-memory calibration over the journaled
+    chunks' ``hbm`` blocks (written while a memory model seeds the DM
+    batch: the port's under ``RIPTIDE_HBM_BUDGET``, or the JAX
+    package's). ``ratio_median`` is actual/predicted. Empty blocks
+    contribute nothing."""
     preds, actuals, ratios = [], [], []
     budget = None
     for rec in chunks.values():

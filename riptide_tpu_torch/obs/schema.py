@@ -1,7 +1,7 @@
 """
 The ONE timing-key schema of the survey path (the port's copy of the JAX
 package's ``obs/schema.py``: the journal's per-chunk ``timing`` and
-``integrity`` blocks and the ledger's run decomposition have the JAX
+``integrity`` and ``hbm`` blocks and the ledger's run decomposition have the JAX
 package's keys, so each package's readers take the other's records).
 
 Two shapes:
@@ -31,7 +31,7 @@ schema ever renames (currently none).
 __all__ = [
     "TIMING_VERSION", "PHASES", "DECOMPOSITION_KEYS", "CHUNK_TIMING_KEYS",
     "LEGACY_ALIASES", "decomposition", "chunk_timing", "classify_bound",
-    "integrity_block",
+    "integrity_block", "hbm_block",
 ]
 
 TIMING_VERSION = 1
@@ -119,6 +119,25 @@ def chunk_timing(chunk_s, prep_s=0.0, wire_s=0.0, queue_s=0.0,
     }
     if wire_bytes and wire_s > 0:
         out["wire_MBps"] = round(wire_bytes / 1e6 / wire_s, 3)
+    return out
+
+
+def hbm_block(predicted_bytes, actual_bytes, budget_bytes):
+    """One chunk's journal ``hbm`` block, sibling of the ``timings``/
+    ``dq`` blocks: the peak-memory model's predicted device bytes for
+    the chunk's queued searches vs the measured peak
+    (``torch.cuda.max_memory_allocated``), plus the seeding budget.
+    ``actual_bytes`` is absent on the CPU (no device memory stats) AND
+    on chunks that did not raise the process-lifetime high-water mark:
+    only the mark-setting chunk's ratio is a calibration signal (see
+    BatchSearcher.chunk_hbm_block). rreport's hbm section reduces
+    these."""
+    out = {"predicted_bytes": int(predicted_bytes),
+           "budget_bytes": int(budget_bytes)}
+    if actual_bytes:
+        out["actual_bytes"] = int(actual_bytes)
+        if predicted_bytes > 0:
+            out["ratio"] = round(actual_bytes / predicted_bytes, 4)
     return out
 
 

@@ -48,6 +48,15 @@ counts the CUDA launches by kernel: the segment kernel's two forms apart
 (``segment_wire`` fills its tiles from the wire, for K1 and K3;
 ``segment_container`` from a packed float container, for K2).
 
+Shape only. Tensors on the ``meta`` device take the card's path with
+the :class:`ShapeOnlyLibrary` in place of the built one: the wrapper
+checks its operands, allocates its buffers (meta tensors: shapes, no
+memory), counts into the calling thread's :func:`shape_only` counters
+instead of :data:`LAUNCHES`/:data:`KERNEL_LAUNCHES`, and each "launch"
+only records its arguments. The shape-only walk of the stage loop
+(``search.engine.walk_search``) reads the launch contract and the
+peak-memory model from it; nothing runs and no card is needed.
+
 Shapes. Container (D, B, R, P) float32 with R the tables' height (rows
 outside the trials kept zero because the level tables read the zero row
 R - 1) and P >= every trial's p; output (D, B, RE, NW) float32 for the
@@ -62,7 +71,9 @@ scratch row each in device memory when not one fits, and a container
 whose row pair does not fit a segment tile runs every level as a level
 launch (:func:`~.plan.segment_plan`).
 """
+import contextlib
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -79,7 +90,8 @@ __all__ = ["fused_stage", "cascade_stage", "paired_stage", "segment_levels",
            "fused_stage_plain", "cascade_stage_plain", "paired_stage_plain",
            "segment_levels_plain", "fill_plain", "StageGeom", "WireSource",
            "Tables", "Coefs", "LAUNCHES", "KERNEL_LAUNCHES", "reset_launches",
-           "build", "bucket_rows", "snr_launch", "WIRE_MODES"]
+           "build", "bucket_rows", "snr_launch", "WIRE_MODES",
+           "ShapeOnlyLibrary", "shape_only"]
 
 SOURCE = cuda_build.CSRC / "ffa_stage.cu"
 
@@ -237,6 +249,77 @@ def build():
 
 def _library():
     return _LIB.load()
+
+
+class ShapeOnlyLibrary:
+    """The kernel library as the meta device sees it: every launcher
+    (``rt_*``) appends ``(name, args)`` to the calling thread's
+    :func:`shape_only` record and returns 0, launching nothing. Its
+    pointer arguments are the addresses the walk gave the meta tensors'
+    storages (:func:`_ptr`, ``search.engine.walk_search``)."""
+
+    def __getattr__(self, name):
+        if not name.startswith("rt_"):
+            raise AttributeError(name)
+
+        def launcher(*args):
+            _shape_state().calls.append((name[3:], args))
+            return 0
+        return launcher
+
+
+_SHAPE_LIB = ShapeOnlyLibrary()
+_SHAPE = threading.local()
+
+
+def _shape_state():
+    st = getattr(_SHAPE, "state", None)
+    if st is None:
+        raise RuntimeError("meta tensors reach the stage kernels only "
+                           "inside ffa_kernel.shape_only()")
+    return st
+
+
+class _ShapeState:
+    def __init__(self):
+        self.launches = dict.fromkeys(LAUNCHES, 0)
+        self.kernels = dict.fromkeys(KERNEL_LAUNCHES, 0)
+        self.calls = []
+        self.address = lambda x: 0
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Counters of the calling thread's shape-only launches: yields an
+    object with ``launches`` and ``kernels`` (keyed as :data:`LAUNCHES`
+    and :data:`KERNEL_LAUNCHES`) and ``calls``, every
+    :class:`ShapeOnlyLibrary` call in order. Other threads' counts,
+    and the card's, are untouched."""
+    prev = getattr(_SHAPE, "state", None)
+    _SHAPE.state = _ShapeState()
+    try:
+        yield _SHAPE.state
+    finally:
+        _SHAPE.state = prev
+
+
+def _ptr(x):
+    """``x.data_ptr()``; for a meta tensor the address the calling
+    thread's walk gave its storage (0 outside a walk)."""
+    if x.device.type == "meta":
+        return _shape_state().address(x)
+    return x.data_ptr()
+
+
+def _runtime(dev):
+    """(library, stream, wrapper counts, kernel counts) of a launch on
+    ``dev``: the built library on the card's current stream and the
+    module counters, or on the meta device the shape-only library and
+    the thread's :func:`shape_only` counters."""
+    if dev.type == "meta":
+        st = _shape_state()
+        return _SHAPE_LIB, None, st.launches, st.kernels
+    return _library(), _stream(dev), LAUNCHES, KERNEL_LAUNCHES
 
 
 def _check_tables(tables, B, R, dev):
@@ -434,7 +517,7 @@ def paired_stage_plain(wire, scales, geom, guest_geom, tables, coefs):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _levels(lib, stream, source, tables, D, levels=None, scratch=None):
+def _levels(rt, source, tables, D, levels=None, scratch=None):
     """Launch the segment kernel and the remaining levels (``levels`` of
     them, default all) on checked operands. Returns the container: a
     fresh (D, B, R, P) buffer, or ``scratch`` (the level ping-pong's
@@ -442,6 +525,7 @@ def _levels(lib, stream, source, tables, D, levels=None, scratch=None):
     if tables.tiles is None:
         raise ValueError("the CUDA stage kernels need the tables' segment "
                          "plan (tiles, local, smem)")
+    lib, stream, _, kernels = rt
     B, R, P = tables.p.shape[0], tables.h.shape[2], tables.P
     dev = tables.h.device
     a = torch.empty((D, B, R, P), dtype=torch.float32, device=dev)
@@ -450,39 +534,40 @@ def _levels(lib, stream, source, tables, D, levels=None, scratch=None):
     host = guest = (0, 0, 0)
     if isinstance(source, WireSource):
         geom = source.geom
-        wire, scales = source.wire.data_ptr(), source.scales.data_ptr()
+        wire, scales = _ptr(source.wire), _ptr(source.scales)
         wrows, PW = source.wire.shape[1:]
         stot, mode = source.scales.shape[1], _MODE_CODE[geom.mode]
         host = (geom.roff, geom.pr, geom.soff)
         if source.guest is not None:
             g = source.guest
             guest = (g.roff, g.pr, g.soff)
-            gm, gbase = tables.gm.data_ptr(), tables.gbase.data_ptr()
+            gm, gbase = _ptr(tables.gm), _ptr(tables.gbase)
     else:
-        src = source.data_ptr()
+        src = _ptr(source)
     _check(lib, "segment_cascade", lib.rt_segment_cascade(
-        src, wire, scales, tables.tiles.data_ptr(), tables.tiles.shape[0],
-        tables.h.data_ptr(), tables.t.data_ptr(), tables.shift.data_ptr(),
-        tables.m.data_ptr(), tables.p.data_ptr(), gm, gbase, a.data_ptr(),
+        src, wire, scales, _ptr(tables.tiles), tables.tiles.shape[0],
+        _ptr(tables.h), _ptr(tables.t), _ptr(tables.shift),
+        _ptr(tables.m), _ptr(tables.p), gm, gbase, _ptr(a),
         D, B, R, P, tables.local, tables.smem, wrows, PW, stot, *host,
         *guest, mode, stream))
-    KERNEL_LAUNCHES["segment_wire" if isinstance(source, WireSource)
-                    else "segment_container"] += 1
+    kernels["segment_wire" if isinstance(source, WireSource)
+            else "segment_container"] += 1
     last = tables.h.shape[0] if levels is None else tables.local + levels
     if last == tables.local:
         return a
     b = torch.empty_like(a) if scratch is None else scratch
     _check(lib, "ffa_levels", lib.rt_ffa_levels(
-        a.data_ptr(), b.data_ptr(), tables.h.data_ptr(), tables.t.data_ptr(),
-        tables.shift.data_ptr(), tables.p.data_ptr(), tables.local, last, D,
+        _ptr(a), _ptr(b), _ptr(tables.h), _ptr(tables.t),
+        _ptr(tables.shift), _ptr(tables.p), tables.local, last, D,
         B, R, P, stream))
-    KERNEL_LAUNCHES["ffa_level"] += last - tables.local
+    kernels["ffa_level"] += last - tables.local
     return a if (last - tables.local) % 2 == 0 else b
 
 
-def _snr(lib, stream, x, tables, coefs):
+def _snr(rt, x, tables, coefs):
     """Launch the S/N kernel on a transformed (D, B, R, P) container,
     in the launch shape :func:`snr_launch` gives P."""
+    lib, stream, _, kernels = rt
     D, B, R, P = x.shape
     NW = coefs.widths.shape[0]
     out = torch.empty((D, B, coefs.rows, NW), dtype=torch.float32,
@@ -494,13 +579,13 @@ def _snr(lib, stream, x, tables, coefs):
     # coefficients.
     guest = (tables.gbase, coefs.ghcoef, coefs.gbcoef, coefs.gstdnoise)
     _check(lib, "boxcar_snr", lib.rt_boxcar_snr(
-        x.data_ptr(), out.data_ptr(), tables.p.data_ptr(),
-        coefs.widths.data_ptr(), coefs.hcoef.data_ptr(),
-        coefs.bcoef.data_ptr(), coefs.stdnoise.data_ptr(),
-        *(None if tables.gbase is None else g.data_ptr() for g in guest),
-        None if scratch is None else scratch.data_ptr(), rows,
+        _ptr(x), _ptr(out), _ptr(tables.p),
+        _ptr(coefs.widths), _ptr(coefs.hcoef),
+        _ptr(coefs.bcoef), _ptr(coefs.stdnoise),
+        *(None if tables.gbase is None else _ptr(g) for g in guest),
+        None if scratch is None else _ptr(scratch), rows,
         D, B, R, P, coefs.rows, NW, stream))
-    KERNEL_LAUNCHES["boxcar_snr"] += 1
+    kernels["boxcar_snr"] += 1
     return out
 
 
@@ -564,19 +649,20 @@ def segment_levels(source, tables, levels=None):
             0 <= levels <= tables.h.shape[0] - tables.local):
         raise ValueError(f"levels = {levels} outside [0, "
                          f"{tables.h.shape[0] - tables.local}]")
-    return _levels(_library(), _stream(tables.h.device), source, tables, D,
-                   levels)
+    return _levels(_runtime(tables.h.device), source, tables, D, levels)
 
 
-def _stage(source, tables, coefs, scratch=None):
+def _stage(kind, source, tables, coefs, scratch=None):
     """Check, then launch the segment kernel, the remaining levels and
-    the S/N kernel."""
+    the S/N kernel; count one ``kind`` launch."""
     D = _check_source(source, tables)
     B, R, P = tables.p.shape[0], tables.h.shape[2], tables.P
     _check_stage(tables, coefs, D, B, R, P, tables.h.device)
-    lib, stream = _library(), _stream(tables.h.device)
-    x = _levels(lib, stream, source, tables, D, scratch=scratch)
-    return _snr(lib, stream, x, tables, coefs)
+    rt = _runtime(tables.h.device)
+    x = _levels(rt, source, tables, D, scratch=scratch)
+    out = _snr(rt, x, tables, coefs)
+    rt[2][kind] += 1
+    return out
 
 
 def cascade_stage(container, tables, coefs):
@@ -588,9 +674,8 @@ def cascade_stage(container, tables, coefs):
     :func:`cascade_stage_plain`."""
     if container.device.type == "cpu":
         return cascade_stage_plain(container, tables, coefs)
-    out = _stage(container, tables, coefs, scratch=container)
-    LAUNCHES["cascade_stage"] += 1
-    return out
+    return _stage("cascade_stage", container, tables, coefs,
+                  scratch=container)
 
 
 def fused_stage(wire, scales, geom, tables, coefs):
@@ -608,9 +693,8 @@ def fused_stage(wire, scales, geom, tables, coefs):
     if tables.gbase is not None:
         raise ValueError("fused_stage takes unpaired tables; a row-packed "
                          "container runs paired_stage")
-    out = _stage(WireSource(wire, scales, geom), tables, coefs)
-    LAUNCHES["fused_stage"] += 1
-    return out
+    return _stage("fused_stage", WireSource(wire, scales, geom), tables,
+                  coefs)
 
 
 def paired_stage(wire, scales, geom, guest_geom, tables, coefs):
@@ -629,6 +713,5 @@ def paired_stage(wire, scales, geom, guest_geom, tables, coefs):
                                   coefs)
     if tables.gbase is None or coefs.ghcoef is None:
         raise ValueError("paired_stage needs guest tables and coefficients")
-    out = _stage(WireSource(wire, scales, geom, guest_geom), tables, coefs)
-    LAUNCHES["paired_stage"] += 1
-    return out
+    return _stage("paired_stage", WireSource(wire, scales, geom, guest_geom),
+                  tables, coefs)

@@ -46,8 +46,50 @@ from ..utils.limits import MAX_DYNAMIC_SMEM
 from .reference import _merge_mapping
 
 __all__ = ["ffa_plan", "FFAPlan", "FFABatchPlan", "num_levels",
+           "CONTRACT_PLANS", "contract_plan_params",
            "pair_bucket_bases", "SegmentPlan", "segment_plan"]
 
+
+
+# Representative search plans whose launch contracts the port pins
+# (``riptide_tpu_torch/analysis/launch_contract.py``,
+# ``python -m riptide_tpu_torch.apps.rprove``,
+# ``riptide_tpu_torch/analysis/plan_contracts.json``): the JAX package's
+# set (``riptide_tpu/ops/plan.py::CONTRACT_PLANS``), the same three
+# specs and tiers. ``path`` names the JAX package's formulation; the
+# port's path follows from the wire (a quantised wire runs K1/K3, the
+# float32 wire K2). The two tiny plans share one geometry; the
+# ``slow`` tier adds a survey-shaped plan (``rprove --all``).
+CONTRACT_PLANS = (
+    {"name": "tiny-gather", "tier": "fast", "path": "gather",
+     "wire": "float32", "size": 2048, "tsamp": 0.01, "widths": (1, 2),
+     "period_min": 1.0, "period_max": 2.0, "bins_min": 16,
+     "bins_max": 24},
+    {"name": "tiny-fused", "tier": "fast", "path": "kernel",
+     "wire": "uint6", "size": 2048, "tsamp": 0.01, "widths": (1, 2),
+     "period_min": 1.0, "period_max": 2.0, "bins_min": 16,
+     "bins_max": 24},
+    {"name": "survey-fused", "tier": "slow", "path": "kernel",
+     "wire": "uint6", "size": 16000, "tsamp": 1e-3,
+     "widths": (1, 2, 3), "period_min": 0.3, "period_max": 1.2,
+     "bins_min": 64, "bins_max": 71},
+)
+
+
+def contract_plan_params(names=None, tiers=("fast",)):
+    """The contract plan specs: by ``names`` (an unknown name raises
+    KeyError, so a stale list fails loudly), else by tier."""
+    specs = [dict(s) for s in CONTRACT_PLANS]
+    if names:
+        wanted = set(names)
+        unknown = wanted - {s["name"] for s in specs}
+        if unknown:
+            raise KeyError(
+                f"unknown contract plan name(s) {sorted(unknown)}; "
+                f"known: {[s['name'] for s in specs]}"
+            )
+        return [s for s in specs if s["name"] in wanted]
+    return [s for s in specs if s["tier"] in tiers]
 
 def num_levels(m):
     """Number of merge levels for an m-row transform: ceil(log2(m)), 0 for m=1."""

@@ -40,11 +40,21 @@ out-of-memory error on a batch bisects it (:meth:`_collect_bisected`):
 the failed batch's tensors are dropped, and the halves prepare and
 search their own wire, recursively down to ``oom_floor`` trials.
 
+With ``RIPTIDE_HBM_BUDGET`` set, the plan's peak-memory model
+(:func:`riptide_tpu_torch.analysis.launch_contract.hbm_model`, fitted
+from the shape-only walk of the stage loop) seeds the DM batch: a batch
+it predicts over the budget is split before it is queued
+(:meth:`_collect_seeded`, counted as ``oom_predicted``), its wire is
+not prepared whole, and bisection stays the insurance against a wrong
+model. :meth:`chunk_hbm_block` gives each journaled chunk its
+predicted-vs-measured ``hbm`` block; on the card its prediction adds the
+loader threads' de-reddening, which runs on the card beside the search
+(:meth:`_loader_bytes`, one working set per loader thread).
+
 The survey scheduler (:mod:`riptide_tpu_torch.survey.scheduler`) drives
 the same chunk stages one at a time, with a journal record after each
 (:meth:`chunk_dq_summary` and :meth:`restore_dq_reports` carry the
-data-quality provenance through it). Not ported yet: the JAX package's
-peak-HBM model that splits a batch before it is queued.
+data-quality provenance through it).
 """
 import logging
 import os
@@ -65,6 +75,7 @@ from ..search.engine import (StagingPool, collect_search_batch, is_oom_error,
 from ..survey import incidents
 from ..survey.metrics import get_metrics
 from ..time_series import TimeSeries
+from ..utils import envflags
 from ..utils.device import resolve_device
 
 log = logging.getLogger("riptide_tpu_torch.pipeline.batcher")
@@ -334,6 +345,13 @@ class BatchSearcher:
                     prepared, _ = prepare_stage_data_sharded(
                         plan, batch, self.mesh
                     )
+                elif self._seed_batch_limit(plan, batch.shape[0]) \
+                        is not None:
+                    # The peak-memory model will split this batch at
+                    # queue time (_queue_range): the whole batch's wire
+                    # would be discarded work, as the slices prepare
+                    # their own.
+                    prepared = None
                 else:
                     prepared = prepare_stage_data(plan, batch,
                                                   pool=self._staging_pool)
@@ -359,8 +377,9 @@ class BatchSearcher:
                 for members, batch, conf, plan, prepared in items
             ]
         return [
-            (members, batch, conf, plan, ship_stage_data(prepared,
-                                                         self.device))
+            (members, batch, conf, plan,
+             ship_stage_data(prepared, self.device) if prepared is not None
+             else None)
             for members, batch, conf, plan, prepared in items
         ]
 
@@ -382,6 +401,99 @@ class BatchSearcher:
             return
         for it in items:
             release_prepared(self._staging_pool, it[-1])
+
+    # -- model-seeded DM-batch pick (the launch-contract memory model) -----
+
+    def _hbm_model(self, plan):
+        """The plan's peak-memory model
+        (:func:`riptide_tpu_torch.analysis.launch_contract.hbm_model`,
+        cached on the plan), or None when the walk fails: the model is
+        an optimisation and never a reason a search cannot run. A
+        failure is cached too (one warning, one walk per plan)."""
+        if getattr(plan, "_hbm_model_failed", False):
+            return None
+        try:
+            from ..analysis.launch_contract import hbm_model
+
+            return hbm_model(plan)
+        except Exception as err:
+            plan._hbm_model_failed = True
+            log.warning("peak-memory model unavailable for this plan (%s); "
+                        "OOM bisection remains the only throttle", err)
+            return None
+
+    def _seed_batch_limit(self, plan, D):
+        """Largest DM batch the model predicts fits the
+        ``RIPTIDE_HBM_BUDGET`` budget, or None when seeding is off (no
+        budget, or a mesh), the model is unavailable or D already fits.
+        Seeding makes the dispatch -> OOM -> halve cycle a split before
+        queueing; bisection stays for a model miss."""
+        budget = envflags.get("RIPTIDE_HBM_BUDGET")
+        if not budget or self.mesh is not None:
+            return None
+        model = self._hbm_model(plan)
+        if model is None:
+            return None
+        limit = max(1, model.max_batch(int(budget)))
+        return limit if limit < D else None
+
+    def _loader_bytes(self, nsamp, tsamp):
+        """Device bytes one loader thread's de-reddening of an
+        ``nsamp``-sample series holds at its peak, from a walk of
+        :func:`~riptide_tpu_torch.ops.running_median.fast_running_median_torch`
+        on the meta device (cached per shape). While chunk i is
+        searched, the loaders de-redden chunk i + 1 on the card, so
+        their working sets sit under the same high-water mark."""
+        cache = self.__dict__.setdefault("_loader_cache", {})
+        key = (int(nsamp), round(float(tsamp), 12))
+        if key not in cache:
+            import torch
+
+            from ..ops.running_median import fast_running_median_torch
+            from ..search.engine import walk_peak
+
+            width = int(round(self.deredden_params["rmed_width"] / tsamp))
+            minpts = int(self.deredden_params["rmed_minpts"])
+            cache[key] = walk_peak(lambda: fast_running_median_torch(
+                torch.empty(int(nsamp), device="meta"), width, minpts))
+        return cache[key]
+
+    def chunk_hbm_block(self, items):
+        """Predicted-vs-measured peak device bytes of one chunk's
+        searches, as the journal's per-chunk ``hbm`` block; None while
+        seeding is off. Predictions sum over the chunk's work items at
+        their seeded (post-split) batch sizes; on the card they add one
+        de-reddening working set (:meth:`_loader_bytes`) per loader
+        thread that can run beside the search. The measured peak
+        (``engine.device_peak_bytes``) is a process-lifetime high-water
+        mark, so ``actual`` goes only to a chunk that raised it: a
+        later chunk under the mark carries no calibration signal."""
+        budget = envflags.get("RIPTIDE_HBM_BUDGET")
+        if not budget or self.mesh is not None:
+            return None
+        predicted = 0
+        for item in items:
+            batch, plan = item[1], item[3]
+            model = self._hbm_model(plan)
+            if model is None:
+                return None
+            D = batch.shape[0]
+            predicted += model.predict(min(D, model.max_batch(int(budget))))
+        if items and self.device.type == "cuda" \
+                and self.deredden_params.get("rmed_width"):
+            members, batch = items[0][0], items[0][1]
+            predicted += min(self.io_threads, len(members)) \
+                * self._loader_bytes(batch.shape[1], members[0].tsamp)
+        from ..obs.schema import hbm_block
+        from ..search.engine import device_peak_bytes
+
+        actual = device_peak_bytes(self.device)
+        prev = getattr(self, "_hbm_peak_seen", None)
+        if actual is not None:
+            self._hbm_peak_seen = actual
+            if prev is not None and actual <= prev:
+                actual = None
+        return hbm_block(predicted, actual, int(budget))
 
     def _queue_range(self, conf, members, batch, plan, shipped):
         """Queue one (search range x chunk) device search; returns a
@@ -409,6 +521,19 @@ class BatchSearcher:
 
             return collect_mesh
         args = (plan, batch, dms, tobs, fp_kwargs, nreal)
+        limit = self._seed_batch_limit(plan, batch.shape[0])
+        if limit is not None:
+            # The model says this batch exceeds the budget: split it
+            # now at the largest size predicted to fit, instead of a
+            # queue + OOM + halving cycle. The slices prepare their own
+            # wire, and a real OOM inside a slice still bisects: the
+            # model seeds, the bisection insures.
+            get_metrics().add("oom_predicted")
+            incidents.emit("oom_predicted", batch=batch.shape[0],
+                           limit=int(limit))
+            log.info("peak-memory model caps the %d-trial batch at %d "
+                     "trials per search", batch.shape[0], limit)
+            return lambda: self._collect_seeded(*args, limit)
         try:
             self._maybe_oom(batch.shape[0])
             handle = queue_search_batch(
@@ -440,6 +565,19 @@ class BatchSearcher:
             return self._collect_bisected(*args, err)
 
         return collect
+
+    def _collect_seeded(self, plan, batch, dms, tobs, fp_kwargs, nreal,
+                        limit):
+        """Collector of a model-capped batch: search the DM batch in
+        ``limit``-trial slices, one after another as the bisection path
+        does. A real OOM inside a slice still bisects."""
+        dms = np.asarray(dms, dtype=float)
+        D = batch.shape[0]
+        ppt = []
+        for lo in range(0, D, limit):
+            ppt += self._search_slice(plan, batch, dms, tobs, fp_kwargs,
+                                      lo, min(lo + limit, D))
+        return [p for d in range(nreal) for p in ppt[d]]
 
     # -- OOM-aware adaptive bisection ---------------------------------------
 

@@ -44,15 +44,26 @@ entry points copy the cube to the host once; the survey batch
 the time of each of those parts and its operands, for checks and
 measurements.
 
+Analysis: :func:`walk_search` runs the same queue path on the ``meta``
+device (shapes only, nothing launched, no card needed) and lists every
+launch, the CUDA kernels under it and every device buffer the search
+allocates and frees: the launch contract and the peak-memory model
+(``riptide_tpu_torch/analysis/launch_contract.py``) are read from it.
+:func:`wire_transfer_contract` gives the wire's transfer shape, and
+:func:`device_peak_bytes` the card's measured high-water mark.
+
 Replaces the reference's single-threaded C++ search loop
 (riptide/cpp/periodogram.hpp:117-201).
 """
 import contextlib
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from ..ops.ffa_kernel import (MAX_DYNAMIC_SMEM, SNR_WARPS, WIRE_MODES, Coefs,
                               StageGeom, Tables, cascade_stage, fused_stage,
@@ -66,7 +77,9 @@ from ..utils.exec_cache import count_warmth
 __all__ = ["run_periodogram", "run_periodogram_batch", "run_search_batch",
            "queue_search_batch", "collect_search_batch", "search_snr_dev",
            "prepare_stage_data", "ship_stage_data", "release_prepared",
-           "StagingPool", "recording", "is_oom_error"]
+           "StagingPool", "recording", "is_oom_error", "walk_search",
+           "wire_transfer_contract", "device_peak_bytes",
+           "drop_device_operands"]
 
 # Substrings that mark device memory exhaustion in an exception message
 # (the JAX package's markers; the fault injector's simulated OOM carries
@@ -626,7 +639,8 @@ def _operands(b, widths, hcoef, bcoef, stdnoise, rows, device, guest=None):
         m=dev(b.m, np.int32), P=int(b.P),
         span=int(max(int(m) * int(p) for m, p in zip(b.m, b.p))),
     )
-    if device.type == "cuda":
+    if device.type != "cpu":
+        # The card's tables, and the meta device's (walk_search).
         seg = b.segments
         tables = tables._replace(tiles=dev(seg.tiles, np.int32),
                                  local=seg.levels, smem=seg.smem)
@@ -865,7 +879,11 @@ def _launch(kind, fn, args, **where):
     """Call one stage wrapper on ``args``; inside :func:`recording`, keep
     its kind, operands, output and ``where`` (stage, lane bucket, guest
     stage). A float32 container is kept as a copy made before the call,
-    since the kernel uses it as scratch."""
+    since the kernel uses it as scratch. Inside :func:`walk_search`, the
+    walk's tally takes the call instead."""
+    tally = getattr(_WALK, "tally", None)
+    if tally is not None:
+        return tally.launch(kind, fn, args, where)
     rec = _RECORD
     kept = args
     if rec is not None and kind == "cascade_stage":
@@ -942,6 +960,7 @@ def _queue_stages(plan, wire, meta, events=None):
     if events:
         events[0].record()
     for i, st in enumerate(plan.stages):
+        _walk_phase(i)
         if not _fused_eligible(st, plan, mode):
             outs.append((_run_stage(st, plan, i, wire, meta),))
             layout.append(None)
@@ -967,6 +986,7 @@ def _queue_stages(plan, wire, meta, events=None):
                 layout.append(tuple(entries))
         if events:
             events[i + 1].record()
+    _walk_phase("assemble")
     return outs, tuple(layout)
 
 
@@ -1206,3 +1226,295 @@ def run_search_batch(plan, batch, tobs, dms=None, prepared=None,
     if dms is None:
         dms = np.zeros(search_snr_dev(handle).shape[0], np.float64)
     return collect_search_batch(handle, dms)
+
+
+# ---------------------------------------------------------------------------
+# Analysis: the wire's transfer shape, the measured peak, the walk
+# ---------------------------------------------------------------------------
+
+def _wire_nparts(plan):
+    """How many parts the JAX package's ``ship_stage_data`` cuts the
+    wire into: up to 4, at stage boundaries (its ``_wire_parts``). The
+    port ships the same bytes as one tensor (plus the scales)."""
+    return min(4, len(plan.stages))
+
+
+def wire_transfer_contract(plan, mode):
+    """Host->device transfer shape of one chunk, exact from the wire
+    layout, as the JAX package's ``wire_transfer_contract`` gives it for
+    the same plan and wire mode: ``h2d_transfers`` (the reference's
+    wire parts, plus one for the scales of a quantised wire), the bytes
+    per DM trial in all and per stage, and the one device->host pull of
+    the peak program's buffer. The bytes are the port's too (the same
+    wire); the port copies them in one tensor and one scales tensor
+    (``walk_search`` counts those copies)."""
+    _, _, tot = _wire_layout(plan, mode)
+    nparts = _wire_nparts(plan)
+    if mode in _WIRE_Q:
+        vl = _view_layout(plan, mode)
+        per_stage = [int(vl["wrows"][i]) * vl["PW"] + int(vl["r0s"][i]) * 4
+                     for i in range(len(plan.stages))]
+        total = int(vl["tot_rows"]) * vl["PW"] + int(vl["stot"]) * 4
+        h2d = nparts + 1
+    else:
+        item = np.dtype(mode).itemsize
+        per_stage = [int(st.n) * item for st in plan.stages]
+        total = int(tot) * item
+        h2d = nparts
+    return {"h2d_transfers": int(h2d), "h2d_bytes_per_dm": int(total),
+            "per_stage_wire_bytes_per_dm": per_stage, "d2h_pulls": 1}
+
+
+def device_peak_bytes(device=None):
+    """The card's peak allocated bytes in this process
+    (``torch.cuda.max_memory_allocated``), a process-lifetime high-water
+    mark that the engine never resets; None on the CPU. ``device`` is
+    the search's card (the current one when None). The journal's
+    ``hbm`` block pairs it with the peak-memory model's prediction."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated(device)
+    return int(peak) if peak else None
+
+
+def _device_key(device):
+    """The operand caches' key of ``device``: a card with its index."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def drop_device_operands(plan, device):
+    """Forget the stage operands cached on ``plan``'s stages for
+    ``device``, so the next search there uploads them anew (and their
+    buffers are freed once nothing else holds them)."""
+    key = _device_key(device)
+    for st in plan.stages:
+        cache = getattr(st, "_device_operands", None)
+        if cache:
+            # list() copies the keys at once: another thread's search
+            # may add its own meanwhile.
+            for k in [k for k in list(cache) if k[0] == key]:
+                cache.pop(k, None)
+
+
+def _blank_prepared(plan, D, mode):
+    """A prepared wire of ``D`` trials in ``mode`` with the layout of
+    :func:`prepare_stage_data` and zero bytes, computed from nothing
+    (``np.zeros`` touches no page until read)."""
+    offs, _, tot = _wire_layout(plan, mode)
+    if mode in _WIRE_Q:
+        vl = _view_layout(plan, mode)
+        return (np.zeros((D, vl["tot_rows"], vl["PW"]), np.uint8),
+                {"mode": mode, "offs": offs, "view": vl, "prep": "blank",
+                 "scales": np.zeros((D, vl["stot"]), np.float32),
+                 "staging": ()})
+    return (np.zeros((D, tot), np.dtype(mode)),
+            {"mode": mode, "offs": offs, "scales": None, "prep": "blank",
+             "staging": ()})
+
+
+# The calling thread's walk (walk_search), read by _launch and the
+# stage loop.
+_WALK = threading.local()
+
+
+def _walk_phase(phase):
+    """Tell the calling thread's walk, if any, which part of the search
+    runs now (a stage index, ``"assemble"``)."""
+    tally = getattr(_WALK, "tally", None)
+    if tally is not None:
+        tally.phase = phase
+
+
+_F64 = (torch.float64, torch.complex128)
+
+
+class _Tally(TorchDispatchMode):
+    """The device side of the ops run under it, on ``device``: every op
+    output on the device whose storage is new is an allocation of the
+    storage's bytes, freed when the storage dies (a finalizer on the
+    storage, so a live view keeps it, as the caching allocator would).
+    Live bytes and their peak are kept, each storage gets an address
+    (512-byte aligned, the allocator's rounding) for
+    ``ffa_kernel._ptr``, host->device copies are counted with their
+    bytes, and the dtypes made on the device and the float64/complex128
+    outputs are collected, by phase (``"ship"``, a stage index,
+    ``"assemble"`` and ``"peaks"``)."""
+
+    def __init__(self, device, shape_state=None):
+        super().__init__()
+        self.device = device
+        self.shape = shape_state
+        self.live = {}
+        self.base = {}
+        self.next_addr = 1 << 32
+        self.cur = self.peak = 0
+        self.phase = "ship"
+        self.h2d = {}          # phase -> [copies, bytes]
+        self.f64 = {}          # phase -> float64/complex128 outputs
+        self.dtypes = set()
+        self.launches = []
+        self._open = None      # the launch record being filled
+
+    @staticmethod
+    def _key(t):
+        return t.untyped_storage()._cdata
+
+    def address(self, t):
+        return self.base.get(self._key(t), 0) \
+            + t.storage_offset() * t.element_size()
+
+    def _free(self, key):
+        self.cur -= self.live.pop(key, 0)
+
+    def _note(self, t, func, args):
+        if t.device != self.device:
+            return
+        self.dtypes.add(str(t.dtype).replace("torch.", ""))
+        if t.dtype in _F64:
+            self.f64[self.phase] = self.f64.get(self.phase, 0) + 1
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self.live:
+            return
+        nbytes = int(st.nbytes())
+        self.live[key] = nbytes
+        self.base[key] = self.next_addr
+        self.next_addr += -(-max(nbytes, 1) // 512) * 512
+        weakref.finalize(st, self._free, key)
+        self.cur += nbytes
+        self.peak = max(self.peak, self.cur)
+        if self._open is not None:
+            self._open["allocs"].append(
+                (tuple(t.shape), str(t.dtype).replace("torch.", ""), nbytes))
+        if func in (torch.ops.aten._to_copy.default,
+                    torch.ops.aten.copy_.default) and any(
+                isinstance(a, torch.Tensor) and a.device.type == "cpu"
+                for a in tree_leaves(args)):
+            h = self.h2d.setdefault(self.phase, [0, 0])
+            h[0] += 1
+            h[1] += nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._note(t, func, args)
+        return out
+
+    def launch(self, kind, fn, args, where):
+        """One stage wrapper call: its kind and place, the CUDA kernels
+        it counts, its shape-only library calls and its allocations."""
+        kernels0 = dict(self.shape.kernels)
+        ncalls = len(self.shape.calls)
+        rec = dict(where, kind=kind, allocs=[])
+        self._open = rec
+        try:
+            out = fn(*args)
+        finally:
+            self._open = None
+        rec["kernels"] = {k: v - kernels0[k]
+                          for k, v in self.shape.kernels.items()
+                          if v != kernels0[k]}
+        rec["calls"] = self.shape.calls[ncalls:]
+        rec["out"] = (tuple(out.shape), str(out.dtype).replace("torch.", ""))
+        self.launches.append(rec)
+        return out
+
+
+_WALK_LOCK = threading.Lock()
+
+
+def walk_peak(fn):
+    """The most device bytes ``fn()`` holds live at once, run on the
+    ``meta`` device (``fn`` makes its own meta tensors): the same tally
+    as :func:`walk_search`, for device work outside the search (the
+    loaders' de-reddening)."""
+    tally = _Tally(torch.device("meta"))
+    with tally:
+        fn()
+    return int(tally.peak)
+
+
+def walk_search(plan, D, mode=None, tobs=None, data=None, survey=True):
+    """The shape-only walk of one ``D``-trial survey search of ``plan``
+    (:func:`queue_search_batch`'s device side: the wire's copy, every
+    stage launch, the assembly and the peak program) on the ``meta``
+    device, under the live container flags and ``mode`` (default
+    :func:`_wire_mode`). The real queue path runs; the stage wrappers
+    take their shape-only form (``ffa_kernel.ShapeOnlyLibrary``), so
+    nothing is computed or launched and no card is needed. The stage
+    operands are uploaded cold (the device's cache is dropped first),
+    as a plan's first search on a card uploads them. With ``data`` (a
+    (D, N) float32 batch) the same walk follows the plain path on the
+    CPU instead, on that data's prepared wire (the dtype-flow audit's
+    second view). ``survey=False`` walks :func:`run_periodogram_batch`
+    instead: no peak program, the cube is pulled whole.
+
+    Returns a dict: ``launches`` (per wrapper call: ``kind``, ``stage``,
+    ``bucket``, ``guest``, ``kernels`` counted under it, ``calls`` of
+    the shape-only library with the walk's addresses, ``allocs`` (shape,
+    dtype, bytes) and ``out`` (shape, dtype)), ``launch_counts`` and
+    ``kernel_counts`` (the wrappers' own counters), ``peak_bytes`` (the
+    most device bytes live at once, raw tensor bytes), ``h2d`` (per
+    phase: copies, bytes), ``f64`` (float64/complex128 outputs per
+    phase), ``dtypes``, ``out_dtype`` (the assembled S/N cube) and
+    ``peaks`` (the pulled buffer's bytes and dtype, and whether the
+    device clustering ran)."""
+    from ..ops import ffa_kernel
+    from .peaks_device import PeakPlan, device_cluster_enabled
+
+    global _RECORD
+    mode = mode or _wire_mode()
+    tobs = float(tobs if tobs is not None else plan.size * plan.tsamp)
+    pp = (PeakPlan(plan, tobs, device_cluster=device_cluster_enabled())
+          if survey else None)
+    if data is None:
+        dev = torch.device("meta")
+        flat, meta = _blank_prepared(plan, D, mode)
+    else:
+        dev, D = torch.device("cpu"), len(data)
+        flat, meta = _prepare_stage_data(plan, data, mode, None)
+    # One walk at a time: the operand caches of the meta device are the
+    # plan's, and the walk suspends the (process-wide) recording.
+    with _WALK_LOCK, ffa_kernel.shape_only() as shape:
+        drop_device_operands(plan, dev)
+        prev, _RECORD = _RECORD, None
+        tally = _Tally(dev, shape)
+        shape.address = tally.address
+        _WALK.tally = tally
+        try:
+            with tally:
+                # The shipped wire is the queue's only: it is freed when
+                # the stage loop and the assembly are done, as in
+                # queue_search_batch.
+                box = [_ship(flat, meta, dev)]
+                snr, _, _ = _queue_batch(plan, None, dev, shipped=box.pop())
+                tally.phase = "peaks"
+                pulled = pp._fused(snr) if survey else snr
+            out = {
+                "D": int(D), "mode": mode, "launches": tally.launches,
+                "launch_counts": dict(shape.launches),
+                "kernel_counts": dict(shape.kernels),
+                "peak_bytes": int(tally.peak), "h2d": tally.h2d,
+                "f64": tally.f64, "dtypes": sorted(tally.dtypes),
+                "out_dtype": str(snr.dtype).replace("torch.", ""),
+                "peaks": {"device_cluster": bool(survey
+                                                 and pp.device_cluster),
+                          "out_bytes": int(pulled.nbytes),
+                          "out_dtype": str(pulled.dtype).replace(
+                              "torch.", "")},
+            }
+            del snr, pulled
+        finally:
+            _WALK.tally = None
+            _RECORD = prev
+            drop_device_operands(plan, dev)
+    return out

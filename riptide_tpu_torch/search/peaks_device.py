@@ -104,15 +104,26 @@ def force_device_cluster(value):
         _DC_OVERRIDE = prev
 
 
+def _two_sum(a, b):
+    """Knuth's TwoSum in float32: (s, e) with s = fl(a + b) and
+    a + b = s + e exactly (six IEEE additions, no fused operation)."""
+    s = a + b
+    bp = s - a
+    ap = s - bp
+    return s, (a - ap) + (b - bp)
+
+
 def _percentiles(seg, qs):
     """``jnp.percentile(seg, qs, axis=-1)`` (linear interpolation) in
     float32 as the JAX package's compiled peak program computes it: sort,
     q * (n - 1), floor/ceil indices and weights, then ``low * (1 - w) +
     high * w`` with the first product folded into the add (XLA contracts
     it into one fused multiply-add: one rounding). The fused form is
-    taken exactly in float64: 1 - w is a multiple of 1/4, so low * (1 - w)
-    is exact there, and the sum rounds once to float32 unless the terms
-    lie too far apart to matter. Returns (..., len(qs))."""
+    taken in float32 alone, with no fused operation: 1 - w is a multiple
+    of 1/4, so low * (1 - w) is exact except at 3/4, where it is low -
+    low / 4 with its rounding error from :func:`_two_sum`; the product
+    and its error then join high * w through a second TwoSum, rounding
+    once at the end. Returns (..., len(qs))."""
     n = seg.shape[-1]
     srt = torch.sort(seg, dim=-1).values
     q = torch.tensor([q / 100.0 for q in qs], dtype=torch.float32,
@@ -125,9 +136,12 @@ def _percentiles(seg, qs):
     lw = 1.0 - hw
     low = low.clamp(0, n - 1).to(torch.int64)
     high = high.clamp(0, n - 1).to(torch.int64)
-    f64 = torch.float64
-    return (srt[..., low].to(f64) * lw.to(f64)
-            + (srt[..., high] * hw).to(f64)).to(torch.float32)
+    lo = srt[..., low]
+    three = lw == 0.75
+    prod, err = _two_sum(torch.where(three, lo, lo * lw),
+                         torch.where(three, lo * -0.25, 0.0))
+    total, err2 = _two_sum(prod, srt[..., high] * hw)
+    return total + (err + err2)
 
 
 def _seg_lexmax_scan(flag, val, idx):

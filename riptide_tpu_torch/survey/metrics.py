@@ -31,7 +31,7 @@ contains whatever was recorded):
 ``files_salvaged``        counter: malformed files read as a prefix (policy)
 ``files_skipped``         counter: malformed files dropped (policy)
 ``oom_bisections``        counter: DM-batch halvings after device OOM
-``oom_predicted``         counter: proactive DM-batch splits (not yet ported)
+``oom_predicted``         counter: DM-batch splits the peak-memory model made
 ``chunks_timed_out``      counter: dispatch attempts abandoned by the watchdog
 ``breaker_opens``         counter: circuit-breaker closed/half-open -> open
 ``chunks_parked``         counter: chunks set aside by the open breaker

@@ -937,8 +937,9 @@ class SurveyScheduler:
                 de0):
         """Journal one completed chunk: its peaks and the chunk record
         with its timing, data-quality summary, integrity block and the
-        device-error retries it burned. (Its ``hbm`` block stays empty:
-        the port has no peak-memory model yet.)"""
+        device-error retries it burned, and the chunk's predicted-vs-
+        measured peak-memory ``hbm`` block (empty while model seeding is
+        off, so such records keep the JAX package's bytes)."""
         dq = {}
         if hasattr(self.searcher, "chunk_dq_summary"):
             dq = self.searcher.chunk_dq_summary(self.chunks[cid])
@@ -957,6 +958,9 @@ class SurveyScheduler:
                 probe=bool(rinfo.get("probe")),
                 votes=rinfo.get("votes"),
             )
+        hbm = {}
+        if hasattr(self.searcher, "chunk_hbm_block"):
+            hbm = self.searcher.chunk_hbm_block(wire.items) or {}
         extra = {
             "integrity": iblk,
             "device_error_retries":
@@ -968,7 +972,7 @@ class SurveyScheduler:
                 cid, self.chunks[cid],
                 [float(ts.metadata["dm"] or 0.0) for ts in tslist],
                 peaks, wire_digest=wire.digest,
-                timings=timing, attempts=attempts, dq=dq,
+                timings=timing, attempts=attempts, dq=dq, hbm=hbm,
                 extra=extra or None,
             )
 

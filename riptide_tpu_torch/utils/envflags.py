@@ -234,6 +234,61 @@ _ALL = [
         "gate before rserve exits anyway. Parked jobs keep no terminal "
         "registry record, so a restart re-queues them (`resumed`).",
     ),
+    EnvFlag(
+        "RIPTIDE_NATIVE_SANITIZE", "bool", False,
+        "Build the native host library with ASan+UBSan "
+        "(`-fsanitize=address,undefined`, no recovery, `-g`, "
+        "`-fno-omit-frame-pointer`, `-ffp-contract=off` kept). The flags "
+        "are part of the build cache's key, so the sanitized library "
+        "never stands in for the production one. It loads only with the "
+        "sanitizer runtimes preloaded (`LD_PRELOAD` of `g++ "
+        "-print-file-name=libasan.so` and `libubsan.so`); without them "
+        "the native runtime raises instead of falling back to numpy.",
+    ),
+    EnvFlag(
+        "RIPTIDE_HBM_BUDGET", "int", 0,
+        "Peak device-memory budget (bytes) for the model-seeded DM-batch "
+        "pick: when > 0, the batch searcher caps each queued DM batch at "
+        "the largest size the plan's peak-memory model "
+        "(riptide_tpu_torch/analysis/launch_contract.py, fitted from the "
+        "shape-only walk of the stage loop) predicts fits, so OOM "
+        "bisection becomes a fallback instead of the first resort "
+        "(`oom_predicted` counts proactive splits), and journaled chunks "
+        "carry a predicted-vs-actual `hbm` block (actual from "
+        "`torch.cuda.max_memory_allocated`). `0` disables seeding.",
+    ),
+    EnvFlag(
+        "RIPTIDE_PROVE_PLANS", "str", None,
+        "Comma-separated subset of contract plan names that "
+        "`python -m riptide_tpu_torch.apps.rprove` verifies (see "
+        "riptide_tpu_torch/ops/plan.py CONTRACT_PLANS); unset verifies "
+        "every fast-tier plan and `--all` adds the slow tier. The "
+        "--plans option takes precedence.",
+    ),
+    EnvFlag(
+        "RIPTIDE_SCHED_BOUND", "int", 2,
+        "Preemption bound of the `ripsched` schedule-exploration model "
+        "checker (`python -m riptide_tpu_torch.apps.ripsched`): schedules "
+        "with at most this many preemptive context switches are explored "
+        "exhaustively, shallowest first, so any violation found is "
+        "minimal in preemptions. Raising it widens coverage at "
+        "exponential cost. Checker-only; never read by a survey run.",
+    ),
+    EnvFlag(
+        "RIPTIDE_SCHED_SEED", "int", 0,
+        "Seed ordering the alternatives `ripsched` expands first within "
+        "each preemption bound. Changes which violation (if several "
+        "exist) is reported first, never whether one is found at the "
+        "bound; replay IDs embed the decision digits and do not depend "
+        "on it. Checker-only.",
+    ),
+    EnvFlag(
+        "RIPTIDE_SCHED_REPLAY", "str", "",
+        "When non-empty, `ripsched` replays this recorded schedule ID "
+        "(`model[+mutation]:digits`) deterministically instead of "
+        "exploring: the repro printed with every violation. "
+        "Checker-only.",
+    ),
 ]
 
 FLAGS = {f.name: f for f in _ALL}

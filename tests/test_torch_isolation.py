@@ -82,7 +82,9 @@ def test_survey_modules_are_covered():
                  "serve", "serve.tenants", "serve.queue", "serve.daemon",
                  "apps.rserve", "apps.rseek", "parallel", "parallel.mesh",
                  "parallel.sharded", "parallel.seqffa",
-                 "parallel.distributed", "parallel.multihost"):
+                 "parallel.distributed", "parallel.multihost", "analysis",
+                 "analysis.launch_contract", "analysis.sched",
+                 "analysis.sarif", "apps.rprove", "apps.ripsched"):
         assert f"riptide_tpu_torch.{name}" in mods
 
 

@@ -16,6 +16,7 @@ the JAX package's, on the CPU.
   tests/test_torch_search.py).
 """
 import logging
+import os
 
 import numpy as np
 import pytest
@@ -230,3 +231,116 @@ def test_float16_periodogram_matches_reference(monkeypatch, cfg):
     np.testing.assert_array_equal(P2, P1)
     np.testing.assert_array_equal(F2, F1)
     np.testing.assert_allclose(S2, S1, rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------------- the sanitized flavour
+
+_SAN_PARITY = r"""
+import numpy as np
+from riptide_tpu_torch import native
+from riptide_tpu_torch.search import engine
+from riptide_tpu_torch.search.plan import periodogram_plan
+
+assert native.available(), "the sanitized library did not load"
+assert native.flags()[-len(native.SAN_FLAGS):] == native.SAN_FLAGS
+plan = periodogram_plan(2500, 1e-3, (1, 2, 3), 64e-3, 0.072, 64, 67)
+rng = np.random.default_rng(1)
+batch = rng.standard_normal((3, 2500)).astype(np.float32)
+batch[1, 100:140] *= 40.0
+for mode in ("uint6", "uint8", "uint12"):
+    want = engine._prepare_uint_numpy(plan, batch, mode)
+    for threads in ("1", "4"):
+        import os
+        os.environ["RIPTIDE_PREP_THREADS"] = threads
+        flat, meta = engine.prepare_stage_data(plan, batch, mode=mode)
+        assert meta["prep"] == "native", meta["prep"]
+        assert np.array_equal(flat, want[0]), (mode, threads)
+        assert np.array_equal(meta["scales"], want[1]), (mode, threads)
+for dtype in (np.float32, np.float16):
+    imin, imax, wmin, wmax, wint = engine._ds_pack(plan)
+    got = native.downsample_stages(batch, imin, imax, wmin, wmax, wint,
+                                   dtype=dtype, nthreads=4)
+    d64, c32, anchors = engine._prefix_anchored(batch)
+    ref = np.stack([engine._stage_downsample(st, d64, c32, anchors)
+                    .astype(dtype) for st in plan.stages])
+    assert np.array_equal(got[..., :ref.shape[-1]], ref), dtype
+print("SANITIZED PARITY OK", native.BUILD_INFO["path"])
+"""
+
+
+def _san_env(tmp_path, preload):
+    import subprocess
+
+    env = dict(os.environ, RIPTIDE_NATIVE_SANITIZE="1",
+               RIPTIDE_EXEC_CACHE=str(tmp_path / "cache"),
+               ASAN_OPTIONS="detect_leaks=0",
+               UBSAN_OPTIONS="print_stacktrace=1")
+    env.pop("LD_PRELOAD", None)
+    if preload:
+        env["LD_PRELOAD"] = " ".join(
+            subprocess.run(["g++", f"-print-file-name={lib}"],
+                           capture_output=True, text=True,
+                           check=True).stdout.strip()
+            for lib in ("libasan.so", "libubsan.so"))
+    return env
+
+
+def test_sanitized_build_has_its_own_flags_and_key(monkeypatch):
+    from riptide_tpu_torch.utils import exec_cache
+
+    monkeypatch.delenv("RIPTIDE_NATIVE_SANITIZE", raising=False)
+    prod = native.flags()
+    monkeypatch.setenv("RIPTIDE_NATIVE_SANITIZE", "1")
+    san = native.flags()
+    assert prod == native.FLAGS and san == native.FLAGS + native.SAN_FLAGS
+    assert "-ffp-contract=off" in san
+    assert {"-fsanitize=address,undefined", "-fno-sanitize-recover=all",
+            "-g", "-fno-omit-frame-pointer"} <= set(san)
+    src = native.SOURCE.read_bytes()
+    assert exec_cache.library_key(src, prod, "g++ 12") != \
+        exec_cache.library_key(src, san, "g++ 12")
+
+
+def test_sanitized_wire_parity_with_zero_reports(tmp_path, monkeypatch):
+    """The native wire prep, built with ASan + UBSan (any report
+    aborts), gives the numpy path's bytes and scales at 1 and 4 threads,
+    and downsample_stages the numpy arrays, in a process with the
+    sanitizer runtimes preloaded. (The build runs here, beside the
+    process's start; its cache lock makes the process wait for it.)"""
+    import subprocess
+    import sys
+    import threading
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = _san_env(tmp_path, True)
+    monkeypatch.setenv("RIPTIDE_NATIVE_SANITIZE", "1")
+    monkeypatch.setenv("RIPTIDE_EXEC_CACHE", env["RIPTIDE_EXEC_CACHE"])
+    builder = threading.Thread(target=native.build)
+    builder.start()
+    try:
+        proc = subprocess.run([sys.executable, "-c", _SAN_PARITY], cwd=repo,
+                              env=env, capture_output=True, text=True,
+                              timeout=300)
+    finally:
+        builder.join()
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SANITIZED PARITY OK" in proc.stdout
+    assert "ERROR: AddressSanitizer" not in proc.stderr
+    assert "runtime error" not in proc.stderr
+
+
+def test_sanitized_library_without_its_runtimes_raises(monkeypatch):
+    """Asked for the sanitized flavour in a process without the
+    sanitizer runtimes, the native runtime raises, every time, and the
+    prep does not fall back to numpy."""
+    monkeypatch.setenv("RIPTIDE_NATIVE_SANITIZE", "1")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_error", None)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="LD_PRELOAD"):
+            native.available()
+    plan = periodogram_plan(*CFG)
+    with pytest.raises(RuntimeError, match="sanitized"):
+        engine.prepare_stage_data(plan, np.zeros((1, CFG[0]), np.float32),
+                                  mode="uint6")
