@@ -250,6 +250,25 @@ of the checkout by default), then:
    every chunk record (``actual_bytes`` and ``ratio`` only where the
    high-water mark rose), ``oom_predicted`` one a chunk, ``rreport``'s
    hbm line with the median ratio, ``rwatch --once`` quiet.
+13. the static rules against the card: (a) ``riptide_tpu_torch/apps/
+   riplint.py --no-cache`` in a subprocess on the card's machine must
+   exit 0 (its analyzers, modules, baselined findings and seconds
+   printed); (b) the sync witness: under
+   ``torch.cuda.set_sync_debug_mode("warn")`` (every warning shown, each
+   sync's Python stack kept), outside ``engine.recording()``, phase 2's
+   headline ``ffa_search`` (K1, D = 1), phase 5's D = 32 survey batch
+   through ``queue_search_batch`` then ``collect_search_batch`` under
+   run (b)'s flags (K1 and K3) and phase 11a's ``run_search_sharded`` on
+   ``default_mesh()`` (K2), on those phases' series, batch and plan.
+   Each sync is mapped to its innermost ``riptide_tpu_torch`` frame and
+   that frame's function; every sync in a function of RIP001's hot set
+   (``analysis/lint/host_sync.py``) or one RIP011 reaches from its roots
+   must sit on a line that the baseline or a pragma covers. The sync
+   sites are printed with their counts, the outputs must be those
+   phases' (the same S/N bits, the same peaks), the mode is reset in a
+   ``finally``, and the phase's K1, K2 and K3 launch counts (each set to
+   0 just before its run and read just after) go into their ``kernels``
+   entries as ``witness_launches``.
 
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
@@ -262,6 +281,7 @@ exits non-zero before printing any result. Imports nothing of jax and
 nothing of the JAX package.
 """
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -741,7 +761,8 @@ def phase_headline(dev, plan, cfg=HEADLINE, period=PULSAR["period"],
                          kernel_outs(rec, "fused_stage"),
                          plain_launches(rec, "fused_stage"))
     prep_both(plan, tsn.data[None], "headline D = 1")
-    return launches, rec, err, tsn.data, seg_s
+    p2 = dict(ts=ts, kw=kw, snrs=pgram.snrs)
+    return launches, rec, err, tsn.data, seg_s, p2
 
 
 def check_levels(name, sources):
@@ -2591,6 +2612,8 @@ def phase_sharded(dev, plan, p5, cfg=HEADLINE):
               flush=True)
         if k == 0:
             timing = k2_timing(dev, plan, rec, k2)
+            # Phase 13's sync witness repeats this run.
+            p5["sharded_peaks"] = got
         del rec, k2
     return total, err, timing
 
@@ -3171,6 +3194,232 @@ def phase_prove(dev, plan, p4, p5, p7, cfg=HEADLINE):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the static rules against the card
+# ---------------------------------------------------------------------------
+
+SYNC_WARNING = "synchronizing CUDA operation"
+SYNC_RULES = ("RIP001", "RIP011")
+
+
+def cube_digest(t):
+    """sha256 of a tensor's bytes on the host."""
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def phase_lint():
+    """Phase 13 (a): the port's riplint, by path, in a subprocess."""
+    import re
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.join("riptide_tpu_torch", "apps",
+                                      "riplint.py"), "--no-cache"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    tail = (out.stdout + out.stderr).strip()
+    check(out.returncode == 0, f"riplint exited {out.returncode}:\n{tail}")
+    m = re.search(r"riplint OK: (\d+) analyzers over (\d+) modules, 0 new "
+                  r"findings \((\d+) baselined\)", out.stderr)
+    check(m is not None, f"riplint's summary line is missing:\n{tail}")
+    print(f"  riplint: {m.group(1)} analyzers over {m.group(2)} modules, 0 "
+          f"new findings, {m.group(3)} baselined; {secs:.2f} s wall, exit 0",
+          flush=True)
+
+
+class SyncWitness:
+    """``torch.cuda.set_sync_debug_mode("warn")`` for the block, every
+    warning shown: the Python stack of each sync the card reports is kept
+    in ``stacks`` (other warnings go to the usual handler). The mode is
+    reset on the way out, whatever happens."""
+
+    def __init__(self):
+        self.stacks = []
+
+    def _hook(self, message, category, filename, lineno, file=None,
+              line=None):
+        import traceback
+
+        if SYNC_WARNING in str(message):
+            self.stacks.append(traceback.extract_stack())
+        else:
+            self._show(message, category, filename, lineno, file, line)
+
+    def __enter__(self):
+        import warnings
+
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        self._show = warnings.showwarning
+        warnings.showwarning = self._hook
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            torch.cuda.set_sync_debug_mode("default")
+        finally:
+            self._catch.__exit__(*exc)
+        return False
+
+
+class SyncScope:
+    """The rules' view of the port for the witness: RIP001's hot set,
+    the functions RIP011 reaches from its roots, the baseline and the
+    pragmas, from the lint package loaded by path."""
+
+    def __init__(self, repo):
+        import re
+
+        from riptide_tpu_torch.apps import riplint as rl
+
+        lint = rl.load_lint()
+        hs = sys.modules[f"{lint.__name__}.host_sync"]
+        ih = sys.modules[f"{lint.__name__}.interp_host_sync"]
+        core = sys.modules[f"{lint.__name__}.core"]
+        self.repo = repo
+        self.contexts = {c.relpath: c for c in lint.collect_contexts(repo)}
+        project = lint.ProjectContext(repo, list(self.contexts.values()))
+        self.hot = {f"{rel}::{q}" for rel, qs in hs.HOT_FUNCTIONS.items()
+                    for q in qs}
+        self.reached = set(ih._reachable(project, ih.ROOTS))
+        self.baseline = [e for e in lint.Baseline.load(
+            rl.DEFAULT_BASELINE).entries if e["rule"] in SYNC_RULES]
+        self.near = core.BASELINE_NEARBY_LINES
+        self.pragma = re.compile(r"#\s*riplint:\s*disable=([A-Za-z0-9_,\s]*)")
+        self.spans = {rel: sorted(
+            ((fn.lineno, fn.end_lineno, q) for q, fn in
+             core.walk_functions(c.tree)), key=lambda x: -x[0])
+            for rel, c in self.contexts.items()}
+
+    def site(self, stack):
+        """(relpath, line, function qual) of the innermost frame of the
+        port in ``stack``, or None."""
+        pkg = os.path.join(self.repo, "riptide_tpu_torch") + os.sep
+        for fr in reversed(stack):
+            path = os.path.abspath(fr.filename)
+            if path.startswith(pkg):
+                rel = os.path.relpath(path, self.repo).replace(os.sep, "/")
+                qual = next((q for a, b, q in self.spans.get(rel, ())
+                             if a <= fr.lineno <= b), "<module>")
+                return rel, fr.lineno, qual
+        return None
+
+    def scope(self, rel, qual):
+        fqn = f"{rel}::{qual}"
+        return ("RIP001 hot" if fqn in self.hot else
+                "RIP011 reached" if fqn in self.reached else "")
+
+    def covered(self, rel, line):
+        """"baseline" or "pragma" when the line is covered, else ""."""
+        ctx = self.contexts[rel]
+        text = ctx.line_text(line).strip()
+        m = self.pragma.search(ctx.line_text(line))
+        if m and ({r.strip() for r in m.group(1).split(",")}
+                  & (set(SYNC_RULES) | {"all"})):
+            return "pragma"
+        for e in self.baseline:
+            if e["path"] != rel:
+                continue
+            et = e["line_text"].strip()
+            if et == text or (et and text and (et in text or text in et)
+                              and any(ctx.line_text(n).strip() == et
+                                      for n in range(line - self.near,
+                                                     line + self.near + 1))):
+                return "baseline"
+        return ""
+
+
+def phase_witness(dev, plan, p2, p5, cfg=HEADLINE):
+    """Phase 13 (b): phases 2, 5 (run (b)'s flags) and 11a's default-mesh
+    run again under the sync debug mode; every sync inside the rules'
+    scope must be covered. Returns the K1, K2 and K3 launches of the
+    phase."""
+    from riptide_tpu_torch import ffa_search
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.parallel import default_mesh, run_search_sharded
+    from riptide_tpu_torch.search import engine
+
+    scope = SyncScope(os.path.dirname(os.path.abspath(__file__)))
+    tobs = cfg["nsamp"] * cfg["tsamp"]
+    batch = p5["batch"]
+    D = batch.shape[0]
+    counts = dict.fromkeys(fk.LAUNCHES, 0)
+    runs = []
+    check(engine._RECORD is None, "phase 13 must run outside a recording")
+    with SyncWitness() as w:
+        n0 = len(w.stacks)
+        fk.reset_launches()
+        _, pgram = ffa_search(p2["ts"], **p2["kw"])
+        torch.cuda.synchronize(dev)
+        launches = dict(fk.LAUNCHES)
+        runs.append(("phase 2 ffa_search", launches, len(w.stacks) - n0))
+        with layout_flags(LAYOUTS[1][1]):
+            n0 = len(w.stacks)
+            fk.reset_launches()
+            handle = engine.queue_search_batch(plan, batch, tobs, device=dev)
+            snr = engine.search_snr_dev(handle)
+            peaks, _ = engine.collect_search_batch(handle, np.zeros(D))
+            torch.cuda.synchronize(dev)
+            runs.append(("phase 5 survey batch, run (b)", dict(fk.LAUNCHES),
+                         len(w.stacks) - n0))
+        n0 = len(w.stacks)
+        fk.reset_launches()
+        got = run_search_sharded(plan, batch, tobs, dms=np.zeros(D),
+                                 mesh=default_mesh())[0]
+        torch.cuda.synchronize(dev)
+        runs.append(("phase 11a default mesh", dict(fk.LAUNCHES),
+                     len(w.stacks) - n0))
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "the sync debug mode was not reset")
+    for name, launches, nsync in runs:
+        for k, v in launches.items():
+            counts[k] += v
+        print(f"  {name}: launches {launches}, {nsync} syncs reported",
+              flush=True)
+    # The outputs are the earlier phases' (the debug mode only watches).
+    check(np.array_equal(pgram.snrs, p2["snrs"]),
+          "phase 13: the headline S/N differs from phase 2's")
+    check(cube_digest(snr) == p5["snr_digest"],
+          "phase 13: the survey S/N cube differs from phase 5's")
+    check(peaks == p5["peaks"], "phase 13: the survey peaks differ from "
+          "phase 5's")
+    check(got == p5["sharded_peaks"], "phase 13: the sharded peaks differ "
+          "from phase 11a's")
+    del snr, handle
+    check(counts["fused_stage"] > 0 and counts["paired_stage"] > 0
+          and counts["cascade_stage"] > 0,
+          f"phase 13 launched {counts}: K1, K2 and K3 must each run")
+    sites, outside = {}, 0
+    for stack in w.stacks:
+        at = scope.site(stack)
+        if at is None:
+            outside += 1
+            continue
+        sites[at] = sites.get(at, 0) + 1
+    bad = []
+    print(f"  {len(w.stacks)} syncs in all, {outside} with no frame of the "
+          f"port; {len(sites)} sites:", flush=True)
+    print(f"    {'count':>5}  {'site':<46} {'function':<34} {'scope':<15} "
+          "covered by", flush=True)
+    for (rel, line, qual), n in sorted(sites.items(),
+                                       key=lambda kv: (-kv[1], kv[0])):
+        where = scope.scope(rel, qual)
+        cov = scope.covered(rel, line) if where else ""
+        short = rel.replace("riptide_tpu_torch/", "")
+        print(f"    {n:5d}  {short + ':' + str(line):<46} {qual:<34} "
+              f"{where or '-':<15} {cov or '-'}", flush=True)
+        if where and not cov:
+            bad.append(f"{rel}:{line} ({qual}, {where})")
+    check(not bad, "syncs the rules' scope holds but no baseline entry or "
+          "pragma covers: " + "; ".join(bad))
+    print("  outputs: the headline S/N phase 2's bits, the survey cube phase "
+          "5's bits and its peaks, the sharded peaks phase 11a's", flush=True)
+    return counts
+
+
 def main(argv=None):
     import argparse
 
@@ -3224,7 +3473,7 @@ def main(argv=None):
     print("phase 1: parity oracle", flush=True)
     *oracle, k2_launches = phase_oracle(dev)
     print("phase 2: headline ffa_search (main path)", flush=True)
-    launches, rec, err1, data, _ = phase_headline(dev, plan)
+    launches, rec, err1, data, _, p2 = phase_headline(dev, plan)
     print("phase 3: K1 and K2 on their paths' launches", flush=True)
     err2, times = phase_kernels(dev, plan, rec, oracle)
     del rec, oracle
@@ -3282,7 +3531,9 @@ def main(argv=None):
                                                              tmp)
         print(f"  phase 11: {time.perf_counter() - t11:.1f} s wall",
               flush=True)
-        # Phase 11 was the last to read phase 5's cube on the card.
+        # Phase 11 was the last to read phase 5's cube on the card; phase
+        # 13 holds its repeat to the cube's digest.
+        p5["snr_digest"] = cube_digest(p5["snr"])
         p5["snr"] = None
         print("phase 12: the launch contracts and the peak-memory model "
               "(the card's launches against the CPU walk, the model against "
@@ -3294,6 +3545,13 @@ def main(argv=None):
               flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 13: the static rules against the card (riplint on the "
+          "card's machine; the sync witness over phases 2, 5 and 11a)",
+          flush=True)
+    t13 = time.perf_counter()
+    phase_lint()
+    witness = phase_witness(dev, plan, p2, p5)
+    print(f"  phase 13: {time.perf_counter() - t13:.1f} s wall", flush=True)
     if args.profile:
         print("profile: headline run_periodogram", flush=True)
         profile_search(plan, data, dev, args.profile)
@@ -3328,6 +3586,10 @@ def main(argv=None):
     # its time over the default mesh's launches.
     entries[0]["multihost_launches"] = k1_multi
     ms, pms, bms, by = sh_times
+    # The launches of phase 13's sync witness.
+    for entry, fn in zip(entries, ("fused_stage", "cascade_stage",
+                                   "paired_stage")):
+        entry["witness_launches"] = witness[fn]
     entries[1].update(sharded_launches=k2_sharded, sharded_ms=ms,
                       sharded_plain_ms=pms, sharded_bound_ms=bms,
                       sharded_bound_by=by, sharded_max_abs_err=err_sh)

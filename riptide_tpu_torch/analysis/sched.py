@@ -626,8 +626,9 @@ def _build_fairshare(repo, sched, mutation):
             try:
                 for cid in range(2):
                     # The model DRIVES the raw protocol so the explorer
-                    # can catch a missed end.
-                    gate.begin(cid)
+                    # can catch a missed end — the pairing rule is for
+                    # production code.
+                    gate.begin(cid)  # riplint: disable=RIP014
                     if state["turn"] is not None:
                         _violate(
                             "gate-mutual-exclusion",
@@ -708,7 +709,7 @@ def _build_staging(repo, sched, mutation):
             for cid in cids:
                 # Raw acquire on purpose: the release-after-journal
                 # discipline under test IS the pairing.
-                buf = pool.acquire((4, 8), "float32")
+                buf = pool.acquire((4, 8), "float32")  # riplint: disable=RIP014
                 if id(buf) in held:
                     _violate(
                         "staging-no-double-release",
@@ -935,7 +936,8 @@ def _build_devicelost(repo, sched, mutation):
             gate = gates[jid]
             try:
                 for cid in range(2):
-                    gate.begin(cid)
+                    # The raw protocol again, as in the fairshare model.
+                    gate.begin(cid)  # riplint: disable=RIP014
                     if state["lost"]:
                         _violate(
                             "device-lost-parks",

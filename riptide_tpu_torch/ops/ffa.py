@@ -38,7 +38,7 @@ def _level_step(buf, h, t, shift, p):
     """
     B, R, P = buf.shape[-3:]
     dev = buf.device
-    bidx = torch.arange(B, device=dev)[:, None]
+    bidx = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
     head = buf[..., bidx, h.long(), :]
     tail = buf[..., bidx, t.long(), :]
     cols = torch.arange(P, dtype=torch.int64, device=dev)
@@ -83,7 +83,7 @@ def ffa_transform_padded(data, m, p):
         torch.from_numpy(plan.h[:, None, :]).to(dev),
         torch.from_numpy(plan.t[:, None, :]).to(dev),
         torch.from_numpy(plan.shift[:, None, :]).to(dev),
-        torch.tensor([p], device=dev),
+        torch.tensor([p], dtype=torch.int64, device=dev),
     )
     return out[0, :m, :]
 

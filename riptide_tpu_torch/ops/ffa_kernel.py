@@ -373,7 +373,8 @@ def _snr_plain(x, tables, coefs):
         return out
     gout = snr_batched(x, tables.p, widths, coefs.ghcoef, coefs.gbcoef,
                        coefs.gstdnoise)
-    rows = torch.arange(coefs.rows, device=x.device)[None, :]
+    rows = torch.arange(coefs.rows, dtype=torch.int64,
+                        device=x.device)[None, :]
     gb = tables.gbase.to(torch.int64)[:, None]
     guest = (gb >= 0) & (rows >= gb)
     return torch.where(guest[..., None], gout, out)
@@ -416,7 +417,8 @@ def decode_pack_paired_plain(wire, scales, geom, guest_geom, tables, R):
     host = decode_pack_plain(wire, scales, geom, tables, R)
     guest = _pack(_decode(wire, scales, guest_geom), tables.p, tables.gm, R,
                   tables.P, row0=tables.gbase.clamp_min(0))
-    rows = torch.arange(R, device=host.device)[None, :, None]
+    rows = torch.arange(R, dtype=torch.int64,
+                        device=host.device)[None, :, None]
     gb = tables.gbase.to(torch.int64)[:, None, None]
     gm = tables.gm.to(torch.int64)[:, None, None]
     in_guest = (gb >= 0) & (rows >= gb) & (rows < gb + gm)
@@ -455,7 +457,7 @@ def _tile_levels_plain(x, tables):
         return out
     b, r0, n = live[:, 0], live[:, 1], live[:, 2]
     T = int(n.max())
-    i = torch.arange(T, device=dev)
+    i = torch.arange(T, dtype=torch.int64, device=dev)
     inside = i[None, :] < n[:, None]
     rows = torch.where(inside, r0[:, None] + i[None, :], R - 1)
     blk = x[..., b[:, None], rows, :]
@@ -474,7 +476,7 @@ def _tile_levels_plain(x, tables):
         tab = [x_.to(dev, torch.int64)[b[:, None], rows] for x_ in tab]
         shift = torch.cat([tab[2], torch.zeros_like(Z)], dim=1)
         blk = _level_step(blk, local(tab[0]), local(tab[1]), shift, p)
-    cols = torch.arange(P, device=dev)
+    cols = torch.arange(P, dtype=torch.int64, device=dev)
     blk = torch.where(cols < p[:, None, None], blk[..., :T, :], 0.0)
     bi = b[:, None].expand(-1, T)[inside]
     out[..., bi, rows[inside], :] = blk[..., inside, :]

@@ -22,8 +22,9 @@ def running_median_torch(x, width):
     """
     n = x.shape[0]
     half = width // 2
-    idx = (torch.arange(n, device=x.device)[:, None]
-           + torch.arange(width, device=x.device)[None, :] - half).clamp(0, n - 1)
+    idx = (torch.arange(n, dtype=torch.int64, device=x.device)[:, None]
+           + torch.arange(width, dtype=torch.int64, device=x.device)[None, :]
+           - half).clamp(0, n - 1)
     return x[idx].median(dim=-1).values
 
 

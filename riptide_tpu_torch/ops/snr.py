@@ -68,6 +68,7 @@ def snr_batched(tbuf, p, widths, hcoef, bcoef, stdnoise):
     Returns (..., B, R, NW) float32. Rows >= rows_eval are garbage to be
     discarded by the caller.
     """
+    quality.check_finite_array(tbuf, where="ops.snr.snr_batched")
     P = tbuf.shape[-1]
     cs = torch.cumsum(tbuf, dim=-1, dtype=torch.float32)
     total = cs[..., -1:]
@@ -110,7 +111,8 @@ def boxcar_snr(data, widths, stdnoise=1.0, eff_frac=1.0, device=None):
     flat = torch.from_numpy(data.reshape(1, -1, nbins)).to(dev)
     nw = widths.size
     snr = snr_batched(
-        flat, torch.tensor([nbins], device=dev), tuple(int(w) for w in widths),
+        flat, torch.tensor([nbins], dtype=torch.int64, device=dev),
+        tuple(int(w) for w in widths),
         torch.from_numpy(h.astype(np.float32)[None]).to(dev),
         torch.from_numpy(b.astype(np.float32)[None]).to(dev),
         torch.ones(1, dtype=torch.float32, device=dev),

@@ -872,7 +872,18 @@ def queued_launches(plan, mode=None):
 # ---------------------------------------------------------------------------
 
 # The dict that searches fill while a :func:`recording` block is open.
+# Only recording() writes it; a walk (walk_search) hides it from its own
+# thread alone, through _recorder().
 _RECORD = None
+
+
+def _recorder():
+    """The open recording's dict, or None: outside :func:`recording`,
+    and on a thread that runs :func:`walk_search` (its searches are the
+    walk's, not the recording's; other threads keep recording)."""
+    if getattr(_WALK, "tally", None) is not None:
+        return None
+    return _RECORD
 
 
 def _launch(kind, fn, args, **where):
@@ -884,7 +895,7 @@ def _launch(kind, fn, args, **where):
     tally = getattr(_WALK, "tally", None)
     if tally is not None:
         return tally.launch(kind, fn, args, where)
-    rec = _RECORD
+    rec = _recorder()
     kept = args
     if rec is not None and kind == "cascade_stage":
         kept = (args[0].clone(),) + args[1:]
@@ -1048,7 +1059,7 @@ class _Split:
     """Marks the parts of a recorded search (no-op when not recording)."""
 
     def __init__(self, dev):
-        self.rec = _RECORD
+        self.rec = _recorder()
         self.dev = dev
         self.t = time.perf_counter()
 
@@ -1195,8 +1206,9 @@ def collect_search_batch(handle, dms):
     # the one result pull (inside collect_peaks) and the host tail.
     with get_metrics().timer("device_s"), span("device"):
         out = collect_peaks(pp, peaks_handle, dms)
-    if _RECORD is not None:
-        _RECORD["collect_s"] = time.perf_counter() - t0
+    rec = _recorder()
+    if rec is not None:
+        rec["collect_s"] = time.perf_counter() - t0
     release_prepared(*staged)
     return out
 
@@ -1471,7 +1483,6 @@ def walk_search(plan, D, mode=None, tobs=None, data=None, survey=True):
     from ..ops import ffa_kernel
     from .peaks_device import PeakPlan, device_cluster_enabled
 
-    global _RECORD
     mode = mode or _wire_mode()
     tobs = float(tobs if tobs is not None else plan.size * plan.tsamp)
     pp = (PeakPlan(plan, tobs, device_cluster=device_cluster_enabled())
@@ -1483,10 +1494,10 @@ def walk_search(plan, D, mode=None, tobs=None, data=None, survey=True):
         dev, D = torch.device("cpu"), len(data)
         flat, meta = _prepare_stage_data(plan, data, mode, None)
     # One walk at a time: the operand caches of the meta device are the
-    # plan's, and the walk suspends the (process-wide) recording.
+    # plan's. While the walk's tally is set, this thread's searches
+    # record nothing (_recorder); a recording on another thread goes on.
     with _WALK_LOCK, ffa_kernel.shape_only() as shape:
         drop_device_operands(plan, dev)
-        prev, _RECORD = _RECORD, None
         tally = _Tally(dev, shape)
         shape.address = tally.address
         _WALK.tally = tally
@@ -1515,6 +1526,5 @@ def walk_search(plan, D, mode=None, tobs=None, data=None, survey=True):
             del snr, pulled
         finally:
             _WALK.tally = None
-            _RECORD = prev
             drop_device_operands(plan, dev)
     return out

@@ -400,7 +400,8 @@ class PeakPlan:
         phase = err_b * lo * self.tobs / ducy_fast.clamp_min(1e-30)
         snr_d = torch.abs(rval - sF / torch.sqrt(pq))
         others = (valid
-                  & (torch.arange(R, device=dev)[None, :] != top[:, None])
+                  & (torch.arange(R, dtype=torch.int64, device=dev)[None, :]
+                     != top[:, None])
                   & valid.any(-1)[:, None])
         related = others & (phase <= _H_PHASE_MAX) & (snr_d <= _H_SNR_MAX)
         return related.sum(-1).to(torch.float32)
@@ -605,7 +606,7 @@ def queue_find_peaks(peak_plan, snr_dev):
     """Queue the device peak program on the (D, n_trials, NW) S/N cube
     (a tensor, or an array it is made from); returns a handle for
     :func:`collect_peaks` without syncing."""
-    snr_dev = torch.as_tensor(snr_dev)
+    snr_dev = torch.as_tensor(snr_dev, dtype=torch.float32)
     if peak_plan.device_cluster:
         get_metrics().add("dispatch_cluster", 1)
     # A mutable handle: collect_peaks drops the entries to release the

@@ -978,110 +978,104 @@ class SurveyScheduler:
 
     def _gated_chunk(self, cid, tslist, wire, prep_s, peaks_by_chunk):
         """Dispatch, record and publish one staged chunk inside its
-        device turn (the chunk gate's ``end`` runs once its results are
-        on the host and journaled, however the chunk ends)."""
-        try:
-            if self.integrity is not None \
-                    and self.integrity.quarantined:
-                # The quarantine latch: once a device is marked
-                # suspect, no further chunk may trust it — park
-                # everything remaining (a later resume on a
-                # healthy process re-dispatches them).
-                self._park(cid, "integrity quarantine: device "
-                                "marked suspect")
-                self._fleet_safe()
-                self._alerts_safe()
-                return
-            if self.breaker is not None \
-                    and not self.breaker.allow():
-                self._park(cid, f"circuit {self.breaker.state}")
-                self._fleet_safe()
-                self._alerts_safe()
-                return
-            self._in_flight = cid
-            t0 = time.perf_counter()
-            de0 = self.metrics.counter("device_errors")
-            # The digest was taken at staging; the corrupt fault
-            # fires here, on the host wire, before any copy of
-            # it is queued.
-            self.faults.corrupt_wire(cid, wire.items)
-            try:
-                # One span per dispatched chunk: its ship, queue
-                # and collect spans (and any retries and shadow
-                # probes) nest under it on this thread.
-                with span("chunk", chunk=cid):
-                    peaks, parts, attempts, rinfo = \
-                        self._dispatch_with_retry(cid, tslist, wire)
-            except StickyDeviceError:
-                # The CUDA context is dead for every run in this
-                # process: a gate that can tell its siblings parks them
-                # before this turn ends, so none starts on it.
-                lost = getattr(self.chunk_gate, "device_lost", None)
-                if lost is not None:
-                    lost(cid)
-                raise
-            except (KeyboardInterrupt, SystemExit, FaultAbort):
-                raise
-            except IntegrityQuarantineError as err:
-                # Three dispatches, three answers: the device is
-                # suspect. The latch parks every remaining chunk
-                # ("park"); under "fail" the run raises.
-                verdict = self.integrity.quarantine(
-                    cid, err.digests)
-                log.error(
-                    "chunk %d: device quarantined (golden canary "
-                    "verdict: %s): %s", cid, verdict, err)
-                if self.integrity.config.policy == "fail":
-                    raise
-                self._park(cid, f"integrity quarantine: {err}")
-                self._fleet_safe()
-                self._alerts_safe()
-                return
-            except Exception as err:
-                if is_device_error(err):
-                    # The retries (each of which found the CUDA
-                    # context working) did not clear it:
-                    # attribute the failure as a device_error
-                    # incident.
-                    incidents.emit("device_error", chunk_id=cid,
-                                   error=str(err))
-                if self.breaker is None:
-                    raise
-                # Breaker configured: a chunk that exhausted its
-                # retries parks instead of aborting the survey.
-                self.breaker.record_failure()
-                self._park(cid,
-                           f"dispatch failed after retries: {err}")
-                self._fleet_safe()
-                self._alerts_safe()
-                return
-            finally:
-                self._in_flight = None
-            if self.breaker is not None:
-                self.breaker.record_success()
-            chunk_s = time.perf_counter() - t0
-            self.metrics.observe("chunk_s", chunk_s)
-            self.metrics.add("chunks_done")
-            peaks_by_chunk[cid] = peaks
-            timing = chunk_timing(chunk_s, prep_s=prep_s, **parts)
-            self._run_timings.append(timing)
-            if self.journal is not None:
-                self._record(cid, tslist, wire, peaks, timing,
-                             attempts, rinfo, de0)
-            # Per-chunk fleet publication + live alert evaluation
-            # (both no-ops while their flags are off, both
-            # never-fatal): the measure→detect half of the loop.
+        device turn (the caller ends the turn once this returns or
+        raises: the results are on the host and journaled by then,
+        however the chunk ends)."""
+        if self.integrity is not None \
+                and self.integrity.quarantined:
+            # The quarantine latch: once a device is marked
+            # suspect, no further chunk may trust it — park
+            # everything remaining (a later resume on a
+            # healthy process re-dispatches them).
+            self._park(cid, "integrity quarantine: device "
+                            "marked suspect")
             self._fleet_safe()
             self._alerts_safe()
-            log.debug("chunk %d/%d done: %d peaks, %d attempt(s)",
-                      cid + 1, len(self.chunks), len(peaks),
-                      attempts)
+            return
+        if self.breaker is not None \
+                and not self.breaker.allow():
+            self._park(cid, f"circuit {self.breaker.state}")
+            self._fleet_safe()
+            self._alerts_safe()
+            return
+        self._in_flight = cid
+        t0 = time.perf_counter()
+        de0 = self.metrics.counter("device_errors")
+        # The digest was taken at staging; the corrupt fault
+        # fires here, on the host wire, before any copy of
+        # it is queued.
+        self.faults.corrupt_wire(cid, wire.items)
+        try:
+            # One span per dispatched chunk: its ship, queue
+            # and collect spans (and any retries and shadow
+            # probes) nest under it on this thread.
+            with span("chunk", chunk=cid):
+                peaks, parts, attempts, rinfo = \
+                    self._dispatch_with_retry(cid, tslist, wire)
+        except StickyDeviceError:
+            # The CUDA context is dead for every run in this
+            # process: a gate that can tell its siblings parks them
+            # before this turn ends, so none starts on it.
+            lost = getattr(self.chunk_gate, "device_lost", None)
+            if lost is not None:
+                lost(cid)
+            raise
+        except (KeyboardInterrupt, SystemExit, FaultAbort):
+            raise
+        except IntegrityQuarantineError as err:
+            # Three dispatches, three answers: the device is
+            # suspect. The latch parks every remaining chunk
+            # ("park"); under "fail" the run raises.
+            verdict = self.integrity.quarantine(
+                cid, err.digests)
+            log.error(
+                "chunk %d: device quarantined (golden canary "
+                "verdict: %s): %s", cid, verdict, err)
+            if self.integrity.config.policy == "fail":
+                raise
+            self._park(cid, f"integrity quarantine: {err}")
+            self._fleet_safe()
+            self._alerts_safe()
+            return
+        except Exception as err:
+            if is_device_error(err):
+                # The retries (each of which found the CUDA
+                # context working) did not clear it:
+                # attribute the failure as a device_error
+                # incident.
+                incidents.emit("device_error", chunk_id=cid,
+                               error=str(err))
+            if self.breaker is None:
+                raise
+            # Breaker configured: a chunk that exhausted its
+            # retries parks instead of aborting the survey.
+            self.breaker.record_failure()
+            self._park(cid,
+                       f"dispatch failed after retries: {err}")
+            self._fleet_safe()
+            self._alerts_safe()
+            return
         finally:
-            # The turn is over whether the chunk completed, parked, or
-            # failed: the gate measures begin->end to charge the
-            # tenant's device-seconds budget.
-            if self.chunk_gate is not None:
-                self.chunk_gate.end(cid)
+            self._in_flight = None
+        if self.breaker is not None:
+            self.breaker.record_success()
+        chunk_s = time.perf_counter() - t0
+        self.metrics.observe("chunk_s", chunk_s)
+        self.metrics.add("chunks_done")
+        peaks_by_chunk[cid] = peaks
+        timing = chunk_timing(chunk_s, prep_s=prep_s, **parts)
+        self._run_timings.append(timing)
+        if self.journal is not None:
+            self._record(cid, tslist, wire, peaks, timing,
+                         attempts, rinfo, de0)
+        # Per-chunk fleet publication + live alert evaluation
+        # (both no-ops while their flags are off, both
+        # never-fatal): the measure→detect half of the loop.
+        self._fleet_safe()
+        self._alerts_safe()
+        log.debug("chunk %d/%d done: %d peaks, %d attempt(s)",
+                  cid + 1, len(self.chunks), len(peaks),
+                  attempts)
 
     # -- main loop ----------------------------------------------------------
 
@@ -1248,8 +1242,16 @@ class SurveyScheduler:
                         # previous chunk's journal write — so the
                         # journal is always left resumable.
                         self.chunk_gate.begin(cid)
-                    self._gated_chunk(cid, tslist, wire, prep_s,
-                                      peaks_by_chunk)
+                    try:
+                        self._gated_chunk(cid, tslist, wire, prep_s,
+                                          peaks_by_chunk)
+                    finally:
+                        # The turn is over whether the chunk completed,
+                        # parked, or failed: the gate measures
+                        # begin->end to charge the tenant's
+                        # device-seconds budget.
+                        if self.chunk_gate is not None:
+                            self.chunk_gate.end(cid)
                 finally:
                     # Results recorded, the chunk parked or the run
                     # failing: the chunk's wire-prep buffers go back to

@@ -5,11 +5,17 @@ package's names, types and defaults (``riptide_tpu/utils/envflags.py``).
 Each flag is read through :func:`get` at call time, so a changed
 environment (a test's monkeypatch, a smoke run's three layouts) takes
 effect at the next search. Unset or empty means the default.
+
+This module imports the standard library alone: riplint's env-flag
+rule (RIP003, ``analysis/lint/env_flags.py``) loads it by file path,
+checks every ``RIPTIDE_*`` read of the port against :data:`FLAGS`, and
+fails when ``analysis/env_flags.md`` differs from
+:func:`render_markdown`.
 """
 import os
 from typing import NamedTuple
 
-__all__ = ["EnvFlag", "FLAGS", "get"]
+__all__ = ["EnvFlag", "FLAGS", "get", "render_markdown"]
 
 # Raw values read as False for "bool" flags; anything else non-empty is
 # True.
@@ -320,3 +326,39 @@ def get(name):
     if raw is None or raw == "":
         return flag.default
     return _parse(flag, raw)
+
+
+def render_markdown():
+    """The port's flag reference, ``riptide_tpu_torch/analysis/
+    env_flags.md``, generated from the registry (write it with ``python
+    -m riptide_tpu_torch.apps.riplint --write-env-docs``)."""
+    lines = [
+        "# Environment flags of the port",
+        "",
+        "Every `RIPTIDE_*` environment variable `riptide_tpu_torch` reads, "
+        "generated",
+        "from its registry `riptide_tpu_torch/utils/envflags.py` "
+        "(regenerate with",
+        "`python -m riptide_tpu_torch.apps.riplint --write-env-docs`). "
+        "The port",
+        "reads flags only through `envflags.get(...)`; riplint's RIP003 "
+        "rejects any",
+        "other read of a `RIPTIDE_*` name. Boolean flags read `0` / "
+        "`false` / `off`",
+        "/ `no` as False and any other non-empty value as True; unset or "
+        "empty",
+        "means the default.",
+        "",
+        "| Flag | Type | Default |",
+        "|------|------|---------|",
+    ]
+    for f in _ALL:
+        typ = f.type
+        if f.type == "choice":
+            typ = " \\| ".join(f"`{c}`" for c in f.choices)
+        default = "unset" if f.default is None else f"`{f.default}`"
+        lines.append(f"| `{f.name}` | {typ} | {default} |")
+    lines.append("")
+    for f in _ALL:
+        lines += [f"## `{f.name}`", "", f.help, ""]
+    return "\n".join(lines)

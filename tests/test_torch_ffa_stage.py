@@ -189,3 +189,18 @@ def test_cpu_wrappers_launch_nothing(stage_case):
     engine.run_periodogram_batch(plan, batch, device="cpu")
     assert fk.LAUNCHES == {"fused_stage": 0, "cascade_stage": 0,
                            "paired_stage": 0}
+
+
+def test_snr_batched_refuses_non_finite_host_input():
+    """Both packages' ``snr_batched`` route a host array through the
+    data-quality guard first: a NaN raises the same ValueError, naming
+    the entry point."""
+    x = np.zeros((2, 4, 8), np.float32)
+    x[0, 1, 2] = np.nan
+    p = np.full(2, 8, np.int32)
+    coef = np.ones((2, 2), np.float32)
+    std = np.ones(2, np.float32)
+    for fn in (ref_snr_batched, snr_batched):
+        with pytest.raises(ValueError, match=r"^ops\.snr\.snr_batched: input "
+                                             r"contains non-finite samples"):
+            fn(x, p, (1, 2), coef, coef, std)

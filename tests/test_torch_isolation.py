@@ -84,7 +84,20 @@ def test_survey_modules_are_covered():
                  "parallel.sharded", "parallel.seqffa",
                  "parallel.distributed", "parallel.multihost", "analysis",
                  "analysis.launch_contract", "analysis.sched",
-                 "analysis.sarif", "apps.rprove", "apps.ripsched"):
+                 "analysis.sarif", "apps.rprove", "apps.ripsched",
+                 "analysis.lint", "analysis.lint.core",
+                 "analysis.lint.host_sync", "analysis.lint.dtype_discipline",
+                 "analysis.lint.env_flags", "analysis.lint.lock_discipline",
+                 "analysis.lint.launch_layout",
+                 "analysis.lint.finite_guards",
+                 "analysis.lint.liveness_guards",
+                 "analysis.lint.obs_discipline", "analysis.lint.lock_order",
+                 "analysis.lint.record_schema",
+                 "analysis.lint.interp_host_sync",
+                 "analysis.lint.runctx_discipline",
+                 "analysis.lint.fsio_discipline",
+                 "analysis.lint.gate_pairing", "apps.riplint",
+                 "apps.analyze"):
         assert f"riptide_tpu_torch.{name}" in mods
 
 
@@ -94,6 +107,8 @@ def test_survey_modules_are_covered():
     ("rwatch", ("torch", "numpy", "jax", "jaxlib"), ["--help"]),
     ("rchaos", ("jax", "jaxlib"), ["--list"]),
     ("rserve", ("jax", "jaxlib"), ["--help"]),
+    ("riplint", ("torch", "numpy", "jax", "jaxlib"), ["--list-rules"]),
+    ("analyze", ("torch", "numpy", "jax", "jaxlib"), ["--help"]),
 ])
 def test_apps_run_by_path(app, blocked, args, tmp_path):
     """The apps run by path from any directory; the readers with neither
