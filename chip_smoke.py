@@ -81,7 +81,11 @@ of the checkout by default), then:
 5w. wide phases: three searches whose padded width P crosses 14,528 (the
    S/N kernel's 4-row shared memory), 29,056 (a segment tile's row
    pair) and 58,112 (one S/N row), each on the uint6 wire (K1) and the
-   float32 wire (K2), every launch held against its plain version;
+   float32 wire (K2), every launch held against its plain version, and
+   each search's K1 and K2 launches timed as phase 3 times the
+   headline's (device time from CUDA graph replays; plain; the bound
+   from the same counts); the ``kernels`` line gives them per search
+   under K1's and K2's ``wide``;
 6. the chip probes P1-P3 (``riptide_tpu_torch.probes``) through their
    entry points at the JAX tools' shapes: ``ptime.main(["all"])``,
    ``ptime2.main`` with all six bodies at NITER 20000 and
@@ -269,6 +273,16 @@ of the checkout by default), then:
    ``finally``, and the phase's K1, K2 and K3 launch counts (each set to
    0 just before its run and read just after) go into their ``kernels``
    entries as ``witness_launches``.
+14. the public surface the port shares with the reference: the
+   top-level ``downsample``, ``running_median``, ``fast_running_median``
+   and ``find_peaks`` on phase 2's series and periodogram (the exact
+   running median on its first 2^20 samples), each the submodule
+   function it re-exports, with its values; ``libffa.benchmark_ffa2``
+   at (1024, 256) and (8192, 256) beside the card's name and power
+   limit; ``search.engine.device_fingerprint()``, this card's; the
+   ``obs`` and ``survey`` namespaces' names (``obs.span``,
+   ``survey.SurveyScheduler``) their submodules' objects; the finite- and
+   liveness-guard shims clean on this checkout.
 
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
@@ -761,7 +775,7 @@ def phase_headline(dev, plan, cfg=HEADLINE, period=PULSAR["period"],
                          kernel_outs(rec, "fused_stage"),
                          plain_launches(rec, "fused_stage"))
     prep_both(plan, tsn.data[None], "headline D = 1")
-    p2 = dict(ts=ts, kw=kw, snrs=pgram.snrs)
+    p2 = dict(ts=ts, kw=kw, snrs=pgram.snrs, pgram=pgram)
     return launches, rec, err, tsn.data, seg_s, p2
 
 
@@ -1209,16 +1223,55 @@ def phase_files(dev, plan, ts, cfg=HEADLINE, period=PULSAR["period"]):
                       f"{name}: the pulsar was not recovered")
 
 
+def wide_timing(dev, plan, rec, kind):
+    """(device ms, plain ms, bound ms, bound by) of one pass of a
+    recorded wide search's ``kind`` launches on the operands each had:
+    device time from CUDA graph replays, as phase 3 times the
+    headline's, the bound from the same counts (K1: :func:`launch_bytes`
+    and :func:`trials_work`; K2: :func:`k2_work`)."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+
+    launches = [r for r in rec["launches"] if r["kind"] == kind]
+    args = [r["args"] for r in launches]
+    if kind == "fused_stage":
+        nw = len(plan.widths)
+        ops = sum(trials_work(_trials(plan, r), rec["wire"].shape[0], nw)
+                  for r in launches)
+        bound = measure.bound_ms(launch_bytes(launches, rec["meta"]["view"]),
+                                 ops)
+
+        def calls():
+            return [fk.fused_stage(*a) for a in args]
+    else:
+        bound = measure.bound_ms(*k2_work(launches, plan,
+                                          [a[0] for a in args]))
+        # cascade_stage uses its input as level scratch: the timed calls
+        # reuse one set of copies (the work does not depend on the
+        # values).
+        scratch = [(a[0].clone(),) + tuple(a[1:]) for a in args]
+
+        def calls():
+            return [fk.cascade_stage(*a) for a in scratch]
+    ms = measure.graph_ms(calls, dev, REPS)
+    pms = measure.median_ms(lambda: plain_launches(rec, kind), dev, reps=3)
+    return ms, pms, *bound
+
+
 def phase_wide(dev, wide=WIDE, widths=WIDE_WIDTHS):
     """Phase 5w: a search per ``wide`` entry whose padded width P crosses
     the entry's limit, on the uint6 wire (K1) and the float32 wire (K2),
     the counts set to 0 just before each search and read just after;
-    every launch held against its plain version. Seeded noise with a
-    pulse every 1.0005 * bins_max samples."""
+    every launch held against its plain version, and each search's K1
+    or K2 launches timed (:func:`wide_timing`). Seeded noise with a
+    pulse every 1.0005 * bins_max samples. Returns, per kernel, one
+    entry a search: its P, the limit it crosses, launches, device and
+    plain ms, bound and what bounds it, and the largest difference
+    from plain."""
     from riptide_tpu_torch.libffa import generate_signal
     from riptide_tpu_torch.ops import ffa_kernel as fk
     from riptide_tpu_torch.search import engine, periodogram_plan
 
+    out = {"fused_stage": [], "cascade_stage": []}
     for limit, nsamp, tsamp, bmin, bmax in wide:
         pmin = bmax * tsamp
         plan = periodogram_plan(nsamp, tsamp, widths, pmin, 1.001 * pmin,
@@ -1247,9 +1300,20 @@ def phase_wide(dev, wide=WIDE, widths=WIDE_WIDTHS):
                   f"CUDA launches {cuda}; S/N launch (rows, smem, scratch) "
                   f"{fk.snr_launch(plan.P)}, tile-local levels {locs}; best "
                   f"S/N {snrs.max():.3f}", flush=True)
-            compare_stages(f"{kind} at P = {plan.P}", kernel_outs(rec, kind),
-                           plain_launches(rec, kind))
+            err = compare_stages(f"{kind} at P = {plan.P}",
+                                 kernel_outs(rec, kind),
+                                 plain_launches(rec, kind))
+            ms, pms, bms, by = wide_timing(dev, plan, rec, kind)
+            print(f"  {kind} over the {launches[kind]} launches at P = "
+                  f"{plan.P}: {ms:.4f} ms device, from CUDA graph replays "
+                  f"(plain {pms:.4f} ms, bound {bms:.4f} ms by {by}, "
+                  f"{100 * bms / ms:.1f} % of it)", flush=True)
+            out[kind].append({"P": plan.P, "limit": limit,
+                              "launches": launches[kind], "ms": ms,
+                              "plain_ms": pms, "bound_ms": bms,
+                              "bound_by": by, "max_abs_err": err})
             del rec
+    return out
 
 
 def overlapped_survey(dev, plan, D, batch, want_peaks, wall, walls,
@@ -3420,6 +3484,93 @@ def phase_witness(dev, plan, p2, p5, cfg=HEADLINE):
     return counts
 
 
+# Phase 14: benchmark_ffa2's (rows, cols); the exact running median's
+# window and the samples of the headline series it runs on (its gather
+# holds width int64 indices a sample); the fast running median's window
+# (4 s of the headline's 64 us samples, the pipeline's de-reddening
+# width) and the downsampling factor.
+SURFACE_FFA2 = ((1024, 256), (8192, 256))
+SURFACE_RMED = (101, 2 ** 20)
+SURFACE_FAST_RMED = 62501
+SURFACE_FACTOR = 3.7
+
+
+def phase_surface(dev, card, data, pgram):
+    """Phase 14: the public surface the port shares with the reference.
+    The four top-level functions on the headline series (``data``, phase
+    2's normalised series; ``pgram``, its periodogram), each the
+    submodule function it re-exports and giving its bits;
+    ``libffa.benchmark_ffa2`` on the card; ``device_fingerprint()``; the
+    ``obs`` and ``survey`` namespaces' names; the finite- and
+    liveness-guard shims on this checkout."""
+    import riptide_tpu_torch as rt
+    from riptide_tpu_torch import libffa, obs, peak_detection, running_medians
+    from riptide_tpu_torch import survey
+    from riptide_tpu_torch.analysis.lint import finite_guards, liveness_guards
+    from riptide_tpu_torch.obs import trace
+    from riptide_tpu_torch.search import engine
+    from riptide_tpu_torch.survey import metrics, scheduler
+
+    for top, sub, name in (
+            (rt.downsample, libffa.downsample, "downsample"),
+            (rt.running_median, running_medians.running_median,
+             "running_median"),
+            (rt.fast_running_median, running_medians.fast_running_median,
+             "fast_running_median"),
+            (rt.find_peaks, peak_detection.find_peaks, "find_peaks"),
+            (obs.span, trace.span, "obs.span"),
+            (survey.SurveyScheduler, scheduler.SurveyScheduler,
+             "survey.SurveyScheduler"),
+            (survey.get_metrics, metrics.get_metrics, "survey.get_metrics")):
+        check(top is sub, f"riptide_tpu_torch.{name} is not the submodule's")
+    width, n = SURFACE_RMED
+    calls = (
+        ("downsample", lambda f: f(data, SURFACE_FACTOR),
+         rt.downsample, libffa.downsample),
+        (f"running_median (width {width}, first {n} samples)",
+         lambda f: f(data[:n], width, device=dev),
+         rt.running_median, running_medians.running_median),
+        (f"fast_running_median (width {SURFACE_FAST_RMED})",
+         lambda f: f(data, SURFACE_FAST_RMED, device=dev),
+         rt.fast_running_median, running_medians.fast_running_median),
+        ("find_peaks", lambda f: f(pgram)[0],
+         rt.find_peaks, peak_detection.find_peaks))
+    for name, call, top, sub in calls:
+        t0 = time.perf_counter()
+        got = call(top)
+        wall = time.perf_counter() - t0
+        want = call(sub)
+        if name == "find_peaks":
+            same = [p.summary_dict() for p in got] == \
+                [p.summary_dict() for p in want]
+            check(same and got, "find_peaks: no peaks, or not the same")
+            what = f"{len(got)} peaks"
+        else:
+            check(np.isfinite(got).all() and np.array_equal(got, want),
+                  f"{name}: not the submodule function's values")
+            what = f"{got.size} {got.dtype} values"
+        print(f"  riptide_tpu_torch.{name}: {what}, the submodule's, "
+              f"{wall:.4f} s", flush=True)
+    for rows, cols in SURFACE_FFA2:
+        best = libffa.benchmark_ffa2(rows, cols, device=dev)
+        check(np.isfinite(best) and best > 0,
+              f"benchmark_ffa2({rows}, {cols}) gave {best}")
+        print(f"  benchmark_ffa2({rows}, {cols}): {best:.6f} s, the best of "
+              f"10 ({card})", flush=True)
+    fp = engine.device_fingerprint()
+    print(f"  device_fingerprint(): {fp}", flush=True)
+    check(fp == {"backend": "cuda",
+                 "device_kind": torch.cuda.get_device_name(0),
+                 "device_count": torch.cuda.device_count(),
+                 "process_count": 1}, "device_fingerprint: not this card")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    guards = finite_guards.check(repo) + liveness_guards.check(repo)
+    check(guards == [], f"guard shims: {guards}")
+    print(f"  obs: {len(obs.__all__)} names, survey: {len(survey.__all__)} "
+          "names, each its submodule's; the finite- and liveness-guard "
+          "shims clean", flush=True)
+
+
 def main(argv=None):
     import argparse
 
@@ -3486,7 +3637,7 @@ def main(argv=None):
           flush=True)
     phase_files(dev, plan, headline_series())
     print("phase 5w: wide phase widths through K1 and K2", flush=True)
-    phase_wide(dev)
+    wide = phase_wide(dev)
     print("phase 6: chip probes P1-P3 through their entry points",
           flush=True)
     t6 = time.perf_counter()
@@ -3552,6 +3703,12 @@ def main(argv=None):
     phase_lint()
     witness = phase_witness(dev, plan, p2, p5)
     print(f"  phase 13: {time.perf_counter() - t13:.1f} s wall", flush=True)
+    print("phase 14: the public surface (the top-level functions, "
+          "benchmark_ffa2, device_fingerprint, the obs and survey names)",
+          flush=True)
+    t14 = time.perf_counter()
+    phase_surface(dev, card, data, p2["pgram"])
+    print(f"  phase 14: {time.perf_counter() - t14:.1f} s wall", flush=True)
     if args.profile:
         print("profile: headline run_periodogram", flush=True)
         profile_search(plan, data, dev, args.profile)
@@ -3593,6 +3750,9 @@ def main(argv=None):
     entries[1].update(sharded_launches=k2_sharded, sharded_ms=ms,
                       sharded_plain_ms=pms, sharded_bound_ms=bms,
                       sharded_bound_by=by, sharded_max_abs_err=err_sh)
+    # Each wide-phase search's K1 and K2 launches, timed (phase 5w).
+    entries[0]["wide"] = wide["fused_stage"]
+    entries[1]["wide"] = wide["cascade_stage"]
     entries += probe_entries
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -24,15 +24,17 @@ The package imports neither jax nor ``riptide_tpu``.
 """
 from .candidate import Candidate
 from .ffautils import generate_width_trials
-from .libffa import boxcar_snr, ffa1, ffa2, ffafreq, ffaprd, generate_signal
+from .libffa import (boxcar_snr, downsample, ffa1, ffa2, ffafreq, ffaprd,
+                     generate_signal)
 from .metadata import Metadata
 from .periodogram import Periodogram
-from .peak_detection import Peak
+from .peak_detection import Peak, find_peaks
 from .quality import (DegradedInputWarning, DQConfig, MalformedFile,
                       QualityReport, QuarantinedSeries)
 from .search import (ffa_search, periodogram_plan, plan_arrays,
                      plan_from_arrays, run_periodogram, run_periodogram_batch,
                      run_search_batch)
+from .running_medians import fast_running_median, running_median
 from .serialization import load_json, save_json
 from .table import Table
 from .time_series import TimeSeries
@@ -51,6 +53,7 @@ __all__ = [
     "run_periodogram_batch",
     "run_search_batch",
     "Peak",
+    "find_peaks",
     "Candidate",
     "Table",
     "generate_width_trials",
@@ -60,6 +63,9 @@ __all__ = [
     "ffafreq",
     "ffaprd",
     "boxcar_snr",
+    "downsample",
+    "running_median",
+    "fast_running_median",
     "save_json",
     "load_json",
     "DegradedInputWarning",
@@ -68,3 +74,37 @@ __all__ = [
     "QualityReport",
     "QuarantinedSeries",
 ]
+
+
+def test():
+    """Run the port's tests in-process with pytest; returns pytest's exit
+    code. The suite is found by path: ``tests/`` beside the package in a
+    checkout, ``riptide_tpu/tests/`` in an installed tree (never imported:
+    that would import the JAX package). On a host with a CUDA card, or
+    without jax, only the card's ``test_torch_*_cuda.py`` files run,
+    without the suite's conftest (which imports jax): the JAX package
+    never runs beside the card. On a CPU host with jax, every
+    ``test_torch_*.py`` runs, each port module held against the JAX
+    package."""
+    import glob
+    import importlib.util
+    import os
+
+    import pytest
+    import torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for path in (os.path.join(root, "tests"),
+                 os.path.join(root, "riptide_tpu", "tests")):
+        if glob.glob(os.path.join(path, "test_torch_*.py")):
+            break
+    else:
+        raise RuntimeError("riptide_tpu_torch.test(): no test directory "
+                           "found")
+    if torch.cuda.is_available() or importlib.util.find_spec("jax") is None:
+        files = glob.glob(os.path.join(path, "test_torch_*_cuda.py"))
+        opts = ["--noconftest"]
+    else:
+        files = glob.glob(os.path.join(path, "test_torch_*.py"))
+        opts = []
+    return pytest.main(["-q", *opts, *sorted(files)])

@@ -10,10 +10,12 @@ each checked function must (directly, or through one local helper)
 invoke something from the quality module.
 """
 import ast
+import os
 
 from .core import Analyzer, Finding
 
-__all__ = ["FiniteGuardAnalyzer", "ENTRY_POINTS", "check_tree"]
+__all__ = ["FiniteGuardAnalyzer", "ENTRY_POINTS", "check_tree",
+           "check_module", "check"]
 
 # relpath (as stored, OS-independent forward slashes) -> required
 # guarded function/method names
@@ -101,6 +103,32 @@ def check_tree(tree, path, required):
             f"{name!r} does not route through the data-quality layer "
             "(riptide_tpu_torch.quality)",
         ))
+    return violations
+
+
+def check_module(path, required):
+    """The rule on one file as strings, the JAX package's shim: one
+    violation a line, ``path:lineno: message`` (``path: message`` for a
+    missing entry point)."""
+    with open(path) as fobj:
+        tree = ast.parse(fobj.read(), filename=path)
+    out = []
+    for lineno, msg in check_tree(tree, path, required):
+        if "not found" in msg:
+            out.append(f"{path}: {msg}")
+        else:
+            out.append(f"{path}:{lineno}: {msg}")
+    return out
+
+
+def check(repo):
+    """Every violation (strings) across :data:`ENTRY_POINTS` of the
+    port's tree under ``repo``; empty when the tree is clean."""
+    violations = []
+    for rel, required in ENTRY_POINTS.items():
+        violations.extend(
+            check_module(os.path.join(repo, *rel.split("/")), required)
+        )
     return violations
 
 

@@ -18,10 +18,12 @@ wrappers means they were refactored away and the lint has gone
 vacuous: also a failure.
 """
 import ast
+import os
 
 from .core import Analyzer, Finding
 
-__all__ = ["LivenessGuardAnalyzer", "ALLOWED", "COLLECTIVES"]
+__all__ = ["LivenessGuardAnalyzer", "ALLOWED", "COLLECTIVES", "check_file",
+           "check"]
 
 # relpath -> function names allowed to enter a collective
 ALLOWED = {
@@ -128,6 +130,39 @@ VACUOUS_MESSAGE = (
     "bounded_allgather/barrier_with_timeout refactored away? update "
     "the liveness-guard allowlist)"
 )
+
+
+def check_file(path, rel, allowed):
+    """The rule on one file as strings, the JAX package's shim:
+    ``(["rel:lineno: message", ...], collective uses inside the allowed
+    wrappers)``."""
+    with open(path) as fobj:
+        tree = ast.parse(fobj.read(), filename=path)
+    violations, wrapped = check_tree(tree, rel, allowed)
+    return [f"{rel}:{lineno}: {msg}" for lineno, msg in violations], wrapped
+
+
+def check(repo, allowed=None):
+    """Every violation (strings) across ``riptide_tpu_torch/`` under
+    ``repo``, the vacuous-lint message included; empty when the tree is
+    clean."""
+    allowed = ALLOWED if allowed is None else allowed
+    allowed = {k.replace(os.sep, "/"): v for k, v in allowed.items()}
+    package = os.path.join(repo, "riptide_tpu_torch")
+    violations, wrapped_total = [], 0
+    for dirpath, dirnames, filenames in os.walk(package):
+        dirnames[:] = sorted(d for d in dirnames if d != "__pycache__")
+        for fname in sorted(filenames):
+            if not fname.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fname)
+            rel = os.path.relpath(path, repo).replace(os.sep, "/")
+            found, wrapped = check_file(path, rel, allowed)
+            violations.extend(found)
+            wrapped_total += wrapped
+    if wrapped_total == 0:
+        violations.append(VACUOUS_MESSAGE)
+    return violations
 
 
 class LivenessGuardAnalyzer(Analyzer):

@@ -20,7 +20,45 @@ __all__ = [
     "downsample",
     "generate_signal",
     "generate_width_trials",
+    "benchmark_ffa2",
 ]
+
+
+def benchmark_ffa2(rows, cols, loops=10, device=None):
+    """
+    Best wall-clock seconds of one (rows, cols) FFA transform
+    (:func:`~riptide_tpu_torch.ops.ffa.ffa_transform_padded`) on
+    ``device`` (the card when None), over ``loops`` timed calls after
+    one warm-up, on a seeded float32 input; on a card each call is
+    bracketed by ``torch.cuda.synchronize()``. The counterpart of the
+    reference's ``libcpp.benchmark_ffa2``
+    (riptide/cpp/python_bindings.cpp:87-106).
+    """
+    import time
+
+    import torch
+
+    from .ops.ffa import ffa_transform_padded
+    from .utils.device import resolve_device
+
+    dev = resolve_device(device)
+    rows, cols = int(rows), int(cols)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (rows, cols)).astype(np.float32)).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    ffa_transform_padded(x, rows, cols)
+    best = float("inf")
+    for _ in range(int(loops)):
+        sync()
+        t0 = time.perf_counter()
+        ffa_transform_padded(x, rows, cols)
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def downsample(data, factor):

@@ -45,7 +45,7 @@ from ..utils.exec_cache import count_warmth
 from ..utils.limits import MAX_DYNAMIC_SMEM
 from .reference import _merge_mapping
 
-__all__ = ["ffa_plan", "FFAPlan", "FFABatchPlan", "num_levels",
+__all__ = ["ffa_plan", "FFAPlan", "FFABatchPlan", "batch_plans", "num_levels",
            "CONTRACT_PLANS", "contract_plan_params",
            "pair_bucket_bases", "SegmentPlan", "segment_plan"]
 
@@ -299,6 +299,11 @@ class FFABatchPlan:
                 seg = self._segments = segment_plan(self)
         count_warmth(fresh)
         return seg
+
+
+def batch_plans(ms, ps, R=None, P=None):
+    """Build an :class:`FFABatchPlan` for problems of shapes zip(ms, ps)."""
+    return FFABatchPlan(ms, ps, R=R, P=P)
 
 
 _SEGMENTS_LOCK = threading.Lock()

@@ -298,6 +298,10 @@ class BatchSearcher:
             metrics.set_gauge("queue_depth", 0)
         return peaks
 
+    def process_fname_list(self, fnames):
+        """Search one chunk of DM-trial files; returns a flat Peak list."""
+        return self.process_stream([fnames])
+
     def _plan_for(self, conf, nsamp, tsamp):
         kw = conf["ffa_search"]
         widths = generate_width_trials(

@@ -69,6 +69,7 @@ from ..ops.ffa_kernel import (MAX_DYNAMIC_SMEM, SNR_WARPS, WIRE_MODES, Coefs,
                               StageGeom, Tables, cascade_stage, fused_stage,
                               paired_stage)
 from ..obs.trace import span
+from ..survey.liveness import is_timeout_error  # noqa: F401 (re-exported)
 from ..survey.metrics import get_metrics
 from ..utils import envflags
 from ..utils.device import resolve_device
@@ -77,9 +78,30 @@ from ..utils.exec_cache import count_warmth
 __all__ = ["run_periodogram", "run_periodogram_batch", "run_search_batch",
            "queue_search_batch", "collect_search_batch", "search_snr_dev",
            "prepare_stage_data", "ship_stage_data", "release_prepared",
-           "StagingPool", "recording", "is_oom_error", "walk_search",
+           "StagingPool", "recording", "is_oom_error", "is_timeout_error",
+           "device_fingerprint", "walk_search",
            "wire_transfer_contract", "device_peak_bytes",
            "drop_device_operands"]
+
+def device_fingerprint(device=None):
+    """Identity of the device a search runs on (``device``, the card
+    when None), with the JAX package's keys: ``backend`` (the torch
+    device type), ``device_kind`` (the card's name; ``"cpu"`` on the
+    CPU), ``device_count`` (cards visible; 1 on the CPU) and
+    ``process_count`` (the ``torch.distributed`` world size, else 1).
+    Two perf points are comparable only under the same fingerprint."""
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    return {
+        "backend": dev.type,
+        "device_kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
+        "device_count": torch.cuda.device_count() if cuda else 1,
+        "process_count": (dist.get_world_size() if dist.is_available()
+                          and dist.is_initialized() else 1),
+    }
+
 
 # Substrings that mark device memory exhaustion in an exception message
 # (the JAX package's markers; the fault injector's simulated OOM carries

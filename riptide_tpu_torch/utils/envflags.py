@@ -317,12 +317,13 @@ def _parse(flag, raw):
     return raw
 
 
-def get(name):
-    """The parsed value of flag ``name`` from the environment now:
-    unset or empty gives the default. KeyError for a name that is not
-    a flag, ValueError for a value that does not parse."""
+def get(name, env=None):
+    """The parsed value of flag ``name`` from ``env`` (a mapping; the
+    environment now when None): unset or empty gives the default.
+    KeyError for a name that is not a flag, ValueError for a value that
+    does not parse."""
     flag = FLAGS[name]
-    raw = os.environ.get(name)
+    raw = (os.environ if env is None else env).get(name)
     if raw is None or raw == "":
         return flag.default
     return _parse(flag, raw)

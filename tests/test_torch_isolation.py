@@ -51,6 +51,30 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_public_names_import_without_jax():
+    """The reference's public names that the port re-exports, imported in
+    a fresh interpreter where ``import jax`` fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "from riptide_tpu_torch import (downsample, fast_running_median,\n"
+        "                               find_peaks, running_median, test)\n"
+        "from riptide_tpu_torch.obs import Tracer, build_report, span\n"
+        "from riptide_tpu_torch.survey import SurveyScheduler, get_metrics\n"
+        "from riptide_tpu_torch.obs import trace\n"
+        "from riptide_tpu_torch.survey import metrics, scheduler\n"
+        "assert span is trace.span and get_metrics is metrics.get_metrics\n"
+        "assert SurveyScheduler is scheduler.SurveyScheduler\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] == 'riptide_tpu'))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_sources_import_no_jax_or_reference():
     files = [os.path.join(REPO, n) for n in
              ("chip_smoke.py", "stage_times.py", "loader_streams.py")]
@@ -156,11 +180,14 @@ def test_kernel_source_ships_with_the_package():
 def test_entry_points_default_to_the_card(tmp_path):
     """``device=None`` means CUDA. Without a usable card every entry point
     raises instead of carrying on quietly on the CPU."""
-    from riptide_tpu_torch import TimeSeries, ffa_search
+    from riptide_tpu_torch import (TimeSeries, fast_running_median,
+                                   ffa_search, running_median)
+    from riptide_tpu_torch.libffa import benchmark_ffa2
     from riptide_tpu_torch.apps import rserve
     from riptide_tpu_torch.serve import ServeDaemon
     from riptide_tpu_torch.probes import probe1536, ptime, ptime2
     from riptide_tpu_torch.survey import integrity
+    from riptide_tpu_torch.search.engine import device_fingerprint
     from riptide_tpu_torch.search import (periodogram_plan, queue_search_batch,
                                           run_periodogram,
                                           run_periodogram_batch,
@@ -182,6 +209,10 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: queue_search_batch(plan, data[None], 2.5),
         lambda: ffa_search(ts, period_min=64e-3, period_max=0.072,
                            bins_min=64, bins_max=67),
+        lambda: running_median(data, 11),
+        lambda: fast_running_median(data, 101),
+        lambda: benchmark_ffa2(64, 32),
+        lambda: device_fingerprint(),
         lambda: ptime.main([]),
         lambda: ptime2.main([]),
         lambda: probe1536.main([]),

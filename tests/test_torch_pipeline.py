@@ -523,6 +523,17 @@ def test_injected_oom_bisects_to_the_same_peaks(small_files):
     assert got == want
 
 
+def test_process_fname_list_is_one_chunk_of_the_stream(small_files):
+    """``process_fname_list(fnames)`` searches the files as the one chunk
+    of ``process_stream([fnames])``: the same peaks."""
+    files = small_files[:2]
+    got = BatchSearcher(DERED, SMALL_CONF, io_threads=2,
+                        device="cpu").process_fname_list(files)
+    want = BatchSearcher(DERED, SMALL_CONF, io_threads=2,
+                         device="cpu").process_stream([files])
+    assert got and got == want
+
+
 def test_injected_oom_at_the_floor_raises(small_files):
     bs = BatchSearcher(DERED, SMALL_CONF, io_threads=2, batch_size=2,
                        device="cpu", faults=FaultPlan.parse("oom:0x9"),
