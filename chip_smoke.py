@@ -153,9 +153,10 @@ of the checkout by default), then:
    phase 8 go into its ``kernels`` entry as ``journal_launches``.
 9. the report and watch CLIs, the chaos campaign and the build cache:
    (a) ``obs.report.build_report`` over phase 8's probed journal (no
-   phase-sum violation, every chunk done, the integrity verdict ``ok``),
-   then ``apps/rreport.py``, ``rtop.py --once`` and ``rwatch.py --once``
-   run by path in fresh processes, each exiting 0; (b) the chaos
+   phase-sum violation, every chunk done, the integrity verdict ``ok``;
+   each chunk's ``chunk_s`` and the ``straggler_ratio`` printed), then
+   ``apps/rreport.py``, ``rtop.py --once`` and ``rwatch.py --once`` run
+   by path in fresh processes, each exiting 0; (b) the chaos
    campaign's 14 builtin schedules (``survey.chaos.run_campaign(...,
    device="cuda")``, 22 legs, each a fresh process on the card: kills
    mid-write and resumes, ENOSPC and fsync faults, a corrupted cache
@@ -283,6 +284,24 @@ of the checkout by default), then:
    ``obs`` and ``survey`` namespaces' names (``obs.span``,
    ``survey.SurveyScheduler``) their submodules' objects; the finite- and
    liveness-guard shims clean on this checkout.
+15. the benchmark entry points the JAX package defines (root
+   ``bench.py``, ``tools/stime.py``, ``etime.py``, ``warmtest.py``), each
+   run in a fresh process as a user runs it, at full shape, with
+   ``RIPTIDE_LEDGER`` pointed at a scratch ledger: ``python -m
+   riptide_tpu_torch.bench`` (the headline: warm-up, the S/N-parity gate,
+   best of up to 3 pipelined passes of 5 chunks of D = 32), ``--config 1``
+   ... ``--config 5``, ``apps.stime 32 4``, ``apps.etime 23 32 3`` and
+   ``apps.warmtest 32``. Each must exit 0 with a last line carrying the
+   JAX line's keys and metric (etime and warmtest: their lines' fields);
+   the headline ``passes`` >= 1, its gate's line on stderr (the uint6 top
+   S/N within 0.15 of the float32 reference, at P = 1.0 s), K1 and the
+   gate's K2 launched in that process, K1 in each config's. Its value,
+   ``vs_baseline`` and decomposition, and each run's figures, are
+   printed. In this process ``warm_stage_kernels(plan, 32)`` must return
+   the plan's distinct launch shapes (``engine.launch_shapes``, as
+   warmtest printed); the ``queue`` of a D = 32 headline search on phase
+   5's batch is printed cold (operands, peak plans and the allocator's
+   free blocks dropped), first after the warm-up and warm.
 
 ``--profile DIR`` adds one headline ``run_periodogram`` under
 ``torch.profiler``: device time by kernel and the device's busy share,
@@ -298,6 +317,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1866,6 +1886,12 @@ def phase_readers(jdir, nchunks):
           f"{rep['integrity']['device_verdict']}; mean chunk_s "
           f"{rep['run']['chunk_s']:.3f} s, device_s {rep['run']['device_s']:.3f}"
           f" s", flush=True)
+    state = report.JournalFollower(jdir).poll()
+    walls = [state["chunks"][cid]["timings"]["chunk_s"]
+             for cid in sorted(state["chunks"])]
+    print(f"  (a) chunk_s by chunk {walls} s, straggler_ratio "
+          f"{report.watch_snapshot(state)['straggler_ratio']} (rwatch's "
+          "alert limit 3.0)", flush=True)
     for app, args in (("rreport", [jdir]), ("rtop", [jdir, "--once"]),
                       ("rwatch", [jdir, "--once"])):
         t0 = time.perf_counter()
@@ -3571,6 +3597,228 @@ def phase_surface(dev, card, data, pgram):
           "shims clean", flush=True)
 
 
+# Phase 15: the JAX package's benchmark entry points, each run in a fresh
+# process as a user runs it, at full shape: (name, arguments after the
+# interpreter, seconds allowed). The headline takes one to three passes
+# (its budget), configuration 5 32 chunks.
+BENCH_RUNS = (
+    ("bench", ["-m", "riptide_tpu_torch.bench"], 600),
+    ("config 1", ["-m", "riptide_tpu_torch.bench", "--config", "1"], 300),
+    ("config 2", ["-m", "riptide_tpu_torch.bench", "--config", "2"], 300),
+    ("config 3", ["-m", "riptide_tpu_torch.bench", "--config", "3"], 300),
+    ("config 4", ["-m", "riptide_tpu_torch.bench", "--config", "4"], 300),
+    ("config 5", ["-m", "riptide_tpu_torch.bench", "--config", "5"], 600),
+    ("stime", ["-m", "riptide_tpu_torch.apps.stime", "32", "4"], 300),
+    ("etime", ["-m", "riptide_tpu_torch.apps.etime", "23", "32", "3"], 300),
+    ("warmtest", ["-m", "riptide_tpu_torch.apps.warmtest", "32"], 300),
+)
+# The JAX bench's metric of each run, and the keys of its line beyond the
+# decomposition (obs/schema.py::DECOMPOSITION_KEYS, which the headline,
+# configs 4 and 5 and stime add).
+BENCH_METRICS = {
+    "bench": ("dm_trials_per_sec_2p23_samples",
+              ("metric", "value", "unit", "vs_baseline", "passes",
+               "occupancy")),
+    "config 1": ("ffa_search_2p20_seconds",
+                 ("metric", "value", "unit", "vs_baseline")),
+    "config 2": ("rseek_sigproc_seconds",
+                 ("metric", "value", "unit", "vs_baseline")),
+    "config 3": ("width_sweep_2p22_seconds",
+                 ("metric", "value", "unit", "vs_baseline")),
+    "config 4": ("rffa_256trials_2p21_trials_per_sec",
+                 ("metric", "value", "unit", "vs_baseline", "total_seconds",
+                  "passes")),
+    "config 5": ("survey_1024trials_2p23_trials_per_sec",
+                 ("metric", "value", "unit", "vs_baseline", "total_seconds",
+                  "passes")),
+    "stime": ("stime_decomposition", ("metric", "trials_per_sec")),
+}
+ETIME_LINE = re.compile(
+    r"^N=2\^(\d+) D=(\d+): ([\d.]+) s/batch = ([\d.]+) DM-trials/s "
+    r"\(vs_baseline x0\.2511 = ([\d.]+)\)$")
+SNR_LINE = re.compile(r"^snr stats: ([\d.eE+-]+) \((\d+), (\d+), (\d+)\)$")
+WARM_LINE = re.compile(
+    r"^warmed (\d+) launch shapes \(parallel=(True|False)\) in ([\d.]+)s$")
+GATE_LINE = re.compile(
+    r"parity gate: (\d+) peaks, top S/N ([\d.]+) \(float32 reference "
+    r"([\d.]+)\) at P = ([\d.]+) s \(device == host; wire=(\w+)")
+LAUNCH_LINE = re.compile(r"^kernel launches: (\{.*\})$", re.M)
+
+
+def run_entry(name, argv, timeout, env):
+    """One entry point in a fresh process from this checkout: (stdout
+    lines, stderr, wall); fails unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], capture_output=True,
+                          text=True, timeout=timeout, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{name}: exit {proc.returncode}; stderr "
+          f"ends {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(lines, f"{name}: printed nothing")
+    return lines, proc.stderr, wall
+
+
+def entry_launches(name, err):
+    """The process's kernel launch counts, from the bench's stderr."""
+    m = LAUNCH_LINE.search(err)
+    check(m is not None, f"{name}: no kernel launch line on stderr")
+    return json.loads(m.group(1).replace("'", '"'))
+
+
+def check_bench_line(name, lines):
+    """The last line of a bench or stime run: JSON with the JAX line's
+    keys and metric, finite numbers."""
+    from riptide_tpu_torch.obs.schema import DECOMPOSITION_KEYS
+
+    line = json.loads(lines[-1])
+    metric, keys = BENCH_METRICS[name]
+    want = set(keys)
+    if name in ("bench", "config 4", "config 5", "stime"):
+        want |= set(DECOMPOSITION_KEYS)
+    got = set(line) if name != "stime" else {
+        k for k in line if not k.startswith("dispatch_")}
+    check(got == want, f"{name}: keys {sorted(got)}, want {sorted(want)}")
+    check(line["metric"] == metric, f"{name}: metric {line['metric']}")
+    value = line.get("value", line.get("trials_per_sec"))
+    check(np.isfinite(value) and value > 0, f"{name}: value {value}")
+    return line
+
+
+def phase_bench(dev, plan, p5, card, runs=BENCH_RUNS, D=32):
+    """Phase 15: the benchmark entry points the JAX package defines, run as
+    a user runs them, each in a fresh process (``BENCH_RUNS``), with
+    ``RIPTIDE_LEDGER`` pointed at a scratch ledger: every run must exit 0
+    with a last line carrying the JAX line's keys (the headline:
+    ``passes`` >= 1, its parity gate's line on stderr, K1 and the gate's
+    K2 launched; configs 1-5 their metric and K1 launched; stime its
+    decomposition block; etime its S/N line; warmtest the plan's distinct
+    launch shapes). In this process, ``warm_stage_kernels`` must return
+    ``len(engine.launch_shapes(plan, D))``; then the ``queue`` of a
+    headline survey search at D on phase 5's batch is timed three times,
+    each after the plan's operands, its peak plans and the allocator's
+    free blocks were dropped, or not: with no warm-up, first after
+    ``warm_stage_kernels``, and warm (a figure to record; the peaks must
+    agree). Returns the headline's line."""
+    import shutil
+    import tempfile
+
+    from riptide_tpu_torch import bench
+    from riptide_tpu_torch.search import engine
+    from riptide_tpu_torch.utils.cuda_build import BUILD_DIR
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    env = dict(os.environ, RIPTIDE_LEDGER=os.path.join(tmp, "ledger.jsonl"))
+    out = {}
+    try:
+        for name, argv, timeout in runs:
+            lines, err, wall = run_entry(name, argv, timeout, env)
+            if name in BENCH_METRICS:
+                line = out[name] = check_bench_line(name, lines)
+            if name == "bench":
+                check(line["passes"] >= 1, "bench: no timed pass")
+                gate = GATE_LINE.search(err)
+                check(gate is not None, "bench: no parity gate line on stderr")
+                top, ref = float(gate.group(2)), float(gate.group(3))
+                gate_line = err[gate.start():].splitlines()[0]
+                check(abs(top - ref) < 0.15 and abs(float(gate.group(4))
+                                                    - 1.0) < 1e-4,
+                      f"bench: gate line {gate_line}")
+                n = entry_launches(name, err)
+                check(n["fused_stage"] > 0 and n["cascade_stage"] > 0,
+                      f"bench: launches {n}")
+                sub = {k: line[k] for k in line
+                       if k not in BENCH_METRICS[name][1]}
+                bound = bench.pass_bound(line)
+                print(f"  bench: {line['value']} DM-trials/s, vs_baseline "
+                      f"{line['vs_baseline']}, best of {line['passes']} "
+                      f"passes of 5 chunks of D = 32 ({wall:.1f} s wall); "
+                      f"{sub}; bound {bound}; {gate_line}; "
+                      f"launches {n} ({card})", flush=True)
+            elif name.startswith("config"):
+                n = entry_launches(name, err)
+                check(n["fused_stage"] > 0, f"{name}: launches {n}")
+                print(f"  {name}: {line['metric']} = {line['value']} "
+                      f"{line['unit']} ({wall:.1f} s wall; launches {n}"
+                      + (f"; {line['total_seconds']} s timed, chunk_s "
+                         f"{line['chunk_s']}, prep_s {line['prep_s']}, "
+                         f"device_s {line['device_s']}"
+                         if "total_seconds" in line else "") + f"; {card})",
+                      flush=True)
+            elif name == "stime":
+                iters = [x for x in lines if x.startswith("iter ")]
+                check(len(iters) == 4, f"stime: {len(iters)} iterations")
+                print(f"  stime ({wall:.1f} s wall): "
+                      + "; ".join(x.strip() for x in lines
+                                  if x.lstrip().startswith(("copy", "rtt")))
+                      + "; " + "; ".join(iters)
+                      + f"; {lines[-1]} ({card})", flush=True)
+            elif name == "etime":
+                snr, res = SNR_LINE.match(lines[-1]), ETIME_LINE.match(
+                    lines[-2])
+                check(snr is not None and res is not None
+                      and np.isfinite(float(snr.group(1)))
+                      and tuple(int(x) for x in snr.group(2, 3, 4))
+                      == (D, HEADLINE_TRIALS, len(HEADLINE_WIDTHS)),
+                      f"etime: last lines {lines[-2:]}")
+                print(f"  etime ({wall:.1f} s wall): {lines[-2]}; "
+                      f"{lines[-1]} ({card})", flush=True)
+            else:
+                m = WARM_LINE.match(lines[-1])
+                check(m is not None, f"warmtest: last line {lines[-1]}")
+                out["warmtest"] = int(m.group(1))
+                print(f"  warmtest ({wall:.1f} s wall, the process): "
+                      f"{lines[-1]}", flush=True)
+        with open(env["RIPTIDE_LEDGER"]) as fobj:
+            rows = [json.loads(x) for x in fobj]
+        kinds = sorted(f"{r['kind']}:{r.get('metric')}" for r in rows)
+        print(f"  ledger rows: {kinds}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    want = len(engine.launch_shapes(plan, D))
+    tobs = plan.size * plan.tsamp
+    dms = np.zeros(D)
+    prepared = engine.prepare_stage_data(plan, p5["batch"][:D])
+
+    def timed_queue():
+        shipped = engine.ship_stage_data(prepared, dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        handle = engine.queue_search_batch(plan, None, tobs, shipped=shipped,
+                                           **bench.PKW)
+        queue_s = time.perf_counter() - t0
+        return queue_s, engine.collect_search_batch(handle, dms)[0]
+
+    def cold():
+        engine.drop_device_operands(plan, dev)
+        plan.__dict__.pop("_peak_plans", None)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+    cold()
+    t_cold, peaks = timed_queue()
+    cold()
+    t0 = time.perf_counter()
+    n = engine.warm_stage_kernels(plan, D, device=dev)
+    t_warmup = time.perf_counter() - t0
+    check(n == want and out.get("warmtest", want) == want,
+          f"warm_stage_kernels warmed {n} shapes, warmtest "
+          f"{out.get('warmtest')}; the plan has {want}")
+    t_first, first = timed_queue()
+    t_warm, again = timed_queue()
+    check(first == peaks and again == peaks,
+          "the warmed searches' peaks differ from the cold one's")
+    print(f"  warm_stage_kernels(plan, {D}): {n} launch shapes, the plan's "
+          f"distinct {want}, in {t_warmup:.3f} s; queue_search_batch of a "
+          f"D = {D} headline search: {t_cold:.4f} s cold (no warm-up), "
+          f"{t_first:.4f} s first after the warm-up, {t_warm:.4f} s warm "
+          f"({card})", flush=True)
+    return out.get("bench")
+
+
 def main(argv=None):
     import argparse
 
@@ -3709,6 +3957,12 @@ def main(argv=None):
     t14 = time.perf_counter()
     phase_surface(dev, card, data, p2["pgram"])
     print(f"  phase 14: {time.perf_counter() - t14:.1f} s wall", flush=True)
+    print("phase 15: the benchmark entry points (bench headline and configs "
+          "1-5, stime, etime, warmtest), each a fresh process; "
+          "warm_stage_kernels and the first queue", flush=True)
+    t15 = time.perf_counter()
+    phase_bench(dev, plan, p5, card)
+    print(f"  phase 15: {time.perf_counter() - t15:.1f} s wall", flush=True)
     if args.profile:
         print("profile: headline run_periodogram", flush=True)
         profile_search(plan, data, dev, args.profile)

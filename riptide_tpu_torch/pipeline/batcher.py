@@ -83,6 +83,21 @@ log = logging.getLogger("riptide_tpu_torch.pipeline.batcher")
 __all__ = ["BatchSearcher"]
 
 
+def loader_threads(requested):
+    """The loader pool's size: ``requested``, but at most the cores this
+    process may run on less one, and at least 1. The loaders' scan and
+    de-reddening keep every thread of the pool busy while the chunk
+    before is dispatched; with more loaders than cores, that dispatch's
+    host work (the shadow probe, the pull and the peaks' host tail) runs
+    on a share of a core and its wall swings by up to ten times from one
+    chunk to the next (``loader_threads.py`` measures it)."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:
+        cores = os.cpu_count() or 1
+    return max(1, min(int(requested), cores - 1))
+
+
 class BatchSearcher:
     """
     Parameters
@@ -93,7 +108,8 @@ class BatchSearcher:
     fmt : str
         Input file format ('presto' or 'sigproc').
     io_threads : int
-        Host threads used to load + detrend input files.
+        Host threads used to load + detrend input files, at most the
+        host's cores less one (:func:`loader_threads`).
     mesh : riptide_tpu_torch.parallel.Mesh or None
         When given, the DM batch is sharded over the mesh's 'dm' axis;
         otherwise one device runs it. The mesh's devices run the search;
@@ -133,7 +149,7 @@ class BatchSearcher:
         self.deredden_params = deredden_params
         self.range_confs = range_confs
         self.loader = self.TIMESERIES_LOADERS[fmt]
-        self.io_threads = int(io_threads)
+        self.io_threads = loader_threads(io_threads)
         self.mesh = mesh
         self.batch_size = batch_size
         self.dq = quality.DQConfig.from_any(dq)

@@ -291,11 +291,11 @@ class Pipeline:
     def search(self):
         """Search all selected DM trials in device-sized batches. The
         config's 'processes' value sets the DM batch size per device
-        search (and the host loader thread count), not a worker process
-        count. With a journal configured the chunk queue runs through
-        the checkpointed survey scheduler (resume / retry / fault
-        injection); otherwise through the batcher's overlapped
-        stream."""
+        search (and the host loader thread count, up to the host's cores
+        less one), not a worker process count. With a journal configured
+        the chunk queue runs through the checkpointed survey scheduler
+        (resume / retry / fault injection); otherwise through the
+        batcher's overlapped stream."""
         log.info("Running search")
         batch = max(self.config["processes"], 1)
         chunks = [list(c) for c in

@@ -81,7 +81,8 @@ __all__ = ["run_periodogram", "run_periodogram_batch", "run_search_batch",
            "StagingPool", "recording", "is_oom_error", "is_timeout_error",
            "device_fingerprint", "walk_search",
            "wire_transfer_contract", "device_peak_bytes",
-           "drop_device_operands"]
+           "drop_device_operands", "warm_stage_kernels", "launch_shape",
+           "launch_shapes"]
 
 def device_fingerprint(device=None):
     """Identity of the device a search runs on (``device``, the card
@@ -908,15 +909,35 @@ def _recorder():
     return _RECORD
 
 
+def launch_shape(kind, args):
+    """The shape of one stage launch, from its wrapper's ``kind`` and
+    ``args``: (kind, D, B, R, P, L, RE, NW), the batch, the container
+    (B, R, P) and its FFA levels L, and the S/N rows RE and widths NW
+    the launch writes. It sets what the launch allocates on the device
+    and the grids of its kernels."""
+    tables, coefs = args[-2], args[-1]
+    return (kind, int(args[0].shape[0]), int(tables.p.shape[0]),
+            int(tables.h.shape[2]), int(tables.P), int(tables.h.shape[0]),
+            int(coefs.rows), int(coefs.widths.shape[0]))
+
+
 def _launch(kind, fn, args, **where):
     """Call one stage wrapper on ``args``; inside :func:`recording`, keep
     its kind, operands, output and ``where`` (stage, lane bucket, guest
     stage). A float32 container is kept as a copy made before the call,
     since the kernel uses it as scratch. Inside :func:`walk_search`, the
-    walk's tally takes the call instead."""
+    walk's tally takes the call instead; inside
+    :func:`warm_stage_kernels`, a launch whose :func:`launch_shape` was
+    queued before is skipped (returns None)."""
     tally = getattr(_WALK, "tally", None)
     if tally is not None:
         return tally.launch(kind, fn, args, where)
+    warmed = getattr(_WALK, "warmed", None)
+    if warmed is not None:
+        shape = launch_shape(kind, args)
+        if shape in warmed:
+            return None
+        warmed.add(shape)
     rec = _recorder()
     kept = args
     if rec is not None and kind == "cascade_stage":
@@ -1354,8 +1375,8 @@ def _blank_prepared(plan, D, mode):
              "staging": ()})
 
 
-# The calling thread's walk (walk_search), read by _launch and the
-# stage loop.
+# The calling thread's walk (walk_search, ``tally``) or warm-up
+# (warm_stage_kernels, ``warmed``), read by _launch and the stage loop.
 _WALK = threading.local()
 
 
@@ -1448,7 +1469,8 @@ class _Tally(TorchDispatchMode):
         it counts, its shape-only library calls and its allocations."""
         kernels0 = dict(self.shape.kernels)
         ncalls = len(self.shape.calls)
-        rec = dict(where, kind=kind, allocs=[])
+        rec = dict(where, kind=kind, shape=launch_shape(kind, args),
+                   allocs=[])
         self._open = rec
         try:
             out = fn(*args)
@@ -1494,8 +1516,9 @@ def walk_search(plan, D, mode=None, tobs=None, data=None, survey=True):
 
     Returns a dict: ``launches`` (per wrapper call: ``kind``, ``stage``,
     ``bucket``, ``guest``, ``kernels`` counted under it, ``calls`` of
-    the shape-only library with the walk's addresses, ``allocs`` (shape,
-    dtype, bytes) and ``out`` (shape, dtype)), ``launch_counts`` and
+    the shape-only library with the walk's addresses, ``shape``
+    (:func:`launch_shape`), ``allocs`` (shape, dtype, bytes) and ``out``
+    (shape, dtype)), ``launch_counts`` and
     ``kernel_counts`` (the wrappers' own counters), ``peak_bytes`` (the
     most device bytes live at once, raw tensor bytes), ``h2d`` (per
     phase: copies, bytes), ``f64`` (float64/complex128 outputs per
@@ -1550,3 +1573,58 @@ def walk_search(plan, D, mode=None, tobs=None, data=None, survey=True):
             _WALK.tally = None
             drop_device_operands(plan, dev)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Warm-up: the libraries, and every launch shape once before the search
+# ---------------------------------------------------------------------------
+
+def launch_shapes(plan, D, mode=None):
+    """The distinct :func:`launch_shape` values of one ``D``-trial search
+    of ``plan`` under the live container flags and wire ``mode``
+    (default :func:`_wire_mode`), read from the shape-only walk
+    (:func:`walk_search`): what :func:`warm_stage_kernels` warms."""
+    walk = walk_search(plan, D, mode=mode, survey=False)
+    return {ln["shape"] for ln in walk["launches"]}
+
+
+def warm_stage_kernels(plan, D, parallel=True, device=None):
+    """Ready ``device`` (the card when None) for a ``D``-trial search of
+    ``plan``, as the JAX package's ``warm_stage_kernels`` readies the TPU.
+    First the libraries the stages need come from the build cache
+    (``utils/exec_cache.py``), built there at first use: the native wire
+    prep and, on a CUDA device, the stage kernels (``csrc/ffa_stage.cu``);
+    with ``parallel`` the builds run together. Then each distinct
+    :func:`launch_shape` of the search is queued once, at ``D``, on a
+    zero wire of the live wire mode, and every container's operands are
+    uploaded on the way (:func:`_cached`): the first allocations of each
+    shape and the operand uploads leave the first search. Returns the
+    number of distinct launch shapes warmed
+    (``len(launch_shapes(plan, D))``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .. import native
+    from ..ops import ffa_kernel
+
+    dev = resolve_device(device)
+    builds = [native.build]
+    if dev.type == "cuda":
+        builds.append(ffa_kernel.build)
+    if parallel:
+        with ThreadPoolExecutor(len(builds)) as ex:
+            for fut in [ex.submit(b) for b in builds]:
+                fut.result()
+    else:
+        for b in builds:
+            b()
+    if dev.type == "cuda":
+        ffa_kernel._library()
+    wire, meta = _ship(*_blank_prepared(plan, D, _wire_mode()), dev)
+    _WALK.warmed = warmed = set()
+    try:
+        _queue_stages(plan, wire, meta)
+    finally:
+        _WALK.warmed = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return len(warmed)

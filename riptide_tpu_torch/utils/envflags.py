@@ -295,6 +295,20 @@ _ALL = [
         "exploring: the repro printed with every violation. "
         "Checker-only.",
     ),
+    EnvFlag(
+        "RIPTIDE_BENCH_BUDGET", "float", 1380.0,
+        "Total process wall-time budget (seconds) that `python -m "
+        "riptide_tpu_torch.bench` runs against: the first timed pass "
+        "always emits a JSON line, further best-of-N passes (N <= 3) "
+        "run only while the budget clearly covers them.",
+    ),
+    EnvFlag(
+        "RIPTIDE_BENCH_DEBUG", "bool", False,
+        "Enable the bench's periodic faulthandler stack dumps to stderr "
+        "(every 180 s; locates stalls). Read through the registry, so "
+        "`0` disables, where the JAX package's bench.py reads the raw "
+        "value and any non-empty one enables.",
+    ),
 ]
 
 FLAGS = {f.name: f for f in _ALL}

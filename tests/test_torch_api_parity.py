@@ -79,8 +79,6 @@ EXCLUDED = {
                                           "lowering",
     "search.engine.prepare_batch": "device_put of a batch for the XLA "
                                    "gather form",
-    "search.engine.warm_stage_kernels": "compiles the Pallas stage kernels "
-                                        "ahead of a search",
     "ops.downsample.split_prefix_sums": "the XLA gather form's float32 "
                                         "hi/lo prefix sums",
     "ops.downsample.downsample_gather": "the XLA gather form of the "

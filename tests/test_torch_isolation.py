@@ -77,7 +77,8 @@ def test_public_names_import_without_jax():
 
 def test_sources_import_no_jax_or_reference():
     files = [os.path.join(REPO, n) for n in
-             ("chip_smoke.py", "stage_times.py", "loader_streams.py")]
+             ("chip_smoke.py", "stage_times.py", "loader_streams.py",
+              "loader_threads.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
@@ -121,7 +122,8 @@ def test_survey_modules_are_covered():
                  "analysis.lint.runctx_discipline",
                  "analysis.lint.fsio_discipline",
                  "analysis.lint.gate_pairing", "apps.riplint",
-                 "apps.analyze"):
+                 "apps.analyze", "bench", "apps.stime", "apps.etime",
+                 "apps.warmtest"):
         assert f"riptide_tpu_torch.{name}" in mods
 
 
@@ -182,12 +184,14 @@ def test_entry_points_default_to_the_card(tmp_path):
     raises instead of carrying on quietly on the CPU."""
     from riptide_tpu_torch import (TimeSeries, fast_running_median,
                                    ffa_search, running_median)
+    from riptide_tpu_torch import bench
     from riptide_tpu_torch.libffa import benchmark_ffa2
-    from riptide_tpu_torch.apps import rserve
+    from riptide_tpu_torch.apps import etime, rserve, stime, warmtest
     from riptide_tpu_torch.serve import ServeDaemon
     from riptide_tpu_torch.probes import probe1536, ptime, ptime2
     from riptide_tpu_torch.survey import integrity
-    from riptide_tpu_torch.search.engine import device_fingerprint
+    from riptide_tpu_torch.search.engine import (device_fingerprint,
+                                                 warm_stage_kernels)
     from riptide_tpu_torch.search import (periodogram_plan, queue_search_batch,
                                           run_periodogram,
                                           run_periodogram_batch,
@@ -220,6 +224,13 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: integrity.main([]),
         lambda: ServeDaemon(str(tmp_path / "serve")),
         lambda: rserve.main(["--root", str(tmp_path / "serve")]),
+        lambda: warm_stage_kernels(plan, 1),
+        lambda: bench.main([]),
+        lambda: bench.main(["--config", "5"]),
+        lambda: bench.bench_headline(),
+        lambda: stime.main([]),
+        lambda: etime.main([]),
+        lambda: warmtest.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -484,6 +484,22 @@ def test_batch_searcher_single_io_thread(small_files):
     assert abs(best.period - 0.5) < 1e-3
 
 
+@pytest.mark.parametrize("requested", [1, 2, 10_000])
+def test_loader_pool_leaves_a_core(requested, monkeypatch):
+    """The loader pool is the requested size, but at most the usable
+    cores less one and at least 1, on hosts of 1, 2 and 8 cores."""
+    from riptide_tpu_torch.pipeline.batcher import loader_threads
+
+    for cores in (1, 2, 8):
+        monkeypatch.setattr(os, "sched_getaffinity",
+                            lambda pid, n=cores: set(range(n)))
+        want = max(1, min(requested, cores - 1))
+        assert loader_threads(requested) == want
+        bs = BatchSearcher(DERED, SMALL_CONF, io_threads=requested,
+                           device="cpu")
+        assert bs.io_threads == want
+
+
 def _stream(files, **kw):
     bs = BatchSearcher(DERED, SMALL_CONF, io_threads=2, batch_size=2,
                        device="cpu", **kw)

@@ -129,6 +129,19 @@ def test_envflags_get_reads_a_given_mapping(monkeypatch):
         envflags.get("RIPTIDE_WIRE_DTYPE", {"RIPTIDE_WIRE_DTYPE": "int4"})
 
 
+@pytest.mark.parametrize("name", ["RIPTIDE_BENCH_BUDGET",
+                                  "RIPTIDE_BENCH_DEBUG"])
+def test_bench_flags_have_the_reference_type_and_default(name):
+    """The bench's two flags, registered with the JAX registry's type and
+    default (the port reads ``RIPTIDE_BENCH_DEBUG`` through the registry,
+    where the JAX bench reads it raw)."""
+    got, want = envflags.FLAGS[name], ref_envflags.FLAGS[name]
+    assert (got.type, got.default) == (want.type, want.default)
+    assert envflags.get(name, {}) == ref_envflags.get(name, {})
+    assert envflags.get(name, {name: "2.5"}) == \
+        ref_envflags.get(name, {name: "2.5"})
+
+
 def test_finite_guard_shims_report_as_the_reference(tmp_path):
     assert finite_guards.check(REPO) == [] == ref_fg.check(REPO)
     bad = tmp_path / "bad_snr.py"
