@@ -78,14 +78,23 @@ of the checkout by default), then:
    searched with ``ffa_search`` (counts set to 0 just before each search
    and read just after): the 32-bit reads give the in-memory search's
    S/N bits, the 8-bit read recovers the pulsar;
-5w. wide phases: three searches whose padded width P crosses 14,528 (the
-   S/N kernel's 4-row shared memory), 29,056 (a segment tile's row
-   pair) and 58,112 (one S/N row), each on the uint6 wire (K1) and the
-   float32 wire (K2), every launch held against its plain version, and
-   each search's K1 and K2 launches timed as phase 3 times the
-   headline's (device time from CUDA graph replays; plain; the bound
-   from the same counts); the ``kernels`` line gives them per search
-   under K1's and K2's ``wide``;
+5w. wide phases: three searches whose padded width P crosses 14,528
+   (past it no row pair fits a segment tile, so the segment kernel takes
+   its direct form and every level is a level launch, and the levels
+   and the S/N take their wide forms), 29,056 (two rows' prefix sums no
+   longer fit a block) and 58,112 (one S/N block's shared memory: a
+   cluster of two blocks a row above), each on
+   the uint6 wire (K1) and the float32 wire (K2), every launch held
+   against its plain version, and each search's K1 and K2 launches
+   timed as phase 3 times the headline's (device time from CUDA graph
+   replays; plain; the bound from the same counts) and split by CUDA
+   kernel (the segment kernel, each level, the S/N, each alone, beside
+   its bound); the ``kernels`` line gives them per search under K1's and
+   K2's ``wide``. A trial of p <= 14,528 alone in its container (the
+   narrow S/N) and in containers widened past 14,528 and past 58,112 by
+   a wider trial (the wide S/N, a block and a cluster a row) must give
+   the same S/N bits: the wide form keeps the narrow order of the sums
+   (K2's ``wide_bits``);
 6. the chip probes P1-P3 (``riptide_tpu_torch.probes``) through their
    entry points at the JAX tools' shapes: ``ptime.main(["all"])``,
    ``ptime2.main`` with all six bodies at NITER 20000 and
@@ -373,6 +382,8 @@ WIDE = ((14528, 2 ** 18, 16e-6, 16000, 16008),
         (29056, 2 ** 19, 16e-6, 30000, 30008),
         (58112, 2 ** 20, 16e-6, 60000, 60008))
 WIDE_WIDTHS = (1, 2, 4, 8, 16)
+# Each phase 5w search runs on these wires, through these wrappers.
+WIDE_KINDS = (("uint6", "fused_stage"), ("float32", "cascade_stage"))
 
 # Phase 1's parity oracle: the seeded series and its search.
 ORACLE_SERIES = dict(length=128.0, tsamp=256e-6, period=1.0, amplitude=20.0,
@@ -1277,32 +1288,203 @@ def wide_timing(dev, plan, rec, kind):
     return ms, pms, *bound
 
 
+def _split_entry(ms, nbytes, ops):
+    bms, by = measure.bound_ms(nbytes, ops)
+    return {"ms": ms, "bound_ms": bms, "bound_by": by}
+
+
+def kernel_split(dev, rec, kind):
+    """Device ms of each CUDA kernel of a recorded search's ``kind``
+    launches alone, summed over the launches (CUDA graph replays, as
+    :func:`wide_timing`), each beside its bound: ``segment`` (the
+    segment kernel), ``levels`` (one entry per global level, in order)
+    and ``snr`` (the S/N kernel). The bound counts each input byte once
+    (the stage's wire rows and scales, or the container's live rows; a
+    level's distinct source rows; the S/N's evaluated rows), each output
+    byte once (the container; the S/N's output) and the operations of
+    each (decode, one add per phase a level, the S/N's prefix and
+    windows). Calls the kernel library's launchers directly, so that
+    one kernel runs alone."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.utils.cuda_build import stream
+
+    lib = fk._library()
+    stages = []
+    for r in (r for r in rec["launches"] if r["kind"] == kind):
+        a = r["args"]
+        tables, coefs = a[-2:]
+        src = a[0] if kind == "cascade_stage" else fk.WireSource(*a[:-2])
+        x0 = fk.segment_levels(src, tables, 0)
+        stages.append((src, tables, coefs, x0, torch.empty_like(x0),
+                       fk.segment_levels(src, tables)))
+    torch.cuda.synchronize(dev)
+
+    def row_work(tables, D):
+        p = tables.p.tolist()
+        B, R, P = len(p), tables.h.shape[2], tables.P
+        return p, D * B * R * P * 4
+
+    seg_b = seg_ops = 0
+    for src, tables, coefs, x0, _, _ in stages:
+        p, cont = row_work(tables, x0.shape[0])
+        m = tables.m.tolist()
+        live = sum(mi * pi for mi, pi in zip(m, p))
+        if kind == "cascade_stage":
+            seg_b += cont + x0.shape[0] * live * 4
+        else:
+            for g, span in ((src.geom, tables.span),
+                            (src.guest, tables.gspan)):
+                if g is None:
+                    continue
+                group, planes = fk.WIRE_MODES[g.mode]
+                PW = src.wire.shape[2]
+                rows = -(-span // PW)
+                seg_b += x0.shape[0] * (planes * -(-rows // group) * PW
+                                        + rows * 4)
+            seg_b += cont
+            seg_ops += 2 * x0.shape[0] * live
+    out = {"segment": _split_entry(measure.graph_ms(
+        lambda: [fk.segment_levels(s[0], s[1], 0) for s in stages], dev,
+        REPS), seg_b, seg_ops), "levels": []}
+    first = {s[1].local for s in stages}
+    L = {s[1].h.shape[0] for s in stages}
+    check(len(first) == 1 and len(L) == 1, "launches of one search with "
+          "different level splits")
+    first, L = first.pop(), L.pop()
+    for lev in range(first, L):
+        nb = ops = 0
+        for _, tables, _, x0, _, _ in stages:
+            D = x0.shape[0]
+            p, cont = row_work(tables, D)
+            Z = tables.h.shape[2] - 1
+            h, t = tables.h[lev].cpu(), tables.t[lev].cpu()
+            for b, pb in enumerate(p):
+                srcs = set(h[b].tolist()) | set(t[b].tolist())
+                nb += D * len(srcs - {Z}) * pb * 4
+                ops += D * int((h[b] != Z).sum() + (t[b] != Z).sum()) * pb
+            nb += cont
+
+        def level(lev=lev):
+            for _, tables, _, x0, x1, _ in stages:
+                D, B, R, P = x0.shape
+                fk._check(lib, "ffa_levels", lib.rt_ffa_levels(
+                    x0.data_ptr(), x1.data_ptr(), tables.h.data_ptr(),
+                    tables.t.data_ptr(), tables.shift.data_ptr(),
+                    tables.p.data_ptr(), lev, lev + 1, D, B, R, P,
+                    stream(dev)))
+        out["levels"].append(_split_entry(measure.graph_ms(level, dev, REPS),
+                                          nb, ops))
+    nb = ops = 0
+    for _, tables, coefs, x0, _, _ in stages:
+        D, RE, NW = x0.shape[0], coefs.rows, coefs.widths.shape[0]
+        p, _ = row_work(tables, D)
+        nb += D * RE * sum(p) * 4 + D * len(p) * RE * NW * 4
+        ops += D * RE * sum(pb + 3 * NW * pb + 5 * NW for pb in p)
+    out["snr"] = _split_entry(measure.graph_ms(
+        lambda: [fk._snr(fk._runtime(dev), s[5], s[1], s[2])
+                 for s in stages], dev, REPS), nb, ops)
+    return out
+
+
+def print_split_kernels(name, split):
+    """One line of :func:`kernel_split`: each kernel's ms, its bound and
+    its share of the bound."""
+    parts = [("segment", split["segment"])] + [
+        (f"level {i}", e) for i, e in enumerate(split["levels"])] + [
+        ("S/N", split["snr"])]
+    print(f"  {name} by CUDA kernel: " + "; ".join(
+        f"{n} {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} by "
+        f"{e['bound_by']}, {100 * e['bound_ms'] / e['ms']:.1f} %)"
+        for n, e in parts), flush=True)
+
+
+def wide_search(entry, widths=WIDE_WIDTHS):
+    """(plan, data) of one phase 5w search: the plan of ``entry`` (a
+    :data:`WIDE` row), checked to cross its limit, and seeded noise with
+    a pulse every 1.0005 * bins_max samples."""
+    from riptide_tpu_torch.libffa import generate_signal
+    from riptide_tpu_torch.search import periodogram_plan
+
+    limit, nsamp, tsamp, bmin, bmax = entry
+    pmin = bmax * tsamp
+    plan = periodogram_plan(nsamp, tsamp, widths, pmin, 1.001 * pmin, bmin,
+                            bmax)
+    check(plan.P > limit, f"P = {plan.P} does not cross {limit}")
+    np.random.seed(5)
+    data = generate_signal(nsamp, 1.0005 * bmax, amplitude=20.0, ducy=0.01)
+    return plan, ((data - data.mean()) / data.std()).astype(np.float32)
+
+
+# Phase 5w's bit check: a narrow trial (m, p), and the wider trials
+# whose containers take the wide S/N in a block and in a cluster a row.
+WIDE_BITS_TRIAL, WIDE_BITS_P = (23, 14013), (14531, 60001)
+
+
+def wide_snr_bits(dev, trial=WIDE_BITS_TRIAL, wide_ps=WIDE_BITS_P,
+                  widths=WIDE_WIDTHS, seed=7):
+    """K2 on a seeded trial of p <= 14,528 alone in its container (the
+    narrow S/N kernel) and beside a wider trial in a container past
+    14,528 (the wide S/N kernel); the trial's S/N must be the same bits.
+    Returns one entry per wider trial: its p, the container's width and
+    S/N launch, and whether the bits were equal."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.ops.plan import FFABatchPlan
+    from riptide_tpu_torch.ops.snr import boxcar_coeffs
+    from riptide_tpu_torch.search import engine
+
+    m, p = trial
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, m, p)).astype(np.float32)
+
+    def snr(ps, extra=None):
+        b = FFABatchPlan([m] * len(ps), ps, R=m + 1)
+        hb = [boxcar_coeffs(q, widths) for q in ps]
+        tables, coefs = engine._operands(
+            b, widths, np.array([h for h, _ in hb], np.float32),
+            np.array([c for _, c in hb], np.float32),
+            np.full(len(ps), np.sqrt(m), np.float32), m, dev)
+        cont = np.zeros((2, len(ps), m + 1, b.P), np.float32)
+        cont[:, 0, :m, :p] = x
+        if extra is not None:
+            cont[:, 1, :m, : ps[1]] = extra
+        out = fk.cascade_stage(torch.from_numpy(cont).to(dev), tables, coefs)
+        return b.P, out[:, 0].cpu()
+
+    P0, narrow = snr([p])
+    check(P0 <= fk.NARROW_P, f"narrow container P = {P0}")
+    out = []
+    for q in wide_ps:
+        P, wide = snr([p, q], rng.standard_normal((2, m, q)))
+        same = torch.equal(wide, narrow)
+        launch = fk.snr_launch(P)
+        print(f"  S/N bits of a p = {p} trial: alone (P = {P0}, narrow) and "
+              f"beside p = {q} (P = {P}, {launch}): "
+              f"{'equal' if same else 'DIFFERENT'}", flush=True)
+        check(same, f"the wide S/N at P = {P} changed a p = {p} trial's bits")
+        out.append({"p": p, "wide_p": q, "P": P, "cluster": launch.cluster,
+                    "equal": same})
+    return out
+
+
 def phase_wide(dev, wide=WIDE, widths=WIDE_WIDTHS):
     """Phase 5w: a search per ``wide`` entry whose padded width P crosses
     the entry's limit, on the uint6 wire (K1) and the float32 wire (K2),
     the counts set to 0 just before each search and read just after;
     every launch held against its plain version, and each search's K1
-    or K2 launches timed (:func:`wide_timing`). Seeded noise with a
-    pulse every 1.0005 * bins_max samples. Returns, per kernel, one
-    entry a search: its P, the limit it crosses, launches, device and
-    plain ms, bound and what bounds it, and the largest difference
-    from plain."""
-    from riptide_tpu_torch.libffa import generate_signal
+    or K2 launches timed (:func:`wide_timing`) and split by CUDA kernel
+    (:func:`kernel_split`); then the narrow-against-wide S/N bit check
+    (:func:`wide_snr_bits`). Returns, per kernel, one entry a search:
+    its P, the limit it crosses, launches (by wrapper and by CUDA
+    kernel), device and plain ms, bound and what bounds it, the largest
+    difference from plain and the split; and the bit check's entries."""
     from riptide_tpu_torch.ops import ffa_kernel as fk
-    from riptide_tpu_torch.search import engine, periodogram_plan
+    from riptide_tpu_torch.search import engine
 
     out = {"fused_stage": [], "cascade_stage": []}
-    for limit, nsamp, tsamp, bmin, bmax in wide:
-        pmin = bmax * tsamp
-        plan = periodogram_plan(nsamp, tsamp, widths, pmin, 1.001 * pmin,
-                                bmin, bmax)
-        check(plan.P > limit, f"P = {plan.P} does not cross {limit}")
-        np.random.seed(5)
-        data = generate_signal(nsamp, 1.0005 * bmax, amplitude=20.0,
-                               ducy=0.01)
-        data = ((data - data.mean()) / data.std()).astype(np.float32)
-        for mode, kind in (("uint6", "fused_stage"), ("float32",
-                                                      "cascade_stage")):
+    for entry in wide:
+        limit = entry[0]
+        plan, data = wide_search(entry, widths)
+        for mode, kind in WIDE_KINDS:
             with wire_dtype(mode):
                 fk.reset_launches()
                 with engine.recording() as rec:
@@ -1317,9 +1499,10 @@ def phase_wide(dev, wide=WIDE, widths=WIDE_WIDTHS):
             locs = sorted({r["args"][-2].local for r in rec["launches"]})
             print(f"  P = {plan.P} (> {limit}), {len(plan.stages)} stages, "
                   f"{plan.length} trials, {mode} wire: launches {launches}, "
-                  f"CUDA launches {cuda}; S/N launch (rows, smem, scratch) "
-                  f"{fk.snr_launch(plan.P)}, tile-local levels {locs}; best "
-                  f"S/N {snrs.max():.3f}", flush=True)
+                  f"CUDA launches {cuda}; {fk.snr_launch(plan.P)}, level "
+                  f"grid (blocks, threads) {fk.level_grid(1, 1, 1, plan.P)} "
+                  f"a row, tile-local levels {locs}; best S/N "
+                  f"{snrs.max():.3f}", flush=True)
             err = compare_stages(f"{kind} at P = {plan.P}",
                                  kernel_outs(rec, kind),
                                  plain_launches(rec, kind))
@@ -1328,12 +1511,15 @@ def phase_wide(dev, wide=WIDE, widths=WIDE_WIDTHS):
                   f"{plan.P}: {ms:.4f} ms device, from CUDA graph replays "
                   f"(plain {pms:.4f} ms, bound {bms:.4f} ms by {by}, "
                   f"{100 * bms / ms:.1f} % of it)", flush=True)
+            split = kernel_split(dev, rec, kind)
+            print_split_kernels(f"{kind} at P = {plan.P}", split)
             out[kind].append({"P": plan.P, "limit": limit,
                               "launches": launches[kind], "ms": ms,
                               "plain_ms": pms, "bound_ms": bms,
-                              "bound_by": by, "max_abs_err": err})
+                              "bound_by": by, "max_abs_err": err,
+                              "cuda_launches": cuda, "split": split})
             del rec
-    return out
+    return out, wide_snr_bits(dev)
 
 
 def overlapped_survey(dev, plan, D, batch, want_peaks, wall, walls,
@@ -3885,7 +4071,7 @@ def main(argv=None):
           flush=True)
     phase_files(dev, plan, headline_series())
     print("phase 5w: wide phase widths through K1 and K2", flush=True)
-    wide = phase_wide(dev)
+    wide, wide_bits = phase_wide(dev)
     print("phase 6: chip probes P1-P3 through their entry points",
           flush=True)
     t6 = time.perf_counter()
@@ -4007,6 +4193,7 @@ def main(argv=None):
     # Each wide-phase search's K1 and K2 launches, timed (phase 5w).
     entries[0]["wide"] = wide["fused_stage"]
     entries[1]["wide"] = wide["cascade_stage"]
+    entries[1]["wide_bits"] = wide_bits
     entries += probe_entries
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

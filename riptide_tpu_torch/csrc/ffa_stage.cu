@@ -24,13 +24,14 @@
 //   boxcar_snr_kernel       the S/N epilogue of all three; rows at or
 //                           above a trial's guest base take the guest's
 //                           coefficients.
-// Every phase width the JAX package takes runs here. Where no row pair
-// of two float32 buffers fits a block's shared memory (p > 29,056), the
-// segment plan has no tile-local level: the segment kernel writes each
-// row straight to the container and every level is a level launch. The
-// S/N kernel keeps as many rows' prefix sums in shared memory as fit
-// (4 up to P = 14,528, 1 up to 58,112) and, above that, in a scratch row
-// of device memory per evaluated row.
+// Each has a wide form (below, "Wide phases"). Where no row pair of two
+// float32 buffers fits a block's shared memory (p > 14,528), the segment
+// plan has no tile-local level and one-row tiles: segment_direct_kernel
+// writes each row straight to the container and every level is a level
+// launch. Containers wider than kNarrowP = 14,528 phases, the widest
+// whose four rows of prefix sums fit a block's shared memory, take
+// ffa_level_cols_kernel and snr_row_kernel: the container's width P
+// alone picks the form. Every phase width up to 464,896 runs here.
 //
 // Design. A GPU reads by index, so both level kernels execute the
 // (h, t, shift) tables of ops/plan.py directly, as the plain PyTorch
@@ -70,6 +71,34 @@
 // global levels' traffic; and the S/N kernel, unchanged, whose read of
 // the last level's output a later design fuses away.
 //
+// Wide phases. Past kNarrowP a plan's container holds few rows (a few
+// hundred a stage) of tens of thousands of phases, so a warp a row
+// leaves most of the card idle. segment_direct_kernel and
+// ffa_level_cols_kernel cut each row into kColSpan-column blocks,
+// kColPhases consecutive phases a thread (the head row and the output as
+// float4 where P is a multiple of 4; the shifted tail row read scalar, at
+// any alignment), thousands of blocks a launch; the arithmetic is
+// fill_from_wire's and merge_row's. snr_row_kernel gives each
+// evaluated row a block of kRowThreads threads, or a thread-block
+// cluster of 2, 4 or 8 blocks where the row's prefix sums do not fit one
+// block's shared memory (P > 58,112), each block holding a run of the
+// row's 32 chunks and reading the others' through distributed shared
+// memory. It keeps the narrow kernel's summation order: warp 0 scans
+// each chunk in order, one lane a chunk, in place; the lanes start
+// skewed by (lane * (chunk - 1)) mod 32 steps, so that at every step the
+// 32 lanes touch 32 different banks whatever the chunk's length; every
+// warp then reads the 32 chunk totals and runs the same shuffle scan, and
+// all threads add the offsets. The window maximum is spread over all the
+// threads of the block or cluster for every width; each warp's maximum
+// goes into the row's output slot with an atomic max on an order-
+// preserving integer key (fmaxf and max are exact in any order; at P =
+// 58,112 the row alone fills a block's shared memory, so the partial
+// maxima go through the output), and block 0 turns the maxima into S/N.
+// No device scratch is allocated. What bounds them: the levels and the
+// direct segment kernel stream bytes; the S/N's scan is 32 chains of
+// ceil(p / 32) dependent adds a row, which the summation order fixes, so
+// the adds' latency, not the bytes, paces it.
+//
 // Numerics. Built with --fmad=false, and the decode/S/N arithmetic is
 // spelled with __fsub_rn/__fmul_rn/__fadd_rn/__fdiv_rn, so no product is
 // contracted into an FMA: the decoded tile is bit identical to the
@@ -85,9 +114,12 @@
 // rt_init sets the kernels' shared-memory limit once, when the library
 // loads. Nothing here allocates or synchronises; the Python wrapper
 // allocates every output with torch.empty.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -98,6 +130,15 @@ constexpr int kSnrWarps = 4;      // rows (one warp each) per boxcar_snr block
 constexpr unsigned kFull = 0xffffffffu;
 // The largest dynamic shared memory an H100 block may opt into.
 constexpr int kMaxDynamicSmem = 232448;
+// The widest container of the narrow forms: kSnrWarps rows of prefix
+// sums fill a block's shared memory (14,528 phases).
+constexpr int kNarrowP = kMaxDynamicSmem / (4 * kSnrWarps);
+constexpr int kColThreads = 256;  // threads per ffa_level_cols block
+constexpr int kColPhases = 4;     // consecutive phases per thread
+constexpr int kColSpan = kColThreads * kColPhases;  // columns per block
+constexpr int kRowThreads = 1024;  // threads per snr_row block
+constexpr int kScanBatch = 16;     // phases a snr_row scan lane loads ahead
+constexpr int kMaxCluster = 8;     // blocks per snr_row cluster at most
 
 // Wire modes: the value is the mode's name suffix (uint6/uint8; any other
 // value is uint12).
@@ -106,6 +147,25 @@ constexpr int kModeU8 = 8;
 
 __host__ __device__ inline int64_t ceil_div(int64_t a, int64_t b) {
   return (a + b - 1) / b;
+}
+
+// Blocks of the wide S/N kernel a row of a P-phase container takes: the
+// fewest of 1, 2, 4, 8 such that each block's share of the row's 32
+// chunks of ceil(P / 32) phases fits its shared memory; 0 past that
+// (P > 464,896).
+inline int snr_blocks(int64_t P) {
+  const int64_t chunk = ceil_div(P, 32);
+  for (int n = 1; n <= kMaxCluster; n *= 2) {
+    const int64_t held = 32 / n * chunk < P ? 32 / n * chunk : P;
+    if (held * 4 <= kMaxDynamicSmem) return n;
+  }
+  return 0;
+}
+
+// Dynamic shared memory of one wide S/N block: its share of the row.
+inline int snr_smem(int64_t P, int n) {
+  const int64_t held = 32 / n * ceil_div(P, 32);
+  return (int)(4 * (held < P ? held : P));
 }
 
 // Where one stage's samples sit in the wire: byte-plane row offset, rows
@@ -189,12 +249,9 @@ __device__ __forceinline__ void merge_row(
 // [gbase_b, gbase_b + gm_b) from the guest slice), then runs levels
 // 0..Lloc-1 ping-ponging A and B with the level tables rebased to the
 // tile (Z -> literal zero), then writes its rows, zero from p to P.
-// kDirect serves the plan of phase widths whose row pair does not fit a
-// tile (no tile-local level, one-row tiles, no shared memory): a tile is
-// filled straight into its container row. It is a template parameter so
-// that each form knows its buffers' address space (a pointer that may be
-// shared or global memory makes every access a generic one).
-template <bool kFromWire, bool kDirect>
+// Plans whose row pair does not fit a tile take segment_direct_kernel
+// (below) instead.
+template <bool kFromWire>
 __global__ void __launch_bounds__(kSegThreads) segment_cascade_kernel(
     const float* __restrict__ src, const uint8_t* __restrict__ wire,
     const float* __restrict__ scales, const int32_t* __restrict__ tiles,
@@ -219,9 +276,7 @@ __global__ void __launch_bounds__(kSegThreads) segment_cascade_kernel(
     return;
   }
   const int32_t p = ps[b];
-  // kDirect: the tile's one row is its own buffer (its stride P does not
-  // matter for one row).
-  float* buf = kDirect ? dst : smem;
+  float* buf = smem;
   float* nxt = smem + n * p;
   if constexpr (kFromWire) {
     // Host rows [0, m) from the host slice, guest rows [gb, gb + gm) from
@@ -249,11 +304,6 @@ __global__ void __launch_bounds__(kSegThreads) segment_cascade_kernel(
       for (int32_t c = lane; c < p; c += 32)
         buf[i * p + c] = s[(int64_t)i * P + c];
   }
-  if constexpr (kDirect) {
-    for (int32_t c = p + (int32_t)threadIdx.x; c < P; c += blockDim.x)
-      dst[c] = 0.0f;
-    return;
-  }
   __syncthreads();
   const int32_t Z = R - 1;
   for (int32_t l = 0; l < Lloc; ++l) {
@@ -274,6 +324,110 @@ __global__ void __launch_bounds__(kSegThreads) segment_cascade_kernel(
     float* o = dst + (int64_t)i * P;
     for (int32_t c = lane; c < P; c += 32)
       o[c] = c < p ? buf[i * p + c] : 0.0f;
+  }
+}
+
+// Sample k of a stage (its view row k / PW, column k % PW) decoded from
+// the wire, as fill_from_wire decodes it.
+__device__ __forceinline__ float decode_sample(
+    const uint8_t* __restrict__ wd, const float* __restrict__ sd,
+    int32_t PW, StageSlice at, int32_t mode, int64_t vr, int32_t c) {
+  const float scale = sd[vr];
+  if (mode == kModeU8)
+    return __fmul_rn(__fsub_rn((float)wd[(at.roff + vr) * PW + c], 128.0f),
+                     scale);
+  const bool u6 = mode == kModeU6;
+  const int64_t row = u6 ? vr >> 2 : vr >> 1;
+  const int32_t sub = (int32_t)(u6 ? vr & 3 : vr & 1);
+  const uint8_t* q0 = wd + (at.roff + row) * PW + c;
+  const int32_t b0 = q0[0], b1 = q0[at.pr * PW], b2 = q0[2 * at.pr * PW];
+  float xq;
+  if (u6) {
+    const int32_t word = b0 | (b1 << 8) | (b2 << 16);
+    xq = __fsub_rn((float)((word >> (6 * sub)) & 63), 32.0f);
+  } else {
+    const int32_t q = sub == 0 ? (b0 | ((b1 & 15) << 8))
+                               : ((b1 >> 4) | (b2 << 4));
+    xq = __fsub_rn((float)q, 2048.0f);
+  }
+  return __fmul_rn(xq, scale);
+}
+
+// The segment kernel's direct form, for plans whose row pair does not fit
+// a tile (no tile-local level, one-row tiles, no shared memory): each
+// tile's row is filled straight into its container row, over (tile) x
+// column blocks as ffa_level_cols_kernel cuts a level; blockIdx.x = (d *
+// ntiles + tile) * cols + column block, kColPhases consecutive phases a
+// thread (float4 stores with kVec). A live row holds its host samples
+// (rows below m_b, from the host slice), its guest samples (K3's rows
+// [gbase_b, gbase_b + gm_b), from the guest slice) or zeros; from the
+// packed container (K2) it is copied. Zero from p to P; a dead tile's row
+// is zero.
+template <bool kFromWire, bool kVec>
+__global__ void __launch_bounds__(kColThreads) segment_direct_kernel(
+    const float* __restrict__ src, const uint8_t* __restrict__ wire,
+    const float* __restrict__ scales, const int32_t* __restrict__ tiles,
+    int32_t ntiles, const int32_t* __restrict__ ms,
+    const int32_t* __restrict__ ps, const int32_t* __restrict__ gms,
+    const int32_t* __restrict__ gbase, float* __restrict__ out, int32_t B,
+    int32_t R, int32_t P, int32_t cols, int64_t wrows, int32_t PW,
+    int64_t stot, StageSlice host, StageSlice guest, int32_t mode) {
+  const int64_t blk = blockIdx.x / cols;
+  const int32_t c0 = (int32_t)(blockIdx.x - blk * cols) * kColSpan +
+                     (int32_t)threadIdx.x * kColPhases;
+  if (c0 >= P) return;
+  const int64_t d = blk / ntiles;
+  const int32_t* tile = tiles + 4 * (blk - d * ntiles);
+  const int32_t b = tile[0], r = tile[1];
+  const int64_t plane = d * B + b;
+  float* o = out + (plane * R + r) * (int64_t)P;
+  const int32_t p = ps[b];
+  float v[kColPhases] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (tile[3] != 0) {
+    if constexpr (kFromWire) {
+      // Guest row r - gb (the guest's rows win, as segment_cascade_kernel
+      // fills them last), or host row r; any other row is zero.
+      const StageSlice* at = nullptr;
+      int32_t k_row = 0;
+      if (gbase != nullptr && gbase[b] >= 0 && r >= gbase[b] &&
+          r < gbase[b] + gms[b]) {
+        at = &guest, k_row = r - gbase[b];
+      } else if (r < ms[b]) {
+        at = &host, k_row = r;
+      }
+      if (at != nullptr) {
+        const uint8_t* wd = wire + d * wrows * PW;
+        const float* sd = scales + d * stot + at->soff;
+        const int64_t k = (int64_t)k_row * p + c0;
+        int64_t vr = k / PW;
+        int32_t c = (int32_t)(k - vr * PW);
+#pragma unroll
+        for (int j = 0; j < kColPhases; ++j) {
+          if (c0 + j < p) v[j] = decode_sample(wd, sd, PW, *at, mode, vr, c);
+          if (++c == PW) c = 0, ++vr;
+        }
+      }
+    } else {
+      const float* s = src + (plane * R + r) * (int64_t)P;
+      if constexpr (kVec) {
+        const float4 q = *reinterpret_cast<const float4*>(s + c0);
+        v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kColPhases; ++j)
+          if (c0 + j < p) v[j] = s[c0 + j];
+      }
+#pragma unroll
+      for (int j = 0; j < kColPhases; ++j)
+        if (c0 + j >= p) v[j] = 0.0f;
+    }
+  }
+  if constexpr (kVec) {
+    *reinterpret_cast<float4*>(o + c0) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kColPhases; ++j)
+      if (c0 + j < P) o[c0 + j] = v[j];
   }
 }
 
@@ -305,25 +459,86 @@ __global__ void __launch_bounds__(kLevelWarps * 32) ffa_level_kernel(
   for (int32_t c = p + lane; c < P; c += 32) o[c] = 0.0f;
 }
 
-// One warp per evaluated row (d, b, r < RE), blockDim.x / 32 rows a
-// block. The row's inclusive prefix sum lives in shared memory (P floats
-// per warp) or, with kScratch (rows too wide for shared memory), in the
-// row's own P floats of `scratch`: each lane scans a contiguous chunk, a
-// shuffle scan adds the chunk offsets. Then for
-// each width the warp takes the maximum over the p phases of the
-// circular window sum cs[(j + w) mod p] (+ total on wrap) - cs[j], and
-// lane 0 writes ((h + b) * dmax - b * total) / std (ops/snr.py). With
-// gbase (row-packed containers; null otherwise), rows r >= gbase[b] >= 0
-// take the guest trial's gh/gb/gstd instead.
-template <bool kScratch>
+// The wide form of one FFA level (P > kNarrowP): merge_row's arithmetic
+// over (plane, row) x column blocks; blockIdx.x = (plane * R + r) * cols
+// + column block, so the blocks in flight walk each plane's rows in
+// order. A thread takes kColPhases consecutive phases; with kVec (P a
+// multiple of 4, both buffers 16-byte aligned) it reads the head row and
+// writes the output as one float4 each.
+template <bool kVec>
+__global__ void __launch_bounds__(kColThreads) ffa_level_cols_kernel(
+    const float* __restrict__ in, float* __restrict__ out,
+    const int32_t* __restrict__ h, const int32_t* __restrict__ t,
+    const int32_t* __restrict__ shift, const int32_t* __restrict__ ps,
+    int32_t B, int32_t R, int32_t P, int32_t cols) {
+  const int64_t row = blockIdx.x / cols;
+  const int32_t c0 = (int32_t)(blockIdx.x - row * cols) * kColSpan +
+                     (int32_t)threadIdx.x * kColPhases;
+  if (c0 >= P) return;
+  const int64_t plane = row / R;
+  const int32_t r = (int32_t)(row - plane * R);
+  const int32_t b = (int32_t)(plane % B);
+  const int32_t p = ps[b];
+  const int32_t Z = R - 1;
+  const int64_t e = (int64_t)b * R + r;
+  const int32_t hh = h[e];
+  const int32_t tt = t[e];
+  const float* src = in + plane * R * (int64_t)P;
+  const float* hp = hh == Z ? nullptr : src + (int64_t)hh * P;
+  const float* tp = tt == Z ? nullptr : src + (int64_t)tt * P;
+  float* o = out + row * (int64_t)P;
+  const int32_t s = shift[e] % p;
+  float hv[kColPhases] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (hp != nullptr) {
+    if constexpr (kVec) {
+      const float4 q = *reinterpret_cast<const float4*>(hp + c0);
+      hv[0] = q.x, hv[1] = q.y, hv[2] = q.z, hv[3] = q.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kColPhases; ++j)
+        if (c0 + j < p) hv[j] = hp[c0 + j];
+    }
+  }
+  float v[kColPhases];
+#pragma unroll
+  for (int j = 0; j < kColPhases; ++j) {
+    const int32_t c = c0 + j;
+    v[j] = 0.0f;
+    if (c >= p) continue;
+    if (tp == nullptr) {
+      if (hp != nullptr) v[j] = __fadd_rn(hv[j], 0.0f);
+    } else {
+      int32_t c2 = c + s;
+      if (c2 >= p) c2 -= p;
+      v[j] = __fadd_rn(hv[j], tp[c2]);
+    }
+  }
+  if constexpr (kVec) {
+    *reinterpret_cast<float4*>(o + c0) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kColPhases; ++j)
+      if (c0 + j < P) o[c0 + j] = v[j];
+  }
+}
+
+// One warp per evaluated row (d, b, r < RE), kSnrWarps rows a block (P
+// <= kNarrowP). The row's inclusive prefix sum lives in the warp's P
+// floats of shared memory: each lane scans a contiguous chunk, a shuffle
+// scan adds the chunk offsets. Then for each width the warp takes the
+// maximum over the p phases of the circular window sum cs[(j + w) mod p]
+// (+ total on wrap) - cs[j], and lane 0 writes ((h + b) * dmax - b *
+// total) / std (ops/snr.py). With gbase (row-packed containers; null
+// otherwise), rows r >= gbase[b] >= 0 take the guest trial's
+// gh/gb/gstd instead.
 __global__ void boxcar_snr_kernel(
     const float* __restrict__ in, float* __restrict__ out,
     const int32_t* __restrict__ ps, const int32_t* __restrict__ widths,
     const float* __restrict__ hcoef, const float* __restrict__ bcoef,
     const float* __restrict__ stdnoise, const int32_t* __restrict__ gbase,
     const float* __restrict__ ghcoef, const float* __restrict__ gbcoef,
-    const float* __restrict__ gstdnoise, float* __restrict__ scratch,
-    int64_t nrows, int32_t B, int32_t R, int32_t P, int32_t RE, int32_t NW) {
+    const float* __restrict__ gstdnoise, int64_t nrows, int32_t B,
+    int32_t R, int32_t P, int32_t RE, int32_t NW) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -334,7 +549,7 @@ __global__ void boxcar_snr_kernel(
   const int32_t b = (int32_t)(q % B);
   const int32_t p = ps[b];
   const float* x = in + (q * R + r) * P;
-  float* cs = kScratch ? scratch + row * P : smem + warp * P;
+  float* cs = smem + warp * P;
   const bool guest = gbase != nullptr && gbase[b] >= 0 && r >= gbase[b];
   const float* hc = guest ? ghcoef : hcoef;
   const float* bc = guest ? gbcoef : bcoef;
@@ -385,6 +600,188 @@ __global__ void boxcar_snr_kernel(
   }
 }
 
+// An order-preserving map of floats onto unsigned integers (a < b as
+// floats iff key(a) < key(b), -0 just below +0), and its inverse.
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The wide S/N (P > kNarrowP): one evaluated row (d, b, r < RE) per
+// block or, with kCluster, per cluster of n blocks (blockIdx.x = row * n
+// + rank). The row's 32 chunks of ceil(p / 32) phases (the narrow
+// kernel's) are split in order over the n blocks, 32 / n each; a block
+// keeps its phases [lo, hi) of the prefix sums in shared memory. Steps,
+// each closed by a barrier over the block or the cluster:
+//   1. the block's phases of the row into shared memory (float4 where
+//      aligned); block 0 sets the row's NW output slots to key(-inf);
+//   2. warp 0 scans the block's chunks in place, lane i chunk i, each in
+//      order from a zero run, the lanes skewed (header: conflict free);
+//   3. every warp reads the 32 chunk totals (the scanned value at each
+//      chunk's last phase, from the block holding it; 0 for an empty
+//      chunk), runs the narrow kernel's shuffle scan on them and derives
+//      the total, cs[p - 1], as the narrow kernel forms it;
+//   4. all threads add chunk k's offset to its phases (k > 0);
+//   5. for each width, every thread takes the block's phases strided,
+//      reads cs[(j + w) mod p] locally or from the block holding it, and
+//      each warp's maximum goes into the output slot by atomicMax on its
+//      key;
+//   6. block 0 turns each slot's maximum into the S/N, as the narrow
+//      kernel does.
+// `vec`: the container's rows start 16-byte aligned (P % 4 == 0).
+template <bool kCluster>
+__global__ void __launch_bounds__(kRowThreads) snr_row_kernel(
+    const float* __restrict__ in, float* __restrict__ out,
+    const int32_t* __restrict__ ps, const int32_t* __restrict__ widths,
+    const float* __restrict__ hcoef, const float* __restrict__ bcoef,
+    const float* __restrict__ stdnoise, const int32_t* __restrict__ gbase,
+    const float* __restrict__ ghcoef, const float* __restrict__ gbcoef,
+    const float* __restrict__ gstdnoise, int32_t B, int32_t R, int32_t P,
+    int32_t RE, int32_t NW, int32_t vec) {
+  extern __shared__ float cs[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int32_t n = kCluster ? (int32_t)cluster.num_blocks() : 1;
+  const int32_t rank = kCluster ? (int32_t)cluster.block_rank() : 0;
+  const auto sync = [&]() {
+    if constexpr (kCluster) {
+      cluster.sync();
+    } else {
+      __syncthreads();
+    }
+  };
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = blockIdx.x / n;
+  const int64_t q = row / RE;
+  const int32_t r = (int32_t)(row - q * RE);
+  const int32_t b = (int32_t)(q % B);
+  const int32_t p = ps[b];
+  const float* x = in + (q * R + r) * P;
+  const int32_t chunk = (p + 31) / 32;
+  const int32_t span = 32 / n * chunk;  // phases a block holds
+  const int32_t lo = min(rank * span, p);
+  const int32_t len = min(lo + span, p) - lo;
+  unsigned* keys = reinterpret_cast<unsigned*>(out + row * NW);
+  // Phase c of the row's prefix sums, from the block that holds it.
+  const auto at = [&](int32_t c) -> float {
+    if constexpr (kCluster) {
+      if ((uint32_t)(c - lo) >= (uint32_t)len) {
+        const int32_t owner = c / span;
+        return cluster.map_shared_rank(cs, owner)[c - owner * span];
+      }
+    }
+    return cs[c - lo];
+  };
+
+  // 1.
+  int32_t i0 = 0;
+  if (vec && (lo & 3) == 0) {
+    const float4* xv = reinterpret_cast<const float4*>(x + lo);
+    float4* cv = reinterpret_cast<float4*>(cs);
+    i0 = len / 4 * 4;
+    for (int32_t i = threadIdx.x; i < len / 4; i += blockDim.x) cv[i] = xv[i];
+  }
+  for (int32_t i = i0 + threadIdx.x; i < len; i += blockDim.x)
+    cs[i] = x[lo + i];
+  if (rank == 0)
+    for (int32_t iw = threadIdx.x; iw < NW; iw += blockDim.x)
+      atomicExch(keys + iw, order_key(-INFINITY));
+  __syncthreads();
+  // 2. kScanBatch loads are issued before their adds, so that the chain
+  // of adds, not the loads' latency, paces the scan. A lane outside its
+  // chunk adds +0.0f, which leaves its run as it is (a run that starts at
+  // +0.0f is never -0.0f), and stores nothing.
+  if (warp == 0) {
+    const int32_t c0 = min((rank * (32 / n) + lane) * chunk, p);
+    const int32_t cn = lane < 32 / n ? min(c0 + chunk, p) - c0 : 0;
+    float* my = cs + (c0 - lo);
+    const int32_t skew = (lane * (chunk - 1)) & 31;
+    float run = 0.0f;
+    for (int32_t it0 = -skew; it0 < chunk + 31 - skew; it0 += kScanBatch) {
+      float v[kScanBatch];
+#pragma unroll
+      for (int j = 0; j < kScanBatch; ++j) {
+        const int32_t k = it0 + j;
+        v[j] = (uint32_t)k < (uint32_t)cn ? my[k] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kScanBatch; ++j) {
+        const int32_t k = it0 + j;
+        run = __fadd_rn(run, v[j]);
+        if ((uint32_t)k < (uint32_t)cn) my[k] = run;
+      }
+    }
+  }
+  sync();
+  // 3.
+  const int32_t g0 = min(lane * chunk, p);
+  const int32_t g1 = min(g0 + chunk, p);
+  const float tot = g1 > g0 ? at(g1 - 1) : 0.0f;
+  float incl = tot;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl = __fadd_rn(incl, y);
+  }
+  float excl = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) excl = 0.0f;
+  const int32_t jl = (p - 1) / chunk;  // the chunk of phase p - 1
+  const float tl = __shfl_sync(kFull, tot, jl);
+  const float el = __shfl_sync(kFull, excl, jl);
+  const float total = jl == 0 ? tl : __fadd_rn(el, tl);
+  sync();  // every block has its totals before the offsets change them
+  // 4. Chunk by chunk, so that a thread needs no division.
+  for (int32_t g = rank * (32 / n); g < (rank + 1) * (32 / n); ++g) {
+    const float e = __shfl_sync(kFull, excl, g);
+    const int32_t c0 = min(g * chunk, p);
+    const int32_t c1 = min(c0 + chunk, p);
+    if (g == 0) continue;
+    for (int32_t c = c0 + threadIdx.x; c < c1; c += blockDim.x)
+      cs[c - lo] = __fadd_rn(e, cs[c - lo]);
+  }
+  sync();
+  // 5. Phases whose window ends in this block's phases before p first
+  // (two shared loads each), then the rest (the wrap, and windows ending
+  // in another block).
+  for (int32_t iw = 0; iw < NW; ++iw) {
+    const int32_t w = widths[iw];
+    const int32_t near = max(0, min(len, p - lo) - w);
+    float best = -INFINITY;
+#pragma unroll 4
+    for (int32_t i = threadIdx.x; i < near; i += blockDim.x)
+      best = fmaxf(best, __fsub_rn(__fadd_rn(cs[i + w], 0.0f), cs[i]));
+    for (int32_t i = near + threadIdx.x; i < len; i += blockDim.x) {
+      int32_t idx = lo + i + w;  // boxcar covering phases [j+1, j+w]
+      const bool wrap = idx >= p;
+      if (wrap) idx -= p;
+      const float dv =
+          __fsub_rn(__fadd_rn(at(idx), wrap ? total : 0.0f), cs[i]);
+      best = fmaxf(best, dv);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      best = fmaxf(best, __shfl_xor_sync(kFull, best, off));
+    if (lane == 0) atomicMax(keys + iw, order_key(best));
+  }
+  sync();  // every maximum is in; no block reads another's memory after
+  // 6.
+  if (rank != 0) return;
+  const bool guest = gbase != nullptr && gbase[b] >= 0 && r >= gbase[b];
+  const float* hc = guest ? ghcoef : hcoef;
+  const float* bc = guest ? gbcoef : bcoef;
+  const float sn = guest ? gstdnoise[b] : stdnoise[b];
+  for (int32_t iw = threadIdx.x; iw < NW; iw += blockDim.x) {
+    const float best = key_value(atomicOr(keys + iw, 0u));
+    const float hh = hc[(int64_t)b * NW + iw];
+    const float bb = bc[(int64_t)b * NW + iw];
+    const float num = __fsub_rn(__fmul_rn(__fadd_rn(hh, bb), best),
+                                __fmul_rn(bb, total));
+    out[row * NW + iw] = __fdiv_rn(num, sn);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -397,12 +794,34 @@ const char* rt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// Blocks of one level launch over a (D, B, R, P) container: kLevelWarps
+// rows a block up to kNarrowP, else (rows) x ceil(P / kColSpan) column
+// blocks.
+long long rt_level_blocks(long long D, int B, int R, int P) {
+  if (P <= kNarrowP) return D * B * ceil_div(R, kLevelWarps);
+  return D * B * (int64_t)R * ceil_div(P, kColSpan);
+}
+
+// Blocks a cluster of the S/N kernel takes at width P (1: no cluster;
+// 0: too wide), and the shared memory of each block. The narrow form (P
+// <= kNarrowP) takes kSnrWarps rows a block, the wide form one row a
+// block or cluster.
+int rt_snr_blocks(long long P) { return P <= kNarrowP ? 1 : snr_blocks(P); }
+
+int rt_snr_smem(long long P) {
+  if (P <= kNarrowP) return kSnrWarps * (int)P * 4;
+  const int n = snr_blocks(P);
+  return n == 0 ? 0 : snr_smem(P, n);
+}
+
 // Once per process, when the library loads: let the kernels that take
 // more than 48 KB of dynamic shared memory opt into the H100's 227 KB.
 int rt_init() {
-  const void* fns[] = {(const void*)boxcar_snr_kernel<false>,
-                       (const void*)segment_cascade_kernel<true, false>,
-                       (const void*)segment_cascade_kernel<false, false>};
+  const void* fns[] = {(const void*)boxcar_snr_kernel,
+                       (const void*)snr_row_kernel<false>,
+                       (const void*)snr_row_kernel<true>,
+                       (const void*)segment_cascade_kernel<true>,
+                       (const void*)segment_cascade_kernel<false>};
   for (const void* fn : fns) {
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
@@ -417,8 +836,9 @@ int rt_init() {
 // K3, gms/gbase (B,) i32 and the guest slice (else null / ignored).
 // tiles (ntiles, 4) i32; h/t/shift (L, B, R) i32 (levels 0..Lloc-1 are
 // read); ms/ps (B,) i32; out (D, B, R, P) f32, not aliasing src.
-// smem 0 selects the direct form: Lloc must be 0 and every tile one
-// row (ops/plan.py::segment_plan).
+// smem 0 selects the direct form, segment_direct_kernel over D x ntiles
+// x ceil(P / kColSpan) blocks: Lloc must be 0 and every tile one row
+// (ops/plan.py::segment_plan).
 int rt_segment_cascade(const void* src, const void* wire, const void* scales,
                        const void* tiles, int ntiles, const void* h,
                        const void* t, const void* shift, const void* ms,
@@ -430,15 +850,28 @@ int rt_segment_cascade(const void* src, const void* wire, const void* scales,
                        int mode, void* stream) {
   const int64_t blocks = D * ntiles;
   if (blocks == 0) return 0;
-  const bool direct = smem == 0;
-  if (direct && Lloc != 0) return (int)cudaErrorInvalidValue;
   const StageSlice host{roff, pr, soff};
   const StageSlice guest{groff, gpr, gsoff};
-  const auto kernel =
-      src == nullptr ? (direct ? segment_cascade_kernel<true, true>
-                               : segment_cascade_kernel<true, false>)
-                     : (direct ? segment_cascade_kernel<false, true>
-                               : segment_cascade_kernel<false, false>);
+  if (smem == 0) {
+    if (Lloc != 0) return (int)cudaErrorInvalidValue;
+    const int32_t cols = (int32_t)ceil_div(P, kColSpan);
+    const bool vec = P % 4 == 0 && ((uintptr_t)out & 15) == 0 &&
+                     ((uintptr_t)src & 15) == 0;
+    const auto kernel =
+        src == nullptr ? (vec ? segment_direct_kernel<true, true>
+                              : segment_direct_kernel<true, false>)
+                       : (vec ? segment_direct_kernel<false, true>
+                              : segment_direct_kernel<false, false>);
+    kernel<<<(unsigned)(blocks * cols), kColThreads, 0,
+             (cudaStream_t)stream>>>(
+        (const float*)src, (const uint8_t*)wire, (const float*)scales,
+        (const int32_t*)tiles, ntiles, (const int32_t*)ms,
+        (const int32_t*)ps, (const int32_t*)gms, (const int32_t*)gbase,
+        (float*)out, B, R, P, cols, wrows, PW, stot, host, guest, mode);
+    return (int)cudaGetLastError();
+  }
+  const auto kernel = src == nullptr ? segment_cascade_kernel<true>
+                                     : segment_cascade_kernel<false>;
   kernel<<<(unsigned)blocks, kSegThreads, smem, (cudaStream_t)stream>>>(
       (const float*)src, (const uint8_t*)wire, (const float*)scales,
       (const int32_t*)tiles, ntiles, (const int32_t*)h, (const int32_t*)t,
@@ -451,20 +884,36 @@ int rt_segment_cascade(const void* src, const void* wire, const void* scales,
 // Levels first..last-1 ping-ponging a -> b -> a ...; the result lies in a
 // when last - first is even, else in b. Tables h/t/shift are (L, B, R)
 // i32.
+// P > kNarrowP takes the wide form, ffa_level_cols_kernel (float4 where
+// P % 4 == 0 and both buffers are 16-byte aligned).
 int rt_ffa_levels(void* a, void* b, const void* h, const void* t,
                   const void* shift, const void* ps, int first, int last,
                   long long D, int B, int R, int P, void* stream) {
   if (D * B == 0) return 0;
-  const int32_t chunks = (int32_t)ceil_div(R, kLevelWarps);
-  const int64_t blocks = D * B * chunks;
+  const int64_t blocks = rt_level_blocks(D, B, R, P);
   const int64_t lvl = (int64_t)B * R;
+  const bool wide = P > kNarrowP;
+  const int32_t chunks = (int32_t)ceil_div(R, kLevelWarps);
+  const int32_t cols = (int32_t)ceil_div(P, kColSpan);
+  const bool vec = P % 4 == 0 && ((uintptr_t)a & 15) == 0 &&
+                   ((uintptr_t)b & 15) == 0;
+  const auto wide_kernel = vec ? ffa_level_cols_kernel<true>
+                               : ffa_level_cols_kernel<false>;
   for (int l = first; l < last; ++l) {
     const bool even = (l - first) % 2 == 0;
-    ffa_level_kernel<<<(unsigned)blocks, kLevelWarps * 32, 0,
-                       (cudaStream_t)stream>>>(
-        (const float*)(even ? a : b), (float*)(even ? b : a),
-        (const int32_t*)h + l * lvl, (const int32_t*)t + l * lvl,
-        (const int32_t*)shift + l * lvl, (const int32_t*)ps, B, R, P, chunks);
+    const float* src = (const float*)(even ? a : b);
+    float* dst = (float*)(even ? b : a);
+    const int32_t* hl = (const int32_t*)h + l * lvl;
+    const int32_t* tl = (const int32_t*)t + l * lvl;
+    const int32_t* sl = (const int32_t*)shift + l * lvl;
+    if (wide) {
+      wide_kernel<<<(unsigned)blocks, kColThreads, 0, (cudaStream_t)stream>>>(
+          src, dst, hl, tl, sl, (const int32_t*)ps, B, R, P, cols);
+    } else {
+      ffa_level_kernel<<<(unsigned)blocks, kLevelWarps * 32, 0,
+                         (cudaStream_t)stream>>>(
+          src, dst, hl, tl, sl, (const int32_t*)ps, B, R, P, chunks);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -474,30 +923,58 @@ int rt_ffa_levels(void* a, void* b, const void* h, const void* t,
 // in (D, B, R, P) f32, out (D, B, RE, NW) f32; widths (NW,) i32,
 // hcoef/bcoef (B, NW) f32, stdnoise (B,) f32. gbase (B,) i32 and the
 // guest's ghcoef/gbcoef/gstdnoise for a row-packed container, else null.
-// `rows` rows (warps) a block with their prefix sums in rows * P floats
-// of shared memory; or, with `scratch` (D * B * RE * P f32), kSnrWarps
-// rows a block with their prefix sums there.
+// P <= kNarrowP: kSnrWarps rows (warps) a block, their prefix sums in
+// kSnrWarps * P floats of shared memory. Wider: snr_row_kernel, one row
+// a block or a cluster of rt_snr_blocks(P) blocks (refused past 464,896).
 int rt_boxcar_snr(const void* in, void* out, const void* ps,
                   const void* widths, const void* hcoef, const void* bcoef,
                   const void* stdnoise, const void* gbase, const void* ghcoef,
-                  const void* gbcoef, const void* gstdnoise, void* scratch,
-                  int rows, long long D, int B, int R, int P, int RE, int NW,
-                  void* stream) {
+                  const void* gbcoef, const void* gstdnoise, long long D,
+                  int B, int R, int P, int RE, int NW, void* stream) {
   const int64_t nrows = D * B * (int64_t)RE;
   if (nrows == 0) return 0;
-  if (scratch != nullptr) rows = kSnrWarps;
-  if (rows < 1 || rows > kSnrWarps) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      scratch == nullptr ? (size_t)rows * P * sizeof(float) : 0;
-  const auto kernel = scratch == nullptr ? boxcar_snr_kernel<false>
-                                          : boxcar_snr_kernel<true>;
-  kernel<<<(unsigned)ceil_div(nrows, rows), rows * 32, smem,
-           (cudaStream_t)stream>>>(
-      (const float*)in, (float*)out, (const int32_t*)ps,
-      (const int32_t*)widths, (const float*)hcoef, (const float*)bcoef,
-      (const float*)stdnoise, (const int32_t*)gbase, (const float*)ghcoef,
-      (const float*)gbcoef, (const float*)gstdnoise, (float*)scratch, nrows,
-      B, R, P, RE, NW);
+  const size_t smem = (size_t)rt_snr_smem(P);
+  if (P <= kNarrowP) {
+    boxcar_snr_kernel<<<(unsigned)ceil_div(nrows, kSnrWarps), kSnrWarps * 32,
+                        smem, (cudaStream_t)stream>>>(
+        (const float*)in, (float*)out, (const int32_t*)ps,
+        (const int32_t*)widths, (const float*)hcoef, (const float*)bcoef,
+        (const float*)stdnoise, (const int32_t*)gbase, (const float*)ghcoef,
+        (const float*)gbcoef, (const float*)gstdnoise, nrows, B, R, P, RE,
+        NW);
+    return (int)cudaGetLastError();
+  }
+  const int n = snr_blocks(P);
+  if (n == 0) return (int)cudaErrorInvalidValue;
+  const int32_t vec = P % 4 == 0 && ((uintptr_t)in & 15) == 0;
+  if (n == 1) {
+    snr_row_kernel<false><<<(unsigned)nrows, kRowThreads, smem,
+                            (cudaStream_t)stream>>>(
+        (const float*)in, (float*)out, (const int32_t*)ps,
+        (const int32_t*)widths, (const float*)hcoef, (const float*)bcoef,
+        (const float*)stdnoise, (const int32_t*)gbase, (const float*)ghcoef,
+        (const float*)gbcoef, (const float*)gstdnoise, B, R, P, RE, NW, vec);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nrows * n));
+  cfg.blockDim = dim3(kRowThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, snr_row_kernel<true>, (const float*)in, (float*)out,
+      (const int32_t*)ps, (const int32_t*)widths, (const float*)hcoef,
+      (const float*)bcoef, (const float*)stdnoise, (const int32_t*)gbase,
+      (const float*)ghcoef, (const float*)gbcoef, (const float*)gstdnoise, B,
+      R, P, RE, NW, vec);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -65,11 +65,17 @@ first RE rows. A row-packed container's tables carry the guest
 rows at or above a trial's guest base take the guest's S/N coefficients
 (``Coefs.ghcoef``/``gbcoef``/``gstdnoise``). The TPU's p <= 2047
 and PW <= 2048 limits came from packed-word fields the port does not
-have, and the kernels take every phase width: the S/N kernel keeps
-:func:`snr_launch` rows' prefix sums in a block's shared memory, or a
-scratch row each in device memory when not one fits, and a container
-whose row pair does not fit a segment tile runs every level as a level
-launch (:func:`~.plan.segment_plan`).
+have, and the kernels take every phase width up to :data:`MAX_P`.
+
+Wide phases. P alone picks each kernel's form. Up to :data:`NARROW_P`
+(14,528) a level launch gives each row a warp and the S/N kernel keeps
+four rows' prefix sums in a block's shared memory. A wider container
+(where, too, no row pair fits a segment tile, so every level is a level
+launch, :func:`~.plan.segment_plan`) takes the wide forms: each level
+over (row x column) blocks (:func:`level_grid`), and the S/N one row a
+block, or a row a cluster of 2-8 blocks sharing their shared memory past
+58,112 (:func:`snr_launch`), in the narrow kernel's summation order, so
+a trial's S/N has the same bits in either form.
 """
 import contextlib
 import ctypes
@@ -90,7 +96,8 @@ __all__ = ["fused_stage", "cascade_stage", "paired_stage", "segment_levels",
            "fused_stage_plain", "cascade_stage_plain", "paired_stage_plain",
            "segment_levels_plain", "fill_plain", "StageGeom", "WireSource",
            "Tables", "Coefs", "LAUNCHES", "KERNEL_LAUNCHES", "reset_launches",
-           "build", "bucket_rows", "snr_launch", "WIRE_MODES",
+           "build", "bucket_rows", "snr_launch", "SnrLaunch", "level_grid",
+           "NARROW_P", "MAX_P", "WIRE_MODES",
            "ShapeOnlyLibrary", "shape_only"]
 
 SOURCE = cuda_build.CSRC / "ffa_stage.cu"
@@ -100,21 +107,62 @@ SOURCE = cuda_build.CSRC / "ffa_stage.cu"
 WIRE_MODES = {"uint8": (1, 1), "uint12": (2, 3), "uint6": (4, 3)}
 _MODE_CODE = {"uint6": 6, "uint8": 8, "uint12": 12}
 
-# Rows (one warp each) per boxcar_snr block at most, as in ffa_stage.cu.
+# Rows (one warp each) per narrow boxcar_snr block, as in ffa_stage.cu.
 SNR_WARPS = 4
+# The widest container of the narrow forms (ffa_stage.cu's kNarrowP):
+# SNR_WARPS rows of P floats fill a block's shared memory.
+NARROW_P = MAX_DYNAMIC_SMEM // (4 * SNR_WARPS)
+# The wide forms (ffa_stage.cu): threads of a level block and the
+# columns it covers, threads of an S/N block, the most blocks of an S/N
+# cluster and so the widest container the S/N kernel takes.
+COL_THREADS, COL_SPAN = 256, 1024
+ROW_THREADS, MAX_CLUSTER = 1024, 8
+MAX_P = MAX_CLUSTER * MAX_DYNAMIC_SMEM // 4
+
+
+class SnrLaunch(NamedTuple):
+    """The S/N kernel's launch shape: evaluated ``rows`` a block and
+    ``threads`` a block, blocks a ``cluster`` (1: none), and each block's
+    dynamic shared memory ``smem`` in bytes. The grid is ceil(rows of
+    the container / rows) * cluster blocks."""
+    rows: int
+    threads: int
+    cluster: int
+    smem: int
 
 
 def snr_launch(P):
-    """The S/N kernel's launch shape for container width P: (rows per
-    block, dynamic shared memory bytes, scratch). As many rows as fit
-    ``rows * P * 4 <= MAX_DYNAMIC_SMEM``, at most :data:`SNR_WARPS` (4 up
-    to P = 14,528, 1 up to 58,112); where not one row fits, SNR_WARPS
-    rows a block with their prefix sums in a device scratch row each
-    (``scratch`` True, no shared memory)."""
-    rows = min(SNR_WARPS, MAX_DYNAMIC_SMEM // (4 * int(P)))
-    if rows < 1:
-        return SNR_WARPS, 0, True
-    return rows, rows * int(P) * 4, False
+    """The S/N kernel's :class:`SnrLaunch` for container width P, as
+    ``rt_boxcar_snr`` launches it. Up to :data:`NARROW_P`: SNR_WARPS rows
+    a block, one warp each, their prefix sums in shared memory. Wider:
+    one row a block of ROW_THREADS threads, or a cluster of 2, 4 or 8
+    blocks, the fewest whose shares of the row's 32 chunks of ceil(P /
+    32) phases each fit a block's shared memory (one block up to P =
+    58,112, two up to 116,224). Raises ValueError past :data:`MAX_P`."""
+    P = int(P)
+    if P <= NARROW_P:
+        return SnrLaunch(SNR_WARPS, 32 * SNR_WARPS, 1, SNR_WARPS * P * 4)
+    chunk = -(-P // 32)
+    n = 1
+    while n <= MAX_CLUSTER:
+        held = min(P, 32 // n * chunk)
+        if held * 4 <= MAX_DYNAMIC_SMEM:
+            return SnrLaunch(1, ROW_THREADS, n, held * 4)
+        n *= 2
+    raise ValueError(f"container width P = {P} past the S/N kernel's "
+                     f"widest, {MAX_P}")
+
+
+def level_grid(D, B, R, P):
+    """(blocks, threads a block) of one level launch over a (D, B, R, P)
+    container, as ``rt_ffa_levels`` launches it: up to :data:`NARROW_P`
+    a warp a row, 8 rows a block; wider, COL_THREADS threads over
+    COL_SPAN columns a block (4 consecutive phases a thread), every row
+    cut into ceil(P / COL_SPAN) column blocks."""
+    if P <= NARROW_P:
+        return D * B * -(-R // 8), 256
+    return D * B * R * -(-P // COL_SPAN), COL_THREADS
+
 
 LAUNCHES = {"fused_stage": 0, "cascade_stage": 0, "paired_stage": 0}
 KERNEL_LAUNCHES = {"segment_wire": 0, "segment_container": 0,
@@ -221,9 +269,13 @@ def _bind(lib):
     lib.rt_ffa_levels.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, ll, i32,
                                   i32, i32, vp]
     lib.rt_boxcar_snr.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                  vp, i32, ll, i32, i32, i32, i32, i32, vp]
+                                  ll, i32, i32, i32, i32, i32, vp]
+    lib.rt_snr_blocks.argtypes = lib.rt_snr_smem.argtypes = [ll]
+    lib.rt_level_blocks.argtypes = [ll, i32, i32, i32]
+    lib.rt_level_blocks.restype = ll
     for fn in (lib.rt_segment_cascade, lib.rt_ffa_levels, lib.rt_boxcar_snr,
-               lib.rt_snr_warps, lib.rt_max_dynamic_smem):
+               lib.rt_snr_warps, lib.rt_max_dynamic_smem, lib.rt_snr_blocks,
+               lib.rt_snr_smem):
         fn.restype = i32
     if lib.rt_snr_warps() != SNR_WARPS:
         raise RuntimeError("ffa_stage.cu and ffa_kernel.py disagree on "
@@ -231,6 +283,21 @@ def _bind(lib):
     if lib.rt_max_dynamic_smem() != MAX_DYNAMIC_SMEM:
         raise RuntimeError("ffa_stage.cu and cuda_build.py disagree on "
                            "MAX_DYNAMIC_SMEM")
+    for P in _SHAPE_CHECKS:
+        want = snr_launch(P) if P <= MAX_P else SnrLaunch(0, 0, 0, 0)
+        if (lib.rt_snr_blocks(P), lib.rt_snr_smem(P)) != (want.cluster,
+                                                          want.smem):
+            raise RuntimeError(f"ffa_stage.cu and ffa_kernel.py disagree "
+                               f"on the S/N launch at P = {P}")
+        if lib.rt_level_blocks(2, 9, 24, P) != level_grid(2, 9, 24, P)[0]:
+            raise RuntimeError(f"ffa_stage.cu and ffa_kernel.py disagree "
+                               f"on the level grid at P = {P}")
+
+
+# Widths at which the library's launch shapes are held to snr_launch and
+# level_grid when it loads: each form's edges.
+_SHAPE_CHECKS = (128, NARROW_P, NARROW_P + 1, 29056, 58112, 58113, 116224,
+                 116225, MAX_P, MAX_P + 1)
 
 
 _LIB = cuda_build.Library(SOURCE, _bind)
@@ -343,6 +410,7 @@ def _check_tables(tables, B, R, dev):
 
 def _check_stage(tables, coefs, D, B, R, P, dev):
     _check_tables(tables, B, R, dev)
+    snr_launch(P)  # raises past the S/N kernel's widest container
     NW = coefs.widths.shape[0]
     _require(coefs.widths, "coefs.widths", torch.int32, dev, (NW,))
     _require(coefs.hcoef, "coefs.hcoef", torch.float32, dev, (B, NW))
@@ -574,9 +642,6 @@ def _snr(rt, x, tables, coefs):
     NW = coefs.widths.shape[0]
     out = torch.empty((D, B, coefs.rows, NW), dtype=torch.float32,
                       device=x.device)
-    rows, _, wide = snr_launch(P)
-    scratch = (torch.empty((D, B, coefs.rows, P), dtype=torch.float32,
-                           device=x.device) if wide else None)
     # Null guest pointers (unpaired): every row takes the host's
     # coefficients.
     guest = (tables.gbase, coefs.ghcoef, coefs.gbcoef, coefs.gstdnoise)
@@ -585,7 +650,6 @@ def _snr(rt, x, tables, coefs):
         _ptr(coefs.widths), _ptr(coefs.hcoef),
         _ptr(coefs.bcoef), _ptr(coefs.stdnoise),
         *(None if tables.gbase is None else _ptr(g) for g in guest),
-        None if scratch is None else _ptr(scratch), rows,
         D, B, R, P, coefs.rows, NW, stream))
     kernels["boxcar_snr"] += 1
     return out

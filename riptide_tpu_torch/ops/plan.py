@@ -351,10 +351,10 @@ def segment_plan(b):
     rows as fit the cap, and dead rows go in zero tiles of at most cap
     rows.
 
-    Where some plane's cap is below two rows (p > 29,056), no level fits
+    Where some plane's cap is below two rows (p > 14,528), no level fits
     a tile: Lloc is 0, every row is a tile of its own (filled straight
-    into the container, no shared memory) and every level runs over the
-    whole container."""
+    into the container by the segment kernel's direct form, no shared
+    memory) and every level runs over the whole container."""
     L, B, R = b.h.shape
     Z = R - 1
     cap = MAX_DYNAMIC_SMEM // (8 * b.p.astype(np.int64))

@@ -780,8 +780,9 @@ def _kernel_eligible(st, plan):
     kernel's full shared-memory shape (:func:`_smem_fits`). Hopper's
     limits replace the TPU's VMEM budget and packed-word fields. A wider
     stage runs whole, as the JAX package runs its wide stages on the
-    gather path; the kernels take its width (fewer S/N rows a block,
-    and no tile-local level where a row pair does not fit)."""
+    gather path; the kernels take its width in their wide forms (no
+    tile-local level, column-split levels, one S/N block or cluster a
+    row)."""
     return st.kernel_depth >= 3 and _smem_fits(max(st.ps_padded))
 
 

@@ -5,6 +5,7 @@ on one CUDA card:
 
     python3 stage_times.py [--tree DIR] [--survey] [--profile]
     python3 stage_times.py [--tree DIR] --probes
+    python3 stage_times.py [--tree DIR] --wide
 
 ``--tree`` imports ``riptide_tpu_torch`` from DIR (default: the
 directory of this script), so that two versions of the port are timed
@@ -58,6 +59,18 @@ REPS replays over the calls: a launch of a few microseconds is not
 paced by one replay's overhead). "mma.sync TF32 TFLOP/s", where the tree
 has it, is the tensor cores' rate for ``mma.sync`` TF32 alone
 (``probes.common.mma_tf32_tflops``).
+
+``--wide`` times the tree's wide-phase stage kernels instead: the three
+searches of ``chip_smoke.py`` phase 5w (``WIDE``: padded widths P past
+14,528, 29,056 and 58,112), each on the uint6 wire (K1 ``fused_stage``)
+and the float32 wire (K2 ``cascade_stage``). Each entry of ``wide``
+holds the search's P, the limit it crosses, its wrapper and CUDA launch
+counts, ``snr_sha256`` (a digest of the search's S/N bits: equal digests
+mean the trees give the same bits), ``graph_ms`` and ``wrapper_ms`` of
+all its K1 or K2 launches (as above), and ``split``: each CUDA kernel
+alone (the segment kernel, each global level, the S/N kernel), device ms
+summed over the launches beside its bound
+(``chip_smoke.kernel_split``).
 
 Imports nothing of jax and nothing of the JAX package.
 """
@@ -196,6 +209,10 @@ def main(argv=None):
                     help="time the tree's P1 patterns, P2 bodies and P3 "
                          "levels at the tools' shapes instead of the "
                          "search")
+    ap.add_argument("--wide", action="store_true",
+                    help="time the tree's K1 and K2 on phase 5w's three "
+                         "wide-phase searches, kernel by kernel, instead "
+                         "of the search")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -212,6 +229,13 @@ def main(argv=None):
               flush=True)
         return 0
     smoke = _load_smoke()
+    if args.wide:
+        card = smoke.gpu_line()
+        print(card, flush=True)
+        print(json.dumps({"tree": tree, "card": card,
+                          "wide": _wide(smoke, torch.device("cuda"))}),
+              flush=True)
+        return 0
     from riptide_tpu_torch import ffa_search
     from riptide_tpu_torch.ops import ffa_kernel as fk
     from riptide_tpu_torch.search import engine
@@ -344,6 +368,42 @@ def _probes(dev):
 
         out[key] = dict(sha256=digest(level()), graph_ms=_graph_ms(level))
         print(f"  {key}: {out[key]}", flush=True)
+    return out
+
+
+def _wide(smoke, dev):
+    """One entry per phase 5w search and wire: launches, the S/N bits'
+    digest, the K1 or K2 launches' times (:func:`_times`) and the split
+    by CUDA kernel."""
+    import torch
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.search import engine
+
+    fk._LIB.load()
+    out = []
+    for entry in smoke.WIDE:
+        plan, data = smoke.wide_search(entry)
+        for mode, kind in smoke.WIDE_KINDS:
+            fk.reset_launches()
+            with smoke.wire_dtype(mode), engine.recording() as rec:
+                _, _, snrs = engine.run_periodogram(plan, data, device=dev)
+            args = [r["args"] for r in rec["launches"] if r["kind"] == kind]
+            if kind == "cascade_stage":
+                # The container is the call's level scratch: time it on
+                # copies (the work does not depend on the values).
+                args = [(a[0].clone(),) + tuple(a[1:]) for a in args]
+            fn = getattr(fk, kind)
+            res = {"P": plan.P, "limit": entry[0], "kind": kind,
+                   "launches": dict(fk.LAUNCHES),
+                   "cuda_launches": dict(fk.KERNEL_LAUNCHES),
+                   "snr_sha256": hashlib.sha256(np.ascontiguousarray(
+                       snrs).tobytes()).hexdigest()[:16],
+                   **_times(lambda: [fn(*a) for a in args]),
+                   "split": smoke.kernel_split(dev, rec, kind)}
+            print(f"  {res}", flush=True)
+            out.append(res)
+            del rec, args
+            torch.cuda.empty_cache()
     return out
 
 

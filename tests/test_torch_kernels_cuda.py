@@ -170,28 +170,60 @@ EDGES = {
     # Guests right above their hosts: one tile holds host and guest rows.
     "paired-adjacent": ([100, 60], [64, 61], [(50, 100), (30, 60)]),
     # No row pair fits a tile (p > 14,528): one-row tiles written
-    # straight to the container, no tile-local level.
+    # straight to the container, no tile-local level; the wide level and
+    # S/N forms (P > 14,528), one S/N block a row up to 58,112, a cluster
+    # of two above. P just past each limit, p not a multiple of 4, P a
+    # multiple of 4 (the float4 paths) or not.
     "direct": ([3, 1, 5], [30000, 14529, 60001], None),
     "direct-paired": ([3, 2], [20000, 20001], [(2, 4), None]),
+    "wide-ragged": ([3, 2, 5], [14529, 14531, 14530], None),
+    "wide-vec": ([5, 3], [30001, 30004], None),
+    "wide-cluster": ([2, 3], [58113, 58115], None),
+    "wide-cluster-vec": ([3, 2], [58117, 58120], None),
+    "wide-paired": ([3, 2], [29057, 29059], [(2, 3), None]),
+    # S/N clusters of four and eight blocks.
+    "wide-cluster4": ([3], [116229], None),
+    "wide-cluster8": ([2], [232451], None),
 }
+WIDE_EDGES = ("direct", "direct-paired", "wide-ragged", "wide-vec",
+              "wide-cluster", "wide-cluster-vec", "wide-paired",
+              "wide-cluster4", "wide-cluster8")
+# The S/N clusters' sizes (one block a row for the others).
+CLUSTERS = {"direct": 2, "wide-cluster": 2, "wide-cluster-vec": 2,
+            "wide-cluster4": 4, "wide-cluster8": 8}
+# S/N widths of the wide stage checks: a window that wraps at every p.
+WIDTHS = (1, 3, 17, 200, 4096)
 
 
-def _edge_case(name, mode, dev, D=2, PW=64, seed=5):
+def _edge_case(name, mode, dev, D=2, PW=64, seed=5, widths=(1,),
+               centered=False):
     """The container's plan, Tables on ``dev``, and its three sources: a
     hand-made byte-plane wire of mode ``mode`` holding the host stage
     (and the guest stage), and a packed float container of the same
-    samples."""
+    samples. The wire is random bytes or, with ``centered`` (uint6),
+    6-bit values drawn around the quantiser's zero, 32, as a search's
+    normalised series gives them. The S/N coefficients are each trial's
+    boxcar coefficients of ``widths`` (every row evaluated; guest trials
+    take a noise level 1.25 times the host's, so that their rows
+    differ)."""
     from riptide_tpu_torch.ops.plan import FFABatchPlan
+    from riptide_tpu_torch.ops.snr import boxcar_coeffs
 
     ms, ps, guests = EDGES[name]
     R = max([m + 1 for m in ms] + [g[0] + g[1] + 1 for g in guests or ()
                                    if g])
     b = FFABatchPlan(ms, ps, R=R, guests=guests)
     B = b.B
-    one = np.ones((B, 1), np.float32)
-    tables = engine._operands(
-        b, (1,), one, one, one[:, 0], 1, dev,
-        guest=None if guests is None else (one, one, one[:, 0]))[0]
+
+    def coefs(noise):
+        hb = [boxcar_coeffs(int(p), widths) for p in b.p]
+        return (np.array([h for h, _ in hb], np.float32),
+                np.array([c for _, c in hb], np.float32),
+                np.full(B, noise, np.float32))
+
+    tables, snr_coefs = engine._operands(
+        b, widths, *coefs(2.5), R, dev,
+        guest=None if guests is None else coefs(3.125))
     group, planes = fk.WIRE_MODES[mode]
     rng = np.random.default_rng(seed)
     geoms, roff, soff = [], 0, 0
@@ -202,12 +234,22 @@ def _edge_case(name, mode, dev, D=2, PW=64, seed=5):
         pr = -(-r0 // group)
         geoms.append(fk.StageGeom(mode, roff, pr, soff, r0, span))
         roff, soff = roff + planes * pr, soff + r0
-    wire = torch.from_numpy(rng.integers(0, 256, (D, roff, PW),
-                                         dtype=np.uint8)).to(dev)
+    wire = rng.integers(0, 256, (D, roff, PW), dtype=np.uint8)
+    if centered:
+        assert mode == "uint6"
+        for g in geoms:
+            v = np.clip(np.rint(rng.normal(32.0, 8.0, (D, g.pr, 4, PW))), 0,
+                        63).astype(np.int64)
+            word = v[:, :, 0] | v[:, :, 1] << 6 | v[:, :, 2] << 12 | \
+                v[:, :, 3] << 18
+            for k in range(3):
+                wire[:, g.roff + k * g.pr: g.roff + (k + 1) * g.pr] = \
+                    word >> (8 * k) & 255
+    wire = torch.from_numpy(wire).to(dev)
     scales = torch.from_numpy(rng.uniform(0.05, 0.2, (D, soff)).astype(
         np.float32)).to(dev)
     src = fk.WireSource(wire, scales, *geoms)
-    return b, tables, src, fk.fill_plain(src, tables)
+    return b, tables, src, fk.fill_plain(src, tables), snr_coefs
 
 
 @pytest.mark.parametrize("name", sorted(EDGES))
@@ -217,7 +259,7 @@ def test_segment_kernel_bitwise_at_tile_edges(dev, name, kind):
     level is segment_levels_plain's, bit for bit (signs of zeros
     included): from the wire (K1; K3 where the container carries
     guests) and from the packed float container (K2)."""
-    b, tables, wsrc, packed = _edge_case(name, "uint6", dev)
+    b, tables, wsrc, packed, _ = _edge_case(name, "uint6", dev)
     src = wsrc if kind == "K1" else packed.clone()
     L = tables.h.shape[0]
     for g in range(L - tables.local + 1):
@@ -236,9 +278,78 @@ def test_segment_kernel_bitwise_at_tile_edges(dev, name, kind):
 @pytest.mark.parametrize("mode", ["uint8", "uint12"])
 def test_segment_kernel_decodes_every_wire_mode(dev, mode):
     for name in ("cap113", "paired"):
-        _, tables, src, _ = _edge_case(name, mode, dev)
+        _, tables, src, _, _ = _edge_case(name, mode, dev)
         assert torch.equal(fk.segment_levels(src, tables, 0),
                            fk.segment_levels_plain(src, tables, 0))
+
+
+@pytest.mark.parametrize("name", WIDE_EDGES)
+@pytest.mark.parametrize("kind", ["K1", "K2"])
+def test_wide_stage_matches_plain(dev, name, kind):
+    """Whole stages past P = 14,528 (the column-split levels, the S/N a
+    block or a cluster a row): K1 (K3 where the container carries
+    guests, each guest row with its own coefficients) from the wire and
+    K2 from the packed container, against the plain versions, with
+    windows that wrap; one launch of each CUDA kernel a level. The
+    wire's values are zero-mean, as a search's are: on uniform bytes
+    (mean -0.5 a quantum) a row's prefix sums reach 10^4, and the
+    kernel's and the plain version's summation orders (the narrow
+    kernel's and torch.cumsum's) then differ by more than atol."""
+    b, tables, wsrc, packed, coefs = _edge_case(name, "uint6", dev,
+                                                widths=WIDTHS, centered=True)
+    assert tables.P > fk.NARROW_P and tables.local == 0
+    assert fk.snr_launch(tables.P).cluster == CLUSTERS.get(name, 1)
+    before = dict(fk.KERNEL_LAUNCHES)
+    if kind == "K2":
+        want = fk.cascade_stage_plain(packed, tables, coefs)
+        got = fk.cascade_stage(packed.clone(), tables, coefs)
+    elif wsrc.guest is None:
+        want = fk.fused_stage_plain(*wsrc[:3], tables, coefs)
+        got = fk.fused_stage(*wsrc[:3], tables, coefs)
+    else:
+        want = fk.paired_stage_plain(*wsrc, tables, coefs)
+        got = fk.paired_stage(*wsrc, tables, coefs)
+    L = tables.h.shape[0]
+    assert fk.KERNEL_LAUNCHES["ffa_level"] == before["ffa_level"] + L
+    assert fk.KERNEL_LAUNCHES["boxcar_snr"] == before["boxcar_snr"] + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    if wsrc.guest is not None:
+        # The guest rows took the guest's coefficients.
+        host = fk.cascade_stage_plain(packed, tables._replace(
+            gm=None, gbase=None), coefs)
+        assert not torch.allclose(host, want)
+
+
+@pytest.mark.parametrize("wide_p", [14531, 30004, 58113, 60001, 120001])
+def test_wide_snr_has_the_narrow_bits(dev, wide_p):
+    """A trial of p <= 14,528 gives the same S/N bits in a narrow
+    container (P = its p: four rows a block) and in a container widened
+    past 14,528 by a wider trial (the wide S/N kernel: a block, or a
+    cluster past 58,112, a row): the wide form keeps the order of the
+    sums."""
+    from riptide_tpu_torch.ops.plan import FFABatchPlan
+
+    m, p = 23, 14013
+    rng = np.random.default_rng(wide_p)
+    x = rng.standard_normal((2, m, p)).astype(np.float32)
+    x[:, :, ::7] *= 40.0
+    outs = []
+    for ms, ps in (([m], [p]), ([m, 9], [p, wide_p])):
+        b = FFABatchPlan(ms, ps, R=m + 1)
+        B = b.B
+        coef = np.tile(np.float32([1.25, 0.75, 2.0, 1.5, 0.5]), (B, 1))
+        tables, coefs = engine._operands(
+            b, WIDTHS, coef, -0.1 * coef, np.full(B, 2.5, np.float32),
+            m, dev)
+        cont = np.zeros((2, B, m + 1, b.P), np.float32)
+        cont[:, 0, :m, :p] = x
+        if B > 1:
+            cont[:, 1, :9, :wide_p] = rng.standard_normal((2, 9, wide_p))
+        assert (b.P > fk.NARROW_P) == (B > 1)
+        outs.append(fk.cascade_stage(torch.from_numpy(cont).to(dev), tables,
+                                     coefs)[:, 0])
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_stage_counts_cuda_launches(dev, case):
@@ -313,8 +424,8 @@ def test_wide_phase_matches_plain(dev, monkeypatch, wide, mode, kind):
     for r in calls:
         torch.testing.assert_close(r["out"], plain(*r["args"]), rtol=RTOL,
                                    atol=ATOL)
-    if limit >= 29056:
-        assert {r["args"][-2].local for r in calls} == {0}
+    # Past 14,528 no row pair fits a segment tile: no tile-local level.
+    assert {r["args"][-2].local for r in calls} == {0}
 
 
 def test_native_pinned_copy_stream_matches_numpy_plain_ship(dev, case,

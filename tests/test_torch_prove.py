@@ -115,8 +115,9 @@ def test_hbm_model_is_the_reference_class(const, per_dm):
 
 # ------------------------------------------- the walk against a recording
 
-# Phase 5w's widest geometry (P past the S/N kernel's shared memory, so
-# each launch takes a scratch row per evaluated row) at 2^18 samples.
+# Phase 5w's widest geometry (P past one block's shared memory, so the
+# S/N kernel takes a cluster a row, and allocates nothing) at 2^18
+# samples.
 WIDE = dict(nsamp=2 ** 18, tsamp=16e-6, bmin=60000, bmax=60008,
             widths=(1, 2, 4, 8, 16))
 
@@ -144,11 +145,11 @@ def _buffers(rec_launch, walk_launch):
     """The device buffers the card's wrapper takes for a recorded
     launch, from the recorded operands: container a (D, B, R, P); the
     ping-pong's second buffer when levels run past the segment kernel
-    (K2 reuses its container instead); the output as recorded; the S/N
-    scratch (D, B, RE, P) past the shared memory."""
+    (K2 reuses its container instead); the output as recorded. The S/N
+    kernel allocates nothing at any P."""
     tables, coefs = rec_launch["args"][-2:]
     out = rec_launch["out"]
-    D, B, RE = out.shape[:3]
+    D, B = out.shape[:2]
     R, P, L = tables.h.shape[2], tables.P, tables.h.shape[0]
     local = dict(walk_launch["calls"])["segment_cascade"][17]
     a = D * B * R * P * 4
@@ -156,8 +157,6 @@ def _buffers(rec_launch, walk_launch):
     if local < L and rec_launch["kind"] != "cascade_stage":
         bufs.append(a)
     bufs.append(out.nbytes)
-    if fk.snr_launch(P)[2]:
-        bufs.append(D * B * RE * P * 4)
     return bufs
 
 
@@ -171,7 +170,7 @@ def _fit(points):
 def test_walk_bytes_are_a_recorded_search(case, monkeypatch):
     if case == "wide":
         plan, mode, survey, probes = _wide_plan(), "uint6", False, (1, 2)
-        assert fk.snr_launch(plan.P)[2]
+        assert fk.snr_launch(plan.P).cluster > 1
     else:
         spec = contract_plan_params([case])[0]
         plan, mode, survey, probes = _plan(case), spec["wire"], True, \

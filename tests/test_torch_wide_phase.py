@@ -7,8 +7,11 @@ kernels themselves: tests/test_torch_kernels_cuda.py).
   tile-local level, one-row tiles and no shared memory instead of
   raising, and the plain split of that plan gives ``ffa_levels``' bits.
 * The S/N kernel's launch shape (``ffa_kernel.snr_launch``) fits a
-  block's shared memory for every P from 128 to 70,000: 4 rows up to
-  P = 14,528, 1 row up to 58,112, device scratch above.
+  block's shared memory for every P from 128 to 464,896 and allocates
+  no device scratch: 4 rows a block up to P = 14,528, one row a block
+  up to 58,112, a row a cluster of 2, 4 or 8 blocks above; past that it
+  raises. The wide level launch (``ffa_kernel.level_grid``) cuts every
+  row into 1024-column blocks past 14,528.
 * Plans whose padded P crosses 14,528 and 29,056 search on the CPU as
   the JAX package searches them (its gather path: the float32 wire and
   the uint6 wire), within rtol 1e-5, atol 1e-4, and the stage
@@ -84,29 +87,54 @@ def test_segment_plans_with_a_row_pair_keep_their_tiles():
 @pytest.mark.parametrize("P", [128, 256, 1000, 14528, 14529, 19370, 19371,
                                29056, 29057, 58112, 58113, 60008, 70000])
 def test_snr_launch_fits_shared_memory(P):
-    rows, smem, scratch = fk.snr_launch(P)
-    assert 1 <= rows <= fk.SNR_WARPS
+    rows, threads, cluster, smem = fk.snr_launch(P)
     assert smem <= MAX_DYNAMIC_SMEM
-    if scratch:
-        assert P > MAX_DYNAMIC_SMEM // 4 and smem == 0
-        assert rows == fk.SNR_WARPS
-    else:
-        assert smem == rows * P * 4
-        assert rows == min(fk.SNR_WARPS, MAX_DYNAMIC_SMEM // (4 * P))
     if P <= 14528:
-        assert (rows, scratch) == (4, False)
-    elif P <= 58112:
-        assert not scratch
+        assert (rows, threads, cluster) == (fk.SNR_WARPS, 128, 1)
+        assert smem == rows * P * 4
     else:
-        assert scratch
+        # One row a block (or cluster) of 1024 threads; each block holds
+        # its share of the row's 32 chunks of ceil(P / 32) phases.
+        assert (rows, threads) == (1, 1024)
+        held = min(P, 32 // cluster * -(-P // 32))
+        assert smem == held * 4
+        assert cluster == (1 if P <= 58112 else 2)
+        # ... and the cluster is the smallest that holds it.
+        assert cluster == 1 or 4 * min(
+            P, 32 // (cluster // 2) * -(-P // 32)) > MAX_DYNAMIC_SMEM
 
 
 def test_snr_launch_every_width():
-    for P in range(128, 70001, 97):
-        rows, smem, scratch = fk.snr_launch(P)
-        assert smem <= MAX_DYNAMIC_SMEM
-        assert scratch == (P > 58112)
-        assert (rows == 4) == (P <= 14528 or scratch)
+    for P in range(128, 470001, 97):
+        if P > fk.MAX_P:
+            with pytest.raises(ValueError):
+                fk.snr_launch(P)
+            continue
+        rows, _, cluster, smem = fk.snr_launch(P)
+        assert 0 < smem <= MAX_DYNAMIC_SMEM
+        assert (rows == 4) == (P <= 14528)
+        assert cluster == (1 if P <= 58112 else 2 if P <= 116224
+                           else 4 if P <= 232448 else 8)
+        # The cluster's blocks hold the whole row.
+        assert cluster * smem >= 4 * P
+
+
+@pytest.mark.parametrize("P,cluster", [(14528, 1), (14529, 1), (29056, 1),
+                                       (58112, 1), (58113, 2), (70000, 2)])
+def test_wide_launch_grids(P, cluster):
+    """The column grid of a level launch and the S/N kernel's cluster
+    choice on each side of the forms' limits (D = 2, B = 9, R = 24)."""
+    blocks, threads = fk.level_grid(2, 9, 24, P)
+    if P <= 14528:
+        assert (blocks, threads) == (2 * 9 * 3, 256)
+        assert fk.snr_launch(P).rows == 4
+    else:
+        assert threads == 256
+        assert blocks == 2 * 9 * 24 * -(-P // 1024)
+        # Several waves of blocks on the card's 132 SMs.
+        assert blocks >= 8 * 132
+        assert fk.snr_launch(P).rows == 1
+    assert fk.snr_launch(P).cluster == cluster
 
 
 @pytest.mark.parametrize("name", sorted(WIDE))
