@@ -27,7 +27,9 @@ package's ``obs/`` modules):
   (``riptide_tpu_torch/apps/``), and a service directory's job table.
 
 The card's own timeline is ``torch.profiler``'s
-(:func:`riptide_tpu_torch.timing.maybe_trace`); spans cover the host.
+(:func:`riptide_tpu_torch.timing.maybe_trace`); spans cover the host,
+and while a profiler records, each span is also a ``riptide.<name>``
+annotation in its trace, around the kernels the span launched.
 """
 from .trace import (  # noqa: F401
     NULL_SPAN, Span, Tracer, current_span_id, disable, enable, enabled,

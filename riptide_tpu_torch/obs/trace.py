@@ -30,8 +30,20 @@ reads, two list ops and one locked deque append — microseconds against
 the millisecond-to-minute phases it instruments. Spans time *host-side*
 phases; the card's timeline is ``torch.profiler``'s job
 (``timing.maybe_trace``).
+
+While ``torch.profiler`` records, each span entered also opens
+a ``record_function`` named ``riptide.<span name>`` (plus the value of
+the span's ``stage`` attribute, as in ``riptide.ffa_stage.7``), closed
+when the span exits. The span then lies in the profiler's own trace as
+a ``user_annotation`` on the profiler's clock, around the CUDA runtime
+calls it made, whose ``correlation`` names the kernels they launched.
+Whether the profiler records is read once per span entered, and only with
+a tracer installed: the disabled path above gains nothing. The ring,
+its ``perf_counter`` stamps and the Chrome export
+(:mod:`~riptide_tpu_torch.obs.chrome`) are the same either way.
 """
 import itertools
+import sys
 import threading
 import time
 from collections import deque
@@ -45,6 +57,21 @@ __all__ = ["Span", "Tracer", "span", "enable", "disable", "enabled",
 # span when it does not set them itself (chunk attribution for
 # engine-level spans that cannot see the scheduler's chunk id).
 INHERIT_ATTRS = ("chunk",)
+
+# Prefix of a span's name in the profiler's trace, and the attribute
+# keys whose values join it there (they tell sibling spans apart).
+PROFILER_PREFIX = "riptide."
+LABEL_ATTRS = ("stage",)
+
+
+def _recording_profiler():
+    """torch's ``autograd.profiler`` module while a ``torch.profiler``
+    profile records, else None. A process that never imported torch
+    records nothing, so this never imports it."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        return prof
+    return None
 
 
 class _NullSpan:
@@ -81,7 +108,7 @@ class Span:
     with the exact span that was open when it fired.
     """
 
-    __slots__ = ("name", "attrs", "t0", "tid", "sid", "_tracer")
+    __slots__ = ("name", "attrs", "t0", "tid", "sid", "_tracer", "_rf")
 
     def __init__(self, tracer, name, attrs):
         self._tracer = tracer
@@ -104,12 +131,28 @@ class Span:
         stack.append(self)
         self.tid = threading.get_ident()
         self.sid = next(tr._ids)
+        self._rf = None
+        prof = _recording_profiler()
+        if prof is not None:
+            self._rf = prof.record_function(self._label())
+            self._rf.__enter__()
         self.t0 = tr._clock()
         return self
+
+    def _label(self):
+        """The span's name in the profiler's trace: ``riptide.<name>``,
+        then the value of each :data:`LABEL_ATTRS` key it has."""
+        label = PROFILER_PREFIX + self.name
+        for key in LABEL_ATTRS:
+            if key in self.attrs:
+                label += f".{self.attrs[key]}"
+        return label
 
     def __exit__(self, exc_type, exc, tb):
         tr = self._tracer
         dur = tr._clock() - self.t0
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
         stack = tr._stack()
         # Tolerate a torn stack (a span closed out of order under an
         # exception storm) rather than corrupting sibling entries.

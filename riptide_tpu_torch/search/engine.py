@@ -1000,47 +1000,44 @@ def _run_stage_fused(st, plan, i, wire, meta, pairing=None):
     return tuple(outs), tuple(kept)
 
 
-def _queue_stages(plan, wire, meta, events=None):
-    """Queue every cascade stage on the shipped wire. Returns (outs,
-    layout) for :func:`_assemble_device`: ``outs[s]`` the stage's tuple
-    of queued containers, ``layout[s]`` None for one whole-stage
-    container, else per lane bucket ``("own", pos, idx)`` or, for a
-    bucket absorbed by an earlier host, ``("guest", host_stage,
-    host_pos, idx, bases)``. ``events`` (CUDA events, one per stage
-    plus one) are recorded around the stages."""
+def _queue_stages(plan, wire, meta):
+    """Queue every cascade stage on the shipped wire, each in an
+    ``ffa_stage`` span (``stage=i``). Returns (outs, layout) for
+    :func:`_assemble_device`: ``outs[s]`` the stage's tuple of queued
+    containers, ``layout[s]`` None for one whole-stage container, else
+    per lane bucket ``("own", pos, idx)`` or, for a bucket absorbed by
+    an earlier host, ``("guest", host_stage, host_pos, idx, bases)``."""
     mode = meta["mode"]
     rpm = _row_pack_map(plan, mode)
     outs, layout = [], []
     bucketpos = {}  # (stage, bucket) -> position in that stage's outs
-    if events:
-        events[0].record()
     for i, st in enumerate(plan.stages):
         _walk_phase(i)
-        if not _fused_eligible(st, plan, mode):
-            outs.append((_run_stage(st, plan, i, wire, meta),))
-            layout.append(None)
-        else:
-            buckets = st.lane_buckets
-            pairing = _stage_pairing(plan, rpm, i, st)
-            absorbed = pairing["absorbed"] if pairing else set()
-            souts, kept = _run_stage_fused(st, plan, i, wire, meta, pairing)
-            outs.append(souts)
-            for pos, k in enumerate(kept):
-                bucketpos[(i, k)] = pos
-            if len(buckets) == 1 and not absorbed:
+        with span("ffa_stage", stage=i):
+            if not _fused_eligible(st, plan, mode):
+                outs.append((_run_stage(st, plan, i, wire, meta),))
                 layout.append(None)
             else:
-                entries = []
-                for k, idx in enumerate(buckets):
-                    if k in absorbed:
-                        hs = rpm[(i, k)][1]
-                        entries.append(("guest", hs, bucketpos[(hs, k)], idx,
-                                        rpm[(hs, k)][2]))
-                    else:
-                        entries.append(("own", bucketpos[(i, k)], idx))
-                layout.append(tuple(entries))
-        if events:
-            events[i + 1].record()
+                buckets = st.lane_buckets
+                pairing = _stage_pairing(plan, rpm, i, st)
+                absorbed = pairing["absorbed"] if pairing else set()
+                souts, kept = _run_stage_fused(st, plan, i, wire, meta,
+                                               pairing)
+                outs.append(souts)
+                for pos, k in enumerate(kept):
+                    bucketpos[(i, k)] = pos
+                if len(buckets) == 1 and not absorbed:
+                    layout.append(None)
+                else:
+                    entries = []
+                    for k, idx in enumerate(buckets):
+                        if k in absorbed:
+                            hs = rpm[(i, k)][1]
+                            entries.append(("guest", hs, bucketpos[(hs, k)],
+                                            idx, rpm[(hs, k)][2]))
+                        else:
+                            entries.append(("own", bucketpos[(i, k)], idx))
+                    layout.append(tuple(entries))
     _walk_phase("assemble")
     return outs, tuple(layout)
 
@@ -1084,9 +1081,8 @@ def recording():
     ``ship_s`` copy to the device, ``stages_s`` the stage loop,
     ``out_s`` assembly and copy back; a survey batch has ``assemble_s``,
     ``peaks_s`` the device peak program and ``collect_s`` its pull and
-    host tail instead of ``out_s``), each stage's milliseconds between
-    CUDA events (``stage_ms``, empty off the card), and its operands: the
-    shipped ``wire`` and ``meta``, each stage's queued containers
+    host tail instead of ``out_s``), and its operands: the shipped
+    ``wire`` and ``meta``, each stage's queued containers
     ``outs`` and their ``layout``, and every kernel call in
     ``launches`` (kind, arguments, output, stage, lane bucket (None for a
     whole stage) and, for K3, the guest stage). The tensors stay alive with
@@ -1119,9 +1115,10 @@ class _Split:
 
 def _queue_batch(plan, batch, dev, prepared=None, shipped=None, pool=None):
     """Prepare (unless given; into ``pool``'s buffers), ship (unless
-    given) and queue every stage; returns the device S/N cube (D,
-    n_trials, NW), unsynced, the split and the prepared wire (None when
-    ``shipped`` was given)."""
+    given) and queue every stage (span ``stages``) and the assembly
+    (span ``assemble``); returns the device S/N cube (D, n_trials, NW),
+    unsynced, the split and the prepared wire (None when ``shipped`` was
+    given)."""
     split = _Split(dev)
     if split.rec is not None:
         split.rec.clear()
@@ -1132,17 +1129,14 @@ def _queue_batch(plan, batch, dev, prepared=None, shipped=None, pool=None):
         shipped = ship_stage_data(prepared, dev)
     split.mark("ship_s")
     wire, meta = shipped
-    events = []
-    if split.rec is not None and dev.type == "cuda":
-        events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(len(plan.stages) + 1)]
-    outs, layout = _queue_stages(plan, wire, meta, events)
+    with span("stages"):
+        outs, layout = _queue_stages(plan, wire, meta)
     split.mark("stages_s")
     if split.rec is not None:
-        split.rec.update(stage_ms=[a.elapsed_time(b)
-                                   for a, b in zip(events, events[1:])],
-                         wire=wire, meta=meta, outs=outs, layout=layout)
-    return _assemble_device(plan, layout, outs), split, prepared
+        split.rec.update(wire=wire, meta=meta, outs=outs, layout=layout)
+    with span("assemble"):
+        snr_dev = _assemble_device(plan, layout, outs)
+    return snr_dev, split, prepared
 
 
 def _search(plan, batch, device):
@@ -1215,7 +1209,8 @@ def _peak_plan(plan, tobs, **peak_kwargs):
 def queue_search_batch(plan, batch, tobs, prepared=None, shipped=None,
                        device=None, pool=None, **peak_kwargs):
     """Queue one batch's whole device side without syncing: the stage
-    launches, the device assembly of the S/N cube and the peak program.
+    launches, the device assembly of the S/N cube and the peak program
+    (spans ``stages``, ``assemble`` and ``peaks``).
     ``prepared`` (from :func:`prepare_stage_data`) skips the host prep,
     ``shipped`` (from :func:`ship_stage_data`) the copy as well, and then
     the wire's device is used. With ``pool`` (a :class:`StagingPool`) the
@@ -1230,13 +1225,15 @@ def queue_search_batch(plan, batch, tobs, prepared=None, shipped=None,
     snr_dev, split, prepared = _queue_batch(plan, batch, dev, prepared,
                                             shipped, pool)
     split.mark("assemble_s")
-    handle = queue_find_peaks(pp, snr_dev)
+    with span("peaks"):
+        handle = queue_find_peaks(pp, snr_dev)
     split.mark("peaks_s")
     return pp, handle, (pool, prepared)
 
 
 def collect_search_batch(handle, dms):
-    """Sync one queued batch: one device->host pull and the host tail;
+    """Sync one queued batch: one device->host pull and the host tail
+    (spans ``pull`` and ``tail``, :func:`.peaks_device.collect_peaks`);
     then the chunk's staging buffers go back to its pool (their copy
     has completed by then). Returns (peaks_per_trial,
     polycos_per_trial)."""
@@ -1248,7 +1245,7 @@ def collect_search_batch(handle, dms):
     t0 = time.perf_counter()
     # The device_s timer covers the blocking wait on the queued work and
     # the one result pull (inside collect_peaks) and the host tail.
-    with get_metrics().timer("device_s"), span("device"):
+    with get_metrics().timer("device_s"):
         out = collect_peaks(pp, peaks_handle, dms)
     rec = _recorder()
     if rec is not None:

@@ -413,49 +413,63 @@ class PeakPlan:
         and the first CAP non-empty blocks per column, as ONE flat
         float32 buffer [stats | cnt | ids | vals], plus [coef | ncl |
         marg | rep_idx | rep_val | harm] with device clustering. Integer
-        fields travel as float32 values (exact: far below 2^24)."""
+        fields travel as float32 values (exact: far below 2^24). Each
+        step is a span: ``peaks.stats``, ``peaks.fit``, ``peaks.counts``,
+        ``peaks.select``, ``peaks.cluster`` and ``peaks.harm`` (device
+        clustering only), ``peaks.pack``."""
         dev = snr.device
-        s = snr.transpose(1, 2).contiguous()             # (D, NW, n)
-        stats = self._stats_impl(s)                      # (D, NW, nseg, 3)
+        with span("peaks.stats"):
+            s = snr.transpose(1, 2).contiguous()         # (D, NW, n)
+            stats = self._stats_impl(s)                  # (D, NW, nseg, 3)
         D, NW = stats.shape[:2]
-        if self.nseg >= self.minseg:
-            tc = (stats[..., 1]
-                  + self.nstd * (stats[..., 2] - stats[..., 0]) / 1.349)
-            coef = torch.einsum("ks,dws->dwk",
-                                torch.from_numpy(self.fitmat).to(dev), tc)
-        else:
-            coef = torch.zeros((D, NW, self.polydeg + 1), dtype=torch.float32,
-                               device=dev)
-            coef[..., -1] = self.smin
-        cnt = self._counts_impl(s, coef)                 # (D, NW, nb)
-        nb, BLK, CAP = self._nb, self.BLK, self.CAP
-        nz = cnt > 0
-        rank = torch.cumsum(nz.to(torch.int32), dim=-1, dtype=torch.int32) - 1
-        oh = (nz & (rank < CAP))[..., None] & (
-            rank[..., None] == torch.arange(CAP, dtype=torch.int32,
-                                            device=dev))  # (D, NW, nb, CAP)
-        bids = torch.arange(nb, dtype=torch.int64, device=dev)[None, None, :,
-                                                              None]
-        ids = torch.where(oh, bids, 0).sum(dim=2)        # (D, NW, CAP)
-        ids = torch.where(oh.any(dim=2), ids, -1)
-        sp = torch.nn.functional.pad(s, (0, nb * BLK - self.n),
-                                     value=-np.inf)
-        sblk = sp.reshape(D, NW, nb, BLK)
-        vals = torch.gather(sblk, 2, ids.clamp(0, nb - 1)[..., None].expand(
-            D, NW, CAP, BLK))                            # (D, NW, CAP, BLK)
+        with span("peaks.fit"):
+            if self.nseg >= self.minseg:
+                tc = (stats[..., 1]
+                      + self.nstd * (stats[..., 2] - stats[..., 0]) / 1.349)
+                coef = torch.einsum("ks,dws->dwk",
+                                    torch.from_numpy(self.fitmat).to(dev), tc)
+            else:
+                coef = torch.zeros((D, NW, self.polydeg + 1),
+                                   dtype=torch.float32, device=dev)
+                coef[..., -1] = self.smin
+        with span("peaks.counts"):
+            cnt = self._counts_impl(s, coef)             # (D, NW, nb)
         f32 = torch.float32
-        parts = [stats.reshape(-1), cnt.to(f32).reshape(-1),
-                 ids.to(f32).reshape(-1), vals.reshape(-1)]
+        with span("peaks.select"):
+            nb, BLK, CAP = self._nb, self.BLK, self.CAP
+            nz = cnt > 0
+            rank = torch.cumsum(nz.to(torch.int32), dim=-1,
+                                dtype=torch.int32) - 1
+            oh = (nz & (rank < CAP))[..., None] & (      # (D, NW, nb, CAP)
+                rank[..., None] == torch.arange(CAP, dtype=torch.int32,
+                                                device=dev))
+            bids = torch.arange(nb, dtype=torch.int64,
+                                device=dev)[None, None, :, None]
+            ids = torch.where(oh, bids, 0).sum(dim=2)    # (D, NW, CAP)
+            ids = torch.where(oh.any(dim=2), ids, -1)
+            sp = torch.nn.functional.pad(s, (0, nb * BLK - self.n),
+                                         value=-np.inf)
+            sblk = sp.reshape(D, NW, nb, BLK)
+            vals = torch.gather(                         # (D, NW, CAP, BLK)
+                sblk, 2,
+                ids.clamp(0, nb - 1)[..., None].expand(D, NW, CAP, BLK))
+            parts = [stats.reshape(-1), cnt.to(f32).reshape(-1),
+                     ids.to(f32).reshape(-1), vals.reshape(-1)]
         if self.device_cluster:
-            thr = self._thr_impl(coef)
-            ncl, marg, rep_idx, rep_val = self._cluster_impl(s, thr)
-            harm = self._harm_impl(rep_idx, rep_val)
-            rep_val = torch.where(rep_idx >= 0, rep_val,
-                                  torch.zeros((), dtype=f32, device=dev))
-            parts += [coef.reshape(-1), ncl.to(f32).reshape(-1),
-                      marg.to(f32).reshape(-1), rep_idx.to(f32).reshape(-1),
-                      rep_val.reshape(-1), harm]
-        return torch.cat(parts)
+            with span("peaks.cluster"):
+                thr = self._thr_impl(coef)
+                ncl, marg, rep_idx, rep_val = self._cluster_impl(s, thr)
+            with span("peaks.harm"):
+                harm = self._harm_impl(rep_idx, rep_val)
+        with span("peaks.pack"):
+            if self.device_cluster:
+                rep_val = torch.where(rep_idx >= 0, rep_val,
+                                      torch.zeros((), dtype=f32, device=dev))
+                parts += [coef.reshape(-1), ncl.to(f32).reshape(-1),
+                          marg.to(f32).reshape(-1),
+                          rep_idx.to(f32).reshape(-1), rep_val.reshape(-1),
+                          harm]
+            return torch.cat(parts)
 
     def _unpack(self, buf, D):
         NW, nseg, nb, CAP, BLK = (len(self.plan.widths), self.nseg,
@@ -616,21 +630,33 @@ def queue_find_peaks(peak_plan, snr_dev):
 
 def collect_peaks(peak_plan, handle, dms):
     """Pull the fused buffer (ONE transfer) and finish on host: exact
-    float64 threshold re-fit/re-check + clustering -> Peak tuples.
+    float64 threshold re-fit/re-check + clustering -> Peak tuples. The
+    blocking wait and the pull are the span ``pull``; everything after
+    it is the span ``tail``, with ``overflow`` (the overflow gather,
+    ``blocks=``) and ``cluster`` inside.
 
     Returns (peaks_per_trial, polycos_per_trial) where peaks_per_trial[d]
     is a list of Peak sorted by decreasing S/N — the contract of the
     host ``find_peaks`` (riptide/peak_detection.py:146-222).
     """
+    with span("pull"):
+        buf = handle[0].cpu().numpy()                      # the one pull
+    handle[0] = None
+    with span("tail"):
+        return _collect_tail(peak_plan, handle, buf, dms)
+
+
+def _collect_tail(peak_plan, handle, buf, dms):
+    """:func:`collect_peaks` after the pull: ``buf`` is the pulled
+    buffer, ``handle[1]`` the S/N cube, released once no overflow gather
+    needs it."""
     plan = peak_plan.plan
-    buf_dev, snr_dev = handle
+    snr_dev = handle[1]
     D = snr_dev.shape[0]
-    buf = buf_dev.cpu().numpy()                            # the one pull
     # Integrity Ring 1: fold the raw pulled bytes into the dispatch
     # attempt's digest, host-side after the pull (a no-op returning
     # ``buf`` untouched when no fold context is active).
     buf = fold_result(buf)
-    handle[0] = buf_dev = None
     t_host = time.perf_counter()   # the host tail starts after the pull
     reg = get_metrics()
     stats, cnt, ids, vals, extra = peak_plan._unpack(buf, D)
@@ -715,15 +741,16 @@ def collect_peaks(peak_plan, handle, dms):
         flat_ids = ((sel[:, 0] * NW + sel[:, 1]) * nb + sel[:, 2]).astype(
             np.int32
         )
-        # Bucket the gather size so repeated batches reuse a handful of
-        # compiled programs instead of one per data-dependent count.
-        bucket = max(64, 1 << int(np.ceil(np.log2(len(flat_ids)))))
-        padded = np.zeros(bucket, np.int32)
-        padded[: len(flat_ids)] = flat_ids
-        gvals = peak_plan._gather_blocks(
-            snr_dev, torch.from_numpy(padded).to(snr_dev.device)
-        ).cpu().numpy()[: len(flat_ids)]
-        gvals = fold_result(gvals)
+        with span("overflow", blocks=len(flat_ids)):
+            # Bucket the gather size so repeated batches reuse a handful
+            # of compiled programs instead of one per data-dependent count.
+            bucket = max(64, 1 << int(np.ceil(np.log2(len(flat_ids)))))
+            padded = np.zeros(bucket, np.int32)
+            padded[: len(flat_ids)] = flat_ids
+            gvals = peak_plan._gather_blocks(
+                snr_dev, torch.from_numpy(padded).to(snr_dev.device)
+            ).cpu().numpy()[: len(flat_ids)]
+            gvals = fold_result(gvals)
         handle[1] = snr_dev = None
         for row, (d, iw, b) in zip(gvals, sel):
             add(d, iw, b, row)

@@ -26,7 +26,8 @@ JSON object:
   (the split ``chip_smoke.py`` phase 2 prints),
   and ``stage_loop_s`` / ``stage_events_s``: median and 10th / 90th
   percentiles of 101 stage loops over the same shipped wire, host wall
-  and the sum of the per-stage CUDA event times (D = 1);
+  and the time between two CUDA events around the loop and its
+  assembly (D = 1);
 * ``launches``: wrapper calls per headline search and, where the tree
   counts them, ``cuda_launches`` by kernel;
 * ``K1`` over the headline's 43 launches and ``K2`` over the parity
@@ -275,16 +276,18 @@ def main(argv=None):
 
     plan = smoke.headline_plan()
     shipped = (rec["wire"], rec["meta"])
-    walls, events, stage_ms = [], [], []
+    walls, events = [], []
     for _ in range(LOOPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
         with engine.recording() as r2:
+            start.record()
             engine._queue_batch(plan, None, dev, shipped=shipped)
+            end.record()
+        end.synchronize()
         walls.append(r2["stages_s"])
-        events.append(sum(r2["stage_ms"]) / 1e3)
-        stage_ms.append(r2["stage_ms"])
+        events.append(start.elapsed_time(end) / 1e3)
     res["stage_loop_s"] = _spread(walls)
     res["stage_events_s"] = _spread(events)
-    res["stage_ms"] = [statistics.median(x) for x in zip(*stage_ms)]
     if args.profile:
         res["profile_stage_loop"] = _profile(
             lambda: engine._queue_batch(plan, None, dev, shipped=shipped))

@@ -2,7 +2,9 @@
 The port's observability layer (``riptide_tpu_torch.obs``) against the
 JAX package's, on the CPU: the span tracer, the Chrome export of a
 journaled survey (one span per chunk, its ship/queue/collect children
-nested, its stage span on the staging thread), the Prometheus page (the
+nested, its stage span on the staging thread), the spans inside one
+queued and collected survey batch and their ``riptide.*`` annotations
+in a ``torch.profiler`` trace, the Prometheus page (the
 JAX package's metric names and values for the same registry contents),
 the timing schema, the ledger row, the fleet sidecars, the alert rules
 and the journal readers the scheduler uses.
@@ -11,7 +13,9 @@ import json
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from riptide_tpu.obs import alerts as ref_alerts
 from riptide_tpu.obs import fleet as ref_fleet
@@ -21,6 +25,8 @@ from riptide_tpu.obs import schema as ref_schema
 from riptide_tpu.survey.metrics import MetricsRegistry as RefRegistry
 from riptide_tpu_torch.obs import (alerts, chrome, fleet, ledger, prom,
                                    report, schema, trace)
+from riptide_tpu_torch.search import engine, peaks_device
+from riptide_tpu_torch.search.plan import periodogram_plan
 from riptide_tpu_torch.survey.metrics import MetricsRegistry
 
 from test_torch_survey import WIRE_ENV, _schedule
@@ -98,6 +104,119 @@ def test_journaled_survey_exports_a_nested_chrome_trace(trials, tmp_path,
         assert stage[0]["tid"] != parent["tid"]      # the staging thread
     meta = [ev for ev in doc["traceEvents"] if ev["ph"] == "M"]
     assert any(ev["name"] == "thread_name" for ev in meta)
+
+
+# ------------------------------------------ spans inside one survey batch
+
+# A D = 2 batch of 1200 samples (a pulsar in trial 0) with the device
+# clustering on, so that every step of the peak program runs.
+BATCH_CFG = (1200, 1e-3, (1, 2, 3), 32e-3, 0.11, 32, 40)
+BATCH_TOBS = 1.2
+PEAK_KW = dict(smin=6.0, segwidth=0.2, nstd=6.0, minseg=10, polydeg=2,
+               clrad=0.1)
+PEAK_STEPS = tuple(f"peaks.{step}" for step in (
+    "stats", "fit", "counts", "select", "cluster", "harm", "pack"))
+# Each child span and the span it lies in.
+SPAN_PARENTS = dict({"stages": "chunk", "ffa_stage": "stages",
+                     "assemble": "chunk", "peaks": "chunk", "pull": "chunk",
+                     "tail": "chunk", "overflow": "tail", "cluster": "tail"},
+                    **{step: "peaks" for step in PEAK_STEPS})
+
+
+def _search_batch(overflow=False, chunk=7):
+    """Queue and collect one batch inside a ``chunk`` span; with
+    ``overflow``, one block carried home per column and smin 2, so that
+    columns take the overflow gather. Returns the plan."""
+    plan = periodogram_plan(*BATCH_CFG)
+    kw = dict(PEAK_KW, smin=2.0) if overflow else PEAK_KW
+    pp = engine._peak_plan(plan, BATCH_TOBS, **kw)
+    pp.CAP = 1 if overflow else peaks_device.PeakPlan.CAP
+    rng = np.random.default_rng(3)
+    batch = rng.standard_normal((2, BATCH_CFG[0])).astype(np.float32)
+    batch[0, ::50] += 6.0
+    with peaks_device.force_device_cluster(True), \
+            trace.span("chunk", chunk=chunk):
+        handle = engine.queue_search_batch(plan, batch, BATCH_TOBS,
+                                           device="cpu", **kw)
+        engine.collect_search_batch(handle, np.zeros(2))
+    return plan
+
+
+def _inside(inner, outer, slack=0.0):
+    return (outer[0] - slack <= inner[0]
+            and inner[0] + inner[1] <= outer[0] + outer[1] + slack)
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_search_batch_spans_nest_and_inherit_the_chunk(tracer, overflow):
+    plan = _search_batch(overflow)
+    events = tracer.events()
+    names = [ev[0] for ev in events]
+    for name in ("stages", "assemble", "peaks", "pull", "tail",
+                 "cluster") + PEAK_STEPS:
+        assert names.count(name) == 1, name
+    assert "device" not in names
+    assert names.count("overflow") == int(overflow)
+    stages = [ev[4]["stage"] for ev in events if ev[0] == "ffa_stage"]
+    assert sorted(stages) == list(range(len(plan.stages)))
+    assert all(ev[4].get("chunk") == 7 for ev in events), events
+    for name, _, _, _, attrs, _ in events:
+        if name == "overflow":
+            assert attrs["blocks"] > 0
+    spans = {}
+    for name, ts, dur, tid, _, _ in events:
+        spans.setdefault(name, []).append((ts, dur, tid))
+    for name, parent in SPAN_PARENTS.items():
+        (outer,) = spans[parent]
+        for ts, dur, tid in spans.get(name, []):
+            assert tid == outer[2] and _inside((ts, dur), outer), name
+
+
+def _annotations(path):
+    doc = json.loads(path.read_text())
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    return [ev for ev in events if ev.get("ph") == "X"
+            and ev.get("cat") == "user_annotation"]
+
+
+@pytest.mark.parametrize("traced", [True, False])
+def test_search_batch_spans_are_profiler_annotations(tmp_path, traced):
+    """With a tracer installed, every span of the batch is a
+    ``riptide.<name>`` annotation (``riptide.ffa_stage.<i>`` for a
+    stage) in the profiler's trace, inside the enclosing
+    ``record_function`` and nested as the spans are; with none, there is
+    no ``riptide.*`` annotation and ``span()`` is the null span."""
+    tr = trace.enable() if traced else None
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with record_function("test.batch"):
+                _search_batch()
+                assert (trace.span("x") is trace.NULL_SPAN) == (not traced)
+    finally:
+        trace.disable()
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    ann = _annotations(path)
+    (outer,) = [ev for ev in ann if ev["name"] == "test.batch"]
+    mine = [ev for ev in ann if ev["name"].startswith("riptide.")]
+    if not traced:
+        assert mine == []
+        return
+    want = sorted("riptide." + name + (f".{attrs['stage']}"
+                                       if "stage" in attrs else "")
+                  for name, _, _, _, attrs, _ in tr.events())
+    assert sorted(ev["name"] for ev in mine) == want
+    box = {ev["name"]: (ev["ts"], ev["dur"]) for ev in mine}
+    for ev in mine:
+        assert ev["tid"] == outer["tid"]
+        assert _inside((ev["ts"], ev["dur"]), (outer["ts"], outer["dur"]),
+                       slack=1e-3)
+        base = ev["name"][len("riptide."):].split(".")
+        name = ".".join(base[:2]) if base[0] == "peaks" else base[0]
+        if name != "chunk":
+            parent = "riptide." + SPAN_PARENTS.get(name, "chunk")
+            assert _inside((ev["ts"], ev["dur"]), box[parent], slack=1e-3), \
+                ev["name"]
 
 
 def test_resumed_run_rotates_the_previous_trace(trials, tmp_path):

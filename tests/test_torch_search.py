@@ -111,7 +111,7 @@ def test_recording_keeps_split_and_operands(monkeypatch):
     assert engine._RECORD is None
     for key in ("prep_s", "ship_s", "stages_s", "out_s"):
         assert rec[key] >= 0.0
-    assert rec["stage_ms"] == []  # CUDA events only on a card
+    assert "stage_ms" not in rec  # per-stage time is the ffa_stage spans'
     assert len(rec["outs"]) == len(rec["layout"]) == len(plan.stages)
     outs = [o for souts in rec["outs"] for o in souts]
     assert [r["out"] for r in rec["launches"]] == outs
