@@ -28,6 +28,14 @@ column's block data itself. Peaks are identical to the host path's
 either way. Columns with more than CAP non-empty blocks fetch their
 other blocks with one more gather.
 
+The queue makes no host-blocking call once a plan's constants are on
+the device (:meth:`PeakPlan._device_consts`, built at its first batch
+there). On a card the pull leaves with the chunk: the queue copies the
+buffer into pinned host memory behind the program and records an event,
+and the collect waits on that event alone, so a chunk queued after it
+never delays its collect. The overflow gather runs on a side stream
+that waits on the same event.
+
 The pulled buffer (and the overflow gather's block values) is folded
 into the dispatch attempt's integrity digest at the collect point
 (:func:`riptide_tpu_torch.survey.integrity.fold_result`, a no-op while
@@ -35,11 +43,15 @@ integrity is off), and the program's counters land in the metrics
 registry (:func:`riptide_tpu_torch.survey.metrics.get_metrics`):
 ``dispatch_cluster`` (peak programs queued with device clustering),
 ``cluster_cols_device`` / ``cluster_cols_host`` (columns whose peaks
-came from the device representatives or the host tail) and
-``harmonic_suspects`` (advisory harmonic-screen hits).
+came from the device representatives or the host tail),
+``harmonic_suspects`` (advisory harmonic-screen hits), and on a card
+``peaks_pull_ready`` (collects whose chunk was done on entry),
+``peaks_pull_wait_s`` (the host's wait on the chunk's event) and
+``overflow_gathers`` (overflow gathers on the side stream).
 """
 import contextlib
 import logging
+import threading
 import time
 
 import numpy as np
@@ -51,6 +63,7 @@ from ..peak_detection import Peak, fit_threshold
 from ..survey.integrity import fold_result
 from ..survey.metrics import get_metrics
 from ..utils import envflags
+from .engine import _dev_tensor
 
 log = logging.getLogger("riptide_tpu_torch.peaks_device")
 
@@ -77,6 +90,13 @@ _H_SNR_MAX = 3.0
 # Pinned override of the flag (see force_device_cluster); None defers
 # to the environment.
 _DC_OVERRIDE = None
+
+# The segment percentiles of the threshold fit's control points.
+_QS = (25.0, 50.0, 75.0)
+
+# Guards the build of a plan's device constants (several job threads
+# may queue one plan at once).
+_CONSTS_LOCK = threading.Lock()
 
 
 def device_cluster_enabled():
@@ -113,23 +133,21 @@ def _two_sum(a, b):
     return s, (a - ap) + (b - bp)
 
 
-def _percentiles(seg, qs):
+def _percentiles(seg, q):
     """``jnp.percentile(seg, qs, axis=-1)`` (linear interpolation) in
-    float32 as the JAX package's compiled peak program computes it: sort,
-    q * (n - 1), floor/ceil indices and weights, then ``low * (1 - w) +
+    float32 as the JAX package's compiled peak program computes it, with
+    ``q`` the float32 positions qs / 100 * (n - 1) on the device
+    (:meth:`PeakPlan._device_consts`): sort, floor/ceil indices and
+    weights, then ``low * (1 - w) +
     high * w`` with the first product folded into the add (XLA contracts
     it into one fused multiply-add: one rounding). The fused form is
     taken in float32 alone, with no fused operation: 1 - w is a multiple
     of 1/4, so low * (1 - w) is exact except at 3/4, where it is low -
     low / 4 with its rounding error from :func:`_two_sum`; the product
     and its error then join high * w through a second TwoSum, rounding
-    once at the end. Returns (..., len(qs))."""
+    once at the end. Returns (..., len(q))."""
     n = seg.shape[-1]
     srt = torch.sort(seg, dim=-1).values
-    q = torch.tensor([q / 100.0 for q in qs], dtype=torch.float32,
-                     device=seg.device)
-    q = q * torch.tensor(float(n) - 1.0, dtype=torch.float32,
-                         device=seg.device)
     low = torch.floor(q)
     high = torch.ceil(q)
     hw = q - low
@@ -212,6 +230,35 @@ class PeakPlan:
             self.foldbins_f32 = np.asarray(plan.all_foldbins,
                                            np.float32)
             self.widths_f32 = np.asarray(plan.widths, np.float32)
+        self._consts = {}          # device -> _device_consts
+
+    def _device_consts(self, dev):
+        """The device program's constants on ``dev``, built once per
+        plan and device and cached. Their upload is the program's only
+        host-to-device copy (blocking), paid by its first batch there;
+        the values are those each batch used to copy."""
+        with _CONSTS_LOCK:
+            c = self._consts.get(dev)
+            if c is None:
+                c = self._consts[dev] = self._build_consts(dev)
+        return c
+
+    def _build_consts(self, dev):
+        f32 = np.float32
+        # The percentile positions q / 100 * (n - 1), each factor
+        # rounded to float32 and multiplied on the device.
+        q = _dev_tensor([q / 100.0 for q in _QS], f32, dev) * torch.full(
+            (), float(self.pts) - 1.0, dtype=torch.float32, device=dev)
+        c = {"q": q, "fitmat": _dev_tensor(self.fitmat, f32, dev),
+             "logf": _dev_tensor(self.logf, f32, dev)}
+        if self.device_cluster:
+            c.update(reach=_dev_tensor(self.reach, np.int64, dev),
+                     freqs=_dev_tensor(self.freqs_f32, f32, dev),
+                     foldbins=_dev_tensor(self.foldbins_f32, f32, dev),
+                     widths=_dev_tensor(self.widths_f32, f32, dev))
+        if dev.type == "cuda":
+            c["side"] = torch.cuda.Stream(device=dev)
+        return c
 
     def _cluster_reach(self):
         """reach[a] = largest trial index j >= a still within the
@@ -250,7 +297,7 @@ class PeakPlan:
         D, NW, _ = s.shape
         seg = s[..., : self.nseg * self.pts].reshape(D, NW, self.nseg,
                                                      self.pts)
-        return _percentiles(seg, (25.0, 50.0, 75.0))
+        return _percentiles(seg, self._device_consts(s.device)["q"])
 
     # -- step 2: host polyfit --------------------------------------------
 
@@ -297,7 +344,7 @@ class PeakPlan:
     def _thr_impl(self, polyco):
         """Horner evaluation of the f32 threshold polynomial at every
         trial's log-frequency: (D, NW, deg+1) -> (D, NW, n)."""
-        logf = torch.from_numpy(self.logf).to(polyco.device)
+        logf = self._device_consts(polyco.device)["logf"]
         thr = torch.zeros(polyco.shape[:2] + (self.n,), dtype=torch.float32,
                           device=polyco.device)
         for k in range(polyco.shape[-1]):
@@ -328,7 +375,7 @@ class PeakPlan:
         m = (s > thr + EPS) & (s > self.smin + EPS)        # sure
         marg = torch.any(m_sel & ~m, dim=-1)               # (D, NW)
         n = self.n
-        reach = torch.from_numpy(self.reach.astype(np.int64)).to(dev)
+        reach = self._device_consts(dev)["reach"]
         idx = torch.arange(n, dtype=torch.int64, device=dev)
         midx = idx.expand(m.shape)
         # prev_excl[j] / next_excl[j]: nearest selected index strictly
@@ -342,9 +389,8 @@ class PeakPlan:
         head = m & ((prev_excl < 0) | (midx > reach_prev))
         last = m & (next_excl > reach[None, None, :])
         ncl = head.sum(-1).to(torch.int32)
-        neg = torch.tensor(-np.inf, dtype=s.dtype, device=dev)
         scan_v, scan_i = _seg_lexmax_scan(
-            head, torch.where(m, s, neg), torch.where(m, midx, -1))
+            head, torch.where(m, s, -np.inf), torch.where(m, midx, -1))
         # Compact the first REP_CAP tail positions per column: strictly
         # decreasing keys REP_CAP..1 at kept tails, 0 elsewhere; a stable
         # descending sort returns them in ascending-trial order, as
@@ -359,7 +405,7 @@ class PeakPlan:
         valid = kv > 0
         rep_val = torch.gather(scan_v, -1, pos)
         rep_idx = torch.where(valid, torch.gather(scan_i, -1, pos), -1)
-        rep_val = torch.where(valid, rep_val, neg)
+        rep_val = torch.where(valid, rep_val, -np.inf)
         return ncl, marg, rep_idx, rep_val
 
     def _harm_impl(self, rep_idx, rep_val):
@@ -376,14 +422,11 @@ class PeakPlan:
         rval = rep_val.reshape(D, R)
         valid = ridx >= 0
         safe = ridx.clamp(0, self.n - 1)
-        freqs = torch.from_numpy(self.freqs_f32).to(dev)
-        foldbins = torch.from_numpy(self.foldbins_f32).to(dev)
-        widths = torch.from_numpy(self.widths_f32).to(dev)
-        freq = freqs[safe]
-        ducy = (widths.repeat_interleave(rep_idx.shape[2])[None, :]
-                / foldbins[safe])
-        neg = torch.tensor(-np.inf, dtype=torch.float32, device=dev)
-        top = torch.argmax(torch.where(valid, rval, neg), dim=-1)
+        c = self._device_consts(dev)
+        freq = c["freqs"][safe]
+        ducy = (c["widths"].repeat_interleave(rep_idx.shape[2])[None, :]
+                / c["foldbins"][safe])
+        top = torch.argmax(torch.where(valid, rval, -np.inf), dim=-1)
         fF = torch.gather(freq, 1, top[:, None])
         sF = torch.gather(rval, 1, top[:, None])
         dF = torch.gather(ducy, 1, top[:, None])
@@ -427,7 +470,7 @@ class PeakPlan:
                 tc = (stats[..., 1]
                       + self.nstd * (stats[..., 2] - stats[..., 0]) / 1.349)
                 coef = torch.einsum("ks,dws->dwk",
-                                    torch.from_numpy(self.fitmat).to(dev), tc)
+                                    self._device_consts(dev)["fitmat"], tc)
             else:
                 coef = torch.zeros((D, NW, self.polydeg + 1),
                                    dtype=torch.float32, device=dev)
@@ -501,13 +544,33 @@ class PeakPlan:
 
     def _gather_blocks(self, snr, flat_ids):
         """The (d, iw, block) rows of BLK S/N values named by flat_ids
-        ((k,) = (d * NW + iw) * nb + b)."""
-        D, n, NW = snr.shape
-        s = snr.transpose(1, 2)
-        s = torch.nn.functional.pad(s, (0, self._nb * self.BLK - n),
-                                    value=-np.inf)
-        flat = s.reshape(D * NW * self._nb, self.BLK)
-        return flat[flat_ids.to(torch.int64)]
+        ((k,) = (d * NW + iw) * nb + b), -inf past the last trial; read
+        from the cube in place, with no padded copy of it."""
+        _, n, NW = snr.shape
+        ids = flat_ids.to(torch.int64)
+        col, b = ids // self._nb, ids % self._nb
+        pos = b[:, None] * self.BLK + torch.arange(
+            self.BLK, dtype=torch.int64, device=snr.device)
+        vals = snr[(col // NW)[:, None], pos.clamp(max=n - 1),
+                   (col % NW)[:, None]]
+        return torch.where(pos < n, vals, -np.inf)
+
+    def _pull_blocks(self, snr, ids, done):
+        """The overflow gather's block values (``ids``: padded flat
+        block ids, host int32) on the host. On a card it runs on the
+        plan's side stream after the chunk's event ``done`` alone, so it
+        never waits behind work queued after the chunk; its pull blocks
+        the host until the side stream is done, so the caller may free
+        the cube at once."""
+        if done is None:
+            return self._gather_blocks(
+                snr, torch.from_numpy(ids).to(snr.device)).cpu().numpy()
+        side = self._device_consts(snr.device)["side"]
+        side.wait_event(done)
+        get_metrics().add("overflow_gathers", 1)
+        with torch.cuda.stream(side):
+            ids_dev = torch.from_numpy(ids).to(snr.device)
+            return self._gather_blocks(snr, ids_dev).cpu().numpy()
 
     # -- step 4: host exact threshold + clustering -----------------------
 
@@ -619,29 +682,53 @@ class PeakPlan:
 def queue_find_peaks(peak_plan, snr_dev):
     """Queue the device peak program on the (D, n_trials, NW) S/N cube
     (a tensor, or an array it is made from); returns a handle for
-    :func:`collect_peaks` without syncing."""
+    :func:`collect_peaks` without syncing. On a card the fused buffer's
+    pull is queued too: a copy into pinned host memory behind the
+    program, then an event on the same stream."""
     snr_dev = torch.as_tensor(snr_dev, dtype=torch.float32)
     if peak_plan.device_cluster:
         get_metrics().add("dispatch_cluster", 1)
-    # A mutable handle: collect_peaks drops the entries to release the
-    # device buffers while the caller still holds the handle.
-    return [peak_plan._fused(snr_dev), snr_dev]
+    buf = peak_plan._fused(snr_dev)
+    # A mutable handle [buffer, cube, event]: collect_peaks drops the
+    # entries to release the buffers while the caller still holds the
+    # handle.
+    if buf.device.type != "cuda":
+        return [buf, snr_dev, None]
+    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(buf.device))
+    return [host, snr_dev, done]
+
+
+def _pull(handle):
+    """The chunk's fused buffer on the host, as numpy. On a card: wait
+    on the chunk's own event (its pinned copy is then done)."""
+    buf, done = handle[0], handle[2]
+    handle[0] = None
+    if done is None:
+        return buf.cpu().numpy()
+    reg = get_metrics()
+    reg.add("peaks_pull_ready", int(done.query()))
+    t0 = time.perf_counter()
+    done.synchronize()
+    reg.observe("peaks_pull_wait_s", time.perf_counter() - t0)
+    return buf.numpy()
 
 
 def collect_peaks(peak_plan, handle, dms):
     """Pull the fused buffer (ONE transfer) and finish on host: exact
     float64 threshold re-fit/re-check + clustering -> Peak tuples. The
-    blocking wait and the pull are the span ``pull``; everything after
-    it is the span ``tail``, with ``overflow`` (the overflow gather,
-    ``blocks=``) and ``cluster`` inside.
+    wait for the chunk and the pull are the span ``pull``; everything
+    after it is the span ``tail``, with ``overflow`` (the overflow
+    gather, ``blocks=``) and ``cluster`` inside.
 
     Returns (peaks_per_trial, polycos_per_trial) where peaks_per_trial[d]
     is a list of Peak sorted by decreasing S/N — the contract of the
     host ``find_peaks`` (riptide/peak_detection.py:146-222).
     """
     with span("pull"):
-        buf = handle[0].cpu().numpy()                      # the one pull
-    handle[0] = None
+        buf = _pull(handle)                                # the one pull
     with span("tail"):
         return _collect_tail(peak_plan, handle, buf, dms)
 
@@ -649,7 +736,7 @@ def collect_peaks(peak_plan, handle, dms):
 def _collect_tail(peak_plan, handle, buf, dms):
     """:func:`collect_peaks` after the pull: ``buf`` is the pulled
     buffer, ``handle[1]`` the S/N cube, released once no overflow gather
-    needs it."""
+    needs it, ``handle[2]`` the chunk's event (None off a card)."""
     plan = peak_plan.plan
     snr_dev = handle[1]
     D = snr_dev.shape[0]
@@ -747,10 +834,8 @@ def _collect_tail(peak_plan, handle, buf, dms):
             bucket = max(64, 1 << int(np.ceil(np.log2(len(flat_ids)))))
             padded = np.zeros(bucket, np.int32)
             padded[: len(flat_ids)] = flat_ids
-            gvals = peak_plan._gather_blocks(
-                snr_dev, torch.from_numpy(padded).to(snr_dev.device)
-            ).cpu().numpy()[: len(flat_ids)]
-            gvals = fold_result(gvals)
+            gvals = peak_plan._pull_blocks(snr_dev, padded, handle[2])
+            gvals = fold_result(gvals[: len(flat_ids)])
         handle[1] = snr_dev = None
         for row, (d, iw, b) in zip(gvals, sel):
             add(d, iw, b, row)

@@ -166,3 +166,65 @@ def test_block_overflow_gather_matches_reference(cube, dc):
         set_metrics(prev)
     got, _ = peaks_device.device_find_peaks(pp, cube, np.zeros(2))
     assert got == want and any(got)
+
+
+@pytest.mark.parametrize("dc", [True, False])
+def test_device_constants_are_built_once_per_plan(monkeypatch, cube, dc):
+    """Two batches through one ``PeakPlan`` build its device constants
+    once (the second reuses the same tensors); the pulled buffer's bytes
+    are those of a plan that builds them afresh, and the peaks the JAX
+    package's."""
+    pp = peaks_device.PeakPlan(periodogram_plan(*CFG), TOBS,
+                               device_cluster=dc, **PKW)
+    builds = []
+    build = peaks_device.PeakPlan._build_consts
+    monkeypatch.setattr(peaks_device.PeakPlan, "_build_consts",
+                        lambda self, dev: builds.append(dev)
+                        or build(self, dev))
+    pulled = []
+    monkeypatch.setattr(peaks_device, "fold_result",
+                        lambda buf: pulled.append(buf.tobytes()) or buf)
+    cpu = torch.device("cpu")
+    first = peaks_device.device_find_peaks(pp, cube, np.zeros(2))
+    consts = dict(pp._device_consts(cpu))
+    second = peaks_device.device_find_peaks(pp, cube, np.zeros(2))
+    assert builds == [cpu]
+    assert all(pp._device_consts(cpu)[k] is v for k, v in consts.items())
+    fresh = peaks_device.PeakPlan(periodogram_plan(*CFG), TOBS,
+                                  device_cluster=dc, **PKW)
+    third = peaks_device.device_find_peaks(fresh, cube, np.zeros(2))
+    assert builds == [cpu, cpu]
+    assert first[0] == second[0] == third[0]
+    for polys in (second[1], third[1]):
+        for got, want in zip(polys, first[1]):
+            assert got.keys() == want.keys()
+            for iw in got:
+                np.testing.assert_array_equal(got[iw], want[iw])
+    assert len(pulled) == 3 and pulled[0] == pulled[1] == pulled[2]
+    ref_pp = ref_peaks.PeakPlan(ref_plan(*CFG), TOBS, device_cluster=dc,
+                                **PKW)
+    reg = MetricsRegistry()
+    prev = set_metrics(reg)
+    try:
+        want = ref_peaks.device_find_peaks(ref_pp, cube, np.zeros(2))
+    finally:
+        set_metrics(prev)
+    assert first[0] == want[0] and any(first[0])
+
+
+def test_gather_blocks_reads_the_padded_rows_in_place(cube):
+    """The overflow gather reads every (trial, width, block) row from the
+    cube in place: the bytes of the rows of the cube padded with -inf
+    past the last trial."""
+    pp = peaks_device.PeakPlan(periodogram_plan(*CFG), TOBS, **PKW)
+    snr = torch.from_numpy(cube)
+    D, n, NW = snr.shape
+    nb, BLK = pp._nb, pp.BLK
+    assert nb * BLK > n
+    padded = torch.nn.functional.pad(snr.transpose(1, 2), (0, nb * BLK - n),
+                                     value=-np.inf)
+    want = padded.reshape(D * NW * nb, BLK)
+    ids = torch.arange(D * NW * nb, dtype=torch.int32).flip(0)
+    got = pp._gather_blocks(snr, ids)
+    assert got.dtype == torch.float32
+    assert got.numpy().tobytes() == want[ids.long()].numpy().tobytes()
