@@ -7,7 +7,9 @@ or per-layer metric is a file of its own, found by the name that
 ``BENCHMARK.json`` gives: ``configs/<config>.json`` (the file the
 configuration's entry names), ``traffic/<traffic>.json``,
 ``limits/<config>.json``, ``kernels/<set>.json`` and
-``metrics/<metric>.py``.
+``metrics/<metric>.py``. A configuration may list several search ranges
+(``portbench/ranges.py``): every chunk is then searched over each, and
+each range's numbers are compared under ``<number>.<range>``.
 
 From the program (``riptide_tpu_torch``) the harness calls only the
 search's public functions: ``periodogram_plan``,
@@ -28,6 +30,7 @@ import torch
 
 from . import check, roofline, traffic
 from .loop import run_window
+from .ranges import ranges
 from .reference import search as ref
 from .trace import (breakdown, device_events, load_chrome_trace,
                     union_us, window_span)
@@ -84,7 +87,8 @@ def _widths(cfg):
 
 def plan_of(cfg):
     """The program's plan, the width trials and the reference's own
-    stages of a configuration."""
+    stages of a configuration of one range (one of
+    :func:`portbench.ranges.ranges`)."""
     from riptide_tpu_torch.search.plan import periodogram_plan
 
     widths = _widths(cfg)
@@ -104,20 +108,29 @@ def _sync(device):
 
 
 def setup(cfg, mix, limits, seed, device, log=None):
-    """Set-up, in order: each ring slot's chunk made on the device from
-    ``seed`` and copied to the host, its sampled trials' raw series kept
-    for the reference, its wire prepared into pinned staging buffers
-    (``prepare_stage_data``); then the cell's launch shapes warmed
-    (``warm_stage_kernels``) and one whole chunk searched and collected,
-    so that the peak program's plan and the operands exist before the
-    window. Returns the plan, the ring and what the check needs."""
+    """Set-up, in order: each range's plan; each ring slot's chunk made
+    on the device from ``seed`` and copied to the host, its sampled
+    trials' raw series kept for the reference, every range's wire
+    prepared from that one host chunk into pinned staging buffers
+    (``prepare_stage_data``); then every range's launch shapes warmed
+    (``warm_stage_kernels``) and one whole chunk searched, every range
+    queued and then collected, so that the peak programs' plans and the
+    operands exist before the window. Returns the ranges (name,
+    configuration, plan, widths, stages, tobs), the ring (per slot, each
+    range's wire) and what the check needs."""
     from riptide_tpu_torch.search import engine
 
     log = log or (lambda msg: None)
-    t = time.perf_counter()
-    plan, widths, stages = plan_of(cfg)
-    log(f"plan: {len(plan.stages)} stages, {plan.length} periods x "
-        f"{len(widths)} widths, {time.perf_counter() - t:.3f} s")
+    rs = []
+    for name, rcfg in ranges(cfg):
+        t = time.perf_counter()
+        plan, widths, stages = plan_of(rcfg)
+        log(("plan" if name is None else f"plan {name}")
+            + f": {len(plan.stages)} stages, {plan.length} periods x "
+            f"{len(widths)} widths, {time.perf_counter() - t:.3f} s")
+        rs.append({"name": name, "cfg": rcfg, "plan": plan,
+                   "widths": widths, "stages": stages,
+                   "tobs": plan.size * plan.tsamp})
     D, R = int(mix["dm_trials"]), int(mix["ring"])
     k = int(limits["sample_trials"])
     pool = engine.StagingPool(device)
@@ -129,32 +142,35 @@ def setup(cfg, mix, limits, seed, device, log=None):
         sampled[slot] = traffic.sample_trials(D, k, seed, slot)
         series[slot] = host[sampled[slot]].copy()
         t = time.perf_counter()
-        ring.append(engine.prepare_stage_data(plan, host, mode=cfg["wire"],
-                                              pool=pool))
+        ring.append([engine.prepare_stage_data(r["plan"], host,
+                                               mode=cfg["wire"], pool=pool)
+                     for r in rs])
         prep_s.append(time.perf_counter() - t)
         del host
         log(f"ring slot {slot}: made {made:.3f} s, prepared "
-            f"{prep_s[-1]:.3f} s ({ring[-1][1]['prep']})")
+            f"{prep_s[-1]:.3f} s ("
+            + "; ".join(str(p[1]["prep"]) for p in ring[-1]) + ")")
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    nshapes = engine.warm_stage_kernels(plan, D, device=device)
+    nshapes = sum(engine.warm_stage_kernels(r["plan"], D, device=device)
+                  for r in rs)
     log(f"warmed {nshapes} launch shapes: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
-    tobs = plan.size * plan.tsamp
-    handle = engine.queue_search_batch(
-        plan, None, tobs, shipped=engine.ship_stage_data(ring[0], device),
-        **cfg["find_peaks"])
-    engine.collect_search_batch(handle, np.zeros(D))
-    del handle
+    handles = [engine.queue_search_batch(
+        r["plan"], None, r["tobs"],
+        shipped=engine.ship_stage_data(wire, device),
+        **r["cfg"]["find_peaks"]) for r, wire in zip(rs, ring[0])]
+    for handle in handles:
+        engine.collect_search_batch(handle, np.zeros(D))
+    del handles, handle
     _sync(device)
     log(f"warm chunk: {time.perf_counter() - t:.3f} s")
-    return {"plan": plan, "widths": widths, "stages": stages, "ring": ring,
-            "sampled": sampled, "series": series, "prep_s": prep_s,
-            "tobs": tobs, "D": D}
+    return {"ranges": rs, "ring": ring, "sampled": sampled,
+            "series": series, "prep_s": prep_s, "D": D}
 
 
-def measure(st, cfg, seconds, device, trace):
+def measure(st, seconds, device, trace):
     """The window over ``st``'s ring (:func:`portbench.loop.run_window`),
     with the launch counters' change over it and, with ``trace``, the
     profiler's records. The device's peak memory counts from the
@@ -165,8 +181,8 @@ def measure(st, cfg, seconds, device, trace):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     before = dict(ffa_kernel.KERNEL_LAUNCHES)
-    args = (st["plan"], st["tobs"], st["ring"], seconds, cfg["find_peaks"],
-            device)
+    args = ([(r["plan"], r["tobs"], r["cfg"]["find_peaks"], r["name"])
+             for r in st["ranges"]], st["ring"], seconds, device)
     min_chunks = max(2, len(st["ring"]))
     records = None
     if trace:
@@ -189,14 +205,17 @@ def measure(st, cfg, seconds, device, trace):
     return win
 
 
-def window_record(st, cfg, win, setup_s):
+def window_record(st, win, setup_s):
     """What the metric readers read: the set-up's seconds, the window's
     seconds, chunks and collected DM trials, the harness's host timers,
-    the launch counters' change, the kernel sets, the plan's work a
-    chunk and, in a traced run, the trace's records and the window's
-    span in them."""
-    ops, nbytes = roofline.work(st["stages"], len(st["widths"]),
-                                ref.wire_row(cfg["bins_max"]), st["D"])
+    the launch counters' change, the kernel sets, the plans' work a
+    chunk (summed over the ranges) and, in a traced run, the trace's
+    records and the window's span in them."""
+    ops = nbytes = 0
+    for r in st["ranges"]:
+        o, b = roofline.work(r["stages"], len(r["widths"]),
+                             ref.wire_row(r["cfg"]["bins_max"]), st["D"])
+        ops, nbytes = ops + o, nbytes + b
     records = win["records"] or []
     return {"setup_s": setup_s, "records": records,
             "span": window_span(records),
@@ -210,26 +229,38 @@ def window_record(st, cfg, win, setup_s):
             "work": {"ops": ops, "bytes": nbytes}}
 
 
-def judge(st, cfg, win, device):
-    """The compared numbers and ``failed``: the sampled trials' S/N as
-    the window wrote it against the reference's, and the peaks. The
+def judge(st, win, device):
+    """The compared numbers and ``failed``: for each range, the sampled
+    trials' S/N as the window wrote it against the reference's over that
+    range's stages, widths and wire row, and the peaks; the numbers
+    named by :func:`portbench.check.named`. ``failed`` counts a DM
+    trial of a chunk once, however many of its ranges fail. The
     program's cubes are pulled and freed before the reference runs."""
-    cols = {s: win["snr"][s][st["sampled"][s]].float().cpu().numpy()
-            for s in sorted(win["snr"])}
+    cols = {s: [c[st["sampled"][s]].float().cpu().numpy() for c in cubes]
+            for s, cubes in sorted(win["snr"].items())}
     win["snr"].clear()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     slots = sorted(cols)
-    want = check.reference_snr(
-        np.concatenate([st["series"][s] for s in slots]), st["stages"],
-        st["widths"], ref.wire_row(cfg["bins_max"]), device)
-    rms, mx = check.snr_gaps(np.concatenate([cols[s] for s in slots]), want)
-    del want
-    periods = np.concatenate([p for s in st["stages"]
-                              for *_, p in s.trials])
-    bad, failed = check.judge_peaks(win, st["sampled"], cols, periods,
-                                    st["tobs"], cfg["find_peaks"])
-    return {"snr_rms": rms, "snr_max": mx, "peaks_bad": bad}, failed
+    raw = np.concatenate([st["series"][s] for s in slots])
+    numbers, failed = {}, set()
+    for i, r in enumerate(st["ranges"]):
+        want = check.reference_snr(raw, r["stages"], r["widths"],
+                                   ref.wire_row(r["cfg"]["bins_max"]),
+                                   device)
+        rms, mx = check.snr_gaps(
+            np.concatenate([cols[s][i] for s in slots]), want)
+        del want
+        periods = np.concatenate([p for s in r["stages"]
+                                  for *_, p in s.trials])
+        bad, fails = check.judge_peaks(
+            [p[i] for p in win["peaks"]], win["slots"], st["sampled"],
+            {s: cols[s][i] for s in slots}, periods, r["tobs"],
+            r["cfg"]["find_peaks"])
+        numbers.update(check.named(
+            {"snr_rms": rms, "snr_max": mx, "peaks_bad": bad}, r["name"]))
+        failed |= fails
+    return numbers, len(failed)
 
 
 def _device_info(device, peak):
@@ -265,7 +296,7 @@ def run_cell(wl, cfg, mix, limits, bench, seed, seconds, trace, device,
     ``t_start`` is the host clock at the harness's first statement."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     st = setup(cfg, mix, limits, seed, device, log)
-    win = measure(st, cfg, seconds, device, trace)
+    win = measure(st, seconds, device, trace)
     setup_s = win["t0"] - t_start
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
@@ -278,9 +309,10 @@ def run_cell(wl, cfg, mix, limits, bench, seed, seconds, trace, device,
         f"{k} {np.mean(win[k + '_s']):.6f} (max {np.max(win[k + '_s']):.6f})"
         for k in ("ship", "queue", "collect")))
     if trace:
-        log(f"device memory peak {peak} bytes; "
-            f"{_hbm_line(st['plan'], st['D'])}")
-    rec = window_record(st, cfg, win, setup_s)
+        log(f"device memory peak {peak} bytes; " + "; ".join(
+            ("" if r["name"] is None else f"{r['name']}: ")
+            + _hbm_line(r["plan"], st["D"]) for r in st["ranges"]))
+    rec = window_record(st, win, setup_s)
     metrics = {}
     for m in bench["per_layer" if trace else "end_to_end"]:
         if "workloads" in m and wl["name"] not in m["workloads"]:
@@ -298,7 +330,7 @@ def run_cell(wl, cfg, mix, limits, bench, seed, seconds, trace, device,
     del rec
     win["records"] = None
     t = time.perf_counter()
-    numbers, failed = judge(st, cfg, win, device)
+    numbers, failed = judge(st, win, device)
     log(f"comparison with the reference: {time.perf_counter() - t:.3f} s")
     checks, ok = check.numbers_line(numbers, limits["limits"])
     result = {"correct": bool(ok and failed == 0), "attempted": trials,

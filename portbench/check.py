@@ -2,7 +2,8 @@
 What decides ``correct``: the window's outputs against the plain
 reference (``portbench/reference``), and the run's isolation from JAX.
 
-Three numbers, each with its limit from ``portbench/limits/<config>.json``:
+Three numbers a search range, each with its limit from
+``portbench/limits/<config>.json``, named as :func:`named` says:
 
 ``snr_rms`` and ``snr_max``
     The root mean square and the largest absolute gap, over every trial
@@ -26,7 +27,7 @@ from .reference import peaks as ref_peaks
 from .reference import search as ref
 
 __all__ = ["FORBIDDEN", "UNCOMPARABLE", "forbidden_modules", "reference_snr",
-           "snr_gaps", "peak_tuples", "judge_peaks", "numbers_line"]
+           "snr_gaps", "peak_tuples", "judge_peaks", "named", "numbers_line"]
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "riptide_tpu")
 
@@ -76,29 +77,40 @@ def _same(got, want):
         for g, w in zip(got, want))
 
 
-def judge_peaks(win, sampled, snr_cols, periods, tobs, peak_kw):
-    """(peaks_bad, failed trials) of a window. ``sampled[slot]`` lists
-    the slot's sampled trials and ``snr_cols[slot]`` their S/N columns
-    (k, n_trials, n_widths) as the window wrote them."""
+def judge_peaks(peaks, slots, sampled, snr_cols, periods, tobs, peak_kw):
+    """(peaks_bad, the failed (chunk, trial) pairs) of one search range
+    over a window: ``peaks[c]`` are chunk c's peaks per trial and
+    ``slots[c]`` its ring slot, ``sampled[slot]`` lists the slot's
+    sampled trials and ``snr_cols[slot]`` their S/N columns (k,
+    n_trials, n_widths) as the window wrote them."""
     last = {}
-    for c, slot in enumerate(win["slots"]):
+    for c, slot in enumerate(slots):
         last[slot] = c
-    nchunks = {s: win["slots"].count(s) for s in last}
-    bad = failed = 0
+    bad, failed = 0, set()
     for slot, c in last.items():
         for j, t in enumerate(sampled[slot]):
             want = ref_peaks.find_peaks(periods, snr_cols[slot][j], tobs,
                                         **peak_kw)
-            if not _same(peak_tuples(win["peaks"][c][t]), want):
+            if not _same(peak_tuples(peaks[c][t]), want):
                 bad += 1
-                failed += nchunks[slot]
-    for c, slot in enumerate(win["slots"]):
-        judged = win["peaks"][last[slot]]
-        for d, peaks in enumerate(win["peaks"][c]):
-            if peak_tuples(peaks) != peak_tuples(judged[d]):
+                failed.update((k, t) for k, s in enumerate(slots)
+                              if s == slot)
+    for c, slot in enumerate(slots):
+        judged = peaks[last[slot]]
+        for d, got in enumerate(peaks[c]):
+            if peak_tuples(got) != peak_tuples(judged[d]):
                 bad += 1
-                failed += 1
+                failed.add((c, d))
     return bad, failed
+
+
+def named(numbers, range_name):
+    """A search range's numbers under their names: ``<number>.<range>``
+    for a named range, the bare names for the one range of a
+    configuration without ranges."""
+    if range_name is None:
+        return dict(numbers)
+    return {f"{k}.{range_name}": v for k, v in numbers.items()}
 
 
 def numbers_line(numbers, limits):

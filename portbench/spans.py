@@ -28,7 +28,7 @@ from .trace import (ANNOTATION, DEVICE_CATS, device_events, idle_gaps,
 __all__ = ["PREFIX", "SPAN_CAT", "RUNTIME_CATS", "SYNC_CALLS", "QUEUE_SPANS",
            "load_records", "parse_events", "launch_stacks", "sync_calls",
            "kernel_ms", "tail_spans", "tail_idle_us", "main_tid",
-           "report_lines"]
+           "range_ms", "report_lines"]
 
 PREFIX = "riptide."
 SPAN_CAT = "program_span"
@@ -150,6 +150,46 @@ def kernel_ms(records, span, within):
     return us * 1e-3
 
 
+def range_ms(records, span, k1_names):
+    """``{range: [K1, peak program, other]}``: device milliseconds in
+    ``span`` of the kernels launched inside the harness's
+    ``queue.<i>.<range>`` annotations (a configuration's named search
+    ranges), K1's by name (``k1_names``), the peak program's by the
+    program's ``peaks`` span; empty where no range is named."""
+    ranges = {}
+    for r in records:
+        parts = r["name"].split(".", 3)
+        if r["cat"] == "user_annotation" and len(parts) == 4 \
+                and parts[:2] == [ANNOTATION[:-1], "queue"]:
+            ranges.setdefault(r.get("tid"), []).append(
+                (r["ts"], r["ts"] + r["dur"], parts[3]))
+    if not ranges:
+        return {}
+    for anns in ranges.values():
+        anns.sort()
+    of_call = {}
+    for r in records:
+        if r["cat"] in RUNTIME_CATS and "correlation" in r:
+            anns = ranges.get(r["tid"], [])
+            k = bisect_right(anns, (r["ts"], float("inf"), "")) - 1
+            if k >= 0 and r["ts"] < anns[k][1]:
+                of_call[r["correlation"]] = anns[k][2]
+    stacks = launch_stacks(records)
+    out = {}
+    for e in device_events(records, span):
+        name = of_call.get(e.get("correlation"))
+        if e["cat"] != "kernel" or name is None:
+            continue
+        if kernel_base(e["name"]) in k1_names:
+            j = 0
+        elif PREFIX + "peaks" in stacks.get(e["correlation"], ()):
+            j = 1
+        else:
+            j = 2
+        out.setdefault(name, [0.0, 0.0, 0.0])[j] += e["dur"] * 1e-3
+    return out
+
+
 def tail_spans(records, span=None):
     """The program's ``tail`` spans (the collect's host tail) that start
     in ``span``."""
@@ -199,7 +239,8 @@ def report_lines(records, span, chunks, k1_names, top=10):
     the queue by their innermost span, and device
     milliseconds a chunk of K1's kernels (``k1_names``) by ``ffa_stage``
     and of every other kernel by the innermost span that launched it
-    (``assemble``, the ``peaks.*`` steps)."""
+    (``assemble``, the ``peaks.*`` steps); with named search ranges,
+    device milliseconds a chunk by range (:func:`range_ms`)."""
     if span is None or not chunks:
         return []
     tid = main_tid(records)
@@ -247,4 +288,10 @@ def report_lines(records, span, chunks, k1_names, top=10):
                  + json.dumps(ms(stage)))
     lines.append("device ms a chunk of the other kernels by innermost span "
                  "(assembly and peak program steps): " + json.dumps(ms(other)))
+    by_range = range_ms(records, span, k1_names)
+    if by_range:
+        lines.append("device ms a chunk by search range [K1, peak program, "
+                     "other]: " + json.dumps(
+                         {k: [round(v / chunks, 4) for v in vs]
+                          for k, vs in by_range.items()}))
     return lines

@@ -49,15 +49,18 @@ def run_traced(wl, cfg, mix, limits, bench, seed, seconds, device, t_start,
     from riptide_tpu_torch.obs import trace as program_trace
 
     from . import cell, spans
+    from .ranges import ranges
     from .trace import window_span
 
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     k1 = cell.kernel_sets()["k1"]
+    nranges = len(ranges(cfg))
 
     def load(prof):
         records = spans.load_records(prof)
         win = window_span(records)
-        chunks = len(spans.tail_spans(records, win)) if win else 0
+        # One tail a collected search: a chunk's collect has one a range.
+        chunks = len(spans.tail_spans(records, win)) // nranges if win else 0
         for line in spans.report_lines(records, win, chunks, k1):
             log(line)
         return records

@@ -58,14 +58,15 @@ def test_window_collects_every_chunk_and_the_rate_counts_them_all():
     all of their trials over the whole window."""
     wl, cfg, mix, limits, _ = small_cell()
     st = cell.setup(cfg, mix, limits, 7, torch.device("cpu"))
-    win = run_window(st["plan"], st["tobs"], st["ring"], 0.5,
-                     cfg["find_peaks"], torch.device("cpu"))
+    (r,) = st["ranges"]
+    win = run_window([(r["plan"], r["tobs"], cfg["find_peaks"], None)],
+                     st["ring"], 0.5, torch.device("cpu"))
     n = win["chunks"]
     assert n >= 2 and len(win["peaks"]) == n == len(win["queue_s"])
     assert win["slots"] == [i % 2 for i in range(n)]
     assert len(win["ship_s"]) == n and sorted(win["snr"]) == [0, 1]
     win["launches"], win["records"] = {}, None
-    rec = cell.window_record(st, cfg, win, 12.5)
+    rec = cell.window_record(st, win, 12.5)
     rate = cell.metric_reader("survey_trials_per_s")
     assert rate(rec) == pytest.approx(4 * n / (win["t1"] - win["t0"]))
     assert rate(dict(collected_trials=1280, window_s=2.0)) == 640

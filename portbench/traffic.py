@@ -4,9 +4,10 @@ chunks of dedispersed series a survey node searches.
 
 A chunk is ``dm_trials`` series of the configuration's ``nsamp``
 samples: white noise drawn on the device by a seeded generator, with the
-mix's ``pulsar`` (a train of von Mises pulses at the configuration's
+mix's ``pulsar`` (a train of von Mises pulses at each search range's
 ``pulsar_period``, the ``amplitude`` being the train's L2 norm, as
-riptide's ``generate_signal`` makes it) added to the listed trials, each
+riptide's ``generate_signal`` makes it) added to the listed trials, which
+so carry one pulsar a range, as a beam with several pulsars would; each
 series then normalised to zero mean and unit variance, as a survey
 searches whitened series. ``ring`` distinct chunks are made; the
 window cycles through them.
@@ -15,6 +16,8 @@ import math
 
 import numpy as np
 import torch
+
+from .ranges import ranges
 
 __all__ = ["slot_seed", "pulse_train", "make_chunk", "sample_trials"]
 
@@ -45,10 +48,12 @@ def make_chunk(cfg, mix, seed, slot, device):
     x = torch.randn((D, N), generator=gen, dtype=torch.float32,
                     device=device)
     psr = mix["pulsar"]
-    train = pulse_train(N, cfg["pulsar_period"] / cfg["tsamp"], psr["phi0"],
-                        psr["ducy"], psr["amplitude"], device).float()
-    for t in psr["trials"]:
-        x[t] += train
+    for _, rcfg in ranges(cfg):
+        train = pulse_train(N, rcfg["pulsar_period"] / cfg["tsamp"],
+                            psr["phi0"], psr["ducy"], psr["amplitude"],
+                            device).float()
+        for t in psr["trials"]:
+            x[t] += train
     x -= x.mean(dim=1, keepdim=True)
     x /= x.std(dim=1, keepdim=True, correction=0)
     return x
