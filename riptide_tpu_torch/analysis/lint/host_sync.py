@@ -52,7 +52,8 @@ HOT_FUNCTIONS = {
     },
     "riptide_tpu_torch/pipeline/batcher.py": {
         "BatchSearcher.process_stream", "BatchSearcher._queue_chunk",
-        "BatchSearcher._queue_range", "BatchSearcher._ship_chunk",
+        "BatchSearcher._queue_range", "BatchSearcher._queue_spanned",
+        "BatchSearcher._ship_chunk",
         "BatchSearcher._ship_spanned",
     },
     "riptide_tpu_torch/ops/ffa_kernel.py": {

@@ -33,7 +33,8 @@ phases; the card's timeline is ``torch.profiler``'s job
 
 While ``torch.profiler`` records, each span entered also opens
 a ``record_function`` named ``riptide.<span name>`` (plus the value of
-the span's ``stage`` attribute, as in ``riptide.ffa_stage.7``), closed
+the span's ``stage`` or ``range`` attribute, as in
+``riptide.ffa_stage.7`` or ``riptide.range.short``), closed
 when the span exits. The span then lies in the profiler's own trace as
 a ``user_annotation`` on the profiler's clock, around the CUDA runtime
 calls it made, whose ``correlation`` names the kernels they launched.
@@ -59,9 +60,10 @@ __all__ = ["Span", "Tracer", "span", "enable", "disable", "enabled",
 INHERIT_ATTRS = ("chunk",)
 
 # Prefix of a span's name in the profiler's trace, and the attribute
-# keys whose values join it there (they tell sibling spans apart).
+# keys whose values join it there (they tell sibling spans apart:
+# ``riptide.ffa_stage.7``, ``riptide.range.short``).
 PROFILER_PREFIX = "riptide."
-LABEL_ATTRS = ("stage",)
+LABEL_ATTRS = ("stage", "range")
 
 
 def _recording_profiler():

@@ -16,7 +16,8 @@ series with single-threaded C++ on its own CPU core, this stage:
    shapes;
 3. copies the wire to the card on a ship thread (the engine's copy
    stream) and queues every configured period range's search of the
-   batch through :func:`~riptide_tpu_torch.search.engine.queue_search_batch`:
+   batch through :func:`~riptide_tpu_torch.search.engine.queue_search_batch`,
+   each range's queue and collect in a span ``range`` of its name:
    the FFA stages (K1, and K3 where buckets pair) and the device peak
    program; with a device mesh, the batch is dm-sharded over it instead
    (:mod:`riptide_tpu_torch.parallel.sharded`: each shard's slice of the
@@ -405,9 +406,34 @@ class BatchSearcher:
 
     def _queue_chunk(self, items):
         return [
-            self._queue_range(conf, members, batch, plan, shipped)
+            self._queue_spanned(conf, members, batch, plan, shipped)
             for members, batch, conf, plan, shipped in items
         ]
+
+    def _range_name(self, conf):
+        """A search range's name: its ``name``, else its position among
+        the configured ranges."""
+        name = conf.get("name")
+        return str(self.range_confs.index(conf)) if name is None else name
+
+    def _queue_spanned(self, conf, members, batch, plan, shipped):
+        """:meth:`_queue_range` and the collector it returns, each in the
+        span ``range`` (``range=`` the range's name, so that the
+        profiler's trace names it ``riptide.range.<name>``) and timed in
+        the registry as ``range.<name>.queue_s`` and
+        ``range.<name>.collect_s``; ``ranges_queued`` counts them."""
+        name = self._range_name(conf)
+        reg = get_metrics()
+        reg.add("ranges_queued")
+        with span("range", range=name), reg.timer(f"range.{name}.queue_s"):
+            collect = self._queue_range(conf, members, batch, plan, shipped)
+
+        def collect_spanned():
+            with span("range", range=name), \
+                    reg.timer(f"range.{name}.collect_s"):
+                return collect()
+
+        return collect_spanned
 
     def _collect_chunk(self, queued):
         return [p for collect in queued for p in collect()]

@@ -45,6 +45,9 @@ contains whatever was recorded):
 ``cluster_cols_device``   counter: peak columns taken from the device clusters
 ``cluster_cols_host``     counter: peak columns clustered on the host
 ``harmonic_suspects``     counter: advisory harmonic-screen hits
+``ranges_queued``         counter: (search range x chunk) searches queued
+``range.*.queue_s``       timer: host queue of one search range, by its name
+``range.*.collect_s``     timer: host collect of one search range, by name
 ``heartbeat_age_s``       gauge: age of the stalest peer heartbeat
 ========================  ====================================================
 
