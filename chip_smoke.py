@@ -4,7 +4,8 @@ Smoke run of the PyTorch port (``riptide_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
 
-Builds the cascade-stage kernels (``riptide_tpu_torch/csrc/ffa_stage.cu``)
+Builds the cascade-stage kernels (``riptide_tpu_torch/csrc/ffa_stage.cu``),
+the peak program's cluster kernel (``riptide_tpu_torch/csrc/cluster.cu``)
 and the chip probes' kernels (``riptide_tpu_torch/csrc/probes.cu``) from
 this checkout with nvcc, and the native host runtime
 (``riptide_tpu_torch/native/src/riptide_native.cpp``) with g++, one
@@ -28,7 +29,9 @@ of the checkout by default), then:
    injected pulsar, P 0.5-3.0 s, bins 240-260 (222,955 trials), on the
    default uint6 wire. The launch counts are set to 0 just before this
    search and read just after: one K1 per queued lane bucket
-   (``engine.queued_launches``) and no K2, and by CUDA kernel one
+   (``engine.queued_launches``), no K2 and no cluster kernel
+   (``peaks_device.CLUSTER_LAUNCHES``: ``ffa_search`` queues no peak
+   program), and by CUDA kernel one
    segment launch from the wire and one S/N launch per K1, one level
    launch per FFA level past the segment kernel's
    (``ffa_kernel.KERNEL_LAUNCHES``). The cold segment-table build
@@ -63,7 +66,8 @@ of the checkout by default), then:
    where the pairing map holds 10 pairs and K3 ``paired_stage`` runs, and
    (c) ``RIPTIDE_KERNEL_BASE3=0 RIPTIDE_KERNEL_ROW_PACK=0``. Each run is
    second of two, its launch counts set to 0 just before it and read
-   just after; the three S/N cubes must be the same bits, the three peak
+   just after (one cluster kernel launch each, for its peak program);
+   the three S/N cubes must be the same bits, the three peak
    lists identical, and series 0 must give the pulsar. Every K3 launch of
    run (b) is held against ``paired_stage_plain``, its containers after
    the segment kernel and every global level against the plain levels
@@ -72,6 +76,18 @@ of the checkout by default), then:
    prep overlapped: chunk 2 is prepared on a worker thread into a pinned
    ``StagingPool`` while the card runs chunk 1, twice (the second pass
    from recycled buffers);
+5c. the peak program's cluster kernel (``csrc/cluster.cu``) on run (a)'s
+   S/N cube (D = 32, 10 widths, 222,955 trials) through the survey's own
+   peak plan: the program once, its cluster launches set to 0 just
+   before and read just after (one); ``peaks_device.cluster_columns`` on
+   the cube and the program's threshold coefficients must give the plain
+   form's four outputs (``ncl``, ``marg``, ``rep_idx``, ``rep_val``;
+   ``_cluster_impl`` over ``_thr_impl`` on the same card tensors) bit for
+   bit, and the program's packed outputs; the kernel's time (CUDA graph
+   replays, and through the wrapper between CUDA events) beside the plain
+   form's and the bound of the bytes it moves. Its ``kernels`` entry
+   (``CL cluster_columns``) carries these and phase 5's launch counts
+   (``survey_launches``);
 5f. the file entry points: the phase 2 series written by this script as
    a PRESTO .inf/.dat pair and as 32-bit and 8-bit SIGPROC files, read
    back with ``TimeSeries.from_presto_inf`` / ``from_sigproc`` and
@@ -728,7 +744,7 @@ def phase_headline(dev, plan, cfg=HEADLINE, period=PULSAR["period"],
     from riptide_tpu_torch import ffa_search
     from riptide_tpu_torch.ops import ffa_kernel as fk
     from riptide_tpu_torch.ops.plan import segment_plan
-    from riptide_tpu_torch.search import engine
+    from riptide_tpu_torch.search import engine, peaks_device
 
     buckets = [st.bucket_batch(k) for st in plan.stages
                for k in range(len(st.lane_buckets))]
@@ -748,12 +764,14 @@ def phase_headline(dev, plan, cfg=HEADLINE, period=PULSAR["period"],
     ffa_search(ts, **kw)
     cold = time.perf_counter() - t0
     fk.reset_launches()
+    peaks_device.CLUSTER_LAUNCHES = 0
     with engine.recording() as rec, dq_steps() as steps, gc_pauses() as gcs:
         t0 = time.perf_counter()
         tsn, pgram = ffa_search(ts, **kw)
         warm = time.perf_counter() - t0
     launches = dict(fk.LAUNCHES)
     cuda = dict(fk.KERNEL_LAUNCHES)
+    clusters = peaks_device.CLUSTER_LAUNCHES
     check(rec["meta"]["prep"] == "native",
           f"headline: the wire was made by the {rec['meta']['prep']} prep")
     ntrials = pgram.periods.size
@@ -776,7 +794,10 @@ def phase_headline(dev, plan, cfg=HEADLINE, period=PULSAR["period"],
     old = sum(t.h.shape[0] for t in calls) + 2 * len(calls)
     print(f"  CUDA launches per headline search: {sum(cuda.values())} "
           f"{cuda} for {launches['fused_stage']} K1 wrapper calls (one "
-          f"launch per FFA level took {old})", flush=True)
+          f"launch per FFA level took {old}); cluster kernel {clusters}",
+          flush=True)
+    check(clusters == 0, f"headline: {clusters} cluster kernel launches; "
+          "ffa_search queues no peak program")
     check(cuda == {"segment_wire": len(calls), "segment_container": 0,
                    "ffa_level": sum(t.h.shape[0] - t.local for t in calls),
                    "boxcar_snr": len(calls)},
@@ -1055,7 +1076,7 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
     ms, bound by) over its launches, and run (a) for phase 11: the
     batch, its peaks, S/N cube, wall and peak device memory."""
     from riptide_tpu_torch.ops import ffa_kernel as fk
-    from riptide_tpu_torch.search import engine
+    from riptide_tpu_torch.search import engine, peaks_device
 
     tobs = cfg["nsamp"] * cfg["tsamp"]
     nw = len(plan.widths)
@@ -1082,6 +1103,7 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
                 base = torch.cuda.memory_allocated(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
             fk.reset_launches()
+            peaks_device.CLUSTER_LAUNCHES = 0
             with engine.recording() as rec:
                 t0 = time.perf_counter()
                 handle = engine.queue_search_batch(plan, None, tobs,
@@ -1091,13 +1113,15 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
                 peaks, _ = engine.collect_search_batch(handle, dms)
                 wall = time.perf_counter() - t0
             launches = dict(fk.LAUNCHES)
+            clusters = peaks_device.CLUSTER_LAUNCHES
             want = engine.queued_launches(plan)
             k3 = [r for r in rec["launches"] if r["kind"] == "paired_stage"]
             k3_trials = [_trials(plan, r) for r in k3]
         peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
                 else 0)
         print(f"  run ({name}) {flags or 'defaults'}: {pairs} pairs, "
-              f"{absorbed} absorbed buckets; launches {launches}; "
+              f"{absorbed} absorbed buckets; launches {launches}, cluster "
+              f"kernel {clusters}; "
               f"{wall:.3f} s wall without the host prep, "
               f"{D / wall:.3f} DM-trials/s ({D / (wall + prep):.3f} with "
               f"it), peak device memory {peak / 2 ** 30:.3f} GiB", flush=True)
@@ -1106,12 +1130,14 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
               f"{rec['assemble_s']:.4f} s, peak program {rec['peaks_s']:.4f} s, "
               f"pull + host tail {rec['collect_s']:.4f} s", flush=True)
         check_launches(f"run ({name})", launches, want)
+        check(clusters == int(dev.type == "cuda"), f"run ({name}): {clusters} "
+              "cluster kernel launches; want one for its peak program")
         check(np.isfinite(snr.cpu().numpy()).all() and snr.shape == (
             D, plan.length, nw), f"run ({name}): S/N cube {tuple(snr.shape)}")
         runs[name] = dict(pairs=pairs, absorbed=absorbed, launches=launches,
                           snr=snr, peaks=peaks, rec=rec, k3=k3,
                           k3_trials=k3_trials, wall=wall, peak=peak,
-                          base=base)
+                          base=base, clusters=clusters)
     a, b, c = runs["a"], runs["b"], runs["c"]
     check(a["pairs"] == c["pairs"] == 0 and b["pairs"] == want_pairs,
           f"pairs {a['pairs']}, {b['pairs']}, {c['pairs']}: want 0, "
@@ -1156,8 +1182,87 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
           f"through the wrappers; plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
           f"by {bnd[1]})", flush=True)
     p5 = dict(batch=batch, peaks=a["peaks"], snr=a["snr"], wall=a["wall"],
-              peak=a["peak"], base=a["base"])
+              peak=a["peak"], base=a["base"],
+              clusters=[runs[k]["clusters"] for k in "abc"])
     return b["launches"]["paired_stage"], err, (ms, pms, *bnd), p5
+
+
+def _bits(x):
+    x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return x.dtype, x.shape, x.tobytes()
+
+
+def phase_cluster(dev, plan, p5, cfg=HEADLINE):
+    """Phase 5c: the peak program's cluster kernel (``csrc/cluster.cu``)
+    on phase 5 (a)'s S/N cube, through the survey's own peak plan. The
+    program runs once (``CLUSTER_LAUNCHES`` set to 0 just before it and
+    read just after: one launch); then ``cluster_columns`` on the
+    cube and the program's threshold coefficients (from its packed
+    output, float32 there) must give the plain form's four outputs
+    (``_cluster_impl`` over ``_thr_impl`` on the same card tensors) bit
+    for bit, and the program's packed outputs. The kernel is timed from
+    CUDA graph replays and through the wrapper, the plain form alike,
+    beside the bound of the bytes the kernel must move. Returns the
+    ``kernels`` line's entry."""
+    from riptide_tpu_torch.search import engine, peaks_device
+
+    pp = engine._peak_plan(plan, cfg["nsamp"] * cfg["tsamp"])
+    check(pp.device_cluster, "the survey's peak plan clusters on the host")
+    snr = p5["snr"]                                  # (D, n, NW)
+    D, n, nw = snr.shape
+    peaks_device.CLUSTER_LAUNCHES = 0
+    buf = pp._fused(snr)
+    launches = peaks_device.CLUSTER_LAUNCHES
+    check(launches == 1, f"the peak program launched the cluster kernel "
+          f"{launches} times; want one")
+    extra = pp._unpack(buf.cpu().numpy(), D)[4]
+    s = snr.transpose(1, 2).contiguous()             # the program's cube
+    coef = torch.from_numpy(np.ascontiguousarray(extra["coef"])).to(dev)
+    consts = pp._device_consts(dev)
+
+    def kernel():
+        return peaks_device.cluster_columns(s, coef, consts["logf"],
+                                            consts["reach"], pp.smin,
+                                            pp.REP_CAP)
+
+    def plain():
+        return pp._cluster_impl(s, pp._thr_impl(coef))
+
+    got, want = kernel(), plain()
+    names = ("ncl", "marg", "rep_idx", "rep_val")
+    for name, g, w in zip(names, got, want):
+        check(_bits(g) == _bits(w), f"cluster kernel: {name} is not the "
+              "plain form's bits")
+    ncl, marg, rep_idx, rep_val = (g.cpu().numpy() for g in got)
+    packed = np.where(rep_idx >= 0, rep_val, np.float32(0.0))
+    check(np.array_equal(ncl, extra["ncl"]) and np.array_equal(
+        marg, extra["marg"]) and np.array_equal(rep_idx, extra["rep_idx"])
+        and _bits(packed) == _bits(extra["rep_val"]),
+        "cluster kernel: not the peak program's packed outputs")
+    ms = measure.graph_ms(kernel, dev, REPS)
+    wms = measure.median_ms(kernel, dev, REPS)
+    pms = measure.median_ms(plain, dev, reps=5)
+    # Compulsory bytes: the cube once, the coefficients, logf and reach,
+    # and the four outputs; operations: the threshold by Horner (a
+    # multiply and an add a coefficient) and four comparisons a cell.
+    cap = pp.REP_CAP
+    nbytes = (s.numel() * 4 + coef.numel() * 4 + n * 8
+              + D * nw * (4 + 1 + cap * (8 + 4)))
+    bms, by = measure.bound_ms(nbytes, s.numel() * (2 * coef.shape[-1] + 4))
+    print(f"  {D} x {nw} x {n} cube ({s.numel() * 4 / 1e9:.3f} GB), "
+          f"{int(ncl.sum())} clusters, {int(marg.sum())} marginal columns: "
+          f"the four outputs the plain form's bits and the program's; "
+          f"cluster kernel {ms:.4f} ms device, from CUDA graph replays "
+          f"({wms:.4f} ms through the wrapper; plain {pms:.4f} ms, "
+          f"{pms / ms:.1f}x; bound {bms:.4f} ms by {by}, "
+          f"{100 * bms / ms:.1f} %); launches in phase 5's runs "
+          f"{p5['clusters']}", flush=True)
+    return {"name": "CL cluster_columns", "route": "cuda",
+            "source": "riptide_tpu_torch/csrc/cluster.cu",
+            "replaces": None, "launches": launches,
+            "survey_launches": p5["clusters"], "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
 
 
 def write_presto(path, data, tsamp, dm=0.0):
@@ -4024,7 +4129,9 @@ def main(argv=None):
     from riptide_tpu_torch.search import engine
 
     t0 = time.perf_counter()
-    libs = (fk._LIB, probes.LIB)
+    from riptide_tpu_torch.search import peaks_device
+
+    libs = (fk._LIB, peaks_device._CLUSTER_LIB, probes.LIB)
     with ThreadPoolExecutor(len(libs) + 1) as pool:
         for done in [pool.submit(lib.build) for lib in libs] + [
                 pool.submit(native.build)]:
@@ -4061,6 +4168,9 @@ def main(argv=None):
     print("phase 5: run_search_batch, D = 32, three container layouts",
           flush=True)
     n3, err3, times["K3"], p5 = phase_survey(dev, plan)
+    print("phase 5c: the peak program's cluster kernel on phase 5's cube",
+          flush=True)
+    cluster_entry = phase_cluster(dev, plan, p5)
     print("phase 5f: file entry points (PRESTO, SIGPROC 32- and 8-bit)",
           flush=True)
     phase_files(dev, plan, headline_series())
@@ -4188,6 +4298,7 @@ def main(argv=None):
     entries[0]["wide"] = wide["fused_stage"]
     entries[1]["wide"] = wide["cascade_stage"]
     entries[1]["wide_bits"] = wide_bits
+    entries.append(cluster_entry)
     entries += probe_entries
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

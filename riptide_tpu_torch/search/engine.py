@@ -1589,11 +1589,13 @@ def launch_shapes(plan, D, mode=None):
 def warm_stage_kernels(plan, D, parallel=True, device=None):
     """Ready ``device`` (the card when None) for a ``D``-trial search of
     ``plan``, as the JAX package's ``warm_stage_kernels`` readies the TPU.
-    First the libraries the stages need come from the build cache
+    First the libraries the search needs come from the build cache
     (``utils/exec_cache.py``), built there at first use: the native wire
-    prep and, on a CUDA device, the stage kernels (``csrc/ffa_stage.cu``);
-    with ``parallel`` the builds run together. Then each distinct
-    :func:`launch_shape` of the search is queued once, at ``D``, on a
+    prep and, on a CUDA device, the stage kernels (``csrc/ffa_stage.cu``)
+    and the peak program's cluster kernel (``csrc/cluster.cu``, loaded at
+    its first launch); with ``parallel`` the builds run together. Then
+    each distinct :func:`launch_shape` of the search is queued once, at
+    ``D``, on a
     zero wire of the live wire mode, and every container's operands are
     uploaded on the way (:func:`_cached`): the first allocations of each
     shape and the operand uploads leave the first search. Returns the
@@ -1603,11 +1605,12 @@ def warm_stage_kernels(plan, D, parallel=True, device=None):
 
     from .. import native
     from ..ops import ffa_kernel
+    from .peaks_device import build_cluster
 
     dev = resolve_device(device)
     builds = [native.build]
     if dev.type == "cuda":
-        builds.append(ffa_kernel.build)
+        builds += [ffa_kernel.build, build_cluster]
     if parallel:
         with ThreadPoolExecutor(len(builds)) as ex:
             for fut in [ex.submit(b) for b in builds]:

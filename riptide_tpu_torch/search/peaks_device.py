@@ -16,9 +16,13 @@ S/N cube on the device. The device side is one call,
    selected counts, and the first CAP non-empty blocks per (trial,
    width) column;
 4. with ``RIPTIDE_DEVICE_CLUSTER`` (default on), the reference's 1-D
-   friends-of-friends clustering of the sure points (cummax/cummin,
-   a segmented log-step lexmax scan, a stable sort in place of
-   ``lax.top_k``) and the advisory harmonic screen.
+   friends-of-friends clustering of the sure points and the advisory
+   harmonic screen. On a card the clustering is one hand-written CUDA
+   kernel (``csrc/cluster.cu``, :func:`cluster_columns`: one read of the
+   cube, the threshold in registers, no (D, NW, n) intermediate); on
+   the CPU it is the plain form (:meth:`PeakPlan._cluster_impl`:
+   cummax/cummin, a segmented log-step lexmax scan, a stable sort in
+   place of ``lax.top_k``), with the same four outputs bit for bit.
 
 The host then re-fits the threshold in float64 (``np.polyfit``),
 re-checks every pulled point exactly, and keeps a column's device
@@ -48,8 +52,11 @@ came from the device representatives or the host tail),
 ``peaks_pull_ready`` (collects whose chunk was done on entry),
 ``peaks_pull_wait_s`` (the host's wait on the chunk's event) and
 ``overflow_gathers`` (overflow gathers on the side stream).
+:data:`CLUSTER_LAUNCHES` counts the cluster kernel's launches: one per
+peak program queued on a card with device clustering, none on the CPU.
 """
 import contextlib
+import ctypes
 import logging
 import threading
 import time
@@ -62,14 +69,14 @@ from ..obs.trace import span
 from ..peak_detection import Peak, fit_threshold
 from ..survey.integrity import fold_result
 from ..survey.metrics import get_metrics
-from ..utils import envflags
+from ..utils import cuda_build, envflags
 from .engine import _dev_tensor
 
 log = logging.getLogger("riptide_tpu_torch.peaks_device")
 
 __all__ = ["PeakPlan", "device_find_peaks", "queue_find_peaks",
            "collect_peaks", "device_cluster_enabled",
-           "force_device_cluster"]
+           "force_device_cluster", "cluster_columns", "build_cluster"]
 
 # Margin (in S/N units) by which the device-side threshold is lowered;
 # marginal points are re-judged on host in float64. Device f32 rounding
@@ -97,6 +104,12 @@ _QS = (25.0, 50.0, 75.0)
 # Guards the build of a plan's device constants (several job threads
 # may queue one plan at once).
 _CONSTS_LOCK = threading.Lock()
+
+# The cluster step's kernel: its source and its launches (counted under
+# their lock: job threads may queue peak programs at once).
+CLUSTER_SOURCE = cuda_build.CSRC / "cluster.cu"
+CLUSTER_LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
 
 
 def device_cluster_enabled():
@@ -183,6 +196,69 @@ def _seg_lexmax_scan(flag, val, idx):
     return val, idx
 
 
+def _bind_cluster(lib):
+    vp, i32, ll, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_float)
+    lib.rt_cluster_columns.argtypes = [vp, vp, i32, vp, vp, ll, i32, f32,
+                                       f32, f32, i32, vp, vp, vp, vp, vp]
+    lib.rt_cluster_columns.restype = i32
+    lib.rt_cluster_tile.restype = i32
+
+
+_CLUSTER_LIB = cuda_build.Library(CLUSTER_SOURCE, _bind_cluster)
+
+
+def build_cluster():
+    """Path of the built cluster kernel library, compiling it with nvcc
+    first if the build cache holds none (see ``utils/cuda_build.py``)."""
+    return _CLUSTER_LIB.build()
+
+
+def cluster_columns(s, coef, logf, reach, smin, rep_cap):
+    """The cluster step on a card: ``(ncl, marg, rep_idx, rep_val)`` of
+    :meth:`PeakPlan._cluster_impl` over :meth:`PeakPlan._thr_impl`, bit
+    for bit, from one launch of ``csrc/cluster.cu`` on the current
+    stream of the cube's card (made the current device for the launch).
+    ``s`` (D, NW, n) and ``coef`` (D, NW, K <= 3) float32, ``logf`` (n)
+    float32 and ``reach`` (n) int32, all contiguous on one CUDA device;
+    ``smin`` and :data:`EPS` are rounded to float32 as the
+    plain form's comparisons round them. Raises ValueError on any other
+    operand, RuntimeError on a failed build or launch. On the ``meta``
+    device (the shape-only walk) it only allocates the outputs."""
+    global CLUSTER_LAUNCHES
+    dev = s.device
+    if dev.type not in ("cuda", "meta") or s.dim() != 3:
+        raise ValueError(f"cluster_columns: want a (D, NW, n) cube on a "
+                         f"card, got {tuple(s.shape)} on {dev}")
+    D, NW, n = s.shape
+    K = coef.shape[-1]
+    if not 1 <= K <= 3:
+        raise ValueError(f"cluster_columns: {K} threshold coefficients, "
+                         f"the kernel takes 1 to 3")
+    cuda_build.require(s, "s", torch.float32, dev)
+    cuda_build.require(coef, "coef", torch.float32, dev, (D, NW, K))
+    cuda_build.require(logf, "logf", torch.float32, dev, (n,))
+    cuda_build.require(reach, "reach", torch.int32, dev, (n,))
+    ncl = torch.empty((D, NW), dtype=torch.int32, device=dev)
+    marg = torch.empty((D, NW), dtype=torch.bool, device=dev)
+    rep_idx = torch.empty((D, NW, rep_cap), dtype=torch.int64, device=dev)
+    rep_val = torch.empty((D, NW, rep_cap), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return ncl, marg, rep_idx, rep_val
+    lib = _CLUSTER_LIB.load()
+    f32 = np.float32
+    with torch.cuda.device(dev):
+        cuda_build.check(lib, "cluster_columns", lib.rt_cluster_columns(
+            s.data_ptr(), coef.data_ptr(), K, logf.data_ptr(),
+            reach.data_ptr(), D * NW, n, float(f32(EPS)),
+            float(f32(smin - EPS)), float(f32(smin + EPS)), rep_cap,
+            ncl.data_ptr(), marg.data_ptr(), rep_idx.data_ptr(),
+            rep_val.data_ptr(), cuda_build.stream(dev)))
+    with _LAUNCH_LOCK:
+        CLUSTER_LAUNCHES += 1
+    return ncl, marg, rep_idx, rep_val
+
+
 class PeakPlan:
     """Static (data-independent) part of on-device peak detection for one
     periodogram plan + observation length."""
@@ -252,7 +328,7 @@ class PeakPlan:
         c = {"q": q, "fitmat": _dev_tensor(self.fitmat, f32, dev),
              "logf": _dev_tensor(self.logf, f32, dev)}
         if self.device_cluster:
-            c.update(reach=_dev_tensor(self.reach, np.int64, dev),
+            c.update(reach=_dev_tensor(self.reach, np.int32, dev),
                      freqs=_dev_tensor(self.freqs_f32, f32, dev),
                      foldbins=_dev_tensor(self.foldbins_f32, f32, dev),
                      widths=_dev_tensor(self.widths_f32, f32, dev))
@@ -362,14 +438,27 @@ class PeakPlan:
 
     # -- on-device 1-D clustering over the sure-selected mask ------------
 
+    def _cluster(self, s, coef):
+        """The cluster step from the cube ``s`` (D, NW, n) and the f32
+        threshold coefficients ``coef`` (D, NW, deg + 1): the plain form
+        (:meth:`_cluster_impl` over :meth:`_thr_impl`) for a cube on the
+        CPU, else the kernel (:func:`cluster_columns`), which raises
+        rather than fall back."""
+        if s.device.type == "cpu":
+            return self._cluster_impl(s, self._thr_impl(coef))
+        c = self._device_consts(s.device)
+        return cluster_columns(s, coef.contiguous(), c["logf"], c["reach"],
+                               self.smin, self.REP_CAP)
+
     def _cluster_impl(self, s, thr):
-        """Friends-of-friends clustering of each (trial, width) column's
-        sure points (above threshold + EPS). Returns (ncl (D, NW) int32,
-        marg (D, NW) bool, rep_idx / rep_val (D, NW, REP_CAP)): per
-        cluster the lexmax-(S/N, trial index) representative, in
-        ascending-trial slot order. Cluster boundaries reproduce
-        cluster1d exactly: adjacent selected trials j_prev < j chain iff
-        j <= reach[j_prev]."""
+        """The plain form of the cluster step: friends-of-friends
+        clustering of each (trial, width) column's sure points (above
+        threshold + EPS). Returns (ncl (D, NW) int32, marg (D, NW) bool,
+        rep_idx (D, NW, REP_CAP) int64, rep_val (D, NW, REP_CAP)
+        float32): per cluster the lexmax-(S/N, trial index)
+        representative, in ascending-trial slot order. Cluster
+        boundaries reproduce cluster1d exactly: adjacent selected trials
+        j_prev < j chain iff j <= reach[j_prev]."""
         dev = s.device
         m_sel = (s > thr - EPS) & (s > self.smin - EPS)
         m = (s > thr + EPS) & (s > self.smin + EPS)        # sure
@@ -500,8 +589,7 @@ class PeakPlan:
                      ids.to(f32).reshape(-1), vals.reshape(-1)]
         if self.device_cluster:
             with span("peaks.cluster"):
-                thr = self._thr_impl(coef)
-                ncl, marg, rep_idx, rep_val = self._cluster_impl(s, thr)
+                ncl, marg, rep_idx, rep_val = self._cluster(s, coef)
             with span("peaks.harm"):
                 harm = self._harm_impl(rep_idx, rep_val)
         with span("peaks.pack"):

@@ -215,4 +215,4 @@ def test_test_runs_the_port_suite_by_path(monkeypatch, have_jax, have_card):
         assert all(n.startswith("test_torch_") for n in names)
     else:
         assert "--noconftest" in args
-        assert names == cuda and len(cuda) == 3
+        assert names == cuda and len(cuda) == 4
