@@ -62,21 +62,20 @@ of the checkout by default), then:
    scales the same bits;
 5. the survey batch: ``run_search_batch`` at the headline configuration
    with D = 32 (a pulsar in series 0) from one ``prepare_stage_data``,
-   under (a) the default container flags, (b) ``RIPTIDE_KERNEL_BASE3=0``,
-   where the pairing map holds 10 pairs and K3 ``paired_stage`` runs, and
-   (c) ``RIPTIDE_KERNEL_BASE3=0 RIPTIDE_KERNEL_ROW_PACK=0``. Each run is
-   second of two, its launch counts set to 0 just before it and read
-   just after (one cluster kernel launch each, for its peak program);
-   the three S/N cubes must be the same bits, the three peak
-   lists identical, and series 0 must give the pulsar. Every K3 launch of
-   run (b) is held against ``paired_stage_plain``, its containers after
-   the segment kernel and every global level against the plain levels
-   bit for bit, and K3 is timed over all of them. The prep is timed by
-   both paths (the same bits), and one two-chunk survey runs with the
-   prep overlapped: chunk 2 is prepared on a worker thread into a pinned
-   ``StagingPool`` while the card runs chunk 1, twice (the second pass
-   from recycled buffers);
-5c. the peak program's cluster kernel (``csrc/cluster.cu``) on run (a)'s
+   second of two runs, its launch counts set to 0 just before it and
+   read just after (one cluster kernel launch, for its peak program);
+   series 0 must give the pulsar. The prep is timed by both paths (the
+   same bits), and one two-chunk survey runs with the prep overlapped:
+   chunk 2 is prepared on a worker thread into a pinned ``StagingPool``
+   while the card runs chunk 1, twice (the second pass from recycled
+   buffers);
+5k. K3 on the benchmark's example_long plan (riptide's example.yaml
+   range long, P 2-120 s at 960-1040 bins), whose layout pairs 6 lane
+   buckets: its D = 32 survey batch (a 10 s pulsar in series 0) as in
+   phase 5, every K3 launch held against ``paired_stage_plain``, its
+   containers after the segment kernel and every global level against
+   the plain levels bit for bit, and K3 timed over all of them;
+5c. the peak program's cluster kernel (``csrc/cluster.cu``) on phase 5's
    S/N cube (D = 32, 10 widths, 222,955 trials) through the survey's own
    peak plan: the program once, its cluster launches set to 0 just
    before and read just after (one); ``peaks_device.cluster_columns`` on
@@ -86,8 +85,8 @@ of the checkout by default), then:
    bit, and the program's packed outputs; the kernel's time (CUDA graph
    replays, and through the wrapper between CUDA events) beside the plain
    form's and the bound of the bytes it moves. Its ``kernels`` entry
-   (``CL cluster_columns``) carries these and phase 5's launch counts
-   (``survey_launches``);
+   (``CL cluster_columns``) carries these and phases 5 and 5k's launch
+   counts (``survey_launches``);
 5f. the file entry points: the phase 2 series written by this script as
    a PRESTO .inf/.dat pair and as 32-bit and 8-bit SIGPROC files, read
    back with ``TimeSeries.from_presto_inf`` / ``from_sigproc`` and
@@ -231,21 +230,21 @@ of the checkout by default), then:
    30 trials over four shards (padded), and ``run_periodogram_sharded``
    on a 2 x 3 (dm, bins) mesh (the bins axis divides the plan's 21
    padded bins trials); each run timed after a warm-up (wall,
-   DM-trials/s and peak device memory beside phase 5 (a)'s, launch
+   DM-trials/s and peak device memory beside phase 5's, launch
    counts set to 0 just before and read just after: one K2
    ``cascade_stage`` per stage per shard, no K1, no plain version),
    then recorded a third time and every K2 launch held against
-   ``cascade_stage_plain``; the peaks must be phase 5 (a)'s (period,
+   ``cascade_stage_plain``; the peaks must be phase 5's (period,
    width, DM; the S/N within the bar, its largest difference and
    whether the bits are equal printed), series 0 the pulsar, the 2-D
-   cube phase 5 (a)'s S/N; K2 is timed over the default mesh's
+   cube phase 5's S/N; K2 is timed over the default mesh's
    launches as in phase 3; (b) ``ffa2_seq`` of a (32768, 256) float32
    container over 2 (all-gather) and 8 (windowed) virtual shards, the
    same bits as ``ffa2`` on the card; (c) two fresh processes on the card
    joined over ``torch.distributed`` (gloo, a free localhost port),
    each making phase 5's batch from its seed and searching its half
    (process 1 the pulsar's) through ``run_search_multihost`` with a
-   shared journal: both print the same gathered list, phase 5 (a)'s
+   shared journal: both print the same gathered list, phase 5's
    peaks in process order sorted by S/N (the same bits), process 0
    journals the chunk, and K1 runs ``queued_launches(plan)`` times in
    each; (d) process 0 wedges before the gather; process 1's gather,
@@ -269,7 +268,7 @@ of the checkout by default), then:
    ``torch.cuda.max_memory_allocated`` (above what was allocated
    before, the stage operands uploaded anew): one survey search at
    D = 1 and D = 3 of the headline plan, and at D = 32 phases 4 and
-   5 (a)'s peaks (phase 4's against the walk without the peak
+   5's peaks (phase 4's against the walk without the peak
    program), each |ratio - 1| <= 0.5 (the ``hbm_drift`` margin), with
    ``max_memory_reserved``; (c) phase 5's D = 32 survey batch through
    ``BatchSearcher._queue_range`` with and without
@@ -286,9 +285,10 @@ of the checkout by default), then:
    printed); (b) the sync witness: under
    ``torch.cuda.set_sync_debug_mode("warn")`` (every warning shown, each
    sync's Python stack kept), outside ``engine.recording()``, phase 2's
-   headline ``ffa_search`` (K1, D = 1), phase 5's D = 32 survey batch
-   through ``queue_search_batch`` then ``collect_search_batch`` under
-   run (b)'s flags (K1 and K3) and phase 11a's ``run_search_sharded`` on
+   headline ``ffa_search`` (K1, D = 1), phase 5k's D = 32 example_long
+   survey batch through ``queue_search_batch`` then
+   ``collect_search_batch`` (K1 and K3) and phase 11a's
+   ``run_search_sharded`` on
    ``default_mesh()`` (K2), on those phases' series, batch and plan.
    Each sync is mapped to its innermost ``riptide_tpu_torch`` frame and
    that frame's function; every sync in a function of RIP001's hot set
@@ -357,13 +357,14 @@ HEADLINE = dict(nsamp=2 ** 23, tsamp=64e-6, period_min=0.5, period_max=3.0,
 HEADLINE_WIDTHS = (1, 2, 3, 4, 6, 9, 13, 19, 28, 42)
 HEADLINE_TRIALS = 222955
 PULSAR = dict(period=1.2345, amplitude=40.0)
-# Phase 5's three layouts: environment flags set for each run.
-LAYOUTS = (("a", {}),
-           ("b", {"RIPTIDE_KERNEL_BASE3": "0"}),
-           ("c", {"RIPTIDE_KERNEL_BASE3": "0", "RIPTIDE_KERNEL_ROW_PACK": "0"}))
-LAYOUT_FLAGS = ("RIPTIDE_KERNEL_BASE3", "RIPTIDE_KERNEL_ROW_PACK",
-                "RIPTIDE_KERNEL_LANE_SPLIT")
-HEADLINE_PAIRS = 10
+# Phase 5's K3 plan: the benchmark's example_long configuration
+# (riptide's example.yaml range long), whose layout pairs 6 lane buckets,
+# with a pulsar inside its period range.
+EXAMPLE_LONG = dict(nsamp=2 ** 23, tsamp=64e-6, period_min=2.0,
+                    period_max=120.0, bins_min=960, bins_max=1040)
+EXAMPLE_LONG_WIDTHS = (1, 2, 3, 4, 6, 9, 13, 19, 28, 42, 63, 94, 141)
+EXAMPLE_LONG_PAIRS = 6
+EXAMPLE_LONG_PULSAR = 10.0
 # Kernel vs plain S/N: the decode, pack and FFA sums are the same float
 # operations in the same order, so the containers agree bit for bit; the
 # S/N differs only by the summation order of the per-row prefix sum
@@ -467,7 +468,7 @@ def wire_dtype(mode):
 def _trials(plan, r):
     """(m, p, evaluated rows) of every trial a recorded launch computes:
     its lane bucket's (or whole stage's, or a sharded launch's bins
-    slice's) trials and, for K3, the guest trials it carries. Read under the flags the launch ran with."""
+    slice's) trials and, for K3, the guest trials it carries."""
     st = plan.stages[r["stage"]]
     idx = r.get("bins")
     if idx is None:
@@ -1034,139 +1035,130 @@ def phase_batch(dev, plan, D=32, seed=2):
     return dict(peak=peak, base=base)
 
 
-@contextlib.contextmanager
-def layout_flags(flags):
-    """Set the container flags of one phase 5 run (the others unset)."""
-    saved = {k: os.environ.get(k) for k in LAYOUT_FLAGS}
-    for k in LAYOUT_FLAGS:
-        os.environ.pop(k, None)
-    os.environ.update(flags)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 def noise_batch(plan, D, seed):
     """D series of seeded float32 white noise, ``plan.size`` samples."""
     rng = np.random.default_rng(seed)
     return rng.standard_normal((D, plan.size), dtype=np.float32)
 
 
-def survey_batch(plan, D, seed=3, cfg=HEADLINE):
-    """D normalised noise series with the phase 2 pulsar in series 0."""
+def survey_batch(plan, D, seed=3, cfg=HEADLINE, period=PULSAR["period"]):
+    """D normalised noise series with a pulsar of ``period`` seconds (the
+    phase 2 pulsar's by default) in series 0."""
     from riptide_tpu_torch.libffa import generate_signal
 
     batch = noise_batch(plan, D, seed)
     np.random.seed(seed)
-    x = generate_signal(plan.size, PULSAR["period"] / cfg["tsamp"],
+    x = generate_signal(plan.size, period / cfg["tsamp"],
                         amplitude=PULSAR["amplitude"], ducy=0.05)
     batch[0] = (x - x.mean()) / x.std()
     return batch
 
 
-def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
-    """Phase 5: run_search_batch from one prepared wire under the three
-    layouts (``want_pairs`` pairs in run (b)). Returns run (b)'s K3
-    launch count, largest difference from plain and (ms, plain ms, bound
-    ms, bound by) over its launches, and run (a) for phase 11: the
-    batch, its peaks, S/N cube, wall and peak device memory."""
+def _survey_run(dev, plan, prepared, D, tobs, name):
+    """One recorded run_search_batch from ``prepared``, the second of two
+    (its launch counts and cluster kernel launches set to 0 just before
+    it and read just after), checked against the plan's layout. Returns
+    what phases 5 to 13 read of it."""
     from riptide_tpu_torch.ops import ffa_kernel as fk
     from riptide_tpu_torch.search import engine, peaks_device
 
-    tobs = cfg["nsamp"] * cfg["tsamp"]
     nw = len(plan.widths)
+    dms = np.zeros(D)
+    engine.run_search_batch(plan, None, tobs, dms=dms, prepared=prepared,
+                            device=dev)
+    base = 0
+    if dev.type == "cuda":
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    fk.reset_launches()
+    peaks_device.CLUSTER_LAUNCHES = 0
+    with engine.recording() as rec:
+        t0 = time.perf_counter()
+        handle = engine.queue_search_batch(plan, None, tobs,
+                                           prepared=prepared, device=dev)
+        snr = engine.search_snr_dev(handle)
+        peaks, _ = engine.collect_search_batch(handle, dms)
+        wall = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    clusters = peaks_device.CLUSTER_LAUNCHES
+    lay = engine.launch_layout(plan, "uint6")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    print(f"  {name}: {len(lay.launches)} launches in its layout, "
+          f"{len(lay.absorbed)} absorbed buckets; launches {launches}, "
+          f"cluster kernel {clusters}; {wall:.3f} s wall without the host "
+          f"prep, {D / wall:.3f} DM-trials/s, peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    print(f"    split: copy to card {rec['ship_s']:.4f} s, stage loop "
+          f"{rec['stages_s']:.4f} s wall, assembly "
+          f"{rec['assemble_s']:.4f} s, peak program {rec['peaks_s']:.4f} s, "
+          f"pull + host tail {rec['collect_s']:.4f} s", flush=True)
+    check_launches(name, launches, engine.queued_launches(plan))
+    check(clusters == int(dev.type == "cuda"), f"{name}: {clusters} "
+          "cluster kernel launches; want one for its peak program")
+    check(np.isfinite(snr.cpu().numpy()).all() and snr.shape == (
+        D, plan.length, nw), f"{name}: S/N cube {tuple(snr.shape)}")
+    return dict(launches=launches, snr=snr, peaks=peaks, rec=rec, wall=wall,
+                peak=peak, base=base, clusters=clusters)
+
+
+def _check_pulsar(name, peaks, period, tobs):
+    best = peaks[0][0] if peaks[0] else None
+    check(best is not None, f"{name}: no peak in series 0")
+    dfreq = abs(best.freq - 1.0 / period)
+    print(f"  {name}: {sum(map(len, peaks))} peaks; series 0: best S/N "
+          f"{best.snr:.3f} at P = {best.period:.6f} s, width {best.width} "
+          f"(|df| = {dfreq:.3e} Hz, 1/T = {1.0 / tobs:.3e} Hz)", flush=True)
+    check(dfreq < 1.0 / tobs, f"{name}: injected pulsar not recovered")
+
+
+def phase_survey(dev, plan, D=32, cfg=HEADLINE):
+    """Phase 5: run_search_batch at the headline configuration from one
+    prepared wire, then the overlapped two-chunk survey. Returns the run
+    for phases 5c to 13: the batch, its peaks, S/N cube, wall, peak
+    device memory and cluster kernel launches."""
+    tobs = cfg["nsamp"] * cfg["tsamp"]
     batch = survey_batch(plan, D, cfg=cfg)
     prepared, walls = prep_both(plan, batch, f"D = {D} survey")
     prep = walls["native"][0]
-    view = prepared[1]["view"]
-    runs = {}
-    for name, flags in LAYOUTS:
-        with layout_flags(flags):
-            saved = plan.__dict__.pop("_view_layouts")
-            fresh = engine._view_layout(plan, "uint6")
-            plan._view_layouts = saved
-            check(_same_layout(fresh, view),
-                  f"run ({name}): the wire layout depends on the flags")
-            rpm = engine._row_pack_map(plan, "uint6")
-            pairs = sum(v[0] == "host" for v in rpm.values())
-            absorbed = sum(v[0] == "guest" for v in rpm.values())
-            dms = np.zeros(D)
-            engine.run_search_batch(plan, None, tobs, dms=dms,
-                                    prepared=prepared, device=dev)
-            base = 0
-            if dev.type == "cuda":
-                base = torch.cuda.memory_allocated(dev)
-                torch.cuda.reset_peak_memory_stats(dev)
-            fk.reset_launches()
-            peaks_device.CLUSTER_LAUNCHES = 0
-            with engine.recording() as rec:
-                t0 = time.perf_counter()
-                handle = engine.queue_search_batch(plan, None, tobs,
-                                                   prepared=prepared,
-                                                   device=dev)
-                snr = engine.search_snr_dev(handle)
-                peaks, _ = engine.collect_search_batch(handle, dms)
-                wall = time.perf_counter() - t0
-            launches = dict(fk.LAUNCHES)
-            clusters = peaks_device.CLUSTER_LAUNCHES
-            want = engine.queued_launches(plan)
-            k3 = [r for r in rec["launches"] if r["kind"] == "paired_stage"]
-            k3_trials = [_trials(plan, r) for r in k3]
-        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                else 0)
-        print(f"  run ({name}) {flags or 'defaults'}: {pairs} pairs, "
-              f"{absorbed} absorbed buckets; launches {launches}, cluster "
-              f"kernel {clusters}; "
-              f"{wall:.3f} s wall without the host prep, "
-              f"{D / wall:.3f} DM-trials/s ({D / (wall + prep):.3f} with "
-              f"it), peak device memory {peak / 2 ** 30:.3f} GiB", flush=True)
-        print(f"    split: copy to card {rec['ship_s']:.4f} s, stage loop "
-              f"{rec['stages_s']:.4f} s wall, assembly "
-              f"{rec['assemble_s']:.4f} s, peak program {rec['peaks_s']:.4f} s, "
-              f"pull + host tail {rec['collect_s']:.4f} s", flush=True)
-        check_launches(f"run ({name})", launches, want)
-        check(clusters == int(dev.type == "cuda"), f"run ({name}): {clusters} "
-              "cluster kernel launches; want one for its peak program")
-        check(np.isfinite(snr.cpu().numpy()).all() and snr.shape == (
-            D, plan.length, nw), f"run ({name}): S/N cube {tuple(snr.shape)}")
-        runs[name] = dict(pairs=pairs, absorbed=absorbed, launches=launches,
-                          snr=snr, peaks=peaks, rec=rec, k3=k3,
-                          k3_trials=k3_trials, wall=wall, peak=peak,
-                          base=base, clusters=clusters)
-    a, b, c = runs["a"], runs["b"], runs["c"]
-    check(a["pairs"] == c["pairs"] == 0 and b["pairs"] == want_pairs,
-          f"pairs {a['pairs']}, {b['pairs']}, {c['pairs']}: want 0, "
-          f"{want_pairs}, 0")
-    check(a["launches"]["paired_stage"] == c["launches"]["paired_stage"] == 0
-          and b["launches"]["paired_stage"] == want_pairs,
-          "K3 must launch once per pair in run (b) and never in (a), (c)")
-    check(b["launches"]["fused_stage"] + b["launches"]["paired_stage"]
-          == c["launches"]["fused_stage"] - b["absorbed"],
-          "run (b) must launch one bucket fewer than (c) per absorbed bucket")
-    check(torch.equal(a["snr"], b["snr"]) and torch.equal(a["snr"], c["snr"]),
-          "the three layouts' S/N cubes differ")
-    check(a["peaks"] == b["peaks"] == c["peaks"],
-          "the three layouts' peak lists differ")
-    best = b["peaks"][0][0] if b["peaks"][0] else None
-    check(best is not None, "no peak in series 0")
-    dfreq = abs(best.freq - 1.0 / PULSAR["period"])
-    print(f"  S/N cubes bitwise equal, peak lists identical "
-          f"({sum(map(len, b['peaks']))} peaks); series 0: best S/N "
-          f"{best.snr:.3f} at P = {best.period:.6f} s, width {best.width} "
-          f"(|df| = {dfreq:.3e} Hz, 1/T = {1.0 / tobs:.3e} Hz)", flush=True)
-    check(dfreq < 1.0 / tobs, "series 0: injected pulsar not recovered")
+    a = _survey_run(dev, plan, prepared, D, tobs, "headline survey")
+    print(f"    {D / (a['wall'] + prep):.3f} DM-trials/s with the native "
+          "prep in series", flush=True)
+    _check_pulsar("headline survey", a["peaks"], PULSAR["period"], tobs)
     overlapped_survey(dev, plan, D, batch, a["peaks"], a["wall"],
                       walls, cfg)
+    return dict(batch=batch, peaks=a["peaks"], snr=a["snr"], wall=a["wall"],
+                peak=a["peak"], base=a["base"], clusters=[a["clusters"]])
 
-    k3, args = b["k3"], [r["args"] for r in b["k3"]]
+
+def phase_k3(dev, D=32, cfg=EXAMPLE_LONG, widths=EXAMPLE_LONG_WIDTHS,
+             want_pairs=EXAMPLE_LONG_PAIRS, period=EXAMPLE_LONG_PULSAR):
+    """Phase 5k: K3 on the example_long plan, whose layout pairs
+    ``want_pairs`` lane buckets: a D-trial run_search_batch (as
+    :func:`_survey_run`), every K3 launch held against
+    ``paired_stage_plain``, its containers after the segment kernel and
+    every global level against the plain levels bit for bit, and K3
+    timed over all of them. Returns the K3 launch count, the largest
+    difference from plain, (ms, plain ms, bound ms, bound by), the run's
+    cluster kernel launches and what phase 13 repeats (the plan, batch,
+    tobs, peaks and the S/N cube's digest)."""
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.search import engine
+
+    plan = headline_plan(cfg, widths)
+    tobs = cfg["nsamp"] * cfg["tsamp"]
+    nw = len(plan.widths)
+    batch = survey_batch(plan, D, cfg=cfg, period=period)
+    prepared = engine.prepare_stage_data(plan, batch)
+    view = prepared[1]["view"]
+    r = _survey_run(dev, plan, prepared, D, tobs, "example_long survey")
+    _check_pulsar("example_long survey", r["peaks"], period, tobs)
+    k3 = [x for x in r["rec"]["launches"] if x["kind"] == "paired_stage"]
+    check(len(k3) == r["launches"]["paired_stage"] == want_pairs,
+          f"example_long: {len(k3)} K3 launches, want {want_pairs}")
+    args = [x["args"] for x in k3]
     check_levels("K3 levels", [(fk.WireSource(*x[:4]), x[4]) for x in args])
-    err = compare_stages("K3 paired_stage in run (b)", [r["out"] for r in k3],
-                         plain_launches(b["rec"], "paired_stage"))
+    err = compare_stages("K3 paired_stage", [x["out"] for x in k3],
+                         plain_launches(r["rec"], "paired_stage"))
 
     def k3_calls():
         return [fk.paired_stage(*x) for x in args]
@@ -1175,16 +1167,15 @@ def phase_survey(dev, plan, D=32, cfg=HEADLINE, want_pairs=HEADLINE_PAIRS):
     wms = measure.median_ms(k3_calls, dev, REPS)
     pms = measure.median_ms(
         lambda: [fk.paired_stage_plain(*x) for x in args], dev, reps=5)
-    ops = sum(trials_work(t, D, nw) for t in b["k3_trials"])
+    ops = sum(trials_work(_trials(plan, x), D, nw) for x in k3)
     bnd = measure.bound_ms(launch_bytes(k3, view), ops)
-    print(f"  K3 over run (b)'s {len(k3)} hosted buckets, D = {D}: "
+    print(f"  K3 over example_long's {len(k3)} hosted buckets, D = {D}: "
           f"{ms:.4f} ms device, from CUDA graph replays ({wms:.4f} ms "
           f"through the wrappers; plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
           f"by {bnd[1]})", flush=True)
-    p5 = dict(batch=batch, peaks=a["peaks"], snr=a["snr"], wall=a["wall"],
-              peak=a["peak"], base=a["base"],
-              clusters=[runs[k]["clusters"] for k in "abc"])
-    return b["launches"]["paired_stage"], err, (ms, pms, *bnd), p5
+    witness = dict(plan=plan, batch=batch, tobs=tobs, peaks=r["peaks"],
+                   snr_digest=cube_digest(r["snr"]))
+    return (len(k3), err, (ms, pms, *bnd), r["clusters"], witness)
 
 
 def _bits(x):
@@ -1194,7 +1185,7 @@ def _bits(x):
 
 def phase_cluster(dev, plan, p5, cfg=HEADLINE):
     """Phase 5c: the peak program's cluster kernel (``csrc/cluster.cu``)
-    on phase 5 (a)'s S/N cube, through the survey's own peak plan. The
+    on phase 5's S/N cube, through the survey's own peak plan. The
     program runs once (``CLUSTER_LAUNCHES`` set to 0 just before it and
     read just after: one launch); then ``cluster_columns`` on the
     cube and the program's threshold coefficients (from its packed
@@ -1628,7 +1619,7 @@ def overlapped_survey(dev, plan, D, batch, want_peaks, wall, walls,
     2 prepared on a worker thread into the pool while the card runs
     chunk 1, then collected and run; twice, the second pass from the
     buffers the first gave back. Chunk 1 is phase 5's batch: its peaks
-    must be run (a)'s. Prints DM-trials/s beside run (a)'s without the
+    must be phase 5's. Prints DM-trials/s beside phase 5's without the
     prep (``wall``) and with it (``walls``, the serial prep)."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1664,7 +1655,7 @@ def overlapped_survey(dev, plan, D, batch, want_peaks, wall, walls,
         # on the second pass they must be buffers the first gave back.
         first = {t.data_ptr() for t in p1[1]["staging"]}
         check(peaks1 == want_peaks, "overlapped survey: chunk 1's peaks "
-              "differ from run (a)'s")
+              "differ from phase 5's")
         check(all(np.isfinite([pk.snr for pk in x]).all() for x in peaks2),
               "overlapped survey: chunk 2 gave non-finite peaks")
         reused = len(ptrs & seen)
@@ -1673,7 +1664,7 @@ def overlapped_survey(dev, plan, D, batch, want_peaks, wall, walls,
         print(f"  overlapped survey, pass {rnd}: 2 chunks of D = {D} in "
               f"{wall2:.3f} s, {2 * D / wall2:.3f} DM-trials/s with the prep "
               f"overlapped ({reused} of {len(ptrs)} staging buffers recycled);"
-              f" run (a) {D / wall:.3f} DM-trials/s without the prep, "
+              f" phase 5 {D / wall:.3f} DM-trials/s without the prep, "
               f"{D / (wall + walls['native'][0]):.3f} with the native prep and"
               f" {D / (wall + walls['numpy'][0]):.3f} with the numpy prep in "
               "series", flush=True)
@@ -2887,9 +2878,9 @@ def phase_sharded(dev, plan, p5, cfg=HEADLINE):
     ``BINS_MESH``, each timed (wall, peak device memory, launch counts
     set to 0 just before and read just after) after a warm-up run, then
     run a third time, recorded. Every K2 launch of that run is held
-    against ``cascade_stage_plain``; the peaks must be phase 5
-    (a)'s (period, width, DM; S/N within the bar, the largest difference
-    printed), series 0 the pulsar, the 2-D cube phase 5 (a)'s S/N.
+    against ``cascade_stage_plain``; the peaks must be phase 5's
+    (period, width, DM; S/N within the bar, the largest difference
+    printed), series 0 the pulsar, the 2-D cube phase 5's S/N.
     Returns (K2 launches over the phase, its largest difference from
     plain, (device ms, plain ms, bound ms, bound by) over the default
     mesh's launches)."""
@@ -2955,7 +2946,7 @@ def phase_sharded(dev, plan, p5, cfg=HEADLINE):
         print(f"  {name}: {shards} shard(s), K2 {S} launches per shard "
               f"({launches['cascade_stage']} in all); {wall:.3f} s wall, "
               f"{D / wall:.3f} DM-trials/s, peak device memory "
-              f"{peak / 2 ** 30:.3f} GiB (phase 5 (a): {p5['wall']:.3f} s, "
+              f"{peak / 2 ** 30:.3f} GiB (phase 5: {p5['wall']:.3f} s, "
               f"{32 / p5['wall']:.3f} DM-trials/s, {p5['peak'] / 2 ** 30:.3f} "
               "GiB)", flush=True)
         if two_d:
@@ -2964,24 +2955,24 @@ def phase_sharded(dev, plan, p5, cfg=HEADLINE):
                   f"{name}: S/N cube {got.shape}")
             d = np.abs(got - want)
             check(bool((d <= ATOL + RTOL * np.abs(want)).all()),
-                  f"{name}: S/N differs from phase 5 (a) (max {d.max():.3e})")
-            print(f"  {name}: S/N cube against phase 5 (a)'s: max |diff| "
+                  f"{name}: S/N differs from phase 5 (max {d.max():.3e})")
+            print(f"  {name}: S/N cube against phase 5's: max |diff| "
                   f"{d.max():.3e}, bitwise equal {np.array_equal(got, want)}",
                   flush=True)
             continue
         want = p5["peaks"][:D]
         check(len(got) == D and [_peak_key(g) for g in got]
               == [_peak_key(w) for w in want],
-              f"{name}: peaks (period, width, DM) differ from phase 5 (a)")
+              f"{name}: peaks (period, width, DM) differ from phase 5")
         gs = np.array([p.snr for g in got for p in g])
         ws = np.array([p.snr for w in want for p in w])
         d = np.abs(gs - ws)
         check(bool((d <= ATOL + RTOL * np.abs(ws)).all()),
-              f"{name}: peak S/N differs from phase 5 (a) (max {d.max():.3e})")
+              f"{name}: peak S/N differs from phase 5 (max {d.max():.3e})")
         best = got[0][0]
         check(abs(best.freq - 1.0 / PULSAR["period"]) < 1.0 / tobs,
               f"{name}: series 0 lost the pulsar")
-        print(f"  {name}: {len(gs)} peaks, phase 5 (a)'s (period, width, DM); "
+        print(f"  {name}: {len(gs)} peaks, phase 5's (period, width, DM); "
               f"S/N max |diff| {d.max():.3e}, same bits {np.array_equal(gs, ws)}"
               f"; series 0: S/N {best.snr:.3f} at P = {best.period:.6f} s",
               flush=True)
@@ -3050,7 +3041,7 @@ def phase_seq(dev):
 def phase_processes(dev, tmp, p5, cfg=HEADLINE):
     """Phases 11c-d: two fresh processes on the card over gloo. (c) each
     searches half of phase 5's batch through ``run_search_multihost``:
-    both print the same gathered list, phase 5 (a)'s peaks in process
+    both print the same gathered list, phase 5's peaks in process
     order sorted by S/N (the same bits), process 0 journals it, K1 runs
     ``queued_launches(plan)`` times in each. (d) process 0 wedges before
     the gather; process 1's bounded gather times out, it degrades, takes
@@ -3071,7 +3062,7 @@ def phase_processes(dev, tmp, p5, cfg=HEADLINE):
     for r in res:
         got = [Peak(*row) for row in r["peaks"]]
         check(got == want, f"process {r['pid']}: the gathered peaks are not "
-              "phase 5 (a)'s sorted by S/N")
+              "phase 5's sorted by S/N")
     done = SurveyJournal(jdir).completed_chunks()
     check(list(done) == [0] and done[0][1] == want,
           "process 0 did not journal the gathered chunk")
@@ -3086,7 +3077,7 @@ def phase_processes(dev, tmp, p5, cfg=HEADLINE):
         k1 += r["launches"]["fused_stage"]
     print(f"  two processes on {res[0]['device']} (gloo): both gathered "
           f"{len(want)} "
-          f"peaks, phase 5 (a)'s bits; searches {res[0]['wall']:.3f} / "
+          f"peaks, phase 5's bits; searches {res[0]['wall']:.3f} / "
           f"{res[1]['wall']:.3f} s in fresh processes, {wall:.1f} s wall "
           f"with start-up; K1 {res[0]['launches']['fused_stage']} + "
           f"{res[1]['launches']['fused_stage']}", flush=True)
@@ -3263,10 +3254,6 @@ def p1_sums(results):
     return {k: tuple(v) for k, v in sums.items()}
 
 
-def _same_layout(x, y):
-    return x.keys() == y.keys() and all(
-        np.array_equal(np.asarray(x[k]), np.asarray(y[k])) for k in x)
-
 HBM_MARGIN = 0.5       # |ratio - 1| of the hbm_drift alert rule
 SEEDED_SLICE = 8       # phase 12 (c): the budget's batch
 
@@ -3381,7 +3368,7 @@ def phase_prove(dev, plan, p4, p5, p7, cfg=HEADLINE):
     D = 1 and 3 on the headline plan (max_memory_allocated above what
     was allocated before, the stage operands uploaded anew), and at
     D = 32 from phase 4's (periodogram path: the walk without the peak
-    program) and phase 5 (a)'s peaks. (c) the D = 32 survey batch under
+    program) and phase 5's peaks. (c) the D = 32 survey batch under
     RIPTIDE_HBM_BUDGET = predict(8): four slices, oom_predicted 1, no
     bisection, the unbudgeted peaks, a lower measured peak. (d) a
     journaled pipeline run at phase 8's shape under that budget: hbm
@@ -3474,7 +3461,7 @@ def phase_prove(dev, plan, p4, p5, p7, cfg=HEADLINE):
                 "D = 32 periodogram batch (phase 4; the walk without the "
                 "peak program)", want4, meas4)),
             survey=dict(predicted=model.predict(32), measured=meas5,
-                        ratio=_ratio_line("D = 32 survey batch (phase 5 (a))",
+                        ratio=_ratio_line("D = 32 survey batch (phase 5)",
                                           model.predict(32), meas5)))
 
         # (c) a seeded split of the D = 32 survey batch.
@@ -3708,10 +3695,10 @@ class SyncScope:
 
 
 def phase_witness(dev, plan, p2, p5, cfg=HEADLINE):
-    """Phase 13 (b): phases 2, 5 (run (b)'s flags) and 11a's default-mesh
-    run again under the sync debug mode; every sync inside the rules'
-    scope must be covered. Returns the K1, K2 and K3 launches of the
-    phase."""
+    """Phase 13 (b): phases 2, 5k (example_long's survey batch, K1 and
+    K3) and 11a's default-mesh run again under the sync debug mode; every
+    sync inside the rules' scope must be covered. Returns the K1, K2 and
+    K3 launches of the phase."""
     from riptide_tpu_torch import ffa_search
     from riptide_tpu_torch.ops import ffa_kernel as fk
     from riptide_tpu_torch.parallel import default_mesh, run_search_sharded
@@ -3719,7 +3706,7 @@ def phase_witness(dev, plan, p2, p5, cfg=HEADLINE):
 
     scope = SyncScope(os.path.dirname(os.path.abspath(__file__)))
     tobs = cfg["nsamp"] * cfg["tsamp"]
-    batch = p5["batch"]
+    batch, k3 = p5["batch"], p5["k3"]
     D = batch.shape[0]
     counts = dict.fromkeys(fk.LAUNCHES, 0)
     runs = []
@@ -3731,15 +3718,16 @@ def phase_witness(dev, plan, p2, p5, cfg=HEADLINE):
         torch.cuda.synchronize(dev)
         launches = dict(fk.LAUNCHES)
         runs.append(("phase 2 ffa_search", launches, len(w.stacks) - n0))
-        with layout_flags(LAYOUTS[1][1]):
-            n0 = len(w.stacks)
-            fk.reset_launches()
-            handle = engine.queue_search_batch(plan, batch, tobs, device=dev)
-            snr = engine.search_snr_dev(handle)
-            peaks, _ = engine.collect_search_batch(handle, np.zeros(D))
-            torch.cuda.synchronize(dev)
-            runs.append(("phase 5 survey batch, run (b)", dict(fk.LAUNCHES),
-                         len(w.stacks) - n0))
+        n0 = len(w.stacks)
+        fk.reset_launches()
+        handle = engine.queue_search_batch(k3["plan"], k3["batch"],
+                                           k3["tobs"], device=dev)
+        snr = engine.search_snr_dev(handle)
+        peaks, _ = engine.collect_search_batch(
+            handle, np.zeros(len(k3["batch"])))
+        torch.cuda.synchronize(dev)
+        runs.append(("phase 5k example_long survey batch", dict(fk.LAUNCHES),
+                     len(w.stacks) - n0))
         n0 = len(w.stacks)
         fk.reset_launches()
         got = run_search_sharded(plan, batch, tobs, dms=np.zeros(D),
@@ -3757,10 +3745,10 @@ def phase_witness(dev, plan, p2, p5, cfg=HEADLINE):
     # The outputs are the earlier phases' (the debug mode only watches).
     check(np.array_equal(pgram.snrs, p2["snrs"]),
           "phase 13: the headline S/N differs from phase 2's")
-    check(cube_digest(snr) == p5["snr_digest"],
-          "phase 13: the survey S/N cube differs from phase 5's")
-    check(peaks == p5["peaks"], "phase 13: the survey peaks differ from "
-          "phase 5's")
+    check(cube_digest(snr) == k3["snr_digest"],
+          "phase 13: the example_long S/N cube differs from phase 5k's")
+    check(peaks == k3["peaks"], "phase 13: the example_long peaks differ "
+          "from phase 5k's")
     check(got == p5["sharded_peaks"], "phase 13: the sharded peaks differ "
           "from phase 11a's")
     del snr, handle
@@ -3790,8 +3778,9 @@ def phase_witness(dev, plan, p2, p5, cfg=HEADLINE):
             bad.append(f"{rel}:{line} ({qual}, {where})")
     check(not bad, "syncs the rules' scope holds but no baseline entry or "
           "pragma covers: " + "; ".join(bad))
-    print("  outputs: the headline S/N phase 2's bits, the survey cube phase "
-          "5's bits and its peaks, the sharded peaks phase 11a's", flush=True)
+    print("  outputs: the headline S/N phase 2's bits, the example_long cube "
+          "phase 5k's bits and its peaks, the sharded peaks phase 11a's",
+          flush=True)
     return counts
 
 
@@ -4165,9 +4154,11 @@ def main(argv=None):
     del rec, oracle
     print("phase 4: run_periodogram_batch, D = 32", flush=True)
     p4 = phase_batch(dev, plan)
-    print("phase 5: run_search_batch, D = 32, three container layouts",
-          flush=True)
-    n3, err3, times["K3"], p5 = phase_survey(dev, plan)
+    print("phase 5: run_search_batch, D = 32", flush=True)
+    p5 = phase_survey(dev, plan)
+    print("phase 5k: K3 on example_long's survey batch, D = 32", flush=True)
+    n3, err3, times["K3"], k3_clusters, p5["k3"] = phase_k3(dev)
+    p5["clusters"].append(k3_clusters)
     print("phase 5c: the peak program's cluster kernel on phase 5's cube",
           flush=True)
     cluster_entry = phase_cluster(dev, plan, p5)
@@ -4259,7 +4250,7 @@ def main(argv=None):
 
     # Each kernel's launches on its own path, counted from 0 just before
     # that path's run: K1 the headline search (phase 2), K2 the float32
-    # oracle search (phase 1), K3 the survey run (b) (phase 5).
+    # oracle search (phase 1), K3 example_long's survey batch (phase 5k).
     entries = []
     launches["cascade_stage"] = k2_launches["cascade_stage"]
     launches["paired_stage"] = n3

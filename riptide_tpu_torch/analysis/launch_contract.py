@@ -85,11 +85,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CONTRACTS_PATH = os.path.join(_HERE, "plan_contracts.json")
 CONTRACT_REL = "riptide_tpu_torch/analysis/plan_contracts.json"
 
-# Flags that change launches, container heights or the peak program:
-# contracts describe the defaults, so rprove drops them first.
-CONTRACT_FLAGS = ("RIPTIDE_WIRE_DTYPE", "RIPTIDE_KERNEL_LANE_SPLIT",
-                  "RIPTIDE_KERNEL_BASE3", "RIPTIDE_KERNEL_ROW_PACK",
-                  "RIPTIDE_DEVICE_CLUSTER")
+# Flags that change launches: contracts describe the defaults, so
+# rprove drops them first.
+CONTRACT_FLAGS = ("RIPTIDE_WIRE_DTYPE",)
 
 
 class HBMModel:
@@ -133,16 +131,6 @@ def build_contract_plan(spec):
     )
 
 
-def _flag_key(mode):
-    from ..search.peaks_device import device_cluster_enabled
-    from ..utils import envflags
-
-    return (mode, bool(envflags.get("RIPTIDE_KERNEL_BASE3")),
-            bool(envflags.get("RIPTIDE_KERNEL_ROW_PACK")),
-            bool(envflags.get("RIPTIDE_KERNEL_LANE_SPLIT")),
-            bool(device_cluster_enabled()))
-
-
 def _fit(walks):
     (d0, w0), (d1, w1) = walks
     per_dm = max(0, (w1["peak_bytes"] - w0["peak_bytes"]) // (d1 - d0))
@@ -151,20 +139,17 @@ def _fit(walks):
 
 
 def hbm_model(plan, mode=None):
-    """The plan's peak-memory model from the walk at :data:`HBM_PROBES`,
-    under the live flags and ``mode`` (default the live wire), cached on
-    the plan per flag state (plans are cached, so a survey walks once
-    per search configuration)."""
+    """The plan's peak-memory model from the walk at :data:`HBM_PROBES`
+    on ``mode``'s wire (default the live wire), cached on the plan per
+    wire mode (plans are cached, so a survey walks once per search
+    configuration)."""
     from ..search import engine
 
     mode = mode or engine._wire_mode()
-    key = _flag_key(mode)
-    cache = getattr(plan, "_hbm_models", None)
-    if cache is None:
-        cache = plan._hbm_models = {}
-    model = cache.get(key)
+    cache = plan.__dict__.setdefault("_hbm_models", {})
+    model = cache.get(mode)
     if model is None:
-        model = cache[key] = _fit(
+        model = cache[mode] = _fit(
             [(D, engine.walk_search(plan, D, mode=mode))
              for D in HBM_PROBES])
     return model
@@ -219,15 +204,13 @@ def reuse_report(calls):
 
 # -------------------------------------------------------------- extraction
 
-def _stage_kind(st, plan, mode, rpm, i):
-    from ..search import engine
-
-    if not engine._fused_eligible(st, plan, mode):
-        return "whole"
-    nk = len(st.lane_buckets)
-    if nk and all(rpm.get((i, k), ("",))[0] == "guest" for k in range(nk)):
+def _stage_kind(launches):
+    """A stage's part of the launch layout: ``whole`` (one container),
+    ``buckets`` (its lane buckets) or ``absorbed`` (every bucket rides
+    an earlier host's dead rows)."""
+    if not launches:
         return "absorbed"
-    return "buckets"
+    return "whole" if launches[0].bucket is None else "buckets"
 
 
 def _nonzero(d):
@@ -235,8 +218,8 @@ def _nonzero(d):
 
 
 def extract_contract(plan, mode, seed=0):
-    """One plan's launch contract on ``mode``'s wire under the live
-    flags (see the module doc for its fields): the walk at
+    """One plan's launch contract on ``mode``'s wire (see the module
+    doc for its fields): the walk at
     :data:`PROBE_D`, the plain path's walk on seeded data, and the model
     from :func:`hbm_model`."""
     from ..search import engine
@@ -247,12 +230,12 @@ def extract_contract(plan, mode, seed=0):
     plain = engine.walk_search(plan, PROBE_D, mode=mode, data=data)
     wire = engine.wire_transfer_contract(plan, mode)
     per_wire = wire.pop("per_stage_wire_bytes_per_dm")
-    rpm = engine._row_pack_map(plan, mode)
+    lay = engine.launch_layout(plan, mode)
     reuses = reuse_report([c for ln in walk["launches"]
                            for c in ln["calls"]])
 
     stages = []
-    for i, st in enumerate(plan.stages):
+    for i, stage_launches in enumerate(lay.stages):
         lns = [(j, ln) for j, ln in enumerate(walk["launches"])
                if ln["stage"] == i]
         dispatch, kernels = {}, {}
@@ -269,7 +252,7 @@ def extract_contract(plan, mode, seed=0):
         n_up, up = walk["h2d"].get(i, (0, 0))
         stages.append({
             "stage": i,
-            "kind": _stage_kind(st, plan, mode, rpm, i),
+            "kind": _stage_kind(stage_launches),
             "dispatch": _nonzero(dispatch),
             "kernels": _nonzero(kernels),
             "operand_transfers": int(n_up),

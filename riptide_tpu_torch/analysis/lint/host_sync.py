@@ -46,7 +46,7 @@ _E = "riptide_tpu_torch/search/engine.py"
 # throughput bug even when it is semantically harmless.
 HOT_FUNCTIONS = {
     _E: {
-        "_queue_stages", "_queue_batch", "_run_stage", "_run_stage_fused",
+        "_queue_stages", "_queue_batch", "_run_stage", "_run_launch",
         "_launch", "ship_stage_data", "_ship", "queue_search_batch",
         "run_periodogram", "run_periodogram_batch",
     },

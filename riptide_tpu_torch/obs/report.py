@@ -685,8 +685,8 @@ def host_tail_stats(chunks):
     """The post-pull host tail of the collects over the journaled
     chunks: total ``postsearch_s`` (everything between the device pull
     and the collect's return) and its ``cluster_s`` clustering slice,
-    each with its share of total ``collect_s`` — the share
-    ``RIPTIDE_DEVICE_CLUSTER`` exists to shrink. Older journals carry
+    each with its share of total ``collect_s`` — the share the device
+    peak program's clustering exists to shrink. Older journals carry
     neither key; their totals read 0.0 and the shares None."""
     cluster = postsearch = collect = 0.0
     seen = False

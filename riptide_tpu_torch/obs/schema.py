@@ -41,7 +41,8 @@ PHASES = ("prep", "wire", "queue", "device", "collect", "host")
 
 # Keys of a run-level decomposition block (the ledger's rows).
 # cluster_s / postsearch_s total the post-pull host tail of the
-# collects — the share RIPTIDE_DEVICE_CLUSTER moves onto the device.
+# collects — the share the peak program's device clustering moves onto
+# the device.
 DECOMPOSITION_KEYS = ("prep_s", "wire_s", "device_s", "cluster_s",
                       "postsearch_s", "chunk_s", "wire_MBps")
 

@@ -241,20 +241,14 @@ class Coefs(NamedTuple):
 
 def bucket_rows(ms, L):
     """Container height of the TPU layout for a lane bucket of problems
-    ``ms`` at depth L under the container flags: 2**L when
-    ``RIPTIDE_KERNEL_BASE3=0``; else the {2**L, 3 * 2**(L-2)} family,
-    plus 5 and 7 * 2**(L-3) when ``RIPTIDE_KERNEL_ROW_PACK`` is on
-    (``riptide_tpu/ops/ffa_kernel.py::bucket_rows``). The port's
-    container is one row taller (its zero row), so the guest bases the
-    JAX package's pairing gives keep their meaning."""
-    from ..utils import envflags
+    ``ms`` at depth L: the smallest of the {2**L, 3 * 2**(L-2), 5 and
+    7 * 2**(L-3)} family that holds them
+    (``riptide_tpu/ops/ffa_kernel.py::bucket_rows`` at its defaults).
+    The port's container is one row taller (its zero row), so the guest
+    bases the JAX package's pairing gives keep their meaning."""
     from .slottables import container_rows
 
-    if not envflags.get("RIPTIDE_KERNEL_BASE3"):
-        return 1 << L
-    return container_rows(max(ms), L,
-                          extended=bool(envflags.get(
-                              "RIPTIDE_KERNEL_ROW_PACK")))
+    return container_rows(max(ms), L, extended=True)
 
 
 # ---------------------------------------------------------------------------

@@ -179,11 +179,11 @@ def _stage_shard(st, plan, s, wire, meta, idx, whole, shard):
 
 
 def _queue_stages_sharded(plan, batch, mesh, shipped=None, mode=None):
-    """Queue every cascade stage on every shard. Returns (outs, layout,
-    D_original): ``outs[i]`` dm shard i's per-stage tuples of S/N
-    containers on its first device, ``layout`` the
-    :func:`~riptide_tpu_torch.search.engine._assemble_device` layout they
-    share."""
+    """Queue every cascade stage on every shard. Returns (outs, pieces,
+    D_original): ``outs[i]`` dm shard i's S/N containers on its first
+    device, stage by stage and bins slice by bins slice, and ``pieces``
+    where each evaluated trial's rows sit among them, for
+    :func:`~riptide_tpu_torch.search.engine._assemble_device`."""
     grid = _grid(mesh)
     slices = _bins_slices(plan, grid.shape[1])
     if shipped is None:
@@ -196,22 +196,19 @@ def _queue_stages_sharded(plan, batch, mesh, shipped=None, mode=None):
     shards = shipped[0]
     whole = len(slices) == 1
     outs = [[] for _ in shards]
+    k = len(slices[0])
     for s, st in enumerate(plan.stages):
         for i, row in enumerate(shards):
             home = row[0][0].device
-            parts = []
             for j, ((wire, meta), idx) in enumerate(zip(row, slices)):
                 with _on(wire.device):
                     out = _stage_shard(st, plan, s, wire, meta, idx, whole,
                                        (i, j))
-                parts.append(out.to(home))
-            outs[i].append(tuple(parts))
-    if whole:
-        layout = (None,) * len(plan.stages)
-    else:
-        entry = tuple(("own", j, idx) for j, idx in enumerate(slices))
-        layout = (entry,) * len(plan.stages)
-    return outs, layout, D
+                outs[i].append(out.to(home))
+    pieces = [(s * len(slices) + g // k, g % k, 0, re)
+              for s, st in enumerate(plan.stages)
+              for g, re in enumerate(st.rows_eval) if re]
+    return outs, pieces, D
 
 
 def run_periodogram_sharded(plan, batch, mesh=None):
@@ -228,12 +225,11 @@ def run_periodogram_sharded(plan, batch, mesh=None):
 
     if mesh is None:
         mesh = default_mesh()
-    outs, layout, D = _queue_stages_sharded(plan, batch, mesh)
+    outs, pieces, D = _queue_stages_sharded(plan, batch, mesh)
     cubes = []
     for o in outs:
-        dev = o[0][0].device
-        with _on(dev):
-            cubes.append(engine._assemble_device(plan, layout, o).cpu()
+        with _on(o[0].device):
+            cubes.append(engine._assemble_device(plan, pieces, o).cpu()
                          .numpy())
     snrs = np.ascontiguousarray(np.concatenate(cubes)[:D], dtype=np.float32)
     return plan.all_periods.copy(), plan.all_foldbins.copy(), snrs
@@ -252,12 +248,12 @@ def queue_search_sharded(plan, batch, tobs, mesh=None, shipped=None,
     if mesh is None:
         mesh = default_mesh()
     pp = engine._peak_plan(plan, tobs, **peak_kwargs)
-    outs, layout, D = _queue_stages_sharded(plan, batch, mesh,
+    outs, pieces, D = _queue_stages_sharded(plan, batch, mesh,
                                             shipped=shipped, mode=mode)
     handles = []
     for o in outs:
-        with _on(o[0][0].device):
-            snr = engine._assemble_device(plan, layout, o)
+        with _on(o[0].device):
+            snr = engine._assemble_device(plan, pieces, o)
             handles.append(queue_find_peaks(pp, snr))
     return pp, handles, D
 

@@ -19,7 +19,9 @@ chunks (pinned for the card); :func:`ship_stage_data` copies them on a
 copy stream of their own that the stage loop waits on.
 
 Device half (torch): the wire ships as one tensor; the stages then queue
-(:func:`_queue_stages`), with the JAX package's layout decisions:
+(:func:`_queue_stages`) the plan's launch layout (:func:`launch_layout`,
+built once per plan and wire mode), which takes the JAX package's
+layout decisions at its defaults:
 
 * quantised wires, stages with at least three FFA levels -> one
   :func:`~riptide_tpu_torch.ops.ffa_kernel.fused_stage` (K1: decode +
@@ -37,7 +39,7 @@ On a CUDA device those wrappers launch the hand-written kernels; on the
 CPU they run their plain PyTorch versions. Each launch yields a
 (D, B, RE, NW) S/N container, and :func:`_assemble_device` gathers the
 evaluated rows in the reference's (cycle, bins, shift) order, on the
-device. A trial's S/N is the same bits in every layout. The periodogram
+device, from the positions the layout lists. The periodogram
 entry points copy the cube to the host once; the survey batch
 (:func:`run_search_batch`) runs peak detection on it on the device
 (:mod:`.peaks_device`). Inside :func:`recording`, each search also keeps
@@ -59,6 +61,7 @@ import contextlib
 import threading
 import time
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -712,31 +715,33 @@ def _bucket_operands(st, plan, k, device):
     """(Tables, Coefs) of lane bucket ``k`` in its own container
     (:meth:`~riptide_tpu_torch.search.plan.CycleStage.bucket_batch`):
     RE = the bucket's largest evaluated row count."""
-    b = st.bucket_batch(k)
-    ix = list(st.lane_buckets[k])
-    return _cached(st, (str(device), "bucket", tuple(ix), b.R),
-                   lambda: _operands(b, plan.widths, st.hcoef[ix],
-                                     st.bcoef[ix], st.stdnoise[ix],
-                                     _bucket_rows_eval(st, ix), device))
+    def build():
+        ix = list(st.lane_buckets[k])
+        return _operands(st.bucket_batch(k), plan.widths, st.hcoef[ix],
+                         st.bcoef[ix], st.stdnoise[ix],
+                         _bucket_rows_eval(st, ix), device)
+
+    return _cached(st, (str(device), "bucket", k), build)
 
 
 def _paired_operands(st, plan, k, st2, bases, device):
     """(Tables, Coefs) of lane bucket ``k`` hosting ``st2``'s
     same-position trials at ``bases``
     (:meth:`~riptide_tpu_torch.search.plan.CycleStage.paired_batch`): RE
-    also covers every guest's evaluated rows above its base."""
-    b = st.paired_batch(k, st2, bases)
-    ix = list(st.lane_buckets[k])
-    n2 = len(st2.rows_eval)
-    remax = max([_bucket_rows_eval(st, ix)] + [
-        bb + st2.rows_eval[g] for bb, g in zip(bases, ix)
-        if bb is not None and g < n2])
-    return _cached(
-        st, (str(device), "paired", tuple(ix), b.R, st2.f, tuple(bases)),
-        lambda: _operands(b, plan.widths, st.hcoef[ix], st.bcoef[ix],
-                          st.stdnoise[ix], remax, device,
-                          guest=(st2.hcoef[ix], st2.bcoef[ix],
-                                 st2.stdnoise[ix])))
+    also covers every guest's evaluated rows above its base. A bucket
+    hosts one guest in the plan's layout, so ``k`` keys the cache."""
+    def build():
+        ix = list(st.lane_buckets[k])
+        n2 = len(st2.rows_eval)
+        remax = max([_bucket_rows_eval(st, ix)] + [
+            bb + st2.rows_eval[g] for bb, g in zip(bases, ix)
+            if bb is not None and g < n2])
+        return _operands(st.paired_batch(k, st2, bases), plan.widths,
+                         st.hcoef[ix], st.bcoef[ix], st.stdnoise[ix], remax,
+                         device, guest=(st2.hcoef[ix], st2.bcoef[ix],
+                                        st2.stdnoise[ix]))
+
+    return _cached(st, (str(device), "paired", k), build)
 
 
 def stage_geom(meta, i, n):
@@ -753,11 +758,10 @@ def stage_geom(meta, i, n):
 
 def _bucket_shape(st, idx):
     """(L, rows, P) of one lane bucket in the TPU layout: L from its
-    largest m, rows = ``bucket_rows`` under the container flags, P = its
-    largest p rounded up to 128 lanes. The
-    pairing map and ``plan_occupancy`` reason in this layout, as the JAX
-    package's do; the port's own container is ``rows + 1`` by the
-    bucket's largest p (``CycleStage.bucket_batch``)."""
+    largest m, rows = ``bucket_rows``, P = its largest p rounded up to
+    128 lanes. The pairing map and ``plan_occupancy`` reason in this
+    layout, as the JAX package's do; the port's own container is
+    ``rows + 1`` by the bucket's largest p (``CycleStage.bucket_batch``)."""
     from ..ops.ffa_kernel import bucket_rows
     from ..ops.plan import num_levels
 
@@ -803,20 +807,15 @@ def _row_pack_map(plan, mode):
     counterpart: a base lies between the host's rows and the TPU height,
     below the port's zero row (``FFABatchPlan`` checks it), and the one
     Hopper limit, the S/N kernel's shared memory, is the host bucket's
-    own (:func:`_kernel_eligible`). Returns {} when
-    ``RIPTIDE_KERNEL_ROW_PACK`` is off or the wire is not quantised, else
-    {(stage, bucket): ("host", guest_stage, bases) | ("guest",
-    host_stage)}, cached on the plan per flag state."""
+    own (:func:`_kernel_eligible`). Returns {} when the wire is not
+    quantised, else {(stage, bucket): ("host", guest_stage, bases) |
+    ("guest", host_stage)}, cached on the plan per wire mode."""
     from ..ops.plan import pair_bucket_bases
 
-    if not envflags.get("RIPTIDE_KERNEL_ROW_PACK") or mode not in WIRE_MODES:
+    if mode not in WIRE_MODES:
         return {}
-    fp = (mode, bool(envflags.get("RIPTIDE_KERNEL_BASE3")),
-          bool(envflags.get("RIPTIDE_KERNEL_LANE_SPLIT")))
-    cache = getattr(plan, "_row_pack_maps", None)
-    if cache is None:
-        cache = plan._row_pack_maps = {}
-    rpm = cache.get(fp)
+    cache = plan.__dict__.setdefault("_row_pack_maps", {})
+    rpm = cache.get(mode)
     if rpm is not None:
         return rpm
     stages = plan.stages
@@ -847,48 +846,108 @@ def _row_pack_map(plan, mode):
                 entries[(s, k)] = ("host", s2, bases)
                 entries[(s2, k)] = ("guest", s)
                 break
-    cache[fp] = entries
+    cache[mode] = entries
     return entries
 
 
-def _stage_pairing(plan, rpm, i, st):
-    """Stage ``i``'s part of the pairing map: the lane buckets absorbed
-    by an earlier host, and per hosting bucket (guest stage index,
-    bases). None when the stage is untouched."""
-    absorbed = set()
-    hosted = {}
-    for k in range(len(st.lane_buckets)):
-        e = rpm.get((i, k))
-        if e is None:
+class Launch(NamedTuple):
+    """One stage launch of a plan's layout: its wrapper (``kind``:
+    ``fused_stage``, ``paired_stage`` or ``cascade_stage``), its stage,
+    its lane bucket (None: the whole stage in one container) and, for
+    K3, the guest stage and the guest trials' base rows (None: no guest
+    on that trial)."""
+    kind: str
+    stage: int
+    bucket: object = None
+    guest: object = None
+    bases: tuple = None
+
+
+class Layout(NamedTuple):
+    """A plan's launch layout on one wire mode (:func:`launch_layout`).
+
+    ``stages[s]``: stage s's launches in queue order (none when every
+    lane bucket of the stage is absorbed). ``launches``: all of them in
+    that order; the stage loop's outputs come in this order.
+    ``absorbed``: (stage, bucket, host stage) of each lane bucket that
+    rides its host's dead rows and launches nothing. ``pieces``: per
+    evaluated trial in plan order (cycle, bins, shift), (launch, row,
+    base, rows): the trial's S/N are rows [base, base + rows) of row
+    ``row`` of that launch's container, read by
+    :func:`_assemble_device`."""
+    stages: tuple
+    launches: tuple
+    absorbed: tuple
+    pieces: tuple
+
+
+def _build_layout(plan, mode):
+    rpm = _row_pack_map(plan, mode)
+    whole = "fused_stage" if mode in WIRE_MODES else "cascade_stage"
+    stages, absorbed = [], []
+    for s, st in enumerate(plan.stages):
+        if not _fused_eligible(st, plan, mode):
+            stages.append((Launch(whole, s),))
             continue
-        if e[0] == "guest":
-            absorbed.add(k)
-        else:
-            hosted[k] = (e[1], e[2])
-    if absorbed or hosted:
-        return {"absorbed": absorbed, "hosted": hosted}
-    return None
+        lns = []
+        for k in range(len(st.lane_buckets)):
+            e = rpm.get((s, k))
+            if e is None:
+                lns.append(Launch("fused_stage", s, k))
+            elif e[0] == "host":
+                lns.append(Launch("paired_stage", s, k, e[1], tuple(e[2])))
+            else:
+                absorbed.append((s, k, e[1]))
+        stages.append(tuple(lns))
+    launches = tuple(ln for lns in stages for ln in lns)
+    where = {}  # (stage, trial) -> (launch, row, base)
+    for j, ln in enumerate(launches):
+        st = plan.stages[ln.stage]
+        idx = (range(len(st.ms_padded)) if ln.bucket is None
+               else st.lane_buckets[ln.bucket])
+        for r, g in enumerate(idx):
+            where[(ln.stage, g)] = (j, r, 0)
+        if ln.guest is not None:
+            for r, (g, base) in enumerate(zip(idx, ln.bases)):
+                if base is not None:
+                    where[(ln.guest, g)] = (j, r, base)
+    pieces = tuple((*where[(s, g)], re) for s, st in enumerate(plan.stages)
+                   for g, re in enumerate(st.rows_eval) if re)
+    return Layout(tuple(stages), launches, tuple(absorbed), pieces)
+
+
+_LAYOUTS_LOCK = threading.Lock()
+
+
+def launch_layout(plan, mode):
+    """The plan's :class:`Layout` on ``mode``'s wire: which stage runs
+    whole and which by lane bucket, which bucket runs K1, which hosts a
+    guest (K3) and which is absorbed, and where each trial's rows sit in
+    the assembled cube. Built once per plan and wire mode (under
+    concurrent job threads too) and cached on the plan: every later call
+    returns the same object. The stage loop, the assembly,
+    :func:`queued_launches`, ``plan_occupancy`` and the launch contract
+    read it."""
+    lay = getattr(plan, "_layouts", {}).get(mode)
+    if lay is None:
+        with _LAYOUTS_LOCK:
+            cache = plan.__dict__.setdefault("_layouts", {})
+            lay = cache.get(mode)
+            if lay is None:
+                lay = cache[mode] = _build_layout(plan, mode)
+    return lay
 
 
 def queued_launches(plan, mode=None):
-    """The kernel launches one search of ``plan`` queues under the live
-    flags: {"fused_stage": K1, "paired_stage": K3, "cascade_stage": K2}.
-    A quantised wire runs K1 and K3 only, the float32 wire K2 only."""
-    mode = mode or _wire_mode()
-    if mode not in WIRE_MODES:
-        n = len(plan.stages)
-        return {"fused_stage": 0, "cascade_stage": n, "paired_stage": 0}
-    rpm = _row_pack_map(plan, mode)
-    k1 = k3 = 0
-    for i, st in enumerate(plan.stages):
-        if not _fused_eligible(st, plan, mode):
-            k1 += 1
-            continue
-        for k in range(len(st.lane_buckets)):
-            role = rpm.get((i, k), ("",))[0]
-            k1 += role == ""
-            k3 += role == "host"
-    return {"fused_stage": k1, "cascade_stage": 0, "paired_stage": k3}
+    """The kernel launches one search of ``plan`` queues on ``mode``'s
+    wire (default :func:`_wire_mode`): {"fused_stage": K1,
+    "cascade_stage": K2, "paired_stage": K3}. A quantised wire runs K1
+    and K3 only, the float32 wire K2 only."""
+    counts = dict.fromkeys(("fused_stage", "cascade_stage", "paired_stage"),
+                           0)
+    for ln in launch_layout(plan, mode or _wire_mode()).launches:
+        counts[ln.kind] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -969,106 +1028,54 @@ def _run_stage(st, plan, i, wire, meta):
                    stage=i, bucket=None)
 
 
-def _run_stage_fused(st, plan, i, wire, meta, pairing=None):
-    """Queue one lane-bucketed stage: per lane bucket one K1 launch, or
-    one K3 launch where the bucket hosts a later stage's guests
-    (``pairing``, :func:`_stage_pairing`); absorbed buckets launch
-    nothing. Returns (outs, kept): each queued bucket's (D, B_k, RE_k,
-    NW) S/N, and the queued bucket positions."""
-    dev = wire.device
-    scales = meta["scales_dev"]
-    geom = stage_geom(meta, i, st.n)
-    outs, kept = [], []
-    for k in range(len(st.lane_buckets)):
-        if pairing is not None and k in pairing["absorbed"]:
-            continue
-        host = pairing["hosted"].get(k) if pairing is not None else None
-        if host is None:
-            tables, coefs = _bucket_operands(st, plan, k, dev)
-            out = _launch("fused_stage", fused_stage,
-                          (wire, scales, geom, tables, coefs), stage=i,
-                          bucket=k)
-        else:
-            s2, bases = host
-            st2 = plan.stages[s2]
-            tables, coefs = _paired_operands(st, plan, k, st2, bases, dev)
-            out = _launch("paired_stage", paired_stage,
-                          (wire, scales, geom, stage_geom(meta, s2, st2.n),
-                           tables, coefs), stage=i, bucket=k, guest=s2)
-        outs.append(out)
-        kept.append(k)
-    return tuple(outs), tuple(kept)
+def _run_launch(plan, ln, wire, meta):
+    """Queue one :class:`Launch` of the plan's layout on the shipped
+    wire; returns its (D, B, RE, NW) S/N (unsynced on a CUDA device). A
+    whole stage runs :func:`_run_stage`; a lane bucket runs K1 in its own
+    container, or K3 with its guest stage's trials in its dead rows."""
+    st = plan.stages[ln.stage]
+    if ln.bucket is None:
+        return _run_stage(st, plan, ln.stage, wire, meta)
+    dev, scales = wire.device, meta["scales_dev"]
+    geom = stage_geom(meta, ln.stage, st.n)
+    if ln.guest is None:
+        tables, coefs = _bucket_operands(st, plan, ln.bucket, dev)
+        return _launch("fused_stage", fused_stage,
+                       (wire, scales, geom, tables, coefs), stage=ln.stage,
+                       bucket=ln.bucket)
+    st2 = plan.stages[ln.guest]
+    tables, coefs = _paired_operands(st, plan, ln.bucket, st2, ln.bases, dev)
+    return _launch("paired_stage", paired_stage,
+                   (wire, scales, geom, stage_geom(meta, ln.guest, st2.n),
+                    tables, coefs), stage=ln.stage, bucket=ln.bucket,
+                   guest=ln.guest)
 
 
 def _queue_stages(plan, wire, meta):
-    """Queue every cascade stage on the shipped wire, each in an
-    ``ffa_stage`` span (``stage=i``). Returns (outs, layout) for
-    :func:`_assemble_device`: ``outs[s]`` the stage's tuple of queued
-    containers, ``layout[s]`` None for one whole-stage container, else
-    per lane bucket ``("own", pos, idx)`` or, for a bucket absorbed by
-    an earlier host, ``("guest", host_stage, host_pos, idx, bases)``."""
-    mode = meta["mode"]
-    rpm = _row_pack_map(plan, mode)
-    outs, layout = [], []
-    bucketpos = {}  # (stage, bucket) -> position in that stage's outs
-    for i, st in enumerate(plan.stages):
+    """Queue the launches of the plan's layout (:func:`launch_layout`)
+    on the shipped wire, stage by stage, each stage in an ``ffa_stage``
+    span (``stage=i``). Returns (outs, layout): each launch's S/N
+    container in the layout's order, for :func:`_assemble_device`."""
+    lay = launch_layout(plan, meta["mode"])
+    outs = []
+    for i, launches in enumerate(lay.stages):
         _walk_phase(i)
         with span("ffa_stage", stage=i):
-            if not _fused_eligible(st, plan, mode):
-                outs.append((_run_stage(st, plan, i, wire, meta),))
-                layout.append(None)
-            else:
-                buckets = st.lane_buckets
-                pairing = _stage_pairing(plan, rpm, i, st)
-                absorbed = pairing["absorbed"] if pairing else set()
-                souts, kept = _run_stage_fused(st, plan, i, wire, meta,
-                                               pairing)
-                outs.append(souts)
-                for pos, k in enumerate(kept):
-                    bucketpos[(i, k)] = pos
-                if len(buckets) == 1 and not absorbed:
-                    layout.append(None)
-                else:
-                    entries = []
-                    for k, idx in enumerate(buckets):
-                        if k in absorbed:
-                            hs = rpm[(i, k)][1]
-                            entries.append(("guest", hs, bucketpos[(hs, k)],
-                                            idx, rpm[(hs, k)][2]))
-                        else:
-                            entries.append(("own", bucketpos[(i, k)], idx))
-                    layout.append(tuple(entries))
+            for ln in launches:
+                outs.append(_run_launch(plan, ln, wire, meta))
     _walk_phase("assemble")
-    return outs, tuple(layout)
+    return outs, lay
 
 
-def _assemble_device(plan, layout, outs):
-    """Slice every stage's evaluated rows and concatenate them in plan
-    trial order (cycle, bins, shift), on the device: (D, n_trials, NW).
-    A row-packed guest's trials are read from its host's container at
-    each trial's base row."""
-    chunks = []
-    for st, raws, lay in zip(plan.stages, outs, layout):
-        if lay is None:
-            pos = {i: (raws[0], i, 0) for i in range(len(st.rows_eval))}
-        else:
-            pos = {}
-            for e in lay:
-                if e[0] == "own":
-                    _, p_, idx = e
-                    for j, g in enumerate(idx):
-                        pos[g] = (raws[p_], j, 0)
-                else:
-                    _, hs, hp, idx, bases = e
-                    for j, g in enumerate(idx):
-                        if bases[j] is not None:
-                            pos[g] = (outs[hs][hp], j, bases[j])
-        for i, re in enumerate(st.rows_eval):
-            if re:
-                raw, j, off = pos[i]
-                chunks.append(raw[:, j, off : off + re, :])
+def _assemble_device(plan, pieces, outs):
+    """Slice every evaluated trial's rows out of the queued containers
+    ``outs`` at the positions ``pieces`` lists ((output, row, base,
+    rows), in plan trial order: :attr:`Layout.pieces`) and concatenate
+    them, on the device: (D, n_trials, NW). A row-packed guest's trials
+    are read from its host's container at each trial's base row."""
+    chunks = [outs[o][:, j, off : off + re, :] for o, j, off, re in pieces]
     if not chunks:
-        D = outs[0][0].shape[0] if outs else 0
+        D = outs[0].shape[0] if outs else 0
         return torch.empty((D, 0, len(plan.widths)), dtype=torch.float32)
     return torch.cat(chunks, dim=1)
 
@@ -1082,8 +1089,9 @@ def recording():
     ``out_s`` assembly and copy back; a survey batch has ``assemble_s``,
     ``peaks_s`` the device peak program and ``collect_s`` its pull and
     host tail instead of ``out_s``), and its operands: the shipped
-    ``wire`` and ``meta``, each stage's queued containers
-    ``outs`` and their ``layout``, and every kernel call in
+    ``wire`` and ``meta``, every launch's S/N container ``outs`` in
+    the order of the plan's ``layout`` (:func:`launch_layout`), and
+    every kernel call in
     ``launches`` (kind, arguments, output, stage, lane bucket (None for a
     whole stage) and, for K3, the guest stage). The tensors stay alive with
     the dict."""
@@ -1135,7 +1143,7 @@ def _queue_batch(plan, batch, dev, prepared=None, shipped=None, pool=None):
     if split.rec is not None:
         split.rec.update(wire=wire, meta=meta, outs=outs, layout=layout)
     with span("assemble"):
-        snr_dev = _assemble_device(plan, layout, outs)
+        snr_dev = _assemble_device(plan, layout.pieces, outs)
     return snr_dev, split, prepared
 
 
@@ -1187,12 +1195,10 @@ _PEAK_PLANS_LOCK = threading.Lock()
 
 def _peak_plan(plan, tobs, **peak_kwargs):
     """The plan's cached :class:`~.peaks_device.PeakPlan` for ``tobs``
-    and the peak arguments; the live ``RIPTIDE_DEVICE_CLUSTER`` value is
-    part of the key."""
-    from .peaks_device import PeakPlan, device_cluster_enabled
+    and the peak arguments."""
+    from .peaks_device import PeakPlan
 
-    dc = device_cluster_enabled()
-    key = (float(tobs), dc, tuple(sorted(peak_kwargs.items())))
+    key = (float(tobs), tuple(sorted(peak_kwargs.items())))
     with _PEAK_PLANS_LOCK:
         cache = getattr(plan, "_peak_plans", None)
         if cache is None:
@@ -1200,8 +1206,7 @@ def _peak_plan(plan, tobs, **peak_kwargs):
         pp = cache.get(key)
         fresh = pp is None
         if fresh:
-            pp = cache[key] = PeakPlan(plan, tobs, device_cluster=dc,
-                                       **peak_kwargs)
+            pp = cache[key] = PeakPlan(plan, tobs, **peak_kwargs)
     count_warmth(fresh)
     return pp
 
@@ -1501,10 +1506,10 @@ def walk_search(plan, D, mode=None, tobs=None, data=None, survey=True):
     """The shape-only walk of one ``D``-trial survey search of ``plan``
     (:func:`queue_search_batch`'s device side: the wire's copy, every
     stage launch, the assembly and the peak program) on the ``meta``
-    device, under the live container flags and ``mode`` (default
-    :func:`_wire_mode`). The real queue path runs; the stage wrappers
-    take their shape-only form (``ffa_kernel.ShapeOnlyLibrary``), so
-    nothing is computed or launched and no card is needed. The stage
+    device, on ``mode``'s wire (default :func:`_wire_mode`). The real
+    queue path runs; the stage wrappers take their shape-only form
+    (``ffa_kernel.ShapeOnlyLibrary``), so nothing is computed or
+    launched and no card is needed. The stage
     operands are uploaded cold (the device's cache is dropped first),
     as a plan's first search on a card uploads them. With ``data`` (a
     (D, N) float32 batch) the same walk follows the plain path on the
@@ -1524,12 +1529,11 @@ def walk_search(plan, D, mode=None, tobs=None, data=None, survey=True):
     ``peaks`` (the pulled buffer's bytes and dtype, and whether the
     device clustering ran)."""
     from ..ops import ffa_kernel
-    from .peaks_device import PeakPlan, device_cluster_enabled
+    from .peaks_device import PeakPlan
 
     mode = mode or _wire_mode()
     tobs = float(tobs if tobs is not None else plan.size * plan.tsamp)
-    pp = (PeakPlan(plan, tobs, device_cluster=device_cluster_enabled())
-          if survey else None)
+    pp = PeakPlan(plan, tobs) if survey else None
     if data is None:
         dev = torch.device("meta")
         flat, meta = _blank_prepared(plan, D, mode)
@@ -1579,9 +1583,9 @@ def walk_search(plan, D, mode=None, tobs=None, data=None, survey=True):
 
 def launch_shapes(plan, D, mode=None):
     """The distinct :func:`launch_shape` values of one ``D``-trial search
-    of ``plan`` under the live container flags and wire ``mode``
-    (default :func:`_wire_mode`), read from the shape-only walk
-    (:func:`walk_search`): what :func:`warm_stage_kernels` warms."""
+    of ``plan`` on wire ``mode`` (default :func:`_wire_mode`), read from
+    the shape-only walk (:func:`walk_search`): what
+    :func:`warm_stage_kernels` warms."""
     walk = walk_search(plan, D, mode=mode, survey=False)
     return {ln["shape"] for ln in walk["launches"]}
 

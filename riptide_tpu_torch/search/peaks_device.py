@@ -15,11 +15,13 @@ S/N cube on the device. The device side is one call,
 3. the mask ``s > max(dynthr, smin)`` widened by EPS, per-BLK-trial-block
    selected counts, and the first CAP non-empty blocks per (trial,
    width) column;
-4. with ``RIPTIDE_DEVICE_CLUSTER`` (default on), the reference's 1-D
-   friends-of-friends clustering of the sure points and the advisory
-   harmonic screen. On a card the clustering is one hand-written CUDA
-   kernel (``csrc/cluster.cu``, :func:`cluster_columns`: one read of the
-   cube, the threshold in registers, no (D, NW, n) intermediate); on
+4. where the plan allows it (:attr:`PeakPlan.device_cluster`: a
+   threshold polynomial of degree <= 2 and fewer than 2^24 trials), the
+   reference's 1-D friends-of-friends clustering of the sure points and
+   the advisory harmonic screen. On a card the clustering is one
+   hand-written CUDA kernel (``csrc/cluster.cu``, :func:`cluster_columns`:
+   one read of the cube, the threshold in registers, no (D, NW, n)
+   intermediate); on
    the CPU it is the plain form (:meth:`PeakPlan._cluster_impl`:
    cummax/cummin, a segmented log-step lexmax scan, a stable sort in
    place of ``lax.top_k``), with the same four outputs bit for bit.
@@ -55,7 +57,6 @@ came from the device representatives or the host tail),
 :data:`CLUSTER_LAUNCHES` counts the cluster kernel's launches: one per
 peak program queued on a card with device clustering, none on the CPU.
 """
-import contextlib
 import ctypes
 import logging
 import threading
@@ -69,14 +70,13 @@ from ..obs.trace import span
 from ..peak_detection import Peak, fit_threshold
 from ..survey.integrity import fold_result
 from ..survey.metrics import get_metrics
-from ..utils import cuda_build, envflags
+from ..utils import cuda_build
 from .engine import _dev_tensor
 
 log = logging.getLogger("riptide_tpu_torch.peaks_device")
 
 __all__ = ["PeakPlan", "device_find_peaks", "queue_find_peaks",
-           "collect_peaks", "device_cluster_enabled",
-           "force_device_cluster", "cluster_columns", "build_cluster"]
+           "collect_peaks", "cluster_columns", "build_cluster"]
 
 # Margin (in S/N units) by which the device-side threshold is lowered;
 # marginal points are re-judged on host in float64. Device f32 rounding
@@ -94,10 +94,6 @@ _H_QMAX = 100
 _H_PHASE_MAX = 1.0
 _H_SNR_MAX = 3.0
 
-# Pinned override of the flag (see force_device_cluster); None defers
-# to the environment.
-_DC_OVERRIDE = None
-
 # The segment percentiles of the threshold fit's control points.
 _QS = (25.0, 50.0, 75.0)
 
@@ -110,31 +106,6 @@ _CONSTS_LOCK = threading.Lock()
 CLUSTER_SOURCE = cuda_build.CSRC / "cluster.cu"
 CLUSTER_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
-
-
-def device_cluster_enabled():
-    """``RIPTIDE_DEVICE_CLUSTER``: run the clustering and the harmonic
-    screen in the device program (the host still verifies and falls
-    back per column, so the flag changes where the tail runs, never what
-    comes out), unless :func:`force_device_cluster` pins it."""
-    if _DC_OVERRIDE is not None:
-        return _DC_OVERRIDE
-    return bool(envflags.get("RIPTIDE_DEVICE_CLUSTER"))
-
-
-@contextlib.contextmanager
-def force_device_cluster(value):
-    """Pin :func:`device_cluster_enabled` to ``value`` for the block,
-    overriding the environment. Used by the integrity canary, whose
-    pinned digest covers the pulled buffer's LAYOUT and must therefore
-    not follow a run's flag override."""
-    global _DC_OVERRIDE
-    prev = _DC_OVERRIDE
-    _DC_OVERRIDE = bool(value)
-    try:
-        yield
-    finally:
-        _DC_OVERRIDE = prev
 
 
 def _two_sum(a, b):
@@ -264,7 +235,7 @@ class PeakPlan:
     periodogram plan + observation length."""
 
     def __init__(self, plan, tobs, smin=6.0, segwidth=5.0, nstd=6.0,
-                 minseg=10, polydeg=2, clrad=0.1, device_cluster=None):
+                 minseg=10, polydeg=2, clrad=0.1):
         freqs = 1.0 / plan.all_periods  # decreasing, like Periodogram.freqs
         n = freqs.size
         w = segwidth / tobs
@@ -292,14 +263,12 @@ class PeakPlan:
         # float64 np.polyfit re-fit happens on host in _finalize.
         V = np.vander(np.log(self.fc), self.polydeg + 1)
         self.fitmat = (np.linalg.inv(V.T @ V) @ V.T).astype(np.float32)
-        if device_cluster is None:
-            device_cluster = device_cluster_enabled()
         # The trusted fast path needs exact-maximisable threshold
         # difference polynomials (deg <= 2) and exact trial indices in
         # float32 (n < 2^24); outside those bounds the device sections
-        # would never be trusted, so don't build them at all.
-        self.device_cluster = bool(device_cluster) \
-            and self.polydeg <= 2 and n < (1 << 24)
+        # would never be trusted, so don't build them at all: the host
+        # tail clusters every column.
+        self.device_cluster = self.polydeg <= 2 and n < (1 << 24)
         if self.device_cluster:
             self.reach = self._cluster_reach()
             self.freqs_f32 = freqs.astype(np.float32)

@@ -20,10 +20,10 @@ sizing) lives in this plan. On the quantised wires a stage runs one
 launch per lane bucket (:attr:`CycleStage.lane_buckets`), each in its own
 container (:meth:`CycleStage.bucket_batch`), and a later stage's bucket
 may ride an earlier stage's dead container rows
-(:meth:`CycleStage.paired_batch`, the engine's ``_row_pack_map``);
-:func:`plan_occupancy` accounts for that layout. The plan is the search's only state:
-:func:`plan_arrays` exports it as numpy arrays and :func:`plan_from_arrays`
-rebuilds a plan from them.
+(:meth:`CycleStage.paired_batch`, the engine's ``_row_pack_map``): the
+engine's ``launch_layout``, which :func:`plan_occupancy` accounts for.
+The plan is the search's only state: :func:`plan_arrays` exports it as
+numpy arrays and :func:`plan_from_arrays` rebuilds a plan from them.
 """
 from collections import OrderedDict
 import math
@@ -43,20 +43,23 @@ __all__ = ["PeriodogramPlan", "CycleStage", "periodogram_plan",
 
 
 def plan_occupancy(plan, mode=None):
-    """Container-occupancy accounting of a plan's lane-bucket layout
-    under the live flags, as the JAX package's ``plan_occupancy``
-    counts it (TPU container heights and 128-lane widths, from
-    ``engine._bucket_shape``), so the two layouts' decisions can be
-    compared number for number: per bucket and in total, the evaluated
-    (live) row*lane work against the computed containers (absorbed guest
-    buckets count zero), next to the pre-row-pack (legacy) layout."""
-    from ..utils import envflags
+    """Container-occupancy accounting of the plan's launch layout on
+    ``mode``'s wire (``engine.launch_layout``), as the JAX package's
+    ``plan_occupancy`` counts it at its defaults (TPU container heights
+    and 128-lane widths, from ``engine._bucket_shape``), so the two
+    layouts' decisions can be compared number for number: per bucket
+    and in total, the evaluated (live) row*lane work against the
+    computed containers (absorbed guest buckets count zero), next to the
+    layout before row packing (``legacy``: no odd-slot heights and no
+    pairing)."""
     from ..ops.slottables import container_rows
     from . import engine
 
     mode = mode or engine._wire_mode()
-    rpm = engine._row_pack_map(plan, mode)
-    base3 = bool(envflags.get("RIPTIDE_KERNEL_BASE3"))
+    lay = engine.launch_layout(plan, mode)
+    roles = {(ln.stage, ln.bucket): ("host", ln.guest)
+             for ln in lay.launches if ln.guest is not None}
+    roles.update({(s, k): ("guest", host) for s, k, host in lay.absorbed})
     buckets = []
     live_t = comp_t = legacy_t = 0
     for s, st in enumerate(plan.stages):
@@ -64,20 +67,17 @@ def plan_occupancy(plan, mode=None):
         for k, idx in enumerate(st.lane_buckets):
             ms = [st.ms_padded[i] for i in idx]
             L, rows, P = engine._bucket_shape(st, idx)
-            legacy_rows = (container_rows(max(ms), L) if base3
-                           else 1 << L)
+            legacy_rows = container_rows(max(ms), L)
             live = sum(st.rows_eval[i] * st.ps_padded[i]
                        for i in idx if i < nb)
-            entry = rpm.get((s, k))
-            role = entry[0] if entry else None
+            role, pair = roles.get((s, k), (None, None))
             comp = 0 if role == "guest" else len(idx) * rows * P
             legacy = len(idx) * legacy_rows * P
             buckets.append({
                 "stage": s, "bucket": k, "B": len(idx), "rows": rows,
                 "P": P, "legacy_rows": legacy_rows,
                 "live_rowlane": int(live), "computed_rowlane": int(comp),
-                "role": role,
-                "pair_stage": entry[1] if entry else None,
+                "role": role, "pair_stage": pair,
             })
             live_t += live
             comp_t += comp
@@ -86,8 +86,8 @@ def plan_occupancy(plan, mode=None):
     legacy_pad = legacy_t - live_t
     return {
         "mode": mode,
-        "row_pack": bool(envflags.get("RIPTIDE_KERNEL_ROW_PACK")),
-        "pairs": sum(1 for v in rpm.values() if v[0] == "host"),
+        "row_pack": True,
+        "pairs": sum(1 for ln in lay.launches if ln.guest is not None),
         "buckets": buckets,
         "totals": {
             "live_rowlane": int(live_t),
@@ -217,23 +217,15 @@ class CycleStage:
     def lane_buckets(self):
         """The stage's padded trial indices grouped by ceil(p / 128), as
         the JAX package groups them into lane-occupancy buckets, in
-        ascending order; one bucket of every trial when
-        ``RIPTIDE_KERNEL_LANE_SPLIT=0``. Every stage of a plan has the
-        same bins list, so the same buckets."""
-        from ..utils import envflags
-
-        split = bool(envflags.get("RIPTIDE_KERNEL_LANE_SPLIT"))
-        cached = getattr(self, "_lane_buckets", None)
-        if cached is not None and cached[0] == split:
-            return cached[1]
-        if split:
+        ascending order. Every stage of a plan has the same bins list,
+        so the same buckets."""
+        buckets = getattr(self, "_lane_buckets", None)
+        if buckets is None:
             tiles = {}
             for i, p in enumerate(self.ps_padded):
                 tiles.setdefault(-(-p // 128), []).append(i)
-            buckets = tuple(tuple(ix) for _, ix in sorted(tiles.items()))
-        else:
-            buckets = (tuple(range(len(self.ps_padded))),)
-        self._lane_buckets = (split, buckets)
+            buckets = self._lane_buckets = tuple(
+                tuple(ix) for _, ix in sorted(tiles.items()))
         return buckets
 
     def _bucket_plan(self, k, guests=None, key=None):
@@ -256,8 +248,8 @@ class CycleStage:
 
     def bucket_batch(self, k):
         """:class:`FFABatchPlan` of lane bucket ``k``: L from its largest
-        m, R = ``bucket_rows`` + 1 (the TPU layout's height under the
-        container flags, plus the zero row), P = its largest p."""
+        m, R = ``bucket_rows`` + 1 (the TPU layout's height plus the
+        zero row), P = its largest p."""
         return self._bucket_plan(k)
 
     def paired_batch(self, k, guest_st, bases):

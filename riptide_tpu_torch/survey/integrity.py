@@ -318,14 +318,8 @@ def compute_canary_digest(device=None):
     None) through the real collect path and return its
     collected-buffer digest (hex). Deterministic per device: explicit
     rng seed, fixed plan geometry, and the fold covers the exact bytes
-    the device handed back. The canary runs under DEFAULT
-    ``RIPTIDE_DEVICE_CLUSTER`` semantics regardless of the surrounding
-    run's setting — the flag changes the pulled buffer's layout (the
-    on-device cluster sections ride along), and the canary exists to
-    catch a device computing a KNOWN-good input wrongly, not a
-    configuration override."""
+    the device handed back."""
     from ..search.engine import run_search_batch
-    from ..search.peaks_device import force_device_cluster
     from ..search.plan import periodogram_plan
 
     plan = periodogram_plan(
@@ -339,11 +333,9 @@ def compute_canary_digest(device=None):
     prev = _active()
     _tls.acc = acc
     try:
-        with force_device_cluster(True):
-            run_search_batch(
-                plan, batch, CANARY_NSAMP * CANARY_TSAMP,
-                dms=np.arange(CANARY_TRIALS, dtype=np.float64),
-                device=device)
+        run_search_batch(
+            plan, batch, CANARY_NSAMP * CANARY_TSAMP,
+            dms=np.arange(CANARY_TRIALS, dtype=np.float64), device=device)
     finally:
         _tls.acc = prev
     return acc.hexdigest()

@@ -3,7 +3,7 @@ The ``RIPTIDE_*`` environment flags the port reads, with the JAX
 package's names, types and defaults (``riptide_tpu/utils/envflags.py``).
 
 Each flag is read through :func:`get` at call time, so a changed
-environment (a test's monkeypatch, a smoke run's three layouts) takes
+environment (a test's monkeypatch, a smoke run's wire modes) takes
 effect at the next search. Unset or empty means the default.
 
 This module imports the standard library alone: riplint's env-flag
@@ -47,32 +47,6 @@ _ALL = [
         "baselines. The native job pool writes disjoint output regions "
         "per (stage, trial) job, so the wire bytes are identical at any "
         "thread count.",
-    ),
-    EnvFlag(
-        "RIPTIDE_KERNEL_BASE3", "bool", True,
-        "Allow base-3 (1.5 * 2^k) container heights where a lane bucket "
-        "fits; `0` forces pure 2^L containers.",
-    ),
-    EnvFlag(
-        "RIPTIDE_KERNEL_ROW_PACK", "bool", True,
-        "Row-packed containers: the odd-slot heights (5/7 * 2^(L-3)) "
-        "join the family, and a later stage's same-p lane bucket rides "
-        "an earlier stage's dead container rows (K3) where the pairing "
-        "map finds a fit. Per-trial results are bit-identical either "
-        "way.",
-    ),
-    EnvFlag(
-        "RIPTIDE_KERNEL_LANE_SPLIT", "bool", True,
-        "Split each stage's bins trials into lane buckets by "
-        "ceil(p / 128), one K1 launch each; `0` keeps one bucket per "
-        "stage. Results are bit-identical either way.",
-    ),
-    EnvFlag(
-        "RIPTIDE_DEVICE_CLUSTER", "bool", True,
-        "Run the 1-D peak clustering and the advisory harmonic screen "
-        "inside the device peak program; the host keeps a column's "
-        "device result only when it proves it equal to its own float64 "
-        "tail. Peaks are identical either way.",
     ),
     EnvFlag(
         "RIPTIDE_FAULT_INJECT", "str", None,

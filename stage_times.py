@@ -36,8 +36,8 @@ JSON object:
   CUDA events around the eager wrapper calls (median of 20);
 * with ``--survey``: ``survey_prep_s``, the host wire prep of
   ``chip_smoke.py`` phase 5's D = 32 batch; ``survey_stage_loop_s``,
-  the median stage loop of 3 run (a) batches; ``K3`` over run (b)'s 10
-  launches (``RIPTIDE_KERNEL_BASE3=0``) as above;
+  the median stage loop of 3 such batches; ``K3`` over the 6 launches
+  of ``chip_smoke.py`` phase 5k's D = 32 example_long batch as above;
 * with ``--profile``: one D = 1 stage loop (and, with ``--survey``, the
   K3 calls) under ``torch.profiler``, device time by kernel and the
   slowest launches.
@@ -420,28 +420,34 @@ def _survey(smoke, plan, dev, fk, engine, profile=False):
     prepared = engine.prepare_stage_data(plan, batch)
     out = {"survey_prep_s": time.perf_counter() - t0}
     del batch
-    for name, flags in smoke.LAYOUTS[:2]:
-        with smoke.layout_flags(flags):
-            loops = []
-            for _ in range(3):
-                with engine.recording() as rec:
-                    h = engine.queue_search_batch(plan, None, tobs,
-                                                  prepared=prepared,
-                                                  device=dev)
-                    engine.collect_search_batch(h, np.zeros(D))
-                loops.append(rec["stages_s"])
-            if name == "b":
-                k3 = [r["args"] for r in rec["launches"]
-                      if r["kind"] == "paired_stage"]
-                out["K3"] = dict(calls=len(k3), **_times(
-                    lambda: [fk.paired_stage(*a) for a in k3]))
-                if profile:
-                    out["profile_K3"] = _profile(
-                        lambda: [fk.paired_stage(*a) for a in k3])
-            else:
-                out["survey_stage_loop_s"] = statistics.median(loops)
-        del rec, h
-        torch.cuda.empty_cache()
+    loops = []
+    for _ in range(3):
+        with engine.recording() as rec:
+            h = engine.queue_search_batch(plan, None, tobs,
+                                          prepared=prepared, device=dev)
+            engine.collect_search_batch(h, np.zeros(D))
+        loops.append(rec["stages_s"])
+    out["survey_stage_loop_s"] = statistics.median(loops)
+    del rec, h, prepared
+    torch.cuda.empty_cache()
+    # K3 over the example_long plan's hosted buckets, at D = 32.
+    cfg = smoke.EXAMPLE_LONG
+    long_plan = smoke.headline_plan(cfg, smoke.EXAMPLE_LONG_WIDTHS)
+    batch = smoke.survey_batch(long_plan, D, cfg=cfg,
+                               period=smoke.EXAMPLE_LONG_PULSAR)
+    with engine.recording() as rec:
+        h = engine.queue_search_batch(long_plan, batch,
+                                      cfg["nsamp"] * cfg["tsamp"],
+                                      device=dev)
+        engine.collect_search_batch(h, np.zeros(D))
+    k3 = [r["args"] for r in rec["launches"] if r["kind"] == "paired_stage"]
+    out["K3"] = dict(calls=len(k3), **_times(
+        lambda: [fk.paired_stage(*a) for a in k3]))
+    if profile:
+        out["profile_K3"] = _profile(
+            lambda: [fk.paired_stage(*a) for a in k3])
+    del rec, h, k3
+    torch.cuda.empty_cache()
     return out
 
 

@@ -40,7 +40,7 @@ def plain_plan(n, clrad, smin=6.0, df=1.0):
                                  all_foldbins=np.full(n, 100),
                                  widths=np.arange(1, NW + 1))
     return PeakPlan(plan, 1.0, smin=smin, segwidth=n * df / 20.0,
-                    clrad=clrad * df, device_cluster=True)
+                    clrad=clrad * df)
 
 
 def _flat(t):

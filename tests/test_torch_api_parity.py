@@ -107,7 +107,15 @@ EXCLUDED = {
     "analysis.jaxpr_contract.collect_dtypes": "dtypes of a jaxpr's values",
     "analysis.jaxpr_contract.donation_report": "XLA buffer donation of a "
                                                "jaxpr",
+    # The peak program's device clustering runs wherever the plan
+    # allows it: no switch.
+    "search.peaks_device.device_cluster_enabled": "reads the port's "
+                                                  "removed cluster switch",
+    "search.peaks_device.force_device_cluster": "pins the port's removed "
+                                                "cluster switch",
     # Signatures that differ.
+    "search.peaks_device.PeakPlan.__init__()": "the plan decides its "
+                                               "device clustering itself",
     "search.engine.ship_stage_data()": "the port ships one tensor on an "
                                        "explicit device, with a copy event, "
                                        "and needs no plan",

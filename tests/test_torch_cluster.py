@@ -58,8 +58,7 @@ def test_plain_form_matches_cluster1d(case):
 def test_plain_form_matches_cluster1d_on_a_plan(seed):
     """A real plan's trials (uneven frequency steps, the exact reach)
     with a random cube and the fit's kind of threshold."""
-    pp = peaks_device.PeakPlan(periodogram_plan(*CFG), CFG[0] * CFG[1],
-                               device_cluster=True, **PKW)
+    pp = peaks_device.PeakPlan(periodogram_plan(*CFG), CFG[0] * CFG[1], **PKW)
     rng = np.random.default_rng(seed)
     s = rng.normal(2.0, 2.5, (2, 3, pp.n)).astype(np.float32)
     coef = np.zeros((2, 3, 3), np.float32)

@@ -74,19 +74,17 @@ def test_run_periodogram_card_matches_cpu(dev, case):
     np.testing.assert_allclose(gpu, cpu, rtol=RTOL, atol=ATOL)
 
 
-E2E = (1200, 1e-3, (1, 2, 3), 32e-3, 0.11, 32, 40)
+# A plan whose layout pairs one lane bucket (stage 6 hosts stage 12).
+PAIRED = (16384, 1e-3, (1, 2, 3), 0.032, 4.0, 32, 40)
 
 
 @pytest.fixture()
-def paired(monkeypatch):
-    """The row-pack e2e plan (stage 0 hosts stage 2 under
-    RIPTIDE_KERNEL_BASE3=0) and a D = 2 batch."""
-    monkeypatch.setenv("RIPTIDE_KERNEL_BASE3", "0")
-    monkeypatch.delenv("RIPTIDE_KERNEL_ROW_PACK", raising=False)
-    plan = periodogram_plan(*E2E)
+def paired():
+    """The PAIRED plan (one K3 launch a search) and a D = 2 batch."""
+    plan = periodogram_plan(*PAIRED)
     assert engine.queued_launches(plan)["paired_stage"] == 1
     rng = np.random.default_rng(4)
-    return plan, rng.standard_normal((2, E2E[0])).astype(np.float32)
+    return plan, rng.standard_normal((2, PAIRED[0])).astype(np.float32)
 
 
 def test_paired_stage_matches_plain(dev, paired):
@@ -106,7 +104,7 @@ def test_paired_stage_matches_plain(dev, paired):
 
 def test_run_search_batch_card_matches_cpu(dev, paired):
     plan, batch = paired
-    tobs = E2E[0] * E2E[1]
+    tobs = PAIRED[0] * PAIRED[1]
     kw = dict(smin=6.0, segwidth=0.2, nstd=6.0, minseg=10)
     cpu_h = engine.queue_search_batch(plan, batch, tobs, device="cpu", **kw)
     gpu_h = engine.queue_search_batch(plan, batch, tobs, device=dev, **kw)
@@ -122,29 +120,54 @@ def test_run_search_batch_card_matches_cpu(dev, paired):
 
 
 SPLIT = (8192, 1e-3, (1, 2, 3), 0.125, 0.3, 120, 136)
-LAYOUTS = ({}, {"RIPTIDE_KERNEL_BASE3": "0"},
-           {"RIPTIDE_KERNEL_BASE3": "0", "RIPTIDE_KERNEL_ROW_PACK": "0"},
-           {"RIPTIDE_KERNEL_LANE_SPLIT": "0"})
 
 
-@pytest.mark.parametrize("cfg", [E2E, SPLIT], ids=["row-pack", "lane-split"])
-def test_layouts_bitwise_on_card(dev, monkeypatch, cfg):
-    """On the card too, a trial's S/N is the same bits whatever the
-    lane split, the container family and the pairing: the S/N kernel's
-    scan order depends on p alone."""
+@pytest.mark.parametrize("cfg", [PAIRED, SPLIT], ids=["row-pack",
+                                                      "lane-split"])
+def test_layouts_bitwise_on_card(dev, cfg):
+    """On the card too, a trial's S/N is the same bits in its lane
+    bucket's container, riding a host's dead rows (K3) and in its whole
+    stage's one container (the K1 that shallow stages run): the S/N
+    kernel's scan order depends on p alone."""
     plan = periodogram_plan(*cfg)
     batch = np.random.default_rng(6).standard_normal((2, cfg[0])).astype(
         np.float32)
-    outs = []
-    for flags in LAYOUTS:
-        for name in ("RIPTIDE_KERNEL_BASE3", "RIPTIDE_KERNEL_ROW_PACK",
-                     "RIPTIDE_KERNEL_LANE_SPLIT"):
-            monkeypatch.delenv(name, raising=False)
-        for name, value in flags.items():
-            monkeypatch.setenv(name, value)
-        outs.append(engine.run_periodogram_batch(plan, batch, device=dev)[2])
-    for out in outs[1:]:
-        np.testing.assert_array_equal(out, outs[0])
+    with engine.recording() as rec:
+        engine.run_periodogram_batch(plan, batch, device=dev)
+    wire, meta = rec["wire"], rec["meta"]
+    whole = {}
+
+    def stage_rows(s):
+        if s not in whole:
+            st = plan.stages[s]
+            tables, coefs = engine._stage_operands(st, plan, dev)
+            whole[s] = fk.fused_stage(wire, meta["scales_dev"],
+                                      engine.stage_geom(meta, s, st.n),
+                                      tables, coefs)
+        return whole[s]
+
+    kinds = set()
+    for r in rec["launches"]:
+        if r["bucket"] is None:
+            continue
+        kinds.add(r["kind"])
+        st = plan.stages[r["stage"]]
+        idx = st.lane_buckets[r["bucket"]]
+        want = stage_rows(r["stage"])
+        for j, g in enumerate(idx):
+            re = st.rows_eval[g] if g < len(st.rows_eval) else 0
+            assert torch.equal(r["out"][:, j, :re], want[:, g, :re])
+        if r.get("guest") is not None:
+            st2 = plan.stages[r["guest"]]
+            gwant = stage_rows(r["guest"])
+            for j, (g, base) in enumerate(zip(idx,
+                                              r["args"][-2].gbase.tolist())):
+                re = st2.rows_eval[g] if g < len(st2.rows_eval) else 0
+                if base >= 0:
+                    assert torch.equal(r["out"][:, j, base : base + re],
+                                       gwant[:, g, :re])
+    assert kinds == ({"fused_stage", "paired_stage"} if cfg is PAIRED
+                     else {"fused_stage"})
 
 
 def test_wrapper_refuses_bad_input(dev, case):

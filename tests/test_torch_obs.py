@@ -134,8 +134,7 @@ def _search_batch(overflow=False, chunk=7):
     rng = np.random.default_rng(3)
     batch = rng.standard_normal((2, BATCH_CFG[0])).astype(np.float32)
     batch[0, ::50] += 6.0
-    with peaks_device.force_device_cluster(True), \
-            trace.span("chunk", chunk=chunk):
+    with trace.span("chunk", chunk=chunk):
         handle = engine.queue_search_batch(plan, batch, BATCH_TOBS,
                                            device="cpu", **kw)
         engine.collect_search_batch(handle, np.zeros(2))
@@ -340,12 +339,12 @@ def test_timing_schema_matches_reference():
 def test_ledger_row_and_platform(tmp_path, monkeypatch):
     path = tmp_path / "ledger.jsonl"
     monkeypatch.setenv("RIPTIDE_LEDGER", str(path))
-    monkeypatch.setenv("RIPTIDE_KERNEL_BASE3", "0")
+    monkeypatch.setenv("RIPTIDE_PROM_PORT_OFFSET", "0")
     assert ledger.maybe_append("survey", {"device_s": 1.5}, nchunks=2,
                                bound_counts={"device": 2}) == str(path)
     (row,) = ledger.read_rows(str(path))
     assert row["kind"] == "survey" and row["nchunks"] == 2
-    assert row["envflags"]["RIPTIDE_KERNEL_BASE3"] is False
+    assert row["envflags"]["RIPTIDE_PROM_PORT_OFFSET"] is False
     assert "RIPTIDE_LEDGER" not in row["envflags"]
     plat = row["platform"]
     assert plat["backend"] in ("cpu", "cuda")

@@ -3,19 +3,16 @@ The port's device peak detection and survey batch against the JAX
 package's, on the CPU.
 
 * Fed the same S/N cube, the port's ``PeakPlan`` segment statistics are
-  bitwise the JAX package's, and ``device_find_peaks`` gives the same
-  Peak lists, threshold polynomials and advisory harmonic counts, with
-  ``RIPTIDE_DEVICE_CLUSTER`` on and off.
+  bitwise the JAX package's, and ``device_find_peaks`` gives the Peak
+  lists and threshold polynomials of the JAX package's with its device
+  clustering on and off (which give the same peaks), and the advisory
+  harmonic and clustering counts of its device clustering.
 * End to end, ``run_search_batch(device="cpu")`` on a D = 2 batch with a
-  pulsar in series 0 (the configuration of tests/test_row_pack.py) finds
-  the peaks the JAX package's ``run_search_batch`` finds on its gather
-  path (same uint6 wire), at the same (iw, ip), with S/N within rtol
-  1e-5 (the S/N's summation order), and its peak CSV bytes are the same
-  with row packing on and off.
+  pulsar in series 0, on a plan whose layout runs K3, finds the peaks
+  the JAX package's ``run_search_batch`` finds on its gather path (same
+  uint6 wire), at the same (iw, ip), with S/N within rtol 1e-5 (the
+  S/N's summation order).
 """
-import csv
-import io
-
 import numpy as np
 import pytest
 import torch
@@ -33,6 +30,9 @@ from riptide_tpu_torch.search.plan import periodogram_plan
 SIZE, TSAMP = 1200, 1e-3
 CFG = (SIZE, TSAMP, (1, 2, 3), 32e-3, 0.11, 32, 40)
 TOBS = SIZE * TSAMP
+# A plan whose default layout pairs one lane bucket (K3), and its batch.
+PAIRED_SIZE = 16384
+PAIRED = (PAIRED_SIZE, TSAMP, (1, 2, 3), 32e-3, 4.0, 32, 40)
 PKW = dict(smin=6.0, segwidth=0.2, nstd=6.0, minseg=10, polydeg=2,
            clrad=0.1)
 
@@ -49,38 +49,51 @@ def batch():
 
 
 @pytest.fixture(scope="module")
+def paired_batch():
+    rng = np.random.default_rng(21)
+    b = rng.standard_normal((2, PAIRED_SIZE)).astype(np.float32)
+    np.random.seed(9)
+    b[0] = generate_signal(PAIRED_SIZE, 0.05 / TSAMP, amplitude=14.0,
+                           ducy=0.08)
+    b -= b.mean(axis=1, keepdims=True)
+    b /= b.std(axis=1, keepdims=True)
+    return b
+
+
+@pytest.fixture(scope="module")
 def cube(batch):
     _, _, snrs = engine.run_periodogram_batch(periodogram_plan(*CFG), batch,
                                               device="cpu")
     return snrs
 
 
-def _csv_bytes(peaks):
-    buf = io.StringIO()
-    writer = csv.writer(buf)
-    for p in peaks:
-        writer.writerow(repr(v) for v in p.summary_dict().values())
-    return buf.getvalue().encode()
-
-
-@pytest.mark.parametrize("dc", ["1", "0"])
-@pytest.mark.parametrize("smin", [6.0, 3.0])
-def test_peaks_match_reference_on_same_cube(monkeypatch, cube, dc, smin):
-    monkeypatch.setenv("RIPTIDE_DEVICE_CLUSTER", dc)
-    kw = dict(PKW, smin=smin)
-    pp = engine._peak_plan(periodogram_plan(*CFG), TOBS, **kw)
-    ref_pp = ref_engine._peak_plan(ref_plan(*CFG), TOBS, **kw)
-    assert pp.device_cluster == (dc == "1") == ref_pp.device_cluster
-    s = torch.from_numpy(cube).transpose(1, 2).contiguous()
-    np.testing.assert_array_equal(pp._stats_impl(s).numpy(),
-                                  np.asarray(ref_pp._stats(cube)))
+def _ref_find(ref_pp, cube):
+    """The JAX package's peaks, polynomials and counters on ``cube``."""
     reg = MetricsRegistry()
     prev = set_metrics(reg)
     try:
-        want, want_poly = ref_peaks.device_find_peaks(ref_pp, cube,
-                                                      np.zeros(2))
+        peaks, polys = ref_peaks.device_find_peaks(ref_pp, cube,
+                                                   np.zeros(len(cube)))
     finally:
         set_metrics(prev)
+    return peaks, polys, reg.summary()
+
+
+@pytest.mark.parametrize("dc", [True, False], ids=["1", "0"])
+@pytest.mark.parametrize("smin", [6.0, 3.0])
+def test_peaks_match_reference_on_same_cube(cube, dc, smin):
+    kw = dict(PKW, smin=smin)
+    pp = engine._peak_plan(periodogram_plan(*CFG), TOBS, **kw)
+    ref_pp = ref_peaks.PeakPlan(ref_plan(*CFG), TOBS, device_cluster=dc,
+                                **kw)
+    assert pp.device_cluster and ref_pp.device_cluster == dc
+    s = torch.from_numpy(cube).transpose(1, 2).contiguous()
+    np.testing.assert_array_equal(pp._stats_impl(s).numpy(),
+                                  np.asarray(ref_pp._stats(cube)))
+    want, want_poly, ref_counts = _ref_find(ref_pp, cube)
+    if not dc:
+        ref_counts = _ref_find(ref_peaks.PeakPlan(
+            ref_plan(*CFG), TOBS, device_cluster=True, **kw), cube)[2]
     port_reg = PortRegistry()
     prev = port_set_metrics(port_reg)
     try:
@@ -94,21 +107,23 @@ def test_peaks_match_reference_on_same_cube(monkeypatch, cube, dc, smin):
         assert gp.keys() == wp.keys()
         for iw in gp:
             np.testing.assert_array_equal(gp[iw], wp[iw])
-    ref_counts = reg.summary()
     for key in ("harmonic_suspects", "cluster_cols_device",
                 "cluster_cols_host"):
         assert port_reg.counter(key) == ref_counts.get(key, 0), key
 
 
-def test_run_search_batch_matches_reference(monkeypatch, batch):
+def test_run_search_batch_matches_reference(monkeypatch, paired_batch):
     monkeypatch.setenv("RIPTIDE_WIRE_DTYPE", "uint6")
-    monkeypatch.setenv("RIPTIDE_KERNEL_BASE3", "0")
     monkeypatch.setenv("RIPTIDE_FFA_PATH", "gather")
-    plan = periodogram_plan(*CFG)
+    plan = periodogram_plan(*PAIRED)
     assert engine.queued_launches(plan)["paired_stage"] == 1
-    want, _ = ref_engine.run_search_batch(ref_plan(*CFG), batch, TOBS,
-                                          **PKW)
-    got, _ = run_search_batch(plan, batch, TOBS, device="cpu", **PKW)
+    tobs = PAIRED_SIZE * TSAMP
+    want, _ = ref_engine.run_search_batch(ref_plan(*PAIRED), paired_batch,
+                                          tobs, **PKW)
+    with engine.recording() as rec:
+        got, _ = run_search_batch(plan, paired_batch, tobs, device="cpu",
+                                  **PKW)
+    assert [r["kind"] for r in rec["launches"]].count("paired_stage") == 1
     assert any(got)
     for g, w in zip(got, want):
         key = sorted((p.iw, p.ip) for p in g)
@@ -116,10 +131,6 @@ def test_run_search_batch_matches_reference(monkeypatch, batch):
         gs = {(p.iw, p.ip): p.snr for p in g}
         for p in w:
             np.testing.assert_allclose(gs[(p.iw, p.ip)], p.snr, rtol=1e-5)
-    monkeypatch.setenv("RIPTIDE_KERNEL_ROW_PACK", "0")
-    assert engine.queued_launches(plan)["paired_stage"] == 0
-    off, _ = run_search_batch(plan, batch, TOBS, device="cpu", **PKW)
-    assert [_csv_bytes(p) for p in got] == [_csv_bytes(p) for p in off]
 
 
 def test_queue_collect_with_prepared_and_shipped(monkeypatch, batch):
@@ -147,10 +158,9 @@ def test_queue_collect_with_prepared_and_shipped(monkeypatch, batch):
 def test_block_overflow_gather_matches_reference(cube, dc):
     """With one block carried home per column, columns with more
     non-empty blocks fetch the rest by a second gather; the peaks are
-    still the JAX package's."""
+    still the JAX package's, with its device clustering on and off."""
     kw = dict(PKW, smin=2.0)
-    pp = peaks_device.PeakPlan(periodogram_plan(*CFG), TOBS,
-                               device_cluster=dc, **kw)
+    pp = peaks_device.PeakPlan(periodogram_plan(*CFG), TOBS, **kw)
     ref_pp = ref_peaks.PeakPlan(ref_plan(*CFG), TOBS, device_cluster=dc,
                                 **kw)
     pp.CAP = ref_pp.CAP = 1
@@ -173,9 +183,8 @@ def test_device_constants_are_built_once_per_plan(monkeypatch, cube, dc):
     """Two batches through one ``PeakPlan`` build its device constants
     once (the second reuses the same tensors); the pulled buffer's bytes
     are those of a plan that builds them afresh, and the peaks the JAX
-    package's."""
-    pp = peaks_device.PeakPlan(periodogram_plan(*CFG), TOBS,
-                               device_cluster=dc, **PKW)
+    package's, with its device clustering on and off."""
+    pp = peaks_device.PeakPlan(periodogram_plan(*CFG), TOBS, **PKW)
     builds = []
     build = peaks_device.PeakPlan._build_consts
     monkeypatch.setattr(peaks_device.PeakPlan, "_build_consts",
@@ -190,8 +199,7 @@ def test_device_constants_are_built_once_per_plan(monkeypatch, cube, dc):
     second = peaks_device.device_find_peaks(pp, cube, np.zeros(2))
     assert builds == [cpu]
     assert all(pp._device_consts(cpu)[k] is v for k, v in consts.items())
-    fresh = peaks_device.PeakPlan(periodogram_plan(*CFG), TOBS,
-                                  device_cluster=dc, **PKW)
+    fresh = peaks_device.PeakPlan(periodogram_plan(*CFG), TOBS, **PKW)
     third = peaks_device.device_find_peaks(fresh, cube, np.zeros(2))
     assert builds == [cpu, cpu]
     assert first[0] == second[0] == third[0]

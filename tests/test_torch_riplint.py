@@ -828,9 +828,9 @@ def test_cpu_pull_one_call_below_the_stage_loop(tmp_path):
             k: v for k, v in interp.ROOTS.items() if k.startswith(HOT_REL)})]
     before = _run(lint, repo, analyzers)
     _patched(os.path.join(repo, HOT_REL),
-             "    mode = meta[\"mode\"]\n    rpm = _row_pack_map(plan, mode)\n",
-             "    mode = meta[\"mode\"]\n    _peek(wire)\n"
-             "    rpm = _row_pack_map(plan, mode)\n")
+             "    lay = launch_layout(plan, meta[\"mode\"])\n",
+             "    _peek(wire)\n"
+             "    lay = launch_layout(plan, meta[\"mode\"])\n")
     with open(os.path.join(repo, HOT_REL), "a") as fobj:
         fobj.write("\n\ndef _peek(wire):\n    return wire.cpu()\n")
     after = _run(lint, repo, analyzers)

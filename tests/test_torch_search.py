@@ -112,15 +112,15 @@ def test_recording_keeps_split_and_operands(monkeypatch):
     for key in ("prep_s", "ship_s", "stages_s", "out_s"):
         assert rec[key] >= 0.0
     assert "stage_ms" not in rec  # per-stage time is the ffa_stage spans'
-    assert len(rec["outs"]) == len(rec["layout"]) == len(plan.stages)
-    outs = [o for souts in rec["outs"] for o in souts]
-    assert [r["out"] for r in rec["launches"]] == outs
+    assert rec["layout"] is engine.launch_layout(plan, "uint6")
+    assert len(rec["outs"]) == len(rec["layout"].launches)
+    assert [r["out"] for r in rec["launches"]] == list(rec["outs"])
     for r in rec["launches"]:
         assert r["kind"] == "fused_stage"
         np.testing.assert_array_equal(r["out"].numpy(),
                                       fused_stage_plain(*r["args"]).numpy())
-    np.testing.assert_array_equal(
-        engine._assemble_device(plan, rec["layout"], rec["outs"]).numpy(), S)
+    np.testing.assert_array_equal(engine._assemble_device(
+        plan, rec["layout"].pieces, rec["outs"]).numpy(), S)
 
 
 def test_periods_monotonic_and_identity_contract():

@@ -12,8 +12,10 @@ and after every remaining level, must be bitwise those of
 ``ops/ffa.py::ffa_levels`` over the same levels, and of the JAX
 package's ``ffa_levels``: one float add per element in the same tree,
 whatever the split. Covered: every lane-bucket container of the
-headline plan (``BASELINE.md``), its 10 row-packed containers under
-``RIPTIDE_KERNEL_BASE3=0``, small m from 1 to 300, and phase widths that
+headline plan (``BASELINE.md``), the row-packed containers (K3) of the
+benchmark's example_long plan (riptide's example.yaml range long, 6
+pairs) and of two small plans (2 pairs each), small m from 1 to 300, and
+phase widths that
 put the tile height at both ends of its range. The S/N of the split
 levels matches the JAX package's K1 in interpret mode within rtol 1e-5,
 atol 1e-4 (the prefix sum's summation order; tests/test_torch_ffa_stage.py).
@@ -39,8 +41,12 @@ CPU = torch.device("cpu")
 HEADLINE = (2 ** 23, 64e-6, (1, 2, 3, 4, 6, 9, 13, 19, 28, 42), 0.5, 3.0,
             240, 260)
 CFG = (2500, 1e-3, (1, 2, 3), 64e-3, 0.072, 64, 67)
-FLAGS = ("RIPTIDE_KERNEL_BASE3", "RIPTIDE_KERNEL_ROW_PACK",
-         "RIPTIDE_KERNEL_LANE_SPLIT")
+# Plans whose layout pairs lane buckets: example_long (P 2-120 s at
+# 960-1040 bins, 6 pairs) and two small ones (2 pairs each).
+EXAMPLE_LONG = (2 ** 23, 64e-6, (1, 2, 3, 4, 6, 9, 13, 19, 28, 42, 63, 94,
+                                 141), 2.0, 120.0, 960, 1040)
+PAIRED = ((16384, 1e-3, (1, 2, 3), 0.12, 4.0, 120, 136),
+          (16384, 1e-3, (1, 2, 3), 0.064, 4.0, 64, 72))
 # Phase widths at both ends of the tile height's range: two float32
 # buffers of cap rows x p in MAX_DYNAMIC_SMEM bytes.
 P_WIDE = MAX_DYNAMIC_SMEM // (4 * fk.SNR_WARPS)    # cap 2 (the S/N limit)
@@ -49,13 +55,6 @@ P_NARROW = 8                                       # cap 3632
 
 def _cap(p):
     return MAX_DYNAMIC_SMEM // (8 * p)
-
-
-def _set_flags(monkeypatch, **flags):
-    for name in FLAGS:
-        monkeypatch.delenv(name, raising=False)
-    for name, value in flags.items():
-        monkeypatch.setenv(name, value)
 
 
 def _operands(b, device=CPU):
@@ -182,10 +181,9 @@ def headline():
 
 
 @pytest.mark.parametrize("stage", range(22))
-def test_headline_bucket_containers_bitwise(headline, monkeypatch, stage):
+def test_headline_bucket_containers_bitwise(headline, stage):
     """Every lane-bucket container of the headline plan (43 in 22
     stages): the split levels are the plain levels' bits."""
-    _set_flags(monkeypatch)
     assert len(headline.stages) == 22
     st = headline.stages[stage]
     for k in range(len(st.lane_buckets)):
@@ -199,8 +197,7 @@ def test_headline_bucket_containers_bitwise(headline, monkeypatch, stage):
 
 
 @pytest.mark.parametrize("stage", [0, 21])
-def test_headline_split_matches_jax_ffa_levels(headline, monkeypatch, stage):
-    _set_flags(monkeypatch)
+def test_headline_split_matches_jax_ffa_levels(headline, stage):
     b = headline.stages[stage].bucket_batch(0)
     rb = RefBatchPlan(b.m, b.p, R=b.R, P=b.P, L=b.L)
     np.testing.assert_array_equal(b.h, rb.h)
@@ -209,29 +206,36 @@ def test_headline_split_matches_jax_ffa_levels(headline, monkeypatch, stage):
 
 
 def _paired_containers(plan):
-    rpm = engine._row_pack_map(plan, "uint6")
-    out = []
-    for (s, k), entry in sorted(rpm.items()):
-        if entry[0] == "host":
-            out.append(plan.stages[s].paired_batch(
-                k, plan.stages[entry[1]], entry[2]))
+    """The K3 containers of the plan's layout, in launch order."""
+    return [plan.stages[ln.stage].paired_batch(
+        ln.bucket, plan.stages[ln.guest], ln.bases)
+        for ln in engine.launch_layout(plan, "uint6").launches
+        if ln.kind == "paired_stage"]
+
+
+@pytest.fixture(scope="module")
+def paired():
+    out = _paired_containers(periodogram_plan(*EXAMPLE_LONG))
+    assert len(out) == 6
+    for cfg in PAIRED:
+        more = _paired_containers(periodogram_plan(*cfg))
+        assert len(more) == 2
+        out += more
     return out
 
 
 @pytest.mark.parametrize("i", range(10))
-def test_headline_paired_containers_bitwise(headline, monkeypatch, i):
-    """The 10 row-packed containers (K3) of the headline plan under
-    RIPTIDE_KERNEL_BASE3=0: host and guest rows through the split levels
-    are the plain levels' bits, and the JAX package's."""
-    _set_flags(monkeypatch, RIPTIDE_KERNEL_BASE3="0")
-    pairs = _paired_containers(headline)
-    assert len(pairs) == 10
-    b = pairs[i]
+def test_headline_paired_containers_bitwise(paired, i):
+    """The row-packed containers (K3) of the default layout: example_long's
+    6 (0-5) and two small plans' 2 each (6-9). Host and guest rows
+    through the split levels are the plain levels' bits, and the JAX
+    package's."""
+    b = paired[i]
     assert (b.gbase >= 0).any()
     x = _filled(b, seed=200 + i)
-    _check_split(b, x, every=i == 9)
+    _check_split(b, x, every=i in (5, 9))
     _check_invariants(b, b.segments)
-    if i in (0, 9):
+    if i in (0, 5, 9):
         _check_jax(b, x)
 
 
@@ -304,13 +308,11 @@ def test_segment_plan_refuses_a_phase_width_without_room():
     _check_split(b, _filled(b, seed=4))
 
 
-def test_segment_tables_built_once_and_shipped_with_the_operands(headline,
-                                                                 monkeypatch):
+def test_segment_tables_built_once_and_shipped_with_the_operands(headline):
     """The segment plan is built at a container's first use and kept;
     the operands are cached, so a second search builds and ships
     nothing. The CPU's operands carry no segment plan and build none
     (the CUDA operands' tiles: tests/test_torch_kernels_cuda.py)."""
-    _set_flags(monkeypatch)
     st = headline.stages[3]
     t1, _ = engine._bucket_operands(st, headline, 0, CPU)
     t2, _ = engine._bucket_operands(st, headline, 0, CPU)
