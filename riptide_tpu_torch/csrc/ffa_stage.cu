@@ -67,9 +67,16 @@
 // 6-7 of 8-11 levels. What bounds them in practice: a segment block
 // needs up to 227 KB, so one block runs per SM and its fill, levels and
 // write follow each other rather than overlap (at one DM trial, a
-// launch of a later stage also fills only a third of the SMs); the
-// global levels' traffic; and the S/N kernel, unchanged, whose read of
-// the last level's output a later design fuses away.
+// launch of a later stage also fills only a third of the SMs); and the
+// global levels' traffic. The narrow S/N kernel keeps the sums' order
+// in few shared-memory passes a row: the row is read coalesced into
+// shared memory, each lane's in-order chunk scan runs skewed so that no
+// two lanes touch one bank, and each lane keeps its phases' prefix sums
+// in registers through the width loop (a form per bound on ceil(P / 32),
+// 4 to 64 phases a lane, chosen from P at launch; past 2,048 phases they
+// stay in shared memory). Its width loop then reads one shared float a
+// window, and it is paced by that loop's instruction count and by its
+// shared-memory reads.
 //
 // Wide phases. Past kNarrowP a plan's container holds few rows (a few
 // hundred a stage) of tens of thousands of phases, so a warp a row
@@ -106,8 +113,9 @@
 // and the S/N differs from the plain snr_batched only through the
 // summation order of the prefix sum. That
 // order depends on the trial's p alone (chunks of ceil(p / 32) phases per
-// lane), never on the container's P or R, so a trial's S/N is the same
-// bits in any lane bucket, container height or pairing.
+// lane), never on the container's P or R, nor on the S/N kernel's form,
+// so a trial's S/N is the same bits in any lane bucket, container
+// height, pairing or register form.
 //
 // Interface. Plain extern "C" launchers (loaded with ctypes), each
 // launching on the caller's stream and returning cudaGetLastError();
@@ -522,84 +530,6 @@ __global__ void __launch_bounds__(kColThreads) ffa_level_cols_kernel(
   }
 }
 
-// One warp per evaluated row (d, b, r < RE), kSnrWarps rows a block (P
-// <= kNarrowP). The row's inclusive prefix sum lives in the warp's P
-// floats of shared memory: each lane scans a contiguous chunk, a shuffle
-// scan adds the chunk offsets. Then for each width the warp takes the
-// maximum over the p phases of the circular window sum cs[(j + w) mod p]
-// (+ total on wrap) - cs[j], and lane 0 writes ((h + b) * dmax - b *
-// total) / std (ops/snr.py). With gbase (row-packed containers; null
-// otherwise), rows r >= gbase[b] >= 0 take the guest trial's
-// gh/gb/gstd instead.
-__global__ void boxcar_snr_kernel(
-    const float* __restrict__ in, float* __restrict__ out,
-    const int32_t* __restrict__ ps, const int32_t* __restrict__ widths,
-    const float* __restrict__ hcoef, const float* __restrict__ bcoef,
-    const float* __restrict__ stdnoise, const int32_t* __restrict__ gbase,
-    const float* __restrict__ ghcoef, const float* __restrict__ gbcoef,
-    const float* __restrict__ gstdnoise, int64_t nrows, int32_t B,
-    int32_t R, int32_t P, int32_t RE, int32_t NW) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= nrows) return;  // whole warps leave together
-  const int64_t q = row / RE;
-  const int32_t r = (int32_t)(row - q * RE);
-  const int32_t b = (int32_t)(q % B);
-  const int32_t p = ps[b];
-  const float* x = in + (q * R + r) * P;
-  float* cs = smem + warp * P;
-  const bool guest = gbase != nullptr && gbase[b] >= 0 && r >= gbase[b];
-  const float* hc = guest ? ghcoef : hcoef;
-  const float* bc = guest ? gbcoef : bcoef;
-  const float sn = guest ? gstdnoise[b] : stdnoise[b];
-
-  const int32_t chunk = (p + 31) / 32;
-  const int32_t c0 = min(lane * chunk, p);
-  const int32_t c1 = min(c0 + chunk, p);
-  float run = 0.0f;
-  for (int32_t c = c0; c < c1; ++c) {
-    run = __fadd_rn(run, x[c]);
-    cs[c] = run;
-  }
-  float incl = run;
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl = __fadd_rn(incl, y);
-  }
-  float excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) excl = 0.0f;
-  if (lane > 0) {
-    for (int32_t c = c0; c < c1; ++c) cs[c] = __fadd_rn(excl, cs[c]);
-  }
-  __syncwarp();
-  const float total = cs[p - 1];
-
-  float* o = out + row * NW;
-  for (int32_t iw = 0; iw < NW; ++iw) {
-    const int32_t w = widths[iw];
-    float best = -INFINITY;
-    for (int32_t j = lane; j < p; j += 32) {
-      int32_t idx = j + w;  // boxcar covering phases [j+1, j+w]
-      const bool wrap = idx >= p;
-      if (wrap) idx -= p;
-      const float dv =
-          __fsub_rn(__fadd_rn(cs[idx], wrap ? total : 0.0f), cs[j]);
-      best = fmaxf(best, dv);
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      best = fmaxf(best, __shfl_xor_sync(kFull, best, off));
-    if (lane == 0) {
-      const float hh = hc[(int64_t)b * NW + iw];
-      const float bb = bc[(int64_t)b * NW + iw];
-      const float num = __fsub_rn(__fmul_rn(__fadd_rn(hh, bb), best),
-                                  __fmul_rn(bb, total));
-      o[iw] = __fdiv_rn(num, sn);
-    }
-  }
-}
-
 // An order-preserving map of floats onto unsigned integers (a < b as
 // floats iff key(a) < key(b), -0 just below +0), and its inverse.
 __device__ __forceinline__ unsigned order_key(float f) {
@@ -609,6 +539,229 @@ __device__ __forceinline__ unsigned order_key(float f) {
 
 __device__ __forceinline__ float key_value(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// n / d for 0 <= n < 2^31: (n * m) >> sh with sh = 31 + ceil(log2 d) and
+// m = ceil(2^sh / d) < 2^32 (Granlund and Montgomery, 1994, theorem 4.2),
+// built on the host once a launch.
+struct RowDiv {
+  uint32_t m, sh;
+};
+
+inline RowDiv row_div(uint32_t d) {
+  uint32_t l = 0;
+  while ((1ull << l) < d) ++l;
+  const uint32_t sh = 31 + l;
+  return {(uint32_t)(((1ull << sh) + d - 1) / d), sh};
+}
+
+__device__ __forceinline__ uint32_t div_row(uint32_t n, RowDiv d) {
+  return (uint32_t)(((uint64_t)n * d.m) >> d.sh);
+}
+
+// The narrow S/N's register form at container width P <= kNarrowP: the
+// phases a lane keeps in registers, ceil(P / 32) rounded up to a multiple
+// of kSnrRegsStep, or 0 past kSnrRegsMax (P > 2,048: the form that keeps
+// them in shared memory alone).
+constexpr int kSnrRegsStep = 4;
+constexpr int kSnrRegsMax = 64;
+
+__host__ __device__ constexpr int snr_regs(int64_t P) {
+  return (P + 31) / 32 > kSnrRegsMax
+             ? 0
+             : (int)(((P + 31) / 32 + kSnrRegsStep - 1) / kSnrRegsStep *
+                     kSnrRegsStep);
+}
+
+// One warp per evaluated row (d, b, r < RE), kSnrWarps rows a block (P
+// <= kNarrowP), the row's inclusive prefix sums cs in the warp's P floats
+// of shared memory. Steps, each closed by __syncwarp:
+//   1. the row into shared memory, consecutive lanes on consecutive
+//      phases (float4 where `vec`: P % 4 == 0 and an aligned container);
+//   2. lane i scans chunk i, phases [i * chunk, (i + 1) * chunk) with
+//      chunk = ceil(p / 32), in place and in order from a zero run.
+//      Chunk i starts on bank i * chunk mod 32, which g lanes share (g =
+//      the largest power of two dividing chunk, at most 32); lane i starts
+//      (i * g) >> 5 steps late, so that at every step the 32 lanes touch
+//      32 different banks, and the scan takes chunk + g - 1 steps. The
+//      chunk totals go through the shuffle scan; chunk k > 0 then takes
+//      the exclusive offset of the chunks before it;
+//   3. each lane adds the offsets to phases j = lane + 32 k (consecutive
+//      lanes on consecutive phases) and, in the register forms (kRegs >
+//      0, kRegs >= ceil(P / 32)), keeps cs[j] in reg[k];
+//   4. for each width w, the maximum over the p circular windows of
+//      phases [j + 1, j + w]: (cs[j + w] - cs[j]) for the starts j < p - w
+//      (lane's registers and one shared read a window), and (cs[e] + total)
+//      - cs[e + p - w] for the windows that wrap, by their end e < w. The
+//      warp's maximum (redux.sync on an order-preserving key) goes to lane
+//      w mod 32, and lane by lane the widths' S/N ((h + b) * dmax - b *
+//      total) / std (ops/snr.py) are written together.
+// Bits: the chain of adds of each chunk, the shuffle scan and the offset
+// adds are snr_row_kernel's, so every prefix sum has the wide form's
+// bits (tests/test_torch_kernels_cuda.py). A window's value is the same
+// __fsub_rn((cs[e] + (wrap ? total : +0)), cs[j]); the +0 of a window that
+// does not wrap is left out, which changes no bit since no prefix sum is
+// -0 (every one is a round-to-nearest sum that starts from +0) and the
+// sum of a NaN is NaN either way. fmaxf and the integer maximum of the
+// keys are exact in any order (no window difference is -0, no lane's
+// maximum NaN). Widths are 1 <= w <= p, as ops/snr.py takes them. With
+// gbase (row-packed containers; null otherwise), rows r >= gbase[b] >= 0
+// take the guest trial's gh/gb/gstd instead.
+template <int kRegs>
+__global__ void __launch_bounds__(kSnrWarps * 32) boxcar_snr_kernel(
+    const float* __restrict__ in, float* __restrict__ out,
+    const int32_t* __restrict__ ps, const int32_t* __restrict__ widths,
+    const float* __restrict__ hcoef, const float* __restrict__ bcoef,
+    const float* __restrict__ stdnoise, const int32_t* __restrict__ gbase,
+    const float* __restrict__ ghcoef, const float* __restrict__ gbcoef,
+    const float* __restrict__ gstdnoise, int64_t nrows, int32_t B,
+    int32_t R, int32_t P, int32_t RE, int32_t NW, int32_t vec, RowDiv dre,
+    RowDiv db) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * kSnrWarps + warp;
+  if (row >= nrows) return;  // whole warps leave together
+  int64_t q;
+  int32_t r, b;
+  if (nrows <= INT32_MAX) {
+    const uint32_t q32 = div_row((uint32_t)row, dre);
+    r = (int32_t)((uint32_t)row - q32 * (uint32_t)RE);
+    b = (int32_t)(q32 - div_row(q32, db) * (uint32_t)B);
+    q = q32;
+  } else {
+    q = row / RE;
+    r = (int32_t)(row - q * RE);
+    b = (int32_t)(q % B);
+  }
+  const int32_t p = ps[b];
+  const float* x = in + (q * R + r) * P;
+  float* cs = smem + warp * P;
+  const bool guest = gbase != nullptr && gbase[b] >= 0 && r >= gbase[b];
+  const float* hc = (guest ? ghcoef : hcoef) + (int64_t)b * NW;
+  const float* bc = (guest ? gbcoef : bcoef) + (int64_t)b * NW;
+  const float sn = guest ? gstdnoise[b] : stdnoise[b];
+
+  // 1. (A float4 load may read phases past p, never past P.)
+  if (vec) {
+    const float4* xv = reinterpret_cast<const float4*>(x);
+    float4* cv = reinterpret_cast<float4*>(cs);
+#pragma unroll 4
+    for (int32_t i = lane; i < (p + 3) >> 2; i += 32) cv[i] = xv[i];
+  } else {
+#pragma unroll 4
+    for (int32_t i = lane; i < p; i += 32) cs[i] = x[i];
+  }
+  __syncwarp();
+  // 2. kScanBatch loads go ahead of their adds; a step outside the
+  // lane's chunk adds +0.0f, which leaves the run as it is, and stores
+  // nothing.
+  const int32_t chunk = (p + 31) >> 5;
+  const int32_t c0 = min(lane * chunk, p);
+  const int32_t cn = min(c0 + chunk, p) - c0;
+  const int32_t g = min(chunk & -chunk, 32);
+  const int32_t late = (lane * g) >> 5;
+  float run = 0.0f;
+  for (int32_t t0 = -late; t0 < chunk + g - 1 - late; t0 += kScanBatch) {
+    float v[kScanBatch];
+#pragma unroll
+    for (int j = 0; j < kScanBatch; ++j) {
+      const int32_t k = t0 + j;
+      v[j] = (uint32_t)k < (uint32_t)cn ? cs[c0 + k] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kScanBatch; ++j) {
+      const int32_t k = t0 + j;
+      run = __fadd_rn(run, v[j]);
+      if ((uint32_t)k < (uint32_t)cn) cs[c0 + k] = run;
+    }
+  }
+  float incl = run;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl = __fadd_rn(incl, y);
+  }
+  float excl = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) excl = 0.0f;
+  __syncwarp();
+  // 3. Phase j lies in chunk j / chunk = umulhi(j, ceil(2^32 / chunk))
+  // (exact for j < 2^16); a chunk of one phase is its own index.
+  const uint32_t inv = 0xffffffffu / (uint32_t)chunk + 1u;
+  const auto chunk_of = [&](uint32_t j) {
+    return chunk == 1 ? j : __umulhi(j, inv);
+  };
+  float reg[kRegs > 0 ? kRegs : 1];
+  if constexpr (kRegs > 0) {
+#pragma unroll
+    for (int k = 0; k < kRegs; ++k) {
+      const uint32_t j = lane + 32 * k;
+      const uint32_t ci = chunk_of(j);
+      const float e = __shfl_sync(kFull, excl, ci);
+      float v = 0.0f;
+      if (j < (uint32_t)p) v = cs[j];
+      if (ci > 0) v = __fadd_rn(e, v);
+      if (j < (uint32_t)p) cs[j] = v;
+      reg[k] = v;
+    }
+  } else {
+#pragma unroll 4
+    for (int32_t k = 0; k < chunk; ++k) {
+      const uint32_t j = lane + 32 * k;
+      const uint32_t ci = chunk_of(j);
+      const float e = __shfl_sync(kFull, excl, ci);
+      if (j < (uint32_t)p && ci > 0) cs[j] = __fadd_rn(e, cs[j]);
+    }
+  }
+  __syncwarp();
+  const float total = cs[p - 1];
+
+  // 4.
+  float* o = out + row * NW;
+  for (int32_t i0 = 0; i0 < NW; i0 += 32) {
+    const int32_t nw = min(NW - i0, 32);
+    const bool mine = lane < nw;  // this lane writes width i0 + lane
+    const int32_t wl = mine ? widths[i0 + lane] : 0;
+    const float hh = mine ? hc[i0 + lane] : 0.0f;
+    const float bb = mine ? bc[i0 + lane] : 0.0f;
+    unsigned key = 0;
+    for (int32_t i = 0; i < nw; ++i) {
+      const int32_t w = __shfl_sync(kFull, wl, i);
+      const float* hi = cs + lane + w;      // hi[32 k] = cs[j + w]
+      const float* lo = cs + lane + p - w;  // lo[32 m] = cs[e + p - w]
+      float best = -INFINITY;
+      if constexpr (kRegs > 0) {
+        const int32_t room = p - w - lane;  // j + w < p: 32 k < room
+#pragma unroll
+        for (int k = 0; k < kRegs; ++k)
+          if (32 * k < room)
+            best = fmaxf(best, __fsub_rn(hi[32 * k], reg[k]));
+        const int32_t ends = w - lane;  // e < w: 32 m < ends
+#pragma unroll
+        for (int m = 0; m < kRegs; ++m) {
+          if (32 * m >= w) break;
+          if (32 * m < ends)
+            best = fmaxf(best,
+                         __fsub_rn(__fadd_rn(reg[m], total), lo[32 * m]));
+        }
+      } else {
+#pragma unroll 4
+        for (int32_t j = lane; j < p - w; j += 32)
+          best = fmaxf(best, __fsub_rn(cs[j + w], cs[j]));
+#pragma unroll 4
+        for (int32_t e = lane; e < w; e += 32)
+          best = fmaxf(best,
+                       __fsub_rn(__fadd_rn(cs[e], total), cs[e + p - w]));
+      }
+      const unsigned top = __reduce_max_sync(kFull, order_key(best));
+      if (lane == i) key = top;
+    }
+    if (mine) {
+      const float num =
+          __fsub_rn(__fmul_rn(__fadd_rn(hh, bb), key_value(key)),
+                    __fmul_rn(bb, total));
+      o[i0 + lane] = __fdiv_rn(num, sn);
+    }
+  }
 }
 
 // The wide S/N (P > kNarrowP): one evaluated row (d, b, r < RE) per
@@ -808,6 +961,10 @@ long long rt_level_blocks(long long D, int B, int R, int P) {
 // block or cluster.
 int rt_snr_blocks(long long P) { return P <= kNarrowP ? 1 : snr_blocks(P); }
 
+// The narrow S/N's register form at width P (snr_regs; -1 past
+// kNarrowP, where the wide kernel runs).
+int rt_snr_regs(long long P) { return P <= kNarrowP ? snr_regs(P) : -1; }
+
 int rt_snr_smem(long long P) {
   if (P <= kNarrowP) return kSnrWarps * (int)P * 4;
   const int n = snr_blocks(P);
@@ -817,7 +974,7 @@ int rt_snr_smem(long long P) {
 // Once per process, when the library loads: let the kernels that take
 // more than 48 KB of dynamic shared memory opt into the H100's 227 KB.
 int rt_init() {
-  const void* fns[] = {(const void*)boxcar_snr_kernel,
+  const void* fns[] = {(const void*)boxcar_snr_kernel<0>,
                        (const void*)snr_row_kernel<false>,
                        (const void*)snr_row_kernel<true>,
                        (const void*)segment_cascade_kernel<true>,
@@ -934,19 +1091,46 @@ int rt_boxcar_snr(const void* in, void* out, const void* ps,
   const int64_t nrows = D * B * (int64_t)RE;
   if (nrows == 0) return 0;
   const size_t smem = (size_t)rt_snr_smem(P);
+  const int32_t vec = P % 4 == 0 && ((uintptr_t)in & 15) == 0;
   if (P <= kNarrowP) {
-    boxcar_snr_kernel<<<(unsigned)ceil_div(nrows, kSnrWarps), kSnrWarps * 32,
-                        smem, (cudaStream_t)stream>>>(
-        (const float*)in, (float*)out, (const int32_t*)ps,
-        (const int32_t*)widths, (const float*)hcoef, (const float*)bcoef,
-        (const float*)stdnoise, (const int32_t*)gbase, (const float*)ghcoef,
-        (const float*)gbcoef, (const float*)gstdnoise, nrows, B, R, P, RE,
-        NW);
+    const unsigned blocks = (unsigned)ceil_div(nrows, kSnrWarps);
+    const RowDiv dre = row_div((uint32_t)RE), db = row_div((uint32_t)B);
+#define RT_SNR_FORM(K)                                                    \
+  case K:                                                                 \
+    boxcar_snr_kernel<K><<<blocks, kSnrWarps * 32, smem,                  \
+                           (cudaStream_t)stream>>>(                       \
+        (const float*)in, (float*)out, (const int32_t*)ps,                \
+        (const int32_t*)widths, (const float*)hcoef, (const float*)bcoef, \
+        (const float*)stdnoise, (const int32_t*)gbase,                    \
+        (const float*)ghcoef, (const float*)gbcoef,                       \
+        (const float*)gstdnoise, nrows, B, R, P, RE, NW, vec, dre, db);   \
+    break;
+    switch (snr_regs(P)) {
+      RT_SNR_FORM(0)
+      RT_SNR_FORM(4)
+      RT_SNR_FORM(8)
+      RT_SNR_FORM(12)
+      RT_SNR_FORM(16)
+      RT_SNR_FORM(20)
+      RT_SNR_FORM(24)
+      RT_SNR_FORM(28)
+      RT_SNR_FORM(32)
+      RT_SNR_FORM(36)
+      RT_SNR_FORM(40)
+      RT_SNR_FORM(44)
+      RT_SNR_FORM(48)
+      RT_SNR_FORM(52)
+      RT_SNR_FORM(56)
+      RT_SNR_FORM(60)
+      RT_SNR_FORM(64)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef RT_SNR_FORM
     return (int)cudaGetLastError();
   }
   const int n = snr_blocks(P);
   if (n == 0) return (int)cudaErrorInvalidValue;
-  const int32_t vec = P % 4 == 0 && ((uintptr_t)in & 15) == 0;
   if (n == 1) {
     snr_row_kernel<false><<<(unsigned)nrows, kRowThreads, smem,
                             (cudaStream_t)stream>>>(

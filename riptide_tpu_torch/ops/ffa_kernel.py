@@ -47,6 +47,8 @@ where it launches its kernels, and to no other. :data:`KERNEL_LAUNCHES`
 counts the CUDA launches by kernel: the segment kernel's two forms apart
 (``segment_wire`` fills its tiles from the wire, for K1 and K3;
 ``segment_container`` from a packed float container, for K2).
+:data:`SNR_FORMS` counts a card's narrow S/N launches again, by the
+register form P picks (:func:`snr_regs`).
 
 Shape only. Tensors on the ``meta`` device take the card's path with
 the :class:`ShapeOnlyLibrary` in place of the built one: the wrapper
@@ -69,7 +71,9 @@ have, and the kernels take every phase width up to :data:`MAX_P`.
 
 Wide phases. P alone picks each kernel's form. Up to :data:`NARROW_P`
 (14,528) a level launch gives each row a warp and the S/N kernel keeps
-four rows' prefix sums in a block's shared memory. A wider container
+four rows' prefix sums in a block's shared memory (up to P = 2,048 each
+lane keeps its phases' sums in registers too, in a form P picks:
+:func:`snr_regs`). A wider container
 (where, too, no row pair fits a segment tile, so every level is a level
 launch, :func:`~.plan.segment_plan`) takes the wide forms: each level
 over (row x column) blocks (:func:`level_grid`), and the S/N one row a
@@ -97,7 +101,7 @@ __all__ = ["fused_stage", "cascade_stage", "paired_stage", "segment_levels",
            "segment_levels_plain", "fill_plain", "StageGeom", "WireSource",
            "Tables", "Coefs", "LAUNCHES", "KERNEL_LAUNCHES", "reset_launches",
            "build", "bucket_rows", "snr_launch", "SnrLaunch", "level_grid",
-           "NARROW_P", "MAX_P", "WIRE_MODES",
+           "snr_regs", "SNR_FORMS", "NARROW_P", "MAX_P", "WIRE_MODES",
            "ShapeOnlyLibrary", "shape_only"]
 
 SOURCE = cuda_build.CSRC / "ffa_stage.cu"
@@ -118,6 +122,10 @@ NARROW_P = MAX_DYNAMIC_SMEM // (4 * SNR_WARPS)
 COL_THREADS, COL_SPAN = 256, 1024
 ROW_THREADS, MAX_CLUSTER = 1024, 8
 MAX_P = MAX_CLUSTER * MAX_DYNAMIC_SMEM // 4
+# The narrow S/N's register forms (ffa_stage.cu's snr_regs): a lane keeps
+# ceil(P / 32) prefix sums in registers, the bound rounded up to a
+# multiple of SNR_REGS_STEP, up to SNR_REGS_MAX (P <= 2,048).
+SNR_REGS_STEP, SNR_REGS_MAX = 4, 64
 
 
 class SnrLaunch(NamedTuple):
@@ -153,6 +161,20 @@ def snr_launch(P):
                      f"widest, {MAX_P}")
 
 
+def snr_regs(P):
+    """The narrow S/N kernel's register form at container width P, as
+    ``rt_boxcar_snr`` picks it: the prefix sums a lane keeps in registers
+    through the width loop, ceil(P / 32) rounded up to a multiple of
+    SNR_REGS_STEP; 0 past SNR_REGS_MAX of them (P > 2,048: the form that
+    keeps them in shared memory alone); None past :data:`NARROW_P`, where
+    the wide kernel runs. Every form gives the same bits."""
+    P = int(P)
+    if P > NARROW_P:
+        return None
+    n = -(-P // 32)
+    return 0 if n > SNR_REGS_MAX else -(-n // SNR_REGS_STEP) * SNR_REGS_STEP
+
+
 def level_grid(D, B, R, P):
     """(blocks, threads a block) of one level launch over a (D, B, R, P)
     container, as ``rt_ffa_levels`` launches it: up to :data:`NARROW_P`
@@ -167,13 +189,18 @@ def level_grid(D, B, R, P):
 LAUNCHES = {"fused_stage": 0, "cascade_stage": 0, "paired_stage": 0}
 KERNEL_LAUNCHES = {"segment_wire": 0, "segment_container": 0,
                    "ffa_level": 0, "boxcar_snr": 0}
+# Narrow S/N launches on a card by register form (:func:`snr_regs`):
+# {form: launches}, a form's key present once it has run.
+SNR_FORMS = {}
 
 
 def reset_launches():
-    """Set every launch count to 0 (wrapper calls and CUDA launches)."""
+    """Set every launch count to 0 (wrapper calls and CUDA launches) and
+    empty :data:`SNR_FORMS`."""
     for counts in (LAUNCHES, KERNEL_LAUNCHES):
         for k in counts:
             counts[k] = 0
+    SNR_FORMS.clear()
 
 
 class StageGeom(NamedTuple):
@@ -265,11 +292,12 @@ def _bind(lib):
     lib.rt_boxcar_snr.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                   ll, i32, i32, i32, i32, i32, vp]
     lib.rt_snr_blocks.argtypes = lib.rt_snr_smem.argtypes = [ll]
+    lib.rt_snr_regs.argtypes = [ll]
     lib.rt_level_blocks.argtypes = [ll, i32, i32, i32]
     lib.rt_level_blocks.restype = ll
     for fn in (lib.rt_segment_cascade, lib.rt_ffa_levels, lib.rt_boxcar_snr,
                lib.rt_snr_warps, lib.rt_max_dynamic_smem, lib.rt_snr_blocks,
-               lib.rt_snr_smem):
+               lib.rt_snr_smem, lib.rt_snr_regs):
         fn.restype = i32
     if lib.rt_snr_warps() != SNR_WARPS:
         raise RuntimeError("ffa_stage.cu and ffa_kernel.py disagree on "
@@ -286,12 +314,19 @@ def _bind(lib):
         if lib.rt_level_blocks(2, 9, 24, P) != level_grid(2, 9, 24, P)[0]:
             raise RuntimeError(f"ffa_stage.cu and ffa_kernel.py disagree "
                                f"on the level grid at P = {P}")
+    for P in _SHAPE_CHECKS + _REGS_CHECKS:
+        want = snr_regs(P)
+        if lib.rt_snr_regs(P) != (-1 if want is None else want):
+            raise RuntimeError(f"ffa_stage.cu and ffa_kernel.py disagree "
+                               f"on the S/N register form at P = {P}")
 
 
 # Widths at which the library's launch shapes are held to snr_launch and
 # level_grid when it loads: each form's edges.
 _SHAPE_CHECKS = (128, NARROW_P, NARROW_P + 1, 29056, 58112, 58113, 116224,
                  116225, MAX_P, MAX_P + 1)
+# ... and the narrow S/N's register forms: each bound's edges.
+_REGS_CHECKS = (1, 32, 33, 128, 129, 256, 257, 2048, 2049)
 
 
 _LIB = cuda_build.Library(SOURCE, _bind)
@@ -646,6 +681,9 @@ def _snr(rt, x, tables, coefs):
         *(None if tables.gbase is None else _ptr(g) for g in guest),
         D, B, R, P, coefs.rows, NW, stream))
     kernels["boxcar_snr"] += 1
+    form = snr_regs(P)
+    if form is not None and x.device.type != "meta":
+        SNR_FORMS[form] = SNR_FORMS.get(form, 0) + 1
     return out
 
 

@@ -6,6 +6,7 @@ on one CUDA card:
     python3 stage_times.py [--tree DIR] [--survey] [--profile]
     python3 stage_times.py [--tree DIR] --probes
     python3 stage_times.py [--tree DIR] --wide
+    python3 stage_times.py [--tree DIR] --snr
 
 ``--tree`` imports ``riptide_tpu_torch`` from DIR (default: the
 directory of this script), so that two versions of the port are timed
@@ -29,7 +30,8 @@ JSON object:
   and the time between two CUDA events around the loop and its
   assembly (D = 1);
 * ``launches``: wrapper calls per headline search and, where the tree
-  counts them, ``cuda_launches`` by kernel;
+  counts them, ``cuda_launches`` by kernel and ``snr_forms``, its
+  narrow S/N launches by register form;
 * ``K1`` over the headline's 43 launches and ``K2`` over the parity
   oracle's 17 float32 launches: ``graph_ms``, device time from CUDA
   graph replays of all the launches (median of 20), and ``wrapper_ms``,
@@ -73,6 +75,21 @@ alone (the segment kernel, each global level, the S/N kernel), device ms
 summed over the launches beside its bound
 (``chip_smoke.kernel_split``).
 
+``--snr`` times the tree's narrow S/N kernel alone instead
+(``ffa_kernel._snr``: ``boxcar_snr_kernel``, no level), at D = 128 on
+the S/N launches of one stage loop of each of :data:`SNR_CELLS`: the
+benchmark's ``quickstart`` and ``example_long`` configurations and
+``example_yaml``'s ``medium`` range (``portbench/configs/``), each
+launch's container (D, B, R, P) drawn once from a fixed seed. Each entry
+of ``snr`` holds the launches, ``ms``: the median (and 10th / 90th
+percentiles) of REPS passes over all of them between CUDA events,
+``bound_ms``: the least time of the plan's S/N work
+(``portbench/roofline.py``'s count a row: p + 3 nw p + 5 nw operations,
+4 p bytes read and 4 nw written, over the plan's evaluated rows) and
+``roofline_pct``, ``snr_sha256`` (a digest of every output's bits: equal
+digests mean the trees give the same bits) and ``forms``, the launches
+by register form where the tree counts them.
+
 Imports nothing of jax and nothing of the JAX package.
 """
 import argparse
@@ -101,6 +118,10 @@ P1_PATTERNS = ("add", "roll_lanes", "roll_rows", "select", "barrel",
                "stride_roll")
 P3_ROWS, P3_COLS, P3_DEPTH, P3_NITER = 1536, 384, 11, 32
 GRAPH_CALLS = 8
+# --snr: (configuration file, search range or None) and the batch.
+SNR_CELLS = (("quickstart", None), ("example_long", None),
+             ("example_yaml", "medium"))
+SNR_D = 128
 
 
 def _load_smoke():
@@ -214,6 +235,10 @@ def main(argv=None):
                     help="time the tree's K1 and K2 on phase 5w's three "
                          "wide-phase searches, kernel by kernel, instead "
                          "of the search")
+    ap.add_argument("--snr", action="store_true",
+                    help="time the tree's narrow S/N kernel alone on three "
+                         "benchmark configurations' stage launches at "
+                         "D = 128, instead of the search")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -230,6 +255,13 @@ def main(argv=None):
               flush=True)
         return 0
     smoke = _load_smoke()
+    if args.snr:
+        card = smoke.gpu_line()
+        print(card, flush=True)
+        print(json.dumps({"tree": tree, "card": card,
+                          "snr": _snr_alone(torch.device("cuda"))}),
+              flush=True)
+        return 0
     if args.wide:
         card = smoke.gpu_line()
         print(card, flush=True)
@@ -273,6 +305,8 @@ def main(argv=None):
     res["launches"] = dict(fk.LAUNCHES)
     if counted is not None:
         res["cuda_launches"] = dict(counted)
+    if hasattr(fk, "SNR_FORMS"):
+        res["snr_forms"] = dict(fk.SNR_FORMS)
 
     plan = smoke.headline_plan()
     shipped = (rec["wire"], rec["meta"])
@@ -407,6 +441,80 @@ def _wide(smoke, dev):
             out.append(res)
             del rec, args
             torch.cuda.empty_cache()
+    return out
+
+
+def _snr_alone(dev):
+    """One entry per :data:`SNR_CELLS` configuration: its S/N launches'
+    times against the bound of the plan's S/N work, their outputs'
+    digest and register forms. The plans and the bound come from this
+    checkout's ``portbench``, whatever the tree."""
+    import torch
+    from riptide_tpu_torch.ops import ffa_kernel as fk
+    from riptide_tpu_torch.search import engine
+
+    sys.path.insert(0, HERE)
+    try:
+        from portbench import roofline
+        from portbench.cell import plan_of
+        from portbench.ranges import ranges
+    finally:
+        sys.path.remove(HERE)
+
+    fk._LIB.load()
+    rt = fk._runtime(dev)
+    out = {}
+    for name, want in SNR_CELLS:
+        with open(os.path.join(HERE, "portbench", "configs",
+                               name + ".json")) as fobj:
+            cfg = dict(ranges(json.load(fobj)))[want]
+        plan, widths, stages = plan_of(cfg)
+        nw = len(widths)
+        ops = []
+        for ln in engine.launch_layout(plan, "uint6").launches:
+            st = plan.stages[ln.stage]
+            if ln.bucket is None:
+                tables, coefs = engine._stage_operands(st, plan, dev)
+            elif ln.guest is None:
+                tables, coefs = engine._bucket_operands(st, plan, ln.bucket,
+                                                        dev)
+            else:
+                tables, coefs = engine._paired_operands(
+                    st, plan, ln.bucket, plan.stages[ln.guest], ln.bases,
+                    dev)
+            ops.append((tables, coefs, (SNR_D, int(tables.p.shape[0]),
+                                        int(tables.h.shape[2]),
+                                        int(tables.P))))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(20260)
+        buf = torch.randn(max(int(np.prod(s)) for _, _, s in ops),
+                          generator=gen, device=dev)
+
+        def run():
+            return [fk._snr(rt, buf[:int(np.prod(s))].view(s), t, c)
+                    for t, c, s in ops]
+
+        fk.reset_launches()
+        outs = run()
+        forms = dict(getattr(fk, "SNR_FORMS", {}))
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for o in outs:
+            digest.update(o.cpu().numpy().tobytes())
+        del outs
+        ms = [_event_ms(run) for _ in range(REPS)]
+        rows = [(bins, re) for s in stages for bins, _, re, _ in s.trials]
+        work = sum(re * (p + 3 * nw * p + 5 * nw) for p, re in rows)
+        nbytes = sum(re * 4 * (p + nw) for p, re in rows)
+        bound, by = roofline.bound_s(SNR_D * work, SNR_D * nbytes)
+        res = {"launches": len(ops), "D": SNR_D, "ms": _spread(ms),
+               "bound_ms": bound * 1e3, "bound_by": by,
+               "roofline_pct": 100 * bound * 1e3 / statistics.median(ms),
+               "snr_sha256": digest.hexdigest()[:16], "forms": forms}
+        print(f"  {name}{'.' + want if want else ''}: {res}", flush=True)
+        out[name if want is None else f"{name}.{want}"] = res
+        del ops, buf
+        torch.cuda.empty_cache()
     return out
 
 

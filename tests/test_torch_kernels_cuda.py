@@ -375,6 +375,74 @@ def test_wide_snr_has_the_narrow_bits(dev, wide_p):
     assert torch.equal(outs[0], outs[1])
 
 
+# Trial widths p of the narrow S/N's bits check: every chunk size class
+# (ceil(p / 32) phases a lane) of the benchmark's three cells, each edge
+# of the register forms (a bound per 4 phases a lane, none past 2,048)
+# and the shared-memory form.
+FORM_PS = (128, 240, 256, 257, 480, 512, 513, 960, 992, 1000, 1024, 1025,
+           1040, 2048, 2049, 14013)
+
+
+@pytest.mark.parametrize("p", FORM_PS)
+def test_narrow_snr_forms_have_the_wide_bits(dev, p):
+    """A trial's S/N from the narrow kernel, in its own container (P = p)
+    and in one widened by a second narrow trial (another register form,
+    or the shared-memory form), is the wide kernel's (the container
+    widened past 14,528) bit for bit: the wide kernel keeps the sums'
+    order, so every narrow form does too. The widths (more than 32 of
+    them) include windows that wrap from a few phases to all but one."""
+    from riptide_tpu_torch.ops.plan import FFABatchPlan
+
+    m = 23
+    widths = tuple(sorted({*range(1, 31), 42, 63, 94, p // 3, p // 2,
+                           p - 1}))
+    NW = len(widths)
+    rng = np.random.default_rng(p)
+    x = rng.standard_normal((2, m, p)).astype(np.float32)
+    x[:, :, ::7] *= 40.0
+    hcoef = rng.uniform(0.5, 2.0, (1, NW)).astype(np.float32)
+    outs, forms = [], []
+    for ms, ps in (([m], [p]), ([m, 9], [p, p + 37]), ([m, 9], [p, 14531])):
+        b = FFABatchPlan(ms, ps, R=m + 1)
+        B = b.B
+        tables, coefs = engine._operands(
+            b, widths, np.tile(hcoef, (B, 1)), np.tile(-0.1 * hcoef, (B, 1)),
+            np.full(B, 2.5, np.float32), m, dev)
+        cont = np.zeros((2, B, m + 1, b.P), np.float32)
+        cont[:, 0, :m, :p] = x
+        if B > 1:
+            cont[:, 1, :9, :ps[1]] = rng.standard_normal((2, 9, ps[1]))
+        fk.reset_launches()
+        outs.append(fk.cascade_stage(torch.from_numpy(cont).to(dev), tables,
+                                     coefs)[:, 0])
+        forms.append(fk.snr_regs(b.P))
+        want = {} if forms[-1] is None else {forms[-1]: 1}
+        assert fk.SNR_FORMS == want
+    assert forms[0] == fk.snr_regs(p) and forms[2] is None
+    assert bool(torch.isfinite(outs[0]).all())
+    assert torch.equal(outs[0], outs[2])
+    assert torch.equal(outs[1], outs[2])
+
+
+def test_narrow_snr_guest_rows(dev):
+    """A row-packed container on the narrow path (K3, P = 256): host and
+    guest rows against paired_stage_plain, each guest row with the guest's
+    coefficients, with windows that wrap."""
+    widths = (1, 2, 3, 17, 42, 94, 200, 255)
+    _, tables, wsrc, packed, coefs = _edge_case(
+        "paired-cap113", "uint6", dev, widths=widths, centered=True)
+    assert tables.P <= fk.NARROW_P and fk.snr_regs(tables.P) == 8
+    fk.reset_launches()
+    got = fk.paired_stage(*wsrc, tables, coefs)
+    assert fk.SNR_FORMS == {8: 1}
+    want = fk.paired_stage_plain(*wsrc, tables, coefs)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    host = fk.cascade_stage_plain(packed, tables._replace(
+        gm=None, gbase=None), coefs)
+    assert not torch.allclose(host, want)
+
+
 def test_stage_counts_cuda_launches(dev, case):
     """A K1 call is one segment launch from the wire, one level launch
     per level past the tiles and one S/N launch, counted as a K1 call

@@ -11,7 +11,9 @@ kernels themselves: tests/test_torch_kernels_cuda.py).
   no device scratch: 4 rows a block up to P = 14,528, one row a block
   up to 58,112, a row a cluster of 2, 4 or 8 blocks above; past that it
   raises. The wide level launch (``ffa_kernel.level_grid``) cuts every
-  row into 1024-column blocks past 14,528.
+  row into 1024-column blocks past 14,528. The narrow S/N kernel's
+  register form (``ffa_kernel.snr_regs``) holds each lane's ceil(P / 32)
+  phases, up to 2,048 phases, and leaves the launch shape as it is.
 * Plans whose padded P crosses 14,528 and 29,056 search on the CPU as
   the JAX package searches them (its gather path: the float32 wire and
   the uint6 wire), within rtol 1e-5, atol 1e-4, and the stage
@@ -135,6 +137,50 @@ def test_wide_launch_grids(P, cluster):
         assert blocks >= 8 * 132
         assert fk.snr_launch(P).rows == 1
     assert fk.snr_launch(P).cluster == cluster
+
+
+@pytest.mark.parametrize("P,form", [(1, 4), (128, 4), (129, 8), (256, 8),
+                                    (257, 12), (260, 12), (520, 20),
+                                    (1024, 32), (1040, 36), (2048, 64),
+                                    (2049, 0), (14528, 0), (14529, None),
+                                    (58113, None)])
+def test_snr_register_form_edges(P, form):
+    """The narrow S/N kernel's register form on each side of its bounds
+    (the widths of the three benchmark cells' containers among them):
+    ceil(P / 32) rounded up to a multiple of 4, 0 past 2,048 phases, none
+    for the wide kernel; the launch shape is the same in every form."""
+    assert fk.snr_regs(P) == form
+    if form is not None:
+        assert fk.snr_launch(P) == (fk.SNR_WARPS, 128, 1,
+                                    fk.SNR_WARPS * P * 4)
+
+
+def test_snr_register_forms_every_width():
+    """Every narrow width takes the smallest bound of its step that holds
+    a lane's ceil(P / 32) phases, up to SNR_REGS_MAX of them."""
+    forms = set()
+    for P in range(1, fk.NARROW_P + 1):
+        n = -(-P // 32)
+        form = fk.snr_regs(P)
+        forms.add(form)
+        if n > fk.SNR_REGS_MAX:
+            assert form == 0
+        else:
+            assert form % fk.SNR_REGS_STEP == 0
+            assert n <= form < n + fk.SNR_REGS_STEP
+    assert forms == {0, *range(4, fk.SNR_REGS_MAX + 1, fk.SNR_REGS_STEP)}
+    assert fk.snr_regs(fk.NARROW_P + 1) is None
+
+
+def test_shape_only_walk_counts_no_register_form():
+    """A shape-only walk (the meta device) counts its S/N launches under
+    KERNEL_LAUNCHES' name in the walk's own counters, and none in the
+    card's SNR_FORMS."""
+    plan = periodogram_plan(2500, 1e-3, (1, 2, 3), 64e-3, 0.072, 64, 67)
+    fk.reset_launches()
+    walk = engine.walk_search(plan, 2, mode="uint6", survey=False)
+    assert walk["kernel_counts"]["boxcar_snr"] > 0
+    assert fk.SNR_FORMS == {}
 
 
 @pytest.mark.parametrize("name", sorted(WIDE))
